@@ -1,0 +1,88 @@
+"""Carry the reference encoder's state across to the port.
+
+A codec has no weights: its state is the configuration and the constant
+tables.  ``config_from_reference`` builds the port's EncoderConfig from a
+plain dict of the JAX EncoderConfig's fields (``dataclasses.asdict`` of
+it, or the same fields read from a file), and ``tables_from_reference``
+takes the three table files' arrays and checks them, array by array,
+against the copies this package loads, the way a strict state-dict load
+refuses a mismatch.
+"""
+from __future__ import annotations
+
+import dataclasses
+from fractions import Fraction
+from pathlib import Path
+
+import numpy as np
+
+from .config import ColorFormat, EncoderConfig, PredStructure, \
+    RateControlMode
+
+PKG_DIR = Path(__file__).resolve().parent
+
+# table set name -> the port's data file
+TABLE_FILES = {
+    "av1_tables": PKG_DIR / "entropy" / "data" / "av1_tables.npz",
+    "txfm_stages": PKG_DIR / "ops" / "data" / "txfm_stages.npz",
+    "rc_tables": PKG_DIR / "pipeline" / "data" / "rc_tables.npz",
+}
+
+_ENUMS = {"pred_structure": PredStructure,
+          "rate_control_mode": RateControlMode,
+          "encoder_color_format": ColorFormat}
+
+
+def config_from_reference(d: dict) -> EncoderConfig:
+    """The port's EncoderConfig with the reference config's fields.
+    Enum fields may come as enums or ints, the frame rate as a Fraction
+    or a (num, den) pair; unknown fields raise."""
+    names = {f.name for f in dataclasses.fields(EncoderConfig)}
+    extra = set(d) - names
+    if extra:
+        raise ValueError(f"fields the port does not know: {sorted(extra)}")
+    kw = {}
+    for k, v in d.items():
+        if k in _ENUMS:
+            v = _ENUMS[k](int(v))
+        elif k == "frame_rate" and not isinstance(v, Fraction):
+            v = Fraction(*v) if isinstance(v, (tuple, list)) \
+                else Fraction(v)
+        elif isinstance(v, list):
+            v = tuple(v)
+        kw[k] = v
+    return EncoderConfig(**kw)
+
+
+def load_tables() -> dict:
+    """{table set: {name: array}} of the port's own data files."""
+    out = {}
+    for name, path in TABLE_FILES.items():
+        with np.load(path) as z:
+            out[name] = {k: z[k] for k in z.files}
+    return out
+
+
+def tables_from_reference(npz_arrays: dict) -> dict:
+    """Load the reference's tables ({table set: {name: array}}, the
+    three sets of TABLE_FILES) as numpy arrays, checking each against
+    the port's copy; any missing, extra or differing array raises."""
+    own = load_tables()
+    if set(npz_arrays) != set(own):
+        raise ValueError(f"table sets {sorted(npz_arrays)} != "
+                         f"{sorted(own)}")
+    out = {}
+    for name, arrays in npz_arrays.items():
+        mine = own[name]
+        if set(arrays) != set(mine):
+            diff = sorted(set(arrays) ^ set(mine))
+            raise ValueError(f"{name}: arrays differ in names: {diff[:8]}")
+        loaded = {}
+        for k, v in arrays.items():
+            a = np.asarray(v)
+            if a.dtype != mine[k].dtype or a.shape != mine[k].shape \
+                    or not np.array_equal(a, mine[k]):
+                raise ValueError(f"{name}/{k} differs from the port's copy")
+            loaded[k] = a
+        out[name] = loaded
+    return out

@@ -1,0 +1,465 @@
+"""Open-loop batched intra mode decision (port of svt_av1_tpu/ops/omd.py).
+
+For a whole frame at once, per block shape, prediction edges come from
+the SOURCE picture; every intra mode is scored over the ``[n_rows,
+n_cols]`` block grid (prediction, orthonormal DCT, a float model of
+quantize_b, Parseval SSE + a rate proxy) and per-block best-mode/cost
+maps come out.  The conformant coding pass then replays the decisions.
+
+Two forms of the same function:
+
+* the plain PyTorch version (``intra_decision_arrays`` and its parts,
+  with the JAX package's names and ``[nr, nc, ...]`` layouts), taken for
+  CPU tensors;
+* K1, the hand-written CUDA kernel ``kernels/csrc/intra_decision.cu``,
+  launched by ``intra_decision`` for CUDA tensors (one launch per shape).
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import numpy as np
+import torch
+
+from ..constants import PredictionMode, TxSize, TxType, TX_WIDTH, TX_HEIGHT
+from ..device import resolve_device
+from . import intra as intra_ops
+from . import quant as qz
+from . import transforms as tf
+
+# pad applied around the source plane before edge gathering; covers the
+# deepest top-right/bottom-left reach (w + h for 32x32) plus the -1 edge
+PAD = 72
+
+ALL_MODES = tuple(PredictionMode(m) for m in range(13))
+
+# candidate block shapes (w, h); squares first, then the rectangular
+# HORZ/VERT halves the partition DP composes
+SQUARE_SHAPES = ((8, 8), (16, 16), (32, 32))
+RECT_SHAPES = ((16, 8), (8, 16), (32, 16), (16, 32))
+ALL_SHAPES = SQUARE_SHAPES + RECT_SHAPES
+
+# coefficient-rate proxy weights (bits ~ A*nnz + B*sum(log2(1+|q|)) + C)
+RATE_NNZ = 2.724
+RATE_MAG = 1.061
+RATE_TXB = 36.242
+
+# the directional modes the kernel predicts from tap tables
+DIR_MODES = tuple(PredictionMode(m) for m in range(3, 9))
+
+
+def txsize_for(w: int, h: int) -> TxSize:
+    for ts in TxSize:
+        if TX_WIDTH[ts] == w and TX_HEIGHT[ts] == h:
+            return ts
+    raise ValueError((w, h))
+
+
+# --------------------------------------------------------------------------
+# Host constants (copied from the reference module)
+# --------------------------------------------------------------------------
+
+@functools.cache
+def _dir_matrices(mode: PredictionMode, w: int, h: int):
+    """Constant weight matrices (above, left): [w+h+1, h*w] float32 with
+    index 0 = the corner sample, such that
+    pred = floor((above @ Wa + left @ Wl + 16) / 32)
+    reproduces dr_predictor_z1/z2/z3 with upsample 0 bit-exactly."""
+    angle = intra_ops.MODE_TO_ANGLE[mode]
+    L = w + h + 1
+    r = np.arange(h).reshape(h, 1)
+    c = np.arange(w).reshape(1, w)
+    max_base = w + h - 1
+    wa = np.zeros((L, h * w), np.float32)
+    wl = np.zeros((L, h * w), np.float32)
+    pos = (r * w + c)                       # flat output position
+    if angle < 90:
+        dx = intra_ops.get_dx(angle)
+        x = np.broadcast_to((r + 1) * dx, (h, w))
+        base = (x >> 6) + c
+        shift = (x & 0x3F) >> 1
+        for i in range(h):
+            for j in range(w):
+                p = int(pos[i, j])
+                if base[i, j] >= max_base:
+                    wa[1 + max_base, p] += 32
+                else:
+                    wa[1 + base[i, j], p] += 32 - shift[i, j]
+                    wa[1 + min(base[i, j] + 1, max_base), p] += shift[i, j]
+        return wa, None
+    if angle > 180:
+        dy = intra_ops.get_dy(angle)
+        y = np.broadcast_to((c + 1) * dy, (h, w))
+        base = (y >> 6) + r
+        shift = (y & 0x3F) >> 1
+        for i in range(h):
+            for j in range(w):
+                p = int(pos[i, j])
+                if base[i, j] >= max_base:
+                    wl[1 + max_base, p] += 32
+                else:
+                    wl[1 + base[i, j], p] += 32 - shift[i, j]
+                    wl[1 + min(base[i, j] + 1, max_base), p] += shift[i, j]
+        return None, wl
+    dx, dy = intra_ops.get_dx(angle), intra_ops.get_dy(angle)
+    x = np.broadcast_to(-(r + 1) * dx, (h, w))
+    base1 = (x >> 6) + c
+    shift1 = (x & 0x3F) >> 1
+    y = np.broadcast_to((r << 6) - (c + 1) * dy, (h, w))
+    base2 = y >> 6
+    shift2 = (y & 0x3F) >> 1
+    for i in range(h):
+        for j in range(w):
+            p = int(pos[i, j])
+            if base1[i, j] >= -1:
+                b = int(np.clip(base1[i, j], -1, max_base))
+                wa[b + 1, p] += 32 - shift1[i, j]
+                wa[b + 2, p] += shift1[i, j]
+            else:
+                b = int(np.clip(base2[i, j], -1, max_base))
+                wl[b + 1, p] += 32 - shift2[i, j]
+                wl[b + 2, p] += shift2[i, j]
+    return wa, wl
+
+
+@functools.cache
+def _dct_mat(n: int) -> np.ndarray:
+    """Orthonormal DCT-II matrix [n, n] (rows = frequencies)."""
+    k = np.arange(n)
+    m = np.cos(np.pi * (2 * k[None, :] + 1) * k[:, None] / (2 * n))
+    m *= np.sqrt(2.0 / n)
+    m[0] *= np.sqrt(0.5)
+    return m.astype(np.float32)
+
+
+@functools.cache
+def _tx_gain(w: int, h: int) -> float:
+    """Gain of the integer AV1 forward DCT vs the orthonormal one
+    (maps the quantizer tables into the unit-DCT domain)."""
+    rng = np.random.default_rng(12345)
+    r = rng.integers(-255, 256, (8, h, w)).astype(np.int32)
+    ci = np.asarray(tf.fwd_txfm2d(r, TxType.DCT_DCT, txsize_for(w, h),
+                                  8, np))
+    cu = _dct_mat(h).astype(np.float64) @ r.astype(np.float64) \
+        @ _dct_mat(w).astype(np.float64).T
+    lh, lw = min(h, 32), min(w, 32)
+    return float(np.sqrt((ci[:, :lh, :lw].astype(np.float64) ** 2).sum()
+                         / (cu[:, :lh, :lw] ** 2).sum()))
+
+
+def _quant_scalars(w: int, h: int, qindex: int, pq: qz.PlaneQuant):
+    """(zbin, round, step) as (dc, ac) float32 pairs in the unit-DCT
+    domain, modeling quantize_b (EbFullLoop.c:37 zbin deadzone)."""
+    ts = txsize_for(w, h)
+    g = np.float32(_tx_gain(w, h) * (1 << qz.tx_log_scale(ts)))
+    return tuple(tuple(np.float32(v) / g
+                       for v in table.astype(np.float32)[qindex])
+                 for table in (pq.zbin, pq.round, pq.dequant))
+
+
+def _quant_maps(w: int, h: int, qindex: int, pq: qz.PlaneQuant):
+    """(zbin, round, step) per-position float32 maps [h, w] (the DC
+    position carries the DC value)."""
+    out = []
+    for dc, ac in _quant_scalars(w, h, qindex, pq):
+        m = np.full((h, w), ac, np.float32)
+        m[0, 0] = dc
+        out.append(m)
+    return tuple(out)
+
+
+# --------------------------------------------------------------------------
+# Plain PyTorch version
+# --------------------------------------------------------------------------
+
+def pad_plane(plane: torch.Tensor) -> torch.Tensor:
+    """Edge-replicated pad by PAD on every side, int32."""
+    H, W = plane.shape
+    dev = plane.device
+    ys = torch.arange(-PAD, H + PAD, device=dev).clamp(0, H - 1)
+    xs = torch.arange(-PAD, W + PAD, device=dev).clamp(0, W - 1)
+    return plane.to(torch.int32)[ys][:, xs]
+
+
+def grid_edges(padded: torch.Tensor, w: int, h: int, buf_w: int,
+               buf_h: int):
+    """Edges for every (w, h) block tiling the [buf_h, buf_w] plane:
+    (above, left) int32 [nr, nc, w + h + 1], [..., 0] the top-left
+    neighbor and [..., 1:] the above row / left column extended to the
+    top-right / bottom-left reach."""
+    nr, nc = buf_h // h, buf_w // w
+    L = w + h + 1
+    rows = padded[PAD - 1: PAD - 1 + nr * h: h, :]
+    above = torch.stack(
+        [rows[:, PAD - 1 + k: PAD - 1 + k + nc * w: w] for k in range(L)],
+        dim=-1)
+    cols = padded[:, PAD - 1: PAD - 1 + nc * w: w]
+    left = torch.stack(
+        [cols[PAD - 1 + k: PAD - 1 + k + nr * h: h, :] for k in range(L)],
+        dim=-1)
+    return above, left
+
+
+def grid_blocks(padded: torch.Tensor, w: int, h: int, buf_w: int,
+                buf_h: int) -> torch.Tensor:
+    """Source pixels per block: int32 [nr, nc, h, w]."""
+    nr, nc = buf_h // h, buf_w // w
+    inner = padded[PAD:PAD + buf_h, PAD:PAD + buf_w]
+    return inner.reshape(nr, h, nc, w).permute(0, 2, 1, 3)
+
+
+def predict_mode(mode: PredictionMode, above: torch.Tensor,
+                 left: torch.Tensor, w: int, h: int) -> torch.Tensor:
+    """Batched prediction [..., h, w] for one mode (angle delta 0,
+    open-loop edges: no intra edge filter / upsample)."""
+    a = above[..., 1:]
+    l = left[..., 1:]
+    lead = above.shape[:-1]
+    if mode == PredictionMode.DC_PRED:
+        s = a[..., :w].sum(-1) + l[..., :h].sum(-1)
+        dc = (s + ((w + h) >> 1)) // (w + h)
+        return dc[..., None, None].expand(*lead, h, w).to(torch.int32)
+    if mode == PredictionMode.V_PRED:
+        return a[..., None, :w].expand(*lead, h, w).to(torch.int32)
+    if mode == PredictionMode.H_PRED:
+        return l[..., :h, None].expand(*lead, h, w).to(torch.int32)
+    if mode == PredictionMode.PAETH_PRED:
+        av = a[..., None, :w]
+        lv = l[..., :h, None]
+        tl = above[..., 0][..., None, None]
+        base = av + lv - tl
+        pa = (base - av).abs()
+        pl = (base - lv).abs()
+        ptl = (base - tl).abs()
+        z = torch.zeros(base.shape, dtype=torch.int32, device=base.device)
+        return torch.where((pa <= pl) & (pa <= ptl), av + z,
+                           torch.where(pl <= ptl, lv + z, tl + z)
+                           ).to(torch.int32)
+    if mode in (PredictionMode.SMOOTH_PRED, PredictionMode.SMOOTH_V_PRED,
+                PredictionMode.SMOOTH_H_PRED):
+        sw = intra_ops._sm_weights()
+        dev = above.device
+        av = a[..., None, :w]
+        lv = l[..., :h, None]
+        below = l[..., h - 1][..., None, None]
+        right = a[..., w - 1][..., None, None]
+        wh = torch.as_tensor(sw[h:h + h].reshape(h, 1).astype(np.int32),
+                             device=dev)
+        ww = torch.as_tensor(sw[w:w + w].reshape(1, w).astype(np.int32),
+                             device=dev)
+        if mode == PredictionMode.SMOOTH_PRED:
+            p = av * wh + below * (256 - wh) + lv * ww + right * (256 - ww)
+            return ((p + 256) >> 9).to(torch.int32)
+        if mode == PredictionMode.SMOOTH_V_PRED:
+            return ((av * wh + below * (256 - wh) + 128) >> 8
+                    ).to(torch.int32)
+        return ((lv * ww + right * (256 - ww) + 128) >> 8).to(torch.int32)
+    # directional: the 2-tap interpolation along the angle is a constant
+    # linear map of the edge vectors, two float32 products that stay exact
+    # integers (TF32 off, device.py)
+    wa, wl = _dir_matrices(mode, w, h)
+    acc = 0.0
+    if wa is not None:
+        acc = above.to(torch.float32) @ torch.as_tensor(
+            wa, device=above.device)
+    if wl is not None:
+        acc = acc + left.to(torch.float32) @ torch.as_tensor(
+            wl, device=left.device)
+    pred = torch.floor((acc + 16.0) * (1.0 / 32.0))
+    return pred.reshape(*lead, h, w).to(torch.int32)
+
+
+def shape_costs(src_blocks, above, left, w: int, h: int, qindex: int,
+                pq: qz.PlaneQuant, lam: float, mode_bits):
+    """Best intra mode per block of one (w, h) grid: (best_mode [nr, nc]
+    int32, best_cost [nr, nc] float32); cost = pixel-domain SSE of the
+    modeled quantized recon (Parseval) + lam * (coeff-rate proxy + mode
+    signaling bits)."""
+    dev = src_blocks.device
+    zbin, rnd, step = (torch.as_tensor(m, device=dev)
+                       for m in _quant_maps(w, h, qindex, pq))
+    mb = torch.as_tensor(np.asarray(mode_bits, np.float32), device=dev)
+    dh = torch.as_tensor(_dct_mat(h), device=dev)
+    dwt = torch.as_tensor(np.ascontiguousarray(_dct_mat(w).T), device=dev)
+    best_cost = None
+    best_mode = None
+    for mi, mode in enumerate(ALL_MODES):
+        pred = predict_mode(mode, above, left, w, h)
+        resid = (src_blocks - pred).to(torch.float32)
+        cf = dh @ resid @ dwt
+        ac = cf.abs()
+        q = torch.floor((ac + rnd) / step)
+        q = torch.where(ac >= zbin, q.clamp_min(0.0), 0.0)
+        err = ac - q * step
+        sse = (err * err).sum(dim=(-1, -2))
+        nnz = (q > 0).sum(dim=(-1, -2)).to(torch.float32)
+        mag = torch.log2(1.0 + q).sum(dim=(-1, -2))
+        bits = RATE_NNZ * nnz + RATE_MAG * mag \
+            + RATE_TXB * (nnz > 0).to(torch.float32) + mb[mi]
+        cost = sse + lam * bits
+        if best_cost is None:
+            best_cost = cost
+            best_mode = torch.zeros(cost.shape, dtype=torch.int32,
+                                    device=dev)
+        else:
+            take = cost < best_cost
+            best_cost = torch.where(take, cost, best_cost)
+            best_mode = torch.where(take, torch.full_like(best_mode, mi),
+                                    best_mode)
+    return best_mode, best_cost
+
+
+def intra_decision_plain(plane: torch.Tensor, w: int, h: int, qindex: int,
+                         lam: float, mode_bits, bd: int = 8):
+    """One shape grid of a buf-aligned plane (plain PyTorch)."""
+    buf_h, buf_w = plane.shape
+    padded = pad_plane(plane)
+    above, left = grid_edges(padded, w, h, buf_w, buf_h)
+    src = grid_blocks(padded, w, h, buf_w, buf_h)
+    pq = qz.build_quantizer(bd)[0]
+    return shape_costs(src, above, left, w, h, qindex, pq, lam, mode_bits)
+
+
+def intra_decision_arrays(padded: torch.Tensor, buf_w: int, buf_h: int,
+                          qindex: int, lam: float, mode_bits, bd: int = 8,
+                          shapes=ALL_SHAPES) -> dict:
+    """All shape grids for one padded plane -> {(w, h): (mode, cost)}."""
+    pq = qz.build_quantizer(bd)[0]
+    out = {}
+    for (w, h) in shapes:
+        above, left = grid_edges(padded, w, h, buf_w, buf_h)
+        src = grid_blocks(padded, w, h, buf_w, buf_h)
+        out[(w, h)] = shape_costs(src, above, left, w, h, qindex, pq,
+                                  lam, mode_bits)
+    return out
+
+
+# --------------------------------------------------------------------------
+# K1: the CUDA kernel and its wrapper
+# --------------------------------------------------------------------------
+
+@functools.cache
+def _dir_taps(w: int, h: int) -> np.ndarray:
+    """[6, h*w] int32 tap table of the directional modes D45..D67 from
+    _dir_matrices: each output pixel reads at most two samples of ONE
+    edge vector with weights summing to 32, packed as
+    sel | i0 << 1 | i1 << 8 | w0 << 15 | w1 << 21 (sel 1 = left edge)."""
+    out = np.zeros((len(DIR_MODES), h * w), np.int32)
+    for mi, mode in enumerate(DIR_MODES):
+        wa, wl = _dir_matrices(mode, w, h)
+        for p in range(h * w):
+            taps = []
+            for sel, m in ((0, wa), (1, wl)):
+                if m is None:
+                    continue
+                for i in np.nonzero(m[:, p])[0]:
+                    taps.append((sel, int(i), int(m[i, p])))
+            assert 1 <= len(taps) <= 2 and len({t[0] for t in taps}) == 1
+            assert sum(t[2] for t in taps) == 32
+            (sel, i0, w0), (_, i1, w1) = (taps + [(taps[0][0], 0, 0)])[:2]
+            out[mi, p] = sel | (i0 << 1) | (i1 << 8) | (w0 << 15) \
+                | (w1 << 21)
+    return out
+
+
+@functools.cache
+def _k1_consts(w: int, h: int, device: torch.device):
+    sw = intra_ops._sm_weights().astype(np.int32)
+    return tuple(torch.as_tensor(np.ascontiguousarray(a), device=device)
+                 for a in (_dir_taps(w, h), sw, _dct_mat(h),
+                           np.ascontiguousarray(_dct_mat(w).T)))
+
+
+def intra_decision(plane: torch.Tensor, w: int, h: int, qindex: int,
+                   lam: float, mode_bits, bd: int = 8):
+    """K1: best intra mode and its cost for every (w, h) block of a
+    buf-aligned 8-bit plane.  Returns (mode int32 [nr, nc], cost float32
+    [nr, nc]) on the plane's device.  CPU tensors take the plain PyTorch
+    version; CUDA tensors launch the kernel."""
+    if plane.device.type == "cpu":
+        return intra_decision_plain(plane, w, h, qindex, lam, mode_bits,
+                                    bd)
+    if plane.device.type != "cuda":
+        raise ValueError(f"unsupported device {plane.device}")
+    if plane.dtype != torch.uint8 or plane.dim() != 2 or bd != 8:
+        raise ValueError("intra_decision takes an 8-bit [H, W] uint8 plane")
+    if not plane.is_contiguous():
+        raise ValueError("intra_decision needs a contiguous plane")
+    if (w, h) not in ALL_SHAPES:
+        raise ValueError(f"unsupported block shape {(w, h)}")
+    if len(mode_bits) != len(ALL_MODES):
+        raise ValueError("mode_bits needs one entry per intra mode")
+    buf_h, buf_w = plane.shape
+    if buf_h % h or buf_w % w:
+        raise ValueError("plane is not a whole number of blocks")
+    from ..kernels.build import check_launch, cuda_lib, ptr, stream
+
+    lib = cuda_lib("intra_decision")
+    fn = lib.intra_decision_launch
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+                   ctypes.c_int, ctypes.c_int] + [ctypes.c_void_p] * 4 \
+        + [ctypes.c_float] * 7 + [ctypes.c_void_p] * 4
+    taps, sw, dh, dwt = _k1_consts(w, h, plane.device)
+    pq = qz.build_quantizer(bd)[0]
+    (zd, za), (rd, ra), (sd, sa) = _quant_scalars(w, h, qindex, pq)
+    mb = torch.as_tensor(np.asarray(mode_bits, np.float32),
+                         device=plane.device)
+    nr, nc = buf_h // h, buf_w // w
+    mode = torch.empty((nr, nc), dtype=torch.int32, device=plane.device)
+    cost = torch.empty((nr, nc), dtype=torch.float32, device=plane.device)
+    err = fn(ptr(plane), buf_h, buf_w, w, h, ptr(taps), ptr(sw),
+             ptr(dh), ptr(dwt), float(zd), float(za), float(rd),
+             float(ra), float(sd), float(sa), float(np.float32(lam)),
+             ptr(mb), ptr(mode), ptr(cost), stream(plane))
+    check_launch("intra_decision", err)
+    intra_decision.launches += 1
+    return mode, cost
+
+
+intra_decision.launches = 0
+
+
+# --------------------------------------------------------------------------
+# Frame entry
+# --------------------------------------------------------------------------
+
+def upload_plane(source_plane, buf_w: int, buf_h: int, bd: int,
+                 device) -> torch.Tensor:
+    """Buf-aligned (edge-extended) narrow plane on ``device``."""
+    if isinstance(source_plane, torch.Tensor):
+        if tuple(source_plane.shape) != (buf_h, buf_w):
+            raise ValueError(f"device plane {tuple(source_plane.shape)} is "
+                             f"not buf-aligned to {(buf_h, buf_w)}")
+        return source_plane
+    src = np.asarray(source_plane)
+    if src.shape != (buf_h, buf_w):
+        a = np.empty((buf_h, buf_w), src.dtype)
+        h0, w0 = src.shape
+        a[:h0, :w0] = src
+        a[:h0, w0:] = src[:, w0 - 1:w0]
+        a[h0:, :] = a[h0 - 1:h0, :]
+        src = a
+    dt = torch.uint8 if bd == 8 else torch.int16
+    return torch.from_numpy(np.ascontiguousarray(src)).to(device=device,
+                                                          dtype=dt)
+
+
+def intra_decision_frame(source_plane, buf_w: int, buf_h: int, qindex: int,
+                         lam: float, mode_bits, bd: int = 8, device=None,
+                         shapes=ALL_SHAPES) -> dict:
+    """Full-frame open-loop intra decision: returns
+    {(w, h): (mode [nr, nc] np.int32, cost [nr, nc] np.float32)}.
+    ``source_plane`` is a host array (uploaded here) or a buf-aligned
+    tensor already on the device."""
+    if isinstance(source_plane, torch.Tensor):
+        dev = source_plane.device
+    else:
+        dev = resolve_device(device)
+    plane = upload_plane(source_plane, buf_w, buf_h, bd, dev)
+    out = {}
+    for (w, h) in shapes:
+        m, c = intra_decision(plane, w, h, qindex, lam, mode_bits, bd)
+        out[(w, h)] = (m.cpu().numpy(), c.cpu().numpy())
+    return out

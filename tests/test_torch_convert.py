@@ -1,0 +1,81 @@
+"""State carried across from the JAX package to the port: the constant
+tables (byte-for-byte equal arrays) and the encoder configuration (the
+same derived coding signals)."""
+import dataclasses
+from fractions import Fraction
+from pathlib import Path
+
+import numpy as np
+import pytest
+
+import svt_av1_tpu
+from svt_av1_tpu import config as ref_config
+from svt_av1_tpu_torch import config, convert
+
+REF_DIR = Path(svt_av1_tpu.__file__).resolve().parent
+REF_TABLES = {"av1_tables": "entropy/data/av1_tables.npz",
+              "txfm_stages": "ops/data/txfm_stages.npz",
+              "rc_tables": "pipeline/data/rc_tables.npz"}
+
+
+def _ref_arrays():
+    out = {}
+    for name, rel in REF_TABLES.items():
+        with np.load(REF_DIR / rel) as z:
+            out[name] = {k: z[k] for k in z.files}
+    return out
+
+
+@pytest.mark.parametrize("name", sorted(REF_TABLES))
+def test_table_files_hold_equal_arrays(name):
+    with np.load(REF_DIR / REF_TABLES[name]) as a, \
+            np.load(convert.TABLE_FILES[name]) as b:
+        assert sorted(a.files) == sorted(b.files)
+        for k in a.files:
+            assert a[k].dtype == b[k].dtype, k
+            np.testing.assert_array_equal(a[k], b[k], err_msg=k)
+
+
+def test_tables_from_reference_loads_and_refuses_a_mismatch():
+    ref = _ref_arrays()
+    got = convert.tables_from_reference(ref)
+    assert set(got) == set(REF_TABLES)
+    name = sorted(ref["rc_tables"])[0]
+    bad = {k: dict(v) for k, v in ref.items()}
+    bad["rc_tables"][name] = bad["rc_tables"][name].copy()
+    bad["rc_tables"][name].flat[0] += 1
+    with pytest.raises(ValueError):
+        convert.tables_from_reference(bad)
+    del bad["rc_tables"]
+    with pytest.raises(ValueError):
+        convert.tables_from_reference(bad)
+
+
+@pytest.mark.parametrize("kw", [
+    dict(source_width=1920, source_height=1080, qp=40, enc_mode=8,
+         intra_period_length=0,
+         pred_structure=ref_config.PredStructure.LOW_DELAY_P),
+    dict(source_width=176, source_height=144, qp=30, enc_mode=4,
+         frame_rate=Fraction(30000, 1001), tile_columns=1,
+         rate_control_mode=ref_config.RateControlMode.VBR),
+], ids=["slice_1080p", "other"])
+def test_config_carried_across_derives_the_same_signals(kw):
+    ref_cfg = ref_config.EncoderConfig(**kw)
+    cfg = convert.config_from_reference(dataclasses.asdict(ref_cfg))
+    assert isinstance(cfg, config.EncoderConfig)
+    assert dataclasses.asdict(config.derive_signals(cfg)) == \
+        dataclasses.asdict(ref_config.derive_signals(ref_cfg))
+    # plain ints and (num, den) pairs, as a file would hold them
+    plain = {k: (int(v) if isinstance(v, int) else v)
+             for k, v in dataclasses.asdict(ref_cfg).items()}
+    plain["frame_rate"] = (ref_cfg.frame_rate.numerator,
+                           ref_cfg.frame_rate.denominator)
+    assert convert.config_from_reference(plain) == cfg
+
+
+def test_config_from_reference_refuses_unknown_fields():
+    d = dataclasses.asdict(ref_config.EncoderConfig(source_width=64,
+                                                    source_height=64))
+    d["no_such_field"] = 1
+    with pytest.raises(ValueError):
+        convert.config_from_reference(d)

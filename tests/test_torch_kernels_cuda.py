@@ -1,0 +1,125 @@
+"""The port's CUDA kernels against their plain PyTorch versions on the
+card, at small and ragged shapes (visible sizes that are no multiple of
+the unit sizes), and the slice's stream coded on the card against the
+plain versions on the CPU.  Needs a GPU; run it there with
+
+    python -m pytest -m cuda --noconftest tests/test_torch_kernels_cuda.py
+
+(--noconftest: the suite's conftest imports jax, which the port does
+not need)
+"""
+import numpy as np
+import pytest
+import torch
+
+from svt_av1_tpu_torch.api import encode_ivf
+from svt_av1_tpu_torch.config import EncoderConfig, PredStructure
+from svt_av1_tpu_torch.ops import cdef, dlf, omd
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return torch.device("cuda")
+
+
+def _plane(h, w, seed):
+    rng = np.random.default_rng(seed)
+    yy, xx = np.mgrid[0:h, 0:w]
+    return (120 + 80 * np.sin(xx / 11) + 40 * np.cos(yy / 7)
+            + rng.integers(-12, 13, (h, w))).clip(0, 255).astype(np.uint8)
+
+
+@pytest.mark.parametrize("qindex", [20, 160, 255])
+def test_intra_decision_matches_plain(dev, qindex):
+    plane = torch.from_numpy(_plane(192, 256, qindex)).to(dev)
+    mb = tuple(np.linspace(1.0, 6.0, 13).tolist())
+    before = omd.intra_decision.launches
+    for (w, h) in omd.ALL_SHAPES:
+        m, c = omd.intra_decision(plane, w, h, qindex, 250.0, mb)
+        m2, c2 = omd.intra_decision_plain(plane, w, h, qindex, 250.0, mb)
+        assert (m == m2).float().mean().item() >= 0.99, (w, h)
+        assert torch.isclose(c, c2, rtol=1e-5).float().mean().item() >= 0.99
+    assert omd.intra_decision.launches == before + len(omd.ALL_SHAPES)
+
+
+def _edge_inputs(h, w, vw, vh, chroma, seed):
+    rng = np.random.default_rng(seed)
+    y4, x4 = h // 4, w // 4
+    tx = rng.choice([4, 8, 16, 32], size=(y4, x4)).astype(np.int32)
+    skip = rng.random((y4, x4)) < 0.3
+    bex, bey = rng.random((y4, x4)) < 0.5, rng.random((y4, x4)) < 0.5
+    return dlf.edge_params(tx, tx, skip, bex, bey, vw, vh, chroma)
+
+
+@pytest.mark.parametrize("chroma", [False, True])
+@pytest.mark.parametrize("level", [1, 8, 32, 63])
+@pytest.mark.parametrize("sharpness", [0, 3])
+def test_deblock_matches_plain(dev, chroma, level, sharpness):
+    h, w, vw, vh = 96, 128, 121, 90
+    prm = [torch.from_numpy(np.ascontiguousarray(a, np.uint8)).to(dev)
+           for a in _edge_inputs(h, w, vw, vh, chroma, level)]
+    p = torch.from_numpy(_plane(h, w, 1).astype(np.int32)).to(dev)
+    got = dlf.deblock(p, *prm, vw, vh, level, level, sharpness)
+    want = dlf.loop_filter_plane_full(p, *prm, vw, vh, level, level,
+                                      sharpness)
+    assert torch.equal(got, want)
+    if level >= 8:
+        assert not torch.equal(got, p)
+
+
+@pytest.mark.parametrize("size", [(128, 96), (120, 88)])
+def test_cdef_kernels_match_plain(dev, size):
+    fw, fh = size
+    rng = np.random.default_rng(fw)
+    rec = [torch.from_numpy(_plane(96 >> s, 128 >> s, s).astype(np.int32))
+           .to(dev) for s in (0, 1, 1)]
+    src = [(r + torch.randint(-5, 6, r.shape, device=dev)).clamp(0, 255)
+           .to(torch.uint8) for r in rec]
+    d1, v1 = cdef.cdef_direction(rec[0], fw, fh)
+    d2, v2 = cdef.find_dir_grid(cdef._units_of(
+        cdef.pad_very_large(rec[0], fw, fh, 8), fw, fh, 8), 0)
+    assert torch.equal(d1, d2) and torch.equal(v1, v2)
+    ns = torch.from_numpy(rng.random(d1.shape) < 0.7).to(dev)
+    for ps, ss in ((cdef.PRI_SET_FAST, cdef.SEC_SET_FAST),
+                   (cdef.PRI_SET, cdef.SEC_SET)):
+        got = cdef.cdef_search(src, rec, d1, v1, ns, fw, fh, 4, 8, ps, ss)
+        want = cdef.cdef_search_errs(src, rec, d1, v1, ns, fw, fh, 4, 8, ps,
+                                     ss)
+        for g, w in zip(got, want):
+            assert torch.equal(g, w)
+    for ys, us in ((9, 6), (63, 0), (0, 61), (14, 15)):
+        got = cdef.cdef_apply(rec, ns, d1, v1, ys, us, 5, fw, fh, 8)
+        want = cdef.cdef_apply_plain(rec, ns, d1, v1, ys, us, 5, fw, fh, 8)
+        for g, w in zip(got, want):
+            assert torch.equal(g, w), (ys, us)
+
+
+def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
+    with pytest.raises(ValueError):
+        omd.intra_decision(torch.zeros((64, 64), dtype=torch.int32,
+                                       device=dev), 8, 8, 100, 1.0,
+                           (0.0,) * 13)
+    with pytest.raises(ValueError):
+        cdef.cdef_direction(torch.zeros((64, 64), dtype=torch.uint8,
+                                        device=dev), 64, 64)
+
+
+def test_stream_on_the_card_equals_the_plain_stream(dev, tmp_path):
+    rng = np.random.default_rng(5)
+    frames = [(_plane(144, 176, i),
+               rng.integers(100, 140, (72, 88)).astype(np.uint8),
+               rng.integers(110, 150, (72, 88)).astype(np.uint8))
+              for i in range(2)]
+    cfg = EncoderConfig(source_width=176, source_height=144, qp=40,
+                        enc_mode=8, intra_period_length=0,
+                        pred_structure=PredStructure.LOW_DELAY_P)
+    out = {}
+    for d in ("cuda", "cpu"):
+        p = tmp_path / f"{d}.ivf"
+        encode_ivf(frames, cfg, str(p), device=d)
+        out[d] = p.read_bytes()
+    assert out["cuda"] == out["cpu"]
