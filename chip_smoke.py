@@ -5,27 +5,34 @@
 Phases, each of which must pass (the script exits non-zero otherwise):
 
 1. the card's name and power limit (nvidia-smi);
-2. build: every CUDA kernel of the slice from kernels/csrc/ (one nvcc per
+2. build: every CUDA kernel of the port from kernels/csrc/ (one nvcc per
    source, all at once) and the host C extensions, timed as set-up;
-3. kernels: each kernel's wrapper on card tensors at the 1080p slice's
+3. kernels: each kernel's wrapper on card tensors at the 1080p slices'
    shapes, held against its plain PyTorch version on the same inputs
    (integers exact; intra costs to rtol 1e-5 with >= 99% of the modes
-   equal), with CUDA-event times of both;
-4. encode: the port's Encoder on N_FRAMES synthetic 1920x1080 frames,
-   all-intra preset 8 (LOW_DELAY_P, qp 40), with every launch counter set
-   to 0 just before and read just after; every kernel must have launched;
-   the IVF must hold every frame, the recon's PSNR must exceed
-   PSNR_FLOOR_DB, and the frame headers read back from the stream must
-   show a deblocking level above 0 on the smooth frames (the noise-like
-   frames keep "no filter");
-5. agreement: small clips coded on the card and with the plain versions
-   on the CPU give byte-identical streams;
-6. one JSON line listing every kernel, then the device line last.
+   equal; inter costs to rtol 2e-4 / atol 2 on >= 99%; MV bits to
+   1e-4), with CUDA-event times of both;
+4. all-intra encode: the port's Encoder on N_FRAMES synthetic 1920x1080
+   frames, preset 8 (LOW_DELAY_P, qp 40, intra_period_length 0), with
+   every launch counter set to 0 just before and read just after; K1-K4
+   must have launched; the IVF must hold every frame, the recon's PSNR
+   must exceed PSNR_FLOOR_DB, and the frame headers read back from the
+   stream must show a deblocking level above 0 on the smooth frames (the
+   noise-like frames keep "no filter");
+5. low-delay P encode: N_FRAMES frames of a moving 1920x1080 clip, one
+   key frame then P frames (intra_period_length -1), counters as in 4;
+   every kernel K1-K8 must have launched, the frame headers must show
+   N_FRAMES - 1 inter frames, the plans must have chosen inter blocks
+   with non-zero MVs, and every frame's PSNR must exceed the floor;
+6. agreement: small clips (all-intra and low-delay P) coded on the card
+   and with the plain versions on the CPU give byte-identical streams;
+7. one JSON line listing every kernel, then the device line last.
 
-``--trace DIR`` adds a phase before the last two lines: a second encode
-of TRACE_FRAMES frames under torch.profiler, which prints the card's busy
-share of the wall time and the device time by kernel, and writes the
-Chrome trace into DIR (gzipped).
+``--trace DIR`` adds a phase before the last two lines: encodes of
+TRACE_FRAMES frames under torch.profiler (all-intra frames, then P
+frames after a warm-up), which print the card's busy share of the wall
+time and the device time by kernel, and write the Chrome traces into
+DIR (gzipped).
 
 Needs the repository beside it (it imports the port, never jax or the
 JAX package) and a CUDA device; without either it fails before any
@@ -127,11 +134,13 @@ def psnr(a, b):
 # phase 3: each kernel against its plain version at the slice's shapes
 # --------------------------------------------------------------------------
 
-def slice_config(w, h):
+def slice_config(w, h, intra_period=0):
+    """Preset 8, qp 40, LOW_DELAY_P: all-intra with intra_period 0, one
+    key frame then P frames with -1."""
     from svt_av1_tpu_torch.config import EncoderConfig, PredStructure
 
     return EncoderConfig(source_width=w, source_height=h, qp=QP,
-                         enc_mode=8, intra_period_length=0,
+                         enc_mode=8, intra_period_length=intra_period,
                          pred_structure=PredStructure.LOW_DELAY_P)
 
 
@@ -311,13 +320,157 @@ def kernels_phase(dev, frame):
     return results
 
 
+def inter_kernels_phase(dev, ref_frame, src_frame):
+    """K5-K8 on the luma planes of two consecutive frames of the moving
+    clip at the 1080p buffer shape, against their plain versions."""
+    from svt_av1_tpu_torch.ops import bme, omd
+    from svt_av1_tpu_torch.pipeline import batched_inter as bi
+    from svt_av1_tpu_torch.pipeline.rate_control import RateControl
+    from svt_av1_tpu_torch.pipeline.rdo import rd_lambda
+
+    buf_w, buf_h = -(-WIDTH // 128) * 128, -(-HEIGHT // 128) * 128
+    H, W = buf_h, buf_w
+    n_sb = (H // 64) * (W // 64)
+    src = omd.upload_plane(src_frame[0], W, H, 8, dev)
+    ref = omd.upload_plane(ref_frame[0], W, H, 8, dev)
+    results = {}
+
+    # -- K5 coarse search (the main path's reach: distance 0 -> r 8)
+    r = bme.coarse_r_for_dist(0)
+    k5 = lambda: bme.me_coarse(src, ref, r)  # noqa: E731
+    k5_plain = lambda: bme.coarse_sb_search(src, ref, r)  # noqa: E731
+    coarse, want = k5(), k5_plain()
+    torch.cuda.synchronize()
+    err = (coarse - want).abs().max().item()
+    print(f"K5 me_coarse r {r}: max |kernel - plain| {err}")
+    assert err == 0
+    # decimation adds, then per SB and offset 64 |a - b| accumulations
+    # (3 operations each)
+    results["me_coarse"] = dict(
+        ms=cuda_ms(k5, KERNEL_REPS), plain_ms=cuda_ms(k5_plain, PLAIN_REPS),
+        max_abs_err=err,
+        bound=bound_ms(nbytes(src, ref, coarse),
+                       2 * H * W + n_sb * (2 * r + 1) ** 2 * 64 * 3),
+        per_call="2 launches (decimation, search)")
+
+    # -- K6 refinement: every ME shape once, the path's two shapes timed
+    got = bme.me_refine(src, ref, coarse, bme.ME_SHAPES)
+    want = bme.refine_plain(src, ref, coarse, bme.ME_SHAPES)
+    torch.cuda.synchronize()
+    err = max((g - w).abs().max().item() for s in bme.ME_SHAPES
+              for g, w in zip(got[s], want[s]))
+    err = max(err, (got["win16"] - want["win16"]).abs().max().item())
+    print(f"K6 me_refine, all {len(bme.ME_SHAPES)} ME shapes: max |kernel "
+          f"- plain| {err}")
+    assert err == 0
+    path = ((16, 16), (64, 64))
+    k6 = lambda: bme.me_refine(src, ref, coarse, path)  # noqa: E731
+    k6_plain = lambda: bme.refine_plain(src, ref, coarse, path)  # noqa
+    me = k6()
+    out_b = sum(nbytes(*me[s]) for s in path)
+    results["me_refine"] = dict(
+        ms=cuda_ms(k6, KERNEL_REPS), plain_ms=cuda_ms(k6_plain, PLAIN_REPS),
+        max_abs_err=err,
+        bound=bound_ms(nbytes(src, ref, coarse) + out_b,
+                       n_sb * 2 * bme.NPOS ** 2 * 64 * 64 * 3),
+        per_call="1 launch, shapes 16x16 and 64x64")
+
+    # -- K7 quarter-pel refinement of the 16x16 MVs
+    ny, nx = H // 64, W // 64
+    mv_r16 = bi._nested_to_grid(me[(16, 16)][0], ny, nx, 4, 4)
+    mv_c16 = bi._nested_to_grid(me[(16, 16)][1], ny, nx, 4, 4)
+    k7 = lambda: bme.subpel_refine16(src, ref, mv_r16, mv_c16)  # noqa
+    k7_plain = lambda: bme.subpel_plain(src, ref, mv_r16, mv_c16)  # noqa
+    sub, want = k7(), k7_plain()
+    torch.cuda.synchronize()
+    err = max((g.to(torch.int32) - w.to(torch.int32)).abs().max().item()
+              for g, w in zip(sub, want))
+    frac = ((sub[0] % 8 != 0) | (sub[1] % 8 != 0)).float().mean().item()
+    print(f"K7 subpel_refine16: max |kernel - plain| {err}, fractional "
+          f"MVs {frac:.4f} of the units")
+    assert err == 0
+    # per unit: 16 candidates filtered both ways (16x23 + 16x16 pixels x
+    # 8 taps, multiply and add), 4 one way, 25 SADs of 256 pixels
+    ops_unit = 16 * (16 * 23 + 16 * 16) * 8 * 2 + 8 * 256 * 8 * 2 \
+        + 25 * 256 * 3
+    results["subpel_refine16"] = dict(
+        ms=cuda_ms(k7, KERNEL_REPS), plain_ms=cuda_ms(k7_plain, PLAIN_REPS),
+        max_abs_err=err,
+        bound=bound_ms(nbytes(src, ref, mv_r16, mv_c16, *sub),
+                       (H // 16) * (W // 16) * ops_unit),
+        per_call="1 launch")
+
+    # -- K8 selection + cost maps: one reference (the main path's) timed,
+    # three checked
+    cfg = slice_config(WIDTH, HEIGHT, -1)
+    rc = RateControl(cfg, float(cfg.frame_rate))
+    rc.hierarchical_levels = 1              # as the encoder sets it
+    qindex = rc.pick_qindex(False, 0, 1, (0, 0), 1)
+    lam = rd_lambda(qindex, 8)
+
+    def sb(a):
+        return a.reshape(1, ny, nx).contiguous()
+
+    one = (src, sub[2][None].contiguous(), sub[0][None].contiguous(),
+           sub[1][None].contiguous(), sb(me[(64, 64)][0]),
+           sb(me[(64, 64)][1]), qindex, lam)
+    refs3 = [ref, torch.roll(ref, (2, -2), (0, 1)).contiguous(),
+             torch.roll(ref, (-3, 1), (0, 1)).contiguous()]
+    parts = []
+    for rk in refs3:
+        m = bme.frame_me(src, rk, r, path)
+        a, b, pr = bme.subpel_refine16(
+            src, rk, bi._nested_to_grid(m[(16, 16)][0], ny, nx, 4, 4),
+            bi._nested_to_grid(m[(16, 16)][1], ny, nx, 4, 4))
+        parts.append((pr, a, b, m[(64, 64)][0].reshape(ny, nx),
+                      m[(64, 64)][1].reshape(ny, nx)))
+    three = (src,) + tuple(torch.stack([p[i] for p in parts]).contiguous()
+                           for i in range(5)) + (qindex, lam)
+    err = 0.0
+    for name, args in (("1 reference", one), ("3 references", three)):
+        f1, m1, c1 = bi.inter_select(*args)
+        f2, m2, c2 = bi.inter_select_plain(*args)
+        torch.cuda.synchronize()
+        bad = (f1["sel"] != f2["sel"]).sum().item()
+        for key in bi.SEL_KEYS:
+            assert torch.equal(f1[key], f2[key]), (name, key)
+        mv_err = (m1 - m2).abs().max().item()
+        assert mv_err <= 1e-4, mv_err
+        worst = 1.0
+        for s in omd.INTER_SHAPES:
+            close = torch.isclose(c1[s], c2[s], rtol=2e-4, atol=2.0)
+            worst = min(worst, close.float().mean().item())
+            err = max(err, (c1[s] - c2[s]).abs().max().item())
+        hist = torch.bincount(f1["sel"].flatten(), minlength=3).tolist()
+        print(f"K8 inter_select, {name}: selection disagreements {bad}, "
+              f"units per reference {hist}, max |mvbits| diff {mv_err}, "
+              f"costs within rtol 2e-4 / atol 2: worst shape {worst:.6f}")
+        assert worst >= 0.99, (name, worst)
+    k8 = lambda: bi.inter_select(*one)  # noqa: E731
+    k8_plain = lambda: bi.inter_select_plain(*one)  # noqa: E731
+    dct_flops = 2 * sum(w + h for (w, h) in omd.INTER_SHAPES) * H * W
+    # per coefficient and shape: the quantizer / rate model, about 12
+    # float operations; per pixel and reference: the SAD
+    flops = dct_flops + 12 * len(omd.INTER_SHAPES) * H * W + 3 * H * W
+    out_b = (H // 16) * (W // 16) * 16 + sum(
+        (H // h) * (W // w) * 4 for (w, h) in omd.INTER_SHAPES)
+    results["inter_select"] = dict(
+        ms=cuda_ms(k8, KERNEL_REPS), plain_ms=cuda_ms(k8_plain, PLAIN_REPS),
+        max_abs_err=err,
+        bound=bound_ms(nbytes(*one[:6]) + out_b, flops),
+        per_call=f"1 launch, 1 reference ({dct_flops / 1e9:.2f} GFLOP of "
+                 "DCT)")
+    return results
+
+
 # --------------------------------------------------------------------------
-# phase 4: the main path
+# phases 4 and 5: the main paths
 # --------------------------------------------------------------------------
 
-def stream_filter_params(path):
-    """Per frame of the IVF at ``path``: (deblocking level, CDEF luma
-    strength, CDEF chroma strength), read back from the frame headers."""
+def stream_frame_params(path):
+    """Per frame of the IVF at ``path``: (frame type, deblocking level,
+    CDEF luma strength, CDEF chroma strength), read back from the frame
+    headers."""
     from svt_av1_tpu_torch.bitstream.bits import BitReader
     from svt_av1_tpu_torch.bitstream.headers import (iter_obus,
                                                      parse_frame_header,
@@ -332,38 +485,38 @@ def stream_filter_params(path):
                 seq = parse_sequence_header(payload)
             elif obu_type in (ObuType.OBU_FRAME, ObuType.OBU_FRAME_HEADER):
                 fh = parse_frame_header(BitReader(payload), seq)
-                out.append((max(fh.filter_level), fh.cdef_y_strengths[0],
-                            fh.cdef_uv_strengths[0]))
+                out.append((int(fh.frame_type), max(fh.filter_level),
+                            fh.cdef_y_strengths[0], fh.cdef_uv_strengths[0]))
     return out
 
 
-def encode_phase(counters, frames, out_dir):
+def run_encode(counters, frames, cfg, path, on_packet=None):
+    """Encode ``frames`` on the card into the IVF at ``path`` with every
+    launch counter set to 0 just before; returns (launches, wall seconds,
+    encoder, recon PSNR per frame).  ``on_packet(enc)`` runs after each
+    packet the encoder hands out."""
     from svt_av1_tpu_torch.api import Encoder
     from svt_av1_tpu_torch.io import IvfReader, IvfWriter
 
-    cfg = slice_config(WIDTH, HEIGHT)
     enc = Encoder(cfg)                      # the default device: CUDA
     assert enc.device.type == "cuda"
-    path = Path(out_dir) / "smoke_1080p.ivf"
     for fn in counters.values():
         fn.launches = 0
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    with IvfWriter(str(path), WIDTH, HEIGHT, cfg.frame_rate) as w:
+    with IvfWriter(str(path), cfg.source_width, cfg.source_height,
+                   cfg.frame_rate) as w:
         pts = 0
-        for planes in frames:
-            for pkt in enc.send_picture(planes):
+        for planes in list(frames) + [None]:
+            pkts = enc.flush() if planes is None else enc.send_picture(planes)
+            for pkt in pkts:
                 w.write_frame(pkt, pts=pts)
                 pts += 1
-        for pkt in enc.flush():
-            w.write_frame(pkt, pts=pts)
-            pts += 1
+                if on_packet is not None:
+                    on_packet(enc)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = {name: fn.launches for name, fn in counters.items()}
-    print("main path launches:", json.dumps(launches))
-    missing = [n for n, c in launches.items() if c == 0]
-    assert not missing, f"kernels not launched on the main path: {missing}"
 
     n_pkts = sum(1 for _ in IvfReader(str(path)))
     assert n_pkts == len(frames), (n_pkts, len(frames))
@@ -378,42 +531,89 @@ def encode_phase(counters, frames, out_dir):
     print(f"recon luma PSNR per frame (dB): "
           f"{[round(s, 3) for s in scores]}")
     assert min(scores) > PSNR_FLOOR_DB, (min(scores), PSNR_FLOOR_DB)
-    params = stream_filter_params(path)
-    print("per frame (deblocking level, CDEF y, CDEF uv) from the stream:",
-          json.dumps(params))
-    assert len(params) == len(frames)
-    assert any(lv > 0 for lv, _, _ in params), \
-        "the level search chose no deblocking on any frame"
     rep = enc.perf_report()
     per_frame = {k: v.get("ms_per_frame") for k, v in rep.items()
                  if k != "_wall"}
     print(f"encode: {len(frames)} frames {WIDTH}x{HEIGHT} in {wall:.3f} s, "
           f"{len(frames) / wall:.4f} fps, {path.stat().st_size} bytes")
     print("stage ms/frame (host wall clock):", json.dumps(per_frame))
+    return launches, wall, enc, scores
+
+
+def allintra_phase(counters, frames, out_dir):
+    path = Path(out_dir) / "smoke_1080p.ivf"
+    launches, _, _, _ = run_encode(counters, frames,
+                                   slice_config(WIDTH, HEIGHT), path)
+    print("all-intra main path launches:", json.dumps(launches))
+    missing = [n for n in ALLINTRA_KERNELS if launches[n] == 0]
+    assert not missing, f"kernels not launched on the main path: {missing}"
+    params = stream_frame_params(path)
+    print("per frame (frame type, deblocking level, CDEF y, CDEF uv) from "
+          "the stream:", json.dumps(params))
+    assert len(params) == len(frames)
+    assert all(t == 0 for t, _, _, _ in params)
+    assert any(lv > 0 for _, lv, _, _ in params), \
+        "the level search chose no deblocking on any frame"
+    return launches
+
+
+def ipp_phase(counters, frames, out_dir):
+    path = Path(out_dir) / "smoke_1080p_ipp.ivf"
+    plans = []
+
+    def on_packet(enc):
+        dec = enc._decider_obj
+        if dec._inter is None:               # the key frame
+            return
+        inter = {s: float(m.mean()) for s, m in dec._inter.items()}
+        sel = dec._sf["sel"]
+        nz = float(((dec._sf["mv_r"] != 0) | (dec._sf["mv_c"] != 0)).mean())
+        plans.append((inter, nz, len(dec._names), int(sel.max())))
+
+    launches, _, _, _ = run_encode(counters, frames,
+                                   slice_config(WIDTH, HEIGHT, -1), path,
+                                   on_packet)
+    print("low-delay P main path launches:", json.dumps(launches))
+    missing = [n for n, c in launches.items() if c == 0]
+    assert not missing, f"kernels not launched on the main path: {missing}"
+    params = stream_frame_params(path)
+    print("per frame (frame type, deblocking level, CDEF y, CDEF uv) from "
+          "the stream:", json.dumps(params))
+    types = [t for t, _, _, _ in params]
+    assert types == [0] + [1] * (len(frames) - 1), types
+    assert len(plans) == len(frames) - 1
+    for i, (inter, nz, n_refs, top) in enumerate(plans, 1):
+        print(f"P frame {i}: inter share of the 16x16 / 64x64 blocks "
+              f"{inter[(16, 16)]:.4f} / {inter[(64, 64)]:.4f}, units with "
+              f"a non-zero MV {nz:.4f}, plan references {n_refs}")
+        assert max(inter.values()) > 0 and nz > 0, (i, inter, nz)
     return launches
 
 
 # --------------------------------------------------------------------------
-# phase 5: small clips, kernels on the card vs plain versions on the CPU
+# phase 6: small clips, kernels on the card vs plain versions on the CPU
 # --------------------------------------------------------------------------
 
 def agreement_phase(out_dir):
     from svt_av1_tpu_torch.api import encode_ivf
 
-    clip = synth_clip(176, 144, 2, seed=13)
-    for (w, h) in ((64, 64), (176, 144)):
+    clips = {0: synth_clip(176, 144, 2, seed=13),
+             -1: synth_clip(192, 128, 6, seed=13)}
+    for (w, h, n, period) in ((64, 64, 2, 0), (176, 144, 2, 0),
+                              (192, 128, 6, -1)):
         frames = [tuple(np.ascontiguousarray(p[:h >> (i > 0), :w >> (i > 0)])
-                        for i, p in enumerate(f)) for f in clip]
-        cfg = slice_config(w, h)
+                        for i, p in enumerate(f)) for f in clips[period]]
+        cfg = slice_config(w, h, period)
         streams = {}
         for dev in ("cuda", "cpu"):
             p = Path(out_dir) / f"agree_{w}x{h}_{dev}.ivf"
             encode_ivf(frames, cfg, str(p), device=dev)
             streams[dev] = p.read_bytes()
         same = streams["cuda"] == streams["cpu"]
-        print(f"{w}x{h}x{len(frames)}: card stream "
-              f"{len(streams['cuda'])} bytes, CPU stream "
-              f"{len(streams['cpu'])} bytes, identical {same}")
+        kind = "all-intra" if period == 0 else "low-delay P"
+        print(f"{w}x{h}x{n} {kind}: card stream {len(streams['cuda'])} "
+              f"bytes, CPU stream {len(streams['cpu'])} bytes, identical "
+              f"{same}")
         assert same, (w, h)
 
 
@@ -421,25 +621,26 @@ def agreement_phase(out_dir):
 # optional: where the encode's time goes, from a profiler trace
 # --------------------------------------------------------------------------
 
-def trace_phase(frames, trace_dir):
-    from torch.autograd import DeviceType
+def _profiled(enc, frames, flush=True):
+    """Send ``frames`` (and flush) under the profiler: (profile, wall s)."""
     from torch.profiler import ProfilerActivity, profile
 
-    from svt_av1_tpu_torch.api import Encoder
-
-    enc = Encoder(slice_config(WIDTH, HEIGHT))
-    enc.send_picture(frames[0])             # warm: worker thread, caches
-    enc.flush()
-    enc = Encoder(slice_config(WIDTH, HEIGHT))
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         for planes in frames:
             enc.send_picture(planes)
-        enc.flush()
+        if flush:
+            enc.flush()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
+    return prof, wall
+
+
+def _report_trace(prof, wall, what, out_file):
+    from torch.autograd import DeviceType
+
     # device-side events only (kernels and copies); a host op's device
     # time repeats its children's
     by_name = {}
@@ -448,19 +649,44 @@ def trace_phase(frames, trace_dir):
             by_name[e.key] = by_name.get(e.key, 0.0) \
                 + e.self_device_time_total
     busy_ms = sum(by_name.values()) / 1e3
-    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:12]
-    print(f"trace: {len(frames)} frames, wall {wall * 1e3:.3f} ms, device "
-          f"busy {busy_ms:.3f} ms ({100 * busy_ms / (wall * 1e3):.3f}% of "
-          f"the wall time)")
-    print("trace device ms by kernel:", json.dumps(
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:14]
+    print(f"trace, {what}: wall {wall * 1e3:.3f} ms, device busy "
+          f"{busy_ms:.3f} ms ({100 * busy_ms / (wall * 1e3):.3f}% of the "
+          f"wall time)")
+    print(f"trace device ms by kernel, {what}:", json.dumps(
         {k: round(v / 1e3, 4) for k, v in top}))
+    prof.export_chrome_trace(str(out_file))
+    with open(out_file, "rb") as f, \
+            gzip.open(str(out_file) + ".gz", "wb") as g:
+        g.write(f.read())
+    Path(out_file).unlink()
+
+
+def trace_phase(ai_frames, ipp_frames, trace_dir):
+    from svt_av1_tpu_torch.api import Encoder
+
     out = Path(trace_dir)
     out.mkdir(parents=True, exist_ok=True)
-    prof.export_chrome_trace(str(out / "encode_1080p.json"))
-    with open(out / "encode_1080p.json", "rb") as f, \
-            gzip.open(out / "encode_1080p.json.gz", "wb") as g:
-        g.write(f.read())
-    (out / "encode_1080p.json").unlink()
+    enc = Encoder(slice_config(WIDTH, HEIGHT))
+    enc.send_picture(ai_frames[0])          # warm: worker thread, caches
+    enc.flush()
+    enc = Encoder(slice_config(WIDTH, HEIGHT))
+    prof, wall = _profiled(enc, ai_frames[:TRACE_FRAMES])
+    _report_trace(prof, wall, f"{TRACE_FRAMES} all-intra frames",
+                  out / "encode_1080p.json")
+    # low-delay P: the key frame codes outside the window (when frame 1
+    # arrives); the window codes P frames 1..TRACE_FRAMES
+    enc = Encoder(slice_config(WIDTH, HEIGHT, -1))
+    for planes in ipp_frames[:2]:
+        enc.send_picture(planes)
+    prof, wall = _profiled(enc, ipp_frames[2:TRACE_FRAMES + 1])
+    assert enc.frame_count == TRACE_FRAMES + 1
+    _report_trace(prof, wall, f"{TRACE_FRAMES} P frames",
+                  out / "encode_1080p_ipp.json")
+
+
+ALLINTRA_KERNELS = ("intra_decision", "deblock", "cdef_direction",
+                    "cdef_search", "cdef_apply")
 
 
 def main() -> int:
@@ -469,7 +695,8 @@ def main() -> int:
         return 2
     sys.path.insert(0, str(Path(__file__).resolve().parent))
     from svt_av1_tpu_torch.kernels import build
-    from svt_av1_tpu_torch.ops import cdef, dlf, omd
+    from svt_av1_tpu_torch.ops import bme, cdef, dlf, omd
+    from svt_av1_tpu_torch.pipeline import batched_inter as bi
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -489,19 +716,28 @@ def main() -> int:
     half = N_FRAMES // 2
     frames = synth_clip(WIDTH, HEIGHT, half) + synth_clip(
         WIDTH, HEIGHT, N_FRAMES - half, tex_sigma=SMOOTH_SIGMA)
+    # the moving clip of the low-delay P phase: texture and rectangle move
+    # by (1.7, 3.1) and (3, 5) pixels per frame
+    ipp_frames = synth_clip(WIDTH, HEIGHT, N_FRAMES)
     kres = kernels_phase(dev, frames[0])
+    kres.update(inter_kernels_phase(dev, ipp_frames[0], ipp_frames[1]))
 
     counters = {"intra_decision": omd.intra_decision,
                 "deblock": dlf.deblock,
                 "cdef_direction": cdef.cdef_direction,
                 "cdef_search": cdef.cdef_search,
-                "cdef_apply": cdef.cdef_apply}
+                "cdef_apply": cdef.cdef_apply,
+                "me_coarse": bme.me_coarse,
+                "me_refine": bme.me_refine,
+                "subpel_refine16": bme.subpel_refine16,
+                "inter_select": bi.inter_select}
     out_dir = Path(os.environ.get("TMPDIR") or tempfile.gettempdir())
     with tempfile.TemporaryDirectory(dir=out_dir) as tmp:
-        launches = encode_phase(counters, frames, tmp)
+        ai_launches = allintra_phase(counters, frames, tmp)
+        launches = ipp_phase(counters, ipp_frames, tmp)
         agreement_phase(tmp)
     if "--trace" in sys.argv:
-        trace_phase(frames[:TRACE_FRAMES],
+        trace_phase(frames, ipp_frames,
                     sys.argv[sys.argv.index("--trace") + 1])
 
     sources = {"intra_decision": ("intra_decision.cu",
@@ -512,7 +748,13 @@ def main() -> int:
                "cdef_search": ("cdef_filter.cu",
                                "svt_av1_tpu/ops/cdef.py:645"),
                "cdef_apply": ("cdef_filter.cu",
-                              "svt_av1_tpu/ops/cdef.py:726")}
+                              "svt_av1_tpu/ops/cdef.py:726"),
+               "me_coarse": ("me_coarse.cu", "svt_av1_tpu/ops/bme.py:42"),
+               "me_refine": ("me_refine.cu", "svt_av1_tpu/ops/bme.py:207"),
+               "subpel_refine16": ("subpel_refine.cu",
+                                   "svt_av1_tpu/ops/bme.py:320"),
+               "inter_select": ("inter_select.cu",
+                                "svt_av1_tpu/pipeline/batched_inter.py:174")}
     rows = []
     for name, (src, replaces) in sources.items():
         r = kres[name]
@@ -523,9 +765,12 @@ def main() -> int:
             replaces=replaces, launches=launches[name],
             max_abs_err=r["max_abs_err"], ms=r["ms"], plain_ms=r["plain_ms"],
             bound_ms=b_ms, bound_by=b_by, library_ms=None))
+        ai = f", {ai_launches[name]} on the all-intra encode" \
+            if name in ALLINTRA_KERNELS else ""
         print(f"{name}: {r['per_call']}: kernel {r['ms']:.4f} ms, plain "
               f"{r['plain_ms']:.4f} ms, bound {b_ms:.5f} ms ({b_by}); "
-              f"{launches[name] / N_FRAMES:g} launches per 1080p frame")
+              f"{launches[name]} launches on the {N_FRAMES}-frame low-delay "
+              f"P encode{ai}")
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

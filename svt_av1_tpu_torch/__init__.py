@@ -3,12 +3,13 @@
 The JAX package ``svt_av1_tpu`` stays the reference; this package imports
 nothing of it (nor jax).  Host-only modules (bitstream, entropy coding,
 I/O, the conformant frame walker and the native C tile coder) are copies;
-the device programs of the key-frame path run as hand-written CUDA
-kernels for Hopper (kernels/csrc/), each beside a plain PyTorch version
-that CPU tensors take.
+the device programs of the ported paths run as hand-written CUDA kernels
+for Hopper (kernels/csrc/), each beside a plain PyTorch version that CPU
+tensors take.
 
-Ported slice: all-intra, preset 8, 8-bit 4:2:0 (api.Encoder raises
-NotImplementedError outside it).
+Ported slices: preset 8, 8-bit 4:2:0, all-intra and low-delay P (one key
+frame, then P frames); api.Encoder raises NotImplementedError outside
+them.
 """
 
 __version__ = "0.1.0"

@@ -3,11 +3,12 @@
 ``Encoder(cfg, device=None)`` accepts frames and emits OBU packets; it
 runs on CUDA unless the caller asks for another device.  Orchestration
 mirrors the reference API at frame granularity: picture decision, DPB
-bookkeeping, packetization.  This slice of the port covers all-intra
-coding at preset 8, 8-bit: every other configuration raises
-NotImplementedError instead of running host code in place of device
-programs that are not ported yet.  Decoding stays with the JAX package's
-``svt_av1_tpu.api.Decoder``.
+bookkeeping, packetization.  This slice of the port covers preset 8,
+8-bit 4:2:0, all-intra and low-delay P (IPP: one key frame, then P
+frames predicted from past pictures): every other configuration
+raises NotImplementedError instead of running host code in place of
+device programs that are not ported yet.  Decoding stays with the JAX
+package's ``svt_av1_tpu.api.Decoder``.
 """
 from __future__ import annotations
 
@@ -18,13 +19,17 @@ import numpy as np
 from .bitstream.bits import BitWriter
 from .bitstream.headers import (FrameHeader, temporal_delimiter_obu,
                                 wrap_obu, write_frame_header,
-                                write_sequence_header,
-                                write_show_existing_header, SequenceHeader)
+                                write_sequence_header, SequenceHeader)
 from .config import ColorFormat, EncoderConfig, PredStructure, \
     derive_signals
 from .constants import FrameType, ObuType
 from .device import resolve_device
+from .entropy.tables import FrameCdfs
 from .pipeline.frame_codec import FrameCodec
+
+LAST, LAST2, LAST3, GOLDEN, BWDREF, ALTREF2, ALTREF = range(1, 8)
+# FrameCodec.search_refs' preference order of the named references
+_SEARCH_ORDER = (LAST, BWDREF, ALTREF, GOLDEN, LAST2, LAST3, ALTREF2)
 
 
 def _assemble_tile_group(blobs: list, fh: FrameHeader) -> bytes:
@@ -53,12 +58,46 @@ class CodeJob:
     layer: int = 0             # temporal layer (key = 0)
     is_key: bool = False
     show: bool = True
-    n_deps: int = -1
+    n_deps: int = -1           # frames that will reference this one
+    #                            (-1 = unknown; 0 = pure leaf/tail)
+
+
+def dyadic_order(lo: int, hi: int, layer: int = 1):
+    """Coding order of the open interval (lo, hi): mid first, then
+    halves."""
+    if hi - lo <= 1:
+        return []
+    m = (lo + hi) // 2
+    return [(m, layer)] + dyadic_order(lo, m, layer + 1) + \
+        dyadic_order(m, hi, layer + 1)
+
+
+def gop_schedule(anchor: int, g: int) -> list[CodeJob]:
+    """Jobs for one mini-GOP covering displays (anchor, anchor+g]:
+    decode order with show_existing interleaved at display time."""
+    order = [(anchor + g, 0)] + [(anchor + d, l)
+                                 for d, l in dyadic_order(0, g)]
+    max_layer = max(l for _, l in order)
+    jobs = []
+    shown = anchor            # highest display index already output
+    coded = set()
+    for d, layer in order:
+        is_leaf = layer == max_layer
+        jobs.append(CodeJob("code", d, layer, show=is_leaf,
+                            n_deps=0 if is_leaf and g > 1 else -1))
+        coded.add(d)
+        if is_leaf:
+            assert d == shown + 1, (d, shown)
+            shown = d
+        while shown + 1 in coded:
+            shown += 1
+            jobs.append(CodeJob("show_existing", shown))
+    return jobs
 
 
 class PictureDecision:
-    """Buffers source frames and emits jobs.  The ported slice codes
-    every picture as a key frame (key interval 1)."""
+    """Buffers source frames and emits job lists (the analog of
+    picture_decision_kernel's reorder queue + mini-GOP split)."""
 
     def __init__(self, cfg: EncoderConfig):
         self.cfg = cfg
@@ -71,10 +110,92 @@ class PictureDecision:
         elif period >= 0:
             self.key_interval = period + 1
 
+    def is_key(self, display: int) -> bool:
+        if display == 0:
+            return True
+        return self.key_interval is not None and \
+            self.key_interval > 0 and display % self.key_interval == 0
+
     def schedule(self, start: int, n_available: int, eos: bool):
-        """Frames [start, start+n_available) are buffered: one key-frame
-        job for ``start``."""
-        return [CodeJob("code", start, 0, is_key=True)], 1
+        """Given frames [start, start+n_available) buffered (display
+        order), return (jobs, consumed) or (None, 0) to wait for more."""
+        if self.is_key(start):
+            return [CodeJob("code", start, 0, is_key=True)], 1
+        # GOP span is bounded by the next key frame
+        g = self.gop
+        if self.key_interval:
+            next_key = ((start // self.key_interval) + 1) * self.key_interval
+            g = min(g, next_key - start)
+        if n_available < g:
+            if not eos or n_available <= 0:
+                return None, 0
+            g = n_available
+        # dyadic pyramid needs a power-of-two span; shrink for tails
+        while g & (g - 1):
+            g -= 1
+        return gop_schedule(start - 1, g), g
+
+
+# --------------------------------------------------------------------------
+# DPB (picture manager analog)
+# --------------------------------------------------------------------------
+
+class Dpb:
+    """8-slot decoded picture buffer of the encoder's decoder model."""
+
+    def __init__(self):
+        self.slots = [None] * 8    # {planes, order_hint, display, cdfs,
+        #                            gm, qindex}
+
+    def refresh(self, mask: int, planes, order_hint: int, display: int,
+                cdfs=None, gm=None, qindex: int = 0):
+        entry = dict(planes=planes, order_hint=order_hint, display=display,
+                     cdfs=cdfs, gm=gm, qindex=qindex)
+        for i in range(8):
+            if mask & (1 << i):
+                self.slots[i] = entry
+
+    def slot_of_display(self, display: int):
+        for i, s in enumerate(self.slots):
+            if s is not None and s["display"] == display:
+                return i
+        return None
+
+    @staticmethod
+    def padded(entry):
+        """REF_PAD-extended int32 planes for MC, padded once per coded
+        picture and memoized in the slot entry."""
+        if "padded" not in entry:
+            entry["padded"] = [FrameCodec._pad_ref(p)
+                               for p in entry["planes"]]
+        return entry["padded"]
+
+    def displays(self):
+        return {s["display"] for s in self.slots if s is not None}
+
+
+def _named_ref_displays(display: int, displays: set, anchor: int):
+    """Map the 7 named refs to the DPB's display indices ``displays``
+    (av1_generate_rps_info analog, simplified: nearest pasts, anchor as
+    GOLDEN, futures; with no future picture the backward names alias
+    LAST)."""
+    avail = sorted(displays)
+    past = [d for d in avail if d < display][::-1]
+    future = [d for d in avail if d > display]
+    if not past:
+        past = [avail[0]]
+    named = {}
+    named[LAST] = past[0]
+    named[LAST2] = past[1] if len(past) > 1 else past[0]
+    named[LAST3] = past[2] if len(past) > 2 else named[LAST2]
+    named[GOLDEN] = anchor if anchor in avail else past[-1]
+    if future:
+        named[BWDREF] = future[0]
+        named[ALTREF2] = future[1] if len(future) > 1 else future[0]
+        named[ALTREF] = future[-1]
+    else:
+        named[BWDREF] = named[ALTREF2] = named[ALTREF] = named[LAST]
+    return named
 
 
 def check_slice(cfg: EncoderConfig, sig, pd: PictureDecision) -> None:
@@ -86,8 +207,9 @@ def check_slice(cfg: EncoderConfig, sig, pd: PictureDecision) -> None:
         why = "bit depths other than 8"
     elif cfg.encoder_color_format != ColorFormat.YUV420:
         why = "chroma formats other than 4:2:0"
-    elif pd.key_interval != 1:
-        why = "inter frames (only all-intra: intra_period_length 0)"
+    elif pd.gop > 1 and pd.key_interval != 1:
+        why = ("random-access inter frames (MCTF, TPL and compound "
+               "prediction); use pred_structure=LOW_DELAY_P")
     elif sig.tf_level > 0 and pd.gop > 1:
         why = ("temporal filtering of key frames (MCTF); use "
                "pred_structure=LOW_DELAY_P")
@@ -118,9 +240,9 @@ class Encoder:
         check_slice(cfg, sig, self.pd)
         from .profiling import LOG, StageTimer
         self.prof = StageTimer()    # per-stage latency (EbTime.c analog)
-        LOG.debug("config: %dx%d qp=%d preset=%d device=%s",
+        LOG.debug("config: %dx%d qp=%d preset=%d keyint=%d device=%s",
                   cfg.source_width, cfg.source_height, cfg.qp,
-                  cfg.enc_mode, self.device)
+                  cfg.enc_mode, cfg.intra_period_length, self.device)
         from .utils.levels import pick_seq_level_idx
         self.seq = SequenceHeader(
             max_frame_width=cfg.source_width,
@@ -145,11 +267,16 @@ class Encoder:
             film_grain_params_present=False,
         )
         from .pipeline.rate_control import RateControl
-        self.rc = RateControl(cfg, float(cfg.frame_rate), all_intra=True)
+        self.rc = RateControl(cfg, float(cfg.frame_rate),
+                              all_intra=self.pd.key_interval == 1)
         self.rc.hierarchical_levels = max(self.pd.gop.bit_length() - 1, 1)
         self._buffer = []            # pending source frames (display order)
+        self._me_src = {}            # display -> buf-aligned ME luma on
+        #                              the device (open-loop plan refs)
         self._next_display = 0       # display idx of _buffer[0]
         self._sent = 0
+        self.dpb = Dpb()
+        self._anchor = 0             # most recent layer-0/key display
         self._wrote_seq_header = False
         self.frame_count = 0         # coded frames
         self.last_recon = None
@@ -175,10 +302,11 @@ class Encoder:
         self._sent += 1
         return self._drain(eos=False)
 
-    def _ai_pipeline(self) -> bool:
-        """Keep one picture in flight: the device decision pass for the
-        newest picture runs on a worker thread while the host packs its
-        predecessor (bounded by ``pictures_in_flight``)."""
+    def _pipeline(self) -> bool:
+        """Keep one picture in flight: while the host codes a picture, the
+        device plans the next one on a worker thread (its intra decision
+        for a key frame, its open-loop ME plan for a P frame), bounded by
+        ``pictures_in_flight``."""
         if getattr(self, "_pipeline_off", False):
             return False
         pif = self.cfg.pictures_in_flight
@@ -192,7 +320,8 @@ class Encoder:
         return -(-(mi_c * 4) // sb) * sb, -(-(mi_r * 4) // sb) * sb
 
     def _prefetch(self, display: int, plane) -> None:
-        """Submit the device decisions of ``display`` to the worker."""
+        """Submit the device decisions of key frame ``display`` to the
+        worker."""
         dec = self._decider_cached()
         if dec._prefetch and display in dec._prefetch:
             return
@@ -223,22 +352,50 @@ class Encoder:
 
     # -- internals ---------------------------------------------------------
 
+    def _schedule(self, start: int, n_available: int, eos: bool):
+        """pd.schedule with the dependency count of each base frame: the
+        group's other frames plus the next group, which references it
+        (tail bases at eos get small counts).  A low-delay picture counts
+        its dependents as at its arrival: the one-picture pipeline only
+        defers it."""
+        jobs, consumed = self.pd.schedule(start, n_available, eos)
+        if jobs is None:
+            return None, 0
+        future = self.pd.gop if (not eos or self.pd.gop == 1) \
+            else n_available - consumed
+        for job in jobs:
+            if job.kind == "code" and job.layer == 0 and not job.is_key:
+                job.n_deps = consumed - 1 + future
+        return jobs, consumed
+
     def _drain(self, eos: bool) -> list[bytes]:
         packets = []
         while self._buffer:
-            if not eos and len(self._buffer) == 1 and self._ai_pipeline():
-                # kick the device decisions for the deferred picture
-                self._prefetch(self._next_display, self._buffer[0][0])
+            if not eos and len(self._buffer) == 1 and self._pipeline():
+                if self.pd.is_key(self._next_display):
+                    # kick the device decisions for the deferred picture
+                    self._prefetch(self._next_display, self._buffer[0][0])
                 break
-            jobs, consumed = self.pd.schedule(
+            jobs, consumed = self._schedule(
                 self._next_display, len(self._buffer), eos)
-            for job in jobs:
-                # while the host packs this frame, the device computes the
-                # NEXT frame's decision maps on the worker thread
-                nxt = job.display + 1 - self._next_display
-                if nxt < len(self._buffer):
-                    self._prefetch(job.display + 1, self._buffer[nxt][0])
-                packets.append(self._encode_display(job))
+            if jobs is None:
+                break
+            for ji, job in enumerate(jobs):
+                nxt = next((j for j in jobs[ji + 1:] if j.kind == "code"),
+                           None)
+                if nxt is None and consumed < len(self._buffer):
+                    # the next group's first job, for the plan prefetch
+                    more, _ = self._schedule(
+                        self._next_display + consumed,
+                        len(self._buffer) - consumed, eos)
+                    nxt = more[0] if more else None
+                if nxt is not None and nxt.is_key \
+                        and self.pd.key_interval == 1:
+                    # while the host packs this frame, the device computes
+                    # the NEXT key frame's decision maps
+                    self._prefetch(nxt.display, self._buffer[
+                        nxt.display - self._next_display][0])
+                packets.append(self._encode_display(job, nxt))
             self._buffer = self._buffer[consumed:]
             self._next_display += consumed
         return packets
@@ -247,40 +404,99 @@ class Encoder:
         """One decider per encoder (its state is keyed on the codec
         object, so the prefetch pipeline can hand results forward)."""
         if not hasattr(self, "_decider_obj"):
-            from .pipeline.batched_md import TorchIntraDecider
+            from .pipeline.batched_md import TorchDecider
 
-            self._decider_obj = TorchIntraDecider(self.device)
+            self._decider_obj = TorchDecider(self.device)
             self._decider_obj.prof = self.prof
         return self._decider_obj
 
-    def _frame_header(self, job: CodeJob) -> FrameHeader:
+    def _me_plane(self, y):
+        """Buf-aligned narrow luma plane for open-loop ME, uploaded to the
+        encoder's device (the FrameCodec source padding's twin)."""
+        from .ops.omd import upload_plane
+
+        buf_w, buf_h = self._buf_dims()
+        return upload_plane(np.asarray(y), buf_w, buf_h,
+                            self.cfg.encoder_bit_depth, self.device)
+
+    def _store_me_src(self, display: int, plane) -> None:
+        if display in self._me_src:
+            return
+        while len(self._me_src) > 40:
+            self._me_src.pop(next(iter(self._me_src)))
+        self._me_src[display] = plane
+
+    def _maybe_prefetch_inter(self, job: CodeJob, nxt, fh,
+                              planes) -> None:
+        """Cross-frame pipeline overlap for inter frames: with open-loop
+        ME (plan refs = the coded pictures' SOURCES) the NEXT frame's
+        device plan does not depend on this frame's reconstruction, so it
+        runs on the worker thread while the host codes this frame.
+
+        Called after this frame's header is final: the post-refresh DPB
+        display set, this frame's qindex and its coded source are exact,
+        so the prediction matches what _plan_inter derives at retrieval."""
+        if nxt is None or nxt.kind != "code" or nxt.is_key:
+            return
+        if not self.sig.open_loop_me or self.pd.key_interval == 1:
+            return
+        dec = self._decider_cached()
+        # this frame's coded source is nxt's likeliest reference
+        self._store_me_src(job.display, self._me_plane(planes[0]))
+        # exact post-refresh display set (slot replacement = eviction)
+        mask = fh.refresh_frame_flags
+        displays = set()
+        for i, s in enumerate(self.dpb.slots):
+            if (mask >> i) & 1:
+                displays.add(job.display)
+            elif s is not None:
+                displays.add(s["display"])
+        anchor = job.display if (job.is_key or job.layer == 0) \
+            else self._anchor
+        if not displays:
+            return
+        # exact qindex chaining: record this frame's meta now (identical
+        # to the note_coded call at the end of this frame)
+        self.rc.note_coded(job.display, fh.base_q_idx, job.layer,
+                           job.is_key)
+        named = _named_ref_displays(nxt.display, displays, anchor)
+        # the encoder's codec holds one reference list per name, so
+        # FrameCodec.search_refs returns all seven names in its preference
+        # order; the planner keeps one name per picture of the first three
+        names = dec.plan_names(_SEARCH_ORDER, lambda n: named[n])
+        me_refs, ref_disp = {}, []
+        for n in names:
+            got = self._me_src.get(named[n])
+            if got is None:
+                return
+            me_refs[n] = got
+            ref_disp.append(named[n])
+        nidx = nxt.display - self._next_display
+        if not (0 <= nidx < len(self._buffer)):
+            return
+        src = self._me_plane(self._buffer[nidx][0])
+        rel = tuple(self._rel_dist(named[n], nxt.display) for n in names)
+        qindex = self._qindex_for(nxt, (named[LAST], named[BWDREF]))
+        ref_sel = any(self._rel_dist(named[n], nxt.display) > 0
+                      for n in range(1, 8))
+        buf_w, buf_h = self._buf_dims()
+        dec.prefetch_inter(nxt.display, src, me_refs, names, rel,
+                           tuple(ref_disp), qindex, ref_sel,
+                           self.sig.compound_level, buf_w, buf_h,
+                           self.cfg.encoder_bit_depth)
+
+    def _qindex_for(self, job: CodeJob, ref_displays: tuple = ()) -> int:
+        return self.rc.pick_qindex(job.is_key, job.layer, job.display,
+                                   ref_displays, job.n_deps)
+
+    def _frame_header(self, job: CodeJob, refs_idx,
+                      ref_displays: tuple = ()) -> FrameHeader:
         from .ops.dlf import filter_levels_from_qindex
 
-        qindex = self.rc.pick_qindex(job.is_key, job.layer, job.display,
-                                     (), job.n_deps)
+        qindex = self._qindex_for(job, ref_displays)
         lvl = 0 if self.cfg.disable_dlf else filter_levels_from_qindex(
             qindex, self.cfg.encoder_bit_depth)
-        fh = FrameHeader(
-            frame_type=FrameType.KEY_FRAME,
-            show_frame=True,
-            showable_frame=False,
-            order_hint=job.display,
-            ref_frame_idx=(0,) * 7,
-            frame_width=self.cfg.source_width,
-            frame_height=self.cfg.source_height,
-            base_q_idx=qindex,
-            filter_level=(lvl, lvl),
-            filter_level_uv=(lvl, lvl),
-            cdef_damping=min(3 + (qindex >> 6), 6),
-            tx_mode_select=False,
-            is_motion_mode_switchable=False,
-            allow_warped_motion=False,
-            allow_screen_content_tools=bool(self.sig.palette_level
-                                            or self.sig.intrabc_level),
-            allow_intrabc=bool(self.sig.intrabc_level),
-            disable_frame_end_update_cdf=self.cfg.frame_end_cdf_update
-            == 0,
-        )
+        fh = self._make_frame_header(job, refs_idx, qindex, lvl)
         from .bitstream.headers import tile_limits
         (_, _, min_lc, max_lc, max_lr, min_lt) = tile_limits(self.seq, fh)
         tcl = int(np.clip(self.cfg.tile_columns, min_lc, max_lc))
@@ -289,27 +505,146 @@ class Encoder:
         fh.tile_rows_log2 = trl
         return fh
 
-    def _encode_display(self, job: CodeJob) -> bytes:
-        if not job.is_key:
-            raise NotImplementedError("inter frames are not ported")
+    def _make_frame_header(self, job, refs_idx, qindex, lvl) -> FrameHeader:
+        return FrameHeader(
+            frame_type=FrameType.KEY_FRAME if job.is_key
+            else FrameType.INTER_FRAME,
+            show_frame=job.show or job.is_key,
+            showable_frame=not (job.show or job.is_key),
+            order_hint=job.display,
+            ref_frame_idx=refs_idx,
+            frame_width=self.cfg.source_width,
+            frame_height=self.cfg.source_height,
+            base_q_idx=qindex,
+            filter_level=(lvl, lvl),
+            filter_level_uv=(lvl, lvl),
+            cdef_damping=min(3 + (qindex >> 6), 6),
+            tx_mode_select=False,
+            is_motion_mode_switchable=not job.is_key
+            and self.sig.enable_warped_motion,
+            allow_warped_motion=not job.is_key
+            and self.sig.enable_warped_motion,
+            # screen content tools: intra frames only
+            allow_screen_content_tools=bool(self.sig.palette_level
+                                            or self.sig.intrabc_level)
+            and job.is_key,
+            allow_intrabc=bool(self.sig.intrabc_level) and job.is_key,
+            disable_frame_end_update_cdf=self.cfg.frame_end_cdf_update
+            == 0,
+        )
+
+    def _refresh_mask(self, job: CodeJob) -> int:
+        """Pick a slot for the coded picture: evict one whose picture no
+        schedule step still needs (leaves keep nothing)."""
+        if job.is_key:
+            return 0xFF
+        max_layer = self.pd.gop.bit_length() - 1
+        if self.pd.gop > 1 and job.layer > max(max_layer - 1, 0):
+            return 0                       # leaf: not a reference
+        needed = {self._anchor, job.display}
+        free = [i for i, s in enumerate(self.dpb.slots) if s is None]
+        if free:
+            return 1 << free[0]
+        order = sorted(range(8), key=lambda i: self.dpb.slots[i]["display"])
+        for i in order:
+            if self.dpb.slots[i]["display"] not in needed:
+                return 1 << i
+        return 1 << order[0]
+
+    def _encode_display(self, job: CodeJob, nxt: CodeJob | None = None
+                        ) -> bytes:
         planes = self._buffer[job.display - self._next_display]
-        fh = self._frame_header(job)
-        fh.refresh_frame_flags = 0xFF
+        refs = None
+        refs_idx = (0,) * 7
+        sign_bias = [0] * 8
+        if not job.is_key:
+            named = _named_ref_displays(job.display, self.dpb.displays(),
+                                        self._anchor)
+            refs_idx = tuple(self.dpb.slot_of_display(named[n])
+                             for n in range(1, 8))
+            by_display = {}
+            for n in range(1, 8):
+                d = named[n]
+                if d not in by_display:
+                    by_display[d] = Dpb.padded(self.dpb.slots[
+                        self.dpb.slot_of_display(d)])
+            refs = {n: by_display[named[n]] for n in range(1, 8)}
+            for n in range(1, 8):
+                sign_bias[n] = int(self._rel_dist(named[n], job.display) > 0)
+
+        ref_displays = () if job.is_key else (named[LAST], named[BWDREF])
+        fh = self._frame_header(job, refs_idx, ref_displays)
+        fh.refresh_frame_flags = self._refresh_mask(job)
+        init_fc = None
+        if not job.is_key and not fh.error_resilient_mode:
+            # primary_ref_frame: chain this frame's CDFs from the named ref
+            # whose saved state fits best (the quantizer-closest ref)
+            best = None
+            for n in range(1, 8):
+                e = self.dpb.slots[self.dpb.slot_of_display(named[n])]
+                if e.get("cdfs") is None:
+                    continue
+                score = (abs(e["qindex"] - fh.base_q_idx),
+                         abs(e["display"] - job.display))
+                if best is None or score < best[0]:
+                    best = (score, n, e)
+            if best is not None:
+                fh.primary_ref_frame = best[1] - 1
+                init_fc = best[2]["cdfs"]
+                fh.prev_gm = best[2]["gm"] or ()
+        if not job.is_key:
+            # compound prediction once any backward reference exists
+            fh.reference_select = any(
+                self._rel_dist(named[n], job.display) > 0
+                for n in range(1, 8))
         aq_map = None
-        if self.sig.enable_adaptive_quantization and fh.base_q_idx > 40:
+        if (job.is_key and self.sig.enable_adaptive_quantization
+                and fh.base_q_idx > 40):
             aq_map, fh.seg_qdeltas = _variance_aq(
                 np.asarray(planes[0]), self.seq.sb_size, fh.base_q_idx)
         decider = self._decider_cached()
         decider.replay_store = {}
-        codec = FrameCodec(self.seq, fh, source_planes=planes,
-                           device=self.device)
+        codec = FrameCodec(self.seq, fh, source_planes=planes, refs=refs,
+                           init_fc=init_fc, device=self.device)
         # frame-end CDF save reads the LAST tile (context_update_tile_id)
         fh.context_update_tile_id = len(codec.tile_rects()) - 1
+        codec.sign_bias = sign_bias
+        if not job.is_key:
+            codec.ref_dists = {n: self._rel_dist(named[n], job.display)
+                               for n in range(1, 8)}
         codec.rdoq_level = self.sig.rdoq_level
         # fast presets search the reduced CDEF strength subset
         codec.cdef_fast = self.sig.cdef_level <= 2
         codec.rdoq_layer = (job.layer, self.cfg.hierarchical_levels)
+        codec.obmc_level = self.sig.obmc_level
+        codec.compound_level = self.sig.compound_level
+        codec.search_area = (
+            48 if self.cfg.search_area_width == -1
+            else self.cfg.search_area_width,
+            48 if self.cfg.search_area_height == -1
+            else self.cfg.search_area_height)
+        codec.hme_controls = (self.cfg.enable_hme
+                              and self.cfg.enable_hme_level0,
+                              self.sig.enable_hme_level1,
+                              self.sig.enable_hme_level2)
         codec.aq_map = aq_map
+        if not job.is_key and self.sig.open_loop_me:
+            # open-loop plan refs: the named refs' SOURCE planes (the
+            # conformant replay still predicts against recon)
+            me_refs = {}
+            for n in range(1, 8):
+                got = self._me_src.get(named[n])
+                if got is None:
+                    me_refs = None
+                    break
+                me_refs[n] = got
+            if me_refs is not None:
+                codec.me_refs = me_refs
+                codec.me_ref_displays = {n: named[n] for n in range(1, 8)}
+        if not fh.error_resilient_mode:
+            # pipeline overlap: submit the NEXT frame's open-loop device
+            # plan before the host starts this frame's coding pass
+            self._maybe_prefetch_inter(job, nxt, fh, planes)
         with self.prof("encode_tiles"):
             tile_data = _assemble_tile_group(codec.encode_tiles(decider),
                                              fh)
@@ -324,13 +659,39 @@ class Encoder:
         codec.apply_superres()
         self.last_recon = codec.cropped_recon()
         self.recon_by_display[job.display] = self.last_recon
+        if self.sig.open_loop_me and job.display not in self._me_src:
+            # this picture's CODED source is the open-loop ME reference
+            # of later frames; the planner already uploaded it
+            dev = codec.dev_source
+            self._store_me_src(
+                job.display,
+                dev[0] if dev is not None else self._me_plane(planes[0]))
 
-        # every frame is a shown key frame that refreshes all slots: no
-        # later frame references this one, so no DPB state is kept, and
-        # the header needs no reference order hints
+        # header derivations use the decoder's view of the DPB, i.e.
+        # BEFORE this frame's refresh
+        ref_hints = self._slot_order_hints()
+        if fh.refresh_frame_flags:
+            ref_planes = [p.astype(np.int32) for p in self.last_recon]
+            # SavedCdfs: the adapted end state of the frame's last tile;
+            # SavedGmParams: this frame's matrices (identity here)
+            from .bitstream.headers import GM_IDENTITY_MAT
+            gm_mats = tuple(
+                (fh.global_motion[i][1] if i < len(fh.global_motion)
+                 else GM_IDENTITY_MAT) for i in range(7))
+            saved_fc = codec.fc.copy() \
+                if not fh.disable_frame_end_update_cdf \
+                else (init_fc.copy() if init_fc is not None
+                      else FrameCdfs(fh.base_q_idx))
+            saved_fc.zero_counters()
+            self.dpb.refresh(fh.refresh_frame_flags, ref_planes,
+                             job.display, job.display, cdfs=saved_fc,
+                             gm=gm_mats, qindex=fh.base_q_idx)
+        if job.is_key or job.layer == 0:
+            self._anchor = job.display
+
         with self.prof("packetize"):
             w = BitWriter()
-            write_frame_header(w, self.seq, fh)
+            write_frame_header(w, self.seq, fh, ref_hints)
             w.byte_align()
             frame_payload = w.bytes() + tile_data
 
@@ -345,6 +706,19 @@ class Encoder:
                            job.is_key)
         self.frame_count += 1
         return out
+
+    def _rel_dist(self, a: int, b: int) -> int:
+        bits = self.seq.order_hint_bits
+        if not self.seq.enable_order_hint:
+            return 0
+        diff = (a - b) & ((1 << bits) - 1)
+        m = 1 << (bits - 1)
+        return (diff & (m - 1)) - (diff & m)
+
+    def _slot_order_hints(self):
+        mask = (1 << self.seq.order_hint_bits) - 1
+        return [0 if s is None else (s["order_hint"] & mask)
+                for s in self.dpb.slots]
 
 
 def encode_ivf(frames, cfg: EncoderConfig, path: str,

@@ -6,7 +6,9 @@ plain dict of the JAX EncoderConfig's fields (``dataclasses.asdict`` of
 it, or the same fields read from a file), and ``tables_from_reference``
 takes the three table files' arrays and checks them, array by array,
 against the copies this package loads, the way a strict state-dict load
-refuses a mismatch.
+refuses a mismatch.  ``constants_from_reference`` does the same for the
+constants the inter kernels bake in (motion-search geometry, selection
+penalties, the REGULAR interpolation taps).
 """
 from __future__ import annotations
 
@@ -85,4 +87,46 @@ def tables_from_reference(npz_arrays: dict) -> dict:
                 raise ValueError(f"{name}/{k} differs from the port's copy")
             loaded[k] = a
         out[name] = loaded
+    return out
+
+
+def own_constants() -> dict:
+    """{group: {name: value}} of the constants the inter kernels (K5-K8)
+    bake in, from this package's modules."""
+    from .ops import bme, inter
+    from .pipeline import batched_inter as bi
+
+    return {
+        "bme": {n: getattr(bme, n) for n in (
+            "SB", "COARSE_R", "REFINE_R", "MARGIN", "ME_SHAPES",
+            "SUBPEL_DELTAS")},
+        "selection": {n: getattr(bi, n) for n in (
+            "REF_PEN_SB", "COMP_PEN_SB", "DEV_PEN", "SEL_MV_W",
+            "PEN_TUNE_QINDEX", "MV_BIT_SCALE", "INTER_MODE_BITS")},
+        "interp": {"REGULAR": np.stack(
+            [inter.interp_kernel(inter.REGULAR, q4, 16)
+             for q4 in range(16)])},
+    }
+
+
+def constants_from_reference(d: dict) -> dict:
+    """Check the reference's constants (the groups and names of
+    ``own_constants``; sequences may come as lists) against the port's
+    copies; any missing, extra or differing value raises.  Returns them
+    as numpy arrays."""
+    own = own_constants()
+    if set(d) != set(own):
+        raise ValueError(f"constant groups {sorted(d)} != {sorted(own)}")
+    out = {}
+    for group, values in d.items():
+        mine = own[group]
+        if set(values) != set(mine):
+            diff = sorted(set(values) ^ set(mine))
+            raise ValueError(f"{group}: constants differ in names: {diff}")
+        out[group] = {}
+        for k, v in values.items():
+            a, b = np.asarray(v), np.asarray(mine[k])
+            if a.shape != b.shape or not np.array_equal(a, b):
+                raise ValueError(f"{group}/{k} differs from the port's copy")
+            out[group][k] = a
     return out

@@ -12,8 +12,8 @@ processes (pytest workers, the prefetch thread) share one build:
   is never built when a module is imported: only a wrapper that is given
   a CUDA tensor asks for its library.
 
-No fast-math flag is passed: the intra cost model relies on IEEE division
-and ``log2f``.
+No fast-math flag is passed: the residual cost model (cost_model.cuh)
+relies on IEEE division and ``log2f``.
 """
 from __future__ import annotations
 
@@ -46,6 +46,10 @@ CUDA_SOURCES = {
     "deblock": "deblock.cu",
     "cdef_direction": "cdef_direction.cu",
     "cdef_filter": "cdef_filter.cu",
+    "me_coarse": "me_coarse.cu",
+    "me_refine": "me_refine.cu",
+    "subpel_refine": "subpel_refine.cu",
+    "inter_select": "inter_select.cu",
 }
 
 _lock = threading.Lock()

@@ -1,0 +1,47 @@
+// The open-loop residual cost model shared by K1 (intra_decision.cu) and
+// K8 (inter_select.cu): the float model of quantize_b per coefficient of
+// an orthonormal DCT and the rate proxy of a block
+// (svt_av1_tpu/ops/omd.py shape_costs :286 and _quant_maps :268;
+// svt_av1_tpu/pipeline/batched_inter.py _mc_cost_maps :71).
+//
+// The division and rounding steps use explicit IEEE round-to-nearest
+// intrinsics so that no multiply-add is contracted where the float32
+// reference rounds twice; build without fast-math.
+#pragma once
+
+#include <cuda_runtime.h>
+
+namespace cost_model {
+
+// coefficient-rate proxy: bits ~ A*nnz + B*sum(log2(1+|q|)) + C*(nnz > 0)
+constexpr float kRateNnz = 2.724f;
+constexpr float kRateMag = 1.061f;
+constexpr float kRateTxb = 36.242f;
+
+// One coefficient: the squared quantization error (Parseval: pixel-domain
+// SSE), whether it codes (nz) and its log2 magnitude term.  ``coded``
+// false models a coefficient outside the coded band of a 64-point
+// transform: it quantizes to 0 and its energy counts as distortion.
+__device__ __forceinline__ void coef(float cf, float zbin, float rnd,
+                                     float step, bool coded, float& e2,
+                                     int& nz, float& mg) {
+  const float ac = fabsf(cf);
+  float q = floorf(__fdiv_rn(__fadd_rn(ac, rnd), step));
+  q = (coded && ac >= zbin) ? fmaxf(q, 0.f) : 0.f;
+  const float err = __fsub_rn(ac, __fmul_rn(q, step));
+  e2 = __fmul_rn(err, err);
+  nz = q > 0.f ? 1 : 0;
+  mg = log2f(__fadd_rn(1.f, q));
+}
+
+// cost = sse + lam * (A*nnz + B*mag + C*(nnz > 0) + extra_bits)
+__device__ __forceinline__ float rd_cost(float sse, int nnz, float mag,
+                                         float extra_bits, float lam) {
+  const float nnzf = (float)nnz;
+  float bits = __fadd_rn(__fmul_rn(kRateNnz, nnzf), __fmul_rn(kRateMag, mag));
+  bits = __fadd_rn(bits, __fmul_rn(kRateTxb, nnz > 0 ? 1.f : 0.f));
+  bits = __fadd_rn(bits, extra_bits);
+  return __fadd_rn(sse, __fmul_rn(lam, bits));
+}
+
+}  // namespace cost_model

@@ -19,21 +19,18 @@
 // weights sum to 32, exactly the float32 matmul the TPU ran), write the
 // residual to shared memory, apply the two DCT products there in float32
 // (no TF32), model quantize_b per coefficient and reduce SSE, nonzero
-// count and log2 magnitude over the block.  Thread 0 keeps the running
-// argmin: only a strictly smaller cost takes over (the reference's tie
-// rule).  The quantizer model's division and rounding steps use explicit
-// IEEE round-to-nearest intrinsics so no multiply-add is contracted
-// where the float32 reference rounds twice.  Later work: several blocks
-// per thread block for the 8-pixel shapes, tensor-core DCTs.
+// count and log2 magnitude over the block (cost_model.cuh, shared with
+// K8).  Thread 0 keeps the running argmin: only a strictly smaller cost
+// takes over (the reference's tie rule).  Later work: several blocks per
+// thread block for the 8-pixel shapes, tensor-core DCTs.
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "cost_model.cuh"
 
 namespace {
 
 constexpr int kMaxEdge = 65;            // w + h + 1 at 32x32
-constexpr float kRateNnz = 2.724f;
-constexpr float kRateMag = 1.061f;
-constexpr float kRateTxb = 36.242f;
 
 __device__ __forceinline__ int clampi(int v, int lo, int hi) {
   return v < lo ? lo : (v > hi ? hi : v);
@@ -138,13 +135,9 @@ __global__ void intra_decision_kernel(
     // coefficient (r, c) = tmp[r, :] @ dwt[:, c]
     float cf = 0.f;
     for (int b = 0; b < w; ++b) cf += tmp[r * w + b] * dwt[b * w + c];
-    const float ac = fabsf(cf);
-    float q = floorf(__fdiv_rn(__fadd_rn(ac, rnd), step));
-    q = (ac >= zbin) ? fmaxf(q, 0.f) : 0.f;
-    const float err = __fsub_rn(ac, __fmul_rn(q, step));
-    float e2 = __fmul_rn(err, err);
-    int nz = q > 0.f ? 1 : 0;
-    float mg = log2f(__fadd_rn(1.f, q));
+    float e2, mg;
+    int nz;
+    cost_model::coef(cf, zbin, rnd, step, true, e2, nz, mg);
     for (int off = 16; off > 0; off >>= 1) {
       e2 = __fadd_rn(e2, __shfl_down_sync(0xffffffffu, e2, off));
       nz += __shfl_down_sync(0xffffffffu, nz, off);
@@ -164,12 +157,8 @@ __global__ void intra_decision_kernel(
         mag = __fadd_rn(mag, red_mag[i]);
         nnz += red_nnz[i];
       }
-      const float nnzf = (float)nnz;
-      float bits = __fadd_rn(__fmul_rn(kRateNnz, nnzf),
-                             __fmul_rn(kRateMag, mag));
-      bits = __fadd_rn(bits, __fmul_rn(kRateTxb, nnz > 0 ? 1.f : 0.f));
-      bits = __fadd_rn(bits, mode_bits[m]);
-      const float cost = __fadd_rn(sse, __fmul_rn(lam, bits));
+      const float cost = cost_model::rd_cost(sse, nnz, mag, mode_bits[m],
+                                             lam);
       if (m == 0 || cost < best_cost) {
         best_cost = cost;
         best_mode = m;

@@ -112,6 +112,57 @@ def convolve_2d_sr(src, src_x: int, src_y: int, w: int, h: int,
     return xp.clip(out, 0, (1 << bd) - 1)
 
 
+def convolve_2d_sr_torch(src, src_x: int, src_y: int, w: int, h: int,
+                         subpel_x_q4: int, subpel_y_q4: int, bd: int = 8):
+    """``convolve_2d_sr`` with REGULAR taps on a batch of torch patches
+    ``src`` [..., H, W] (int32 result [..., h, w]): the same rounding,
+    offset bits and clip, step for step.  The plain version of the
+    quarter-pel refinement (ops/bme.py) runs it on the card's tensors."""
+    import torch
+
+    round_0 = ROUND0_BITS_8
+    round_1 = 2 * FILTER_BITS - round_0
+    has_x = subpel_x_q4 & 15
+    has_y = subpel_y_q4 & 15
+    src = src.to(torch.int32)
+    if not has_x and not has_y:
+        return src[..., src_y:src_y + h, src_x:src_x + w].clone()
+    xf = [int(v) for v in interp_kernel(REGULAR, subpel_x_q4, w)]
+    yf = [int(v) for v in interp_kernel(REGULAR, subpel_y_q4, h)]
+    if has_x and has_y:
+        rows = src[..., src_y - 3:src_y + h + 4, src_x - 3:src_x + w + 4]
+        acc = torch.full(rows.shape[:-1] + (w,), 1 << (bd + FILTER_BITS - 1),
+                         dtype=torch.int32, device=src.device)
+        for k in range(8):
+            acc = acc + xf[k] * rows[..., :, k:k + w]
+        im = (acc + (1 << (round_0 - 1))) >> round_0
+        offset_bits = bd + 2 * FILTER_BITS - round_0
+        acc2 = torch.full(im.shape[:-2] + (h, w), 1 << offset_bits,
+                          dtype=torch.int32, device=src.device)
+        for k in range(8):
+            acc2 = acc2 + yf[k] * im[..., k:k + h, :]
+        res = ((acc2 + (1 << (round_1 - 1))) >> round_1) - (
+            (1 << (offset_bits - round_1))
+            + (1 << (offset_bits - round_1 - 1)))
+        return res.clamp(0, (1 << bd) - 1)
+    if has_x:
+        rows = src[..., src_y:src_y + h, src_x - 3:src_x + w + 4]
+        acc = torch.zeros(rows.shape[:-1] + (w,), dtype=torch.int32,
+                          device=src.device)
+        for k in range(8):
+            acc = acc + xf[k] * rows[..., :, k:k + w]
+        bits = FILTER_BITS - round_0
+        acc = (acc + (1 << (round_0 - 1))) >> round_0
+        return ((acc + (1 << (bits - 1))) >> bits).clamp(0, (1 << bd) - 1)
+    cols = src[..., src_y - 3:src_y + h + 4, src_x:src_x + w]
+    acc = torch.zeros(cols.shape[:-2] + (h, w), dtype=torch.int32,
+                      device=src.device)
+    for k in range(8):
+        acc = acc + yf[k] * cols[..., k:k + h, :]
+    out = (acc + (1 << (FILTER_BITS - 1))) >> FILTER_BITS
+    return out.clamp(0, (1 << bd) - 1)
+
+
 # --------------------------------------------------------------------------
 # Compound (two-reference) path: jnt_convolve without dist weighting
 # (svt_av1_jnt_convolve_{2d,x,y,2d_copy}_c, EbInterPrediction.c:552+,

@@ -39,6 +39,10 @@ ALL_MODES = tuple(PredictionMode(m) for m in range(13))
 SQUARE_SHAPES = ((8, 8), (16, 16), (32, 32))
 RECT_SHAPES = ((16, 8), (8, 16), (32, 16), (16, 32))
 ALL_SHAPES = SQUARE_SHAPES + RECT_SHAPES
+# inter-only shapes (inter frames code up to 64x64 NONE; intra stays at
+# most 32); the inter pass scores its residual on all of INTER_SHAPES
+BIG_SHAPES = ((64, 64), (64, 32), (32, 64))
+INTER_SHAPES = ALL_SHAPES + BIG_SHAPES
 
 # coefficient-rate proxy weights (bits ~ A*nnz + B*sum(log2(1+|q|)) + C)
 RATE_NNZ = 2.724

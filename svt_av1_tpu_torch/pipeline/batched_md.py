@@ -1,13 +1,16 @@
-"""Frame-batched mode decision for key frames (port of
-svt_av1_tpu/pipeline/batched_md.py).
+"""Frame-batched mode decision (port of svt_av1_tpu/pipeline/batched_md.py
+and of the decider of svt_av1_tpu/pipeline/batched_inter.py).
 
-One device pass (ops/omd.py, the K1 kernel) scores every intra mode for every block at
-all candidate shapes; a tiny host DP then composes the partition tree
+Key frames: one device pass (ops/omd.py, the K1 kernel) scores every
+intra mode for every block at all candidate shapes.  Inter frames: the
+inter frame program (pipeline/batched_inter.py: K5-K8 and K1) adds the
+motion-compensated residual costs and the per-unit reference and MV
+choice.  A tiny host DP then composes the partition tree
 (NONE/HORZ/VERT/SPLIT) from the per-shape cost maps, mirroring the
 semantics of FrameCodec._partition (boundary nodes forced to SPLIT).
-The conformant coding pass replays the plan — decisions are open-loop
-(source edges), reconstruction stays exact, matching the reference's
-PD0 decoupling (EbEncDecProcess.c:4534, design doc :732-734).
+The conformant coding pass replays the plan: decisions are open-loop
+(source edges and source references), reconstruction stays exact,
+matching the reference's PD0 decoupling (EbEncDecProcess.c:4534).
 """
 from __future__ import annotations
 
@@ -176,9 +179,8 @@ class _PrefetchWorker:
 
 class TorchIntraDecider(ModeDecider):
     """Key-frame decider driven by the batched open-loop device pass on
-    ``device`` (the counterpart of BatchedIntraDecider).  Only key frames
-    are planned: the encoder raises for configurations with other frame
-    types."""
+    ``device`` (the counterpart of BatchedIntraDecider); TorchDecider
+    adds the inter frames."""
 
     # decisions are a pure function of the precomputed plan, so the
     # native tile coder may dry-run + replay them (native/tile_coder.py)
@@ -297,3 +299,317 @@ class TorchIntraDecider(ModeDecider):
         d = BlockDecision(y_mode=mode)
         d.uv_mode = m if mode <= PredictionMode.PAETH_PRED else 0
         return d
+
+
+class TorchDecider(TorchIntraDecider):
+    """Key frames: the batched intra plan; inter frames: the batched
+    intra + ME plan (pipeline/batched_inter.py) with a per-block
+    intra/inter choice over up to three single references (the
+    counterpart of BatchedDecider)."""
+
+    def __init__(self, device):
+        super().__init__(device)
+        self._inter = None          # {(w,h): is_inter bool map}
+        self._sf = None             # per-16 selection field maps
+        self._names = None          # plan ref index -> named ref
+        # buf-aligned uint8 ME planes on the device per DPB picture: a
+        # recon is referenced by several later frames, so it is cut,
+        # narrowed and uploaded once per coded picture (keyed by its
+        # padded luma array, which the DPB entry keeps; the cache entry
+        # keeps it alive too, so its id stays unique)
+        self._me_plane_cache = {}
+
+    def plan_superblock(self, codec, mi_row, mi_col):
+        from ..ops import bme
+
+        if codec.fh.frame_type == FrameType.KEY_FRAME:
+            self._inter = None
+            return super().plan_superblock(codec, mi_row, mi_col)
+        if self._planned_for is codec:
+            return
+        self._planned_for = codec
+        if codec.refs is None or codec.buf_h < bme.SB + 2 * (
+                bme.REFINE_R + bme.MARGIN):
+            self._plan = None
+            self._modes = None
+            self._inter = None
+            return
+        if self.prof is not None:
+            with self.prof("plan"):
+                self._plan_inter(codec)
+        else:
+            self._plan_inter(codec)
+
+    def _ref_plane(self, codec, name):
+        """Buf-aligned uint8 ME plane of a named ref's reconstruction on
+        the device, uploaded once per coded picture."""
+        from .frame_codec import REF_PAD
+
+        luma = codec.refs[name][0]
+        key = (id(luma), codec.buf_h, codec.buf_w)
+        hit = self._me_plane_cache.get(key)
+        if hit is not None and hit[0] is luma:
+            return hit[1]
+        ref_y = np.asarray(luma)[REF_PAD:REF_PAD + codec.buf_h,
+                                 REF_PAD:REF_PAD + codec.buf_w]
+        dev = omd.upload_plane(ref_y.astype(np.uint8), codec.buf_w,
+                               codec.buf_h, codec.seq.bit_depth, self.device)
+        if len(self._me_plane_cache) > 12:
+            self._me_plane_cache.pop(next(iter(self._me_plane_cache)))
+        self._me_plane_cache[key] = (luma, dev)
+        return dev
+
+    @staticmethod
+    def plan_names(searched, picture_of) -> list:
+        """The plan's references: the first three searched names, less
+        those whose picture an earlier name already brings.  A duplicate
+        never wins the selection (ties go to the first candidate, and
+        every reference but the first pays the SB penalty), so dropping
+        it leaves the plan as it was and saves its motion search."""
+        names, seen = [], set()
+        for n in searched[:3]:
+            pic = picture_of(n)
+            if pic not in seen:
+                seen.add(pic)
+                names.append(n)
+        return names
+
+    def _plan_params(self, codec):
+        """(names, bwd_mask, allow_comp, rel): the plan's static shape,
+        shared by the in-line path and the cross-frame prefetch."""
+        names = self.plan_names(codec.search_refs(),
+                                lambda n: id(codec.refs[n][0]))
+        # the "backward" side of a compound pair follows the NAMED ref
+        # class (BWDREF..ALTREF): compound syntax codes ref1 with the
+        # comp_bwdref tree
+        bwd_mask = tuple(n >= 5 for n in names)
+        allow_comp = bool(codec.fh.reference_select
+                          and getattr(codec, "compound_level", 1) > 0
+                          and any(bwd_mask) and not all(bwd_mask))
+        ref_dists = getattr(codec, "ref_dists", None)
+        rel = tuple(
+            (ref_dists.get(n, 1 if n >= 5 else -1) if ref_dists
+             else (1 if n >= 5 else -1)) for n in names)
+        return names, bwd_mask, allow_comp, rel
+
+    # cross-frame prefetch state: {display: (key, future)} where key =
+    # (qindex, names, rel, ref displays, allow_comp) must match at
+    # retrieval
+    _prefetch_inter: dict | None = None
+
+    def prefetch_inter(self, display: int, src_plane, me_refs: dict,
+                       names: list, rel: tuple, ref_displays: tuple,
+                       qindex: int, reference_select: bool,
+                       compound_level: int, buf_w: int, buf_h: int, bd: int):
+        """Submit the NEXT frame's device plan while the host codes the
+        current one (open-loop: ME runs on reference SOURCES, so the plan
+        does not depend on the reconstruction in flight).  The caller
+        predicts ``names``/``rel``; _plan_inter checks the prediction and
+        plans in line on a mismatch."""
+        from ..entropy.tables import FrameCdfs
+        from .batched_inter import inter_maps_dispatch
+        from .rdo import rd_lambda
+
+        if TorchIntraDecider._executor is None:
+            TorchIntraDecider._executor = _PrefetchWorker()
+        if self._prefetch_inter is None:
+            self._prefetch_inter = {}
+        bwd_mask = tuple(n >= 5 for n in names)
+        allow_comp = bool(reference_select and compound_level > 0
+                          and any(bwd_mask) and not all(bwd_mask))
+        key = (qindex, tuple(names), tuple(rel), tuple(ref_displays),
+               allow_comp)
+        if display in self._prefetch_inter \
+                and self._prefetch_inter[display][0] == key:
+            return
+        lam = rd_lambda(qindex, bd)
+        mode_bits = default_mode_bits(FrameCdfs(qindex))
+        refs = [me_refs[n] for n in names]
+        fut = TorchIntraDecider._executor.submit(
+            inter_maps_dispatch, src_plane, refs, buf_w, buf_h, qindex, lam,
+            mode_bits, bd, self.device, bwd_mask, allow_comp, rel)
+        self._prefetch_inter[display] = (key, fut)
+
+    def _take_prefetched_inter(self, codec, key):
+        if not self._prefetch_inter:
+            return None
+        got = self._prefetch_inter.pop(codec.fh.order_hint, None)
+        if got is None:
+            return None
+        if got[0] != key:
+            from ..profiling import LOG
+            LOG.debug("prefetch_inter mismatch d=%d want=%s got=%s",
+                      codec.fh.order_hint, key, got[0])
+            got[1].cancel()
+            return None
+        return got[1].result()
+
+    def _plan_inter(self, codec):
+        from .batched_inter import (INTRA_IN_INTER_BITS,
+                                    inter_maps_dispatch)
+        from .rdo import rd_lambda
+
+        lam = rd_lambda(codec.fh.base_q_idx, codec.seq.bit_depth)
+        names, bwd_mask, allow_comp, rel = self._plan_params(codec)
+        self._names = names
+        me_refs = getattr(codec, "me_refs", None)
+        ref_disp = getattr(codec, "me_ref_displays", None)
+        key = (codec.fh.base_q_idx, tuple(names), tuple(rel),
+               tuple(ref_disp[n] for n in names) if ref_disp else (),
+               allow_comp)
+        got = self._take_prefetched_inter(codec, key) \
+            if me_refs is not None else None
+        if got is None:
+            from ..entropy.tables import FrameCdfs
+            # the prefetch plans with qindex-default mode bits; the in-line
+            # open-loop path does the same, so the stream does not depend
+            # on the prefetch's timing
+            mode_bits = default_mode_bits(FrameCdfs(codec.fh.base_q_idx)) \
+                if me_refs is not None else default_mode_bits(codec.fc)
+            if me_refs is not None:
+                # open-loop: ME against the reference pictures' SOURCES
+                refs = [me_refs[n] for n in names]
+            else:
+                refs = [self._ref_plane(codec, n) for n in names]
+            # one upload per frame, shared with the filter chain
+            got = inter_maps_dispatch(
+                codec.device_source()[0], refs, codec.buf_w, codec.buf_h,
+                codec.fh.base_q_idx, lam, mode_bits, codec.seq.bit_depth,
+                self.device, bwd_mask, allow_comp, rel)
+        intra, inter_cost, sf, mvb = got
+        self._sf = sf
+
+        # frame-level interpolation filter, decided before any replay MC
+        codec.fh.interpolation_filter = self._select_interp_filter(
+            codec, sf, names)
+
+        # per-shape combined cost + choice: a shape is inter-eligible when
+        # every 16x16 unit it covers made the SAME choice (ref + MVs -> one
+        # coded block); sub-16 shapes inherit the parent unit's choice
+        self._modes = {s: m for s, (m, _) in intra.items()}
+        self._inter = {}
+        cost = {}
+        for (w, h) in omd.INTER_SHAPES:
+            nc = inter_cost[(w, h)]
+            if (w, h) in intra:
+                ic = intra[(w, h)][1] + lam * INTRA_IN_INTER_BITS
+            else:
+                # 64-px shapes are inter-only (intra stays <= 32); the DP
+                # splits where inter is ineligible
+                ic = np.full(nc.shape, np.inf, np.float32)
+            nr, ncol = ic.shape
+            fy, fx = max(h // 16, 1), max(w // 16, 1)
+            pr = np.arange(nr) * h // 16
+            pc = np.arange(ncol) * w // 16
+            ok = np.ones(ic.shape, bool)
+            for k in ("sel", "fwd_i", "bwd_i", "mv_r", "mv_c", "mv1_r",
+                      "mv1_c"):
+                m = sf[k]
+                base = m[np.ix_(pr, pc)]
+                for dy in range(fy):
+                    for dx in range(fx):
+                        ok &= m[np.ix_(pr + dy, pc + dx)] == base
+            total_inter = np.where(ok, nc + lam * mvb[np.ix_(pr, pc)],
+                                   np.inf)
+            use_inter = total_inter < ic
+            self._inter[(w, h)] = use_inter
+            cost[(w, h)] = np.where(use_inter, total_inter, ic)
+        self._build_plan(codec, cost, lam)
+
+    def _select_interp_filter(self, codec, sf, names):
+        """3-way frame-level filter pick: sampled SAD of the planned
+        fractional-MV units under REGULAR/SMOOTH/SHARP taps.  REGULAR
+        wins ties (the ME and cost maps were modeled with it)."""
+        sel, mvr, mvc = sf["sel"], sf["mv_r"], sf["mv_c"]
+        frac = ((mvr % 8) != 0) | ((mvc % 8) != 0)
+        # units that stay fully inside the visible frame
+        nr, nc = mvr.shape
+        vr = (np.arange(nr) + 1) * 16 <= codec.fh.frame_height
+        vc = (np.arange(nc) + 1) * 16 <= codec.fh.frame_width
+        frac &= vr[:, None] & vc[None, :]
+        idx = np.argwhere(frac)
+        if len(idx) < 8:
+            return 0
+        step = max(1, len(idx) // 96)
+        idx = idx[::step][:96]
+        src = codec.source[0]
+        fh = codec.fh
+        keep = fh.interpolation_filter
+        totals = []
+        for flt in (0, 1, 2):
+            fh.interpolation_filter = flt
+            s = 0
+            for ui, uj in idx:
+                y, x = int(ui) * 16, int(uj) * 16
+                ref = names[int(sel[ui, uj])]
+                mv = (int(mvr[ui, uj]), int(mvc[ui, uj]))
+                pred = codec.predict_inter(0, mv, x, y, 16, 16, ref)
+                s += int(np.abs(src[y:y + 16, x:x + 16].astype(np.int32)
+                                - pred).sum())
+            totals.append(s)
+        fh.interpolation_filter = keep
+        best = int(np.argmin(totals))
+        if best and totals[best] >= totals[0] * 0.998:
+            return 0
+        return best
+
+    def _build_plan(self, codec, cost, lam):
+        """Partition DP over the combined cost maps, up to 64x64 NONE on
+        inter frames (coherent motion codes as one block)."""
+        pbits = {b: _partition_bits(codec.fc, b) for b in (8, 16, 32, 64)}
+        self._plan = partition_dp(cost, lam, pbits, codec.mi_rows,
+                                  codec.mi_cols, bsizes=(16, 32, 64))
+
+    # -- replay ---------------------------------------------------------
+
+    def decide_inter(self, codec, x, y, bw, bh, mi_row, mi_col, w4,
+                     h4=None):
+        from . import mv_pred as mp
+        from .batched_inter import SEL_MV_W, selection_pens
+
+        if h4 is None:
+            h4 = w4
+        if self._inter is None or (bw, bh) not in self._inter:
+            return super().decide_inter(codec, x, y, bw, bh, mi_row,
+                                        mi_col, w4, h4)
+        if not self._inter[(bw, bh)][y // bh, x // bw]:
+            return self.decide(codec, x, y, bw, bh)
+        sf = self._sf
+        u16 = (y // 16, x // 16)
+        ref = self._names[int(sf["sel"][u16])]
+        mv = (int(sf["mv_r"][u16]), int(sf["mv_c"][u16]))
+        stack_res = mp.find_mv_stack(
+            codec.mi, mi_row, mi_col, w4, h4, ref,
+            codec.mi_rows, codec.mi_cols, sb_mi=codec.seq.sb_size // 4,
+            sign_bias=codec.sign_bias, tile=codec.tile)
+        nearest = tuple(stack_res.ref_mv_list[0])
+        near = tuple(stack_res.ref_mv_list[1])
+        # mini candidate refinement against the true MVP stack: the device
+        # plan supplies NEWMV; NEAREST/NEAR/GLOBAL often code almost free
+        src_blk = codec.source[0][y:y + bh, x:x + bw].astype(np.int32)
+        ps = float(selection_pens(codec.fh.base_q_idx,
+                                  codec.seq.bit_depth)[3]) / SEL_MV_W
+        cands = []
+        if codec.mv_window_in_frame(mv, x, y, bw, bh):
+            cands.append((mv, mp.NEWMV, 96 * ps))
+        if codec.mv_window_in_frame(nearest, x, y, bw, bh):
+            cands.append((nearest, mp.NEARESTMV, 0))
+        if len(stack_res.stack) >= 2 and near != nearest \
+                and codec.mv_window_in_frame(near, x, y, bw, bh):
+            cands.append((near, mp.NEARMV, 16 * ps))
+        if codec.mv_window_in_frame((0, 0), x, y, bw, bh):
+            cands.append(((0, 0), mp.GLOBALMV, 32 * ps))
+        if not cands:
+            return self.decide(codec, x, y, bw, bh)
+        best = None
+        for cmv, cmode, pen in cands:
+            pred = codec.predict_inter(0, cmv, x, y, bw, bh, ref)
+            sad = int(np.abs(src_blk - pred).sum()) + pen
+            if best is None or sad < best[0]:
+                best = (sad, cmv, cmode)
+        _, mv, mode = best
+        if mode == mp.NEWMV and mv == nearest:
+            mode = mp.NEARESTMV
+        return BlockDecision(is_inter=True, inter_mode=mode,
+                             mv=(int(mv[0]), int(mv[1])),
+                             ref_mv_idx=0, ref=ref)

@@ -711,9 +711,10 @@ class FrameCodec:
         self.decider = decider
         self._init_lr_state()
         from ..native import tile_coder
-        got = None
         if self.fh.frame_type == FrameType.KEY_FRAME:
             got = tile_coder.try_encode_tiles_native(self, decider)
+        else:
+            got = tile_coder.try_encode_tiles_native_inter(self, decider)
         if got is not None:
             return got
         blobs = []

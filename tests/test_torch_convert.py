@@ -10,6 +10,9 @@ import pytest
 
 import svt_av1_tpu
 from svt_av1_tpu import config as ref_config
+from svt_av1_tpu.ops import bme as ref_bme
+from svt_av1_tpu.ops import inter as ref_inter
+from svt_av1_tpu.pipeline import batched_inter as ref_bi
 from svt_av1_tpu_torch import config, convert
 
 REF_DIR = Path(svt_av1_tpu.__file__).resolve().parent
@@ -79,3 +82,35 @@ def test_config_from_reference_refuses_unknown_fields():
     d["no_such_field"] = 1
     with pytest.raises(ValueError):
         convert.config_from_reference(d)
+
+
+def _ref_constants():
+    return {
+        "bme": {n: getattr(ref_bme, n) for n in (
+            "SB", "COARSE_R", "REFINE_R", "MARGIN", "ME_SHAPES",
+            "SUBPEL_DELTAS")},
+        "selection": {n: getattr(ref_bi, n) for n in (
+            "REF_PEN_SB", "COMP_PEN_SB", "DEV_PEN", "SEL_MV_W",
+            "PEN_TUNE_QINDEX", "MV_BIT_SCALE", "INTER_MODE_BITS")},
+        "interp": {"REGULAR": np.stack(
+            [ref_inter.interp_kernel(ref_inter.REGULAR, q4, 16)
+             for q4 in range(16)]).tolist()},
+    }
+
+
+@pytest.mark.parametrize("bad", [None, "value", "missing", "shape"])
+def test_constants_from_reference_loads_and_refuses_a_mismatch(bad):
+    ref = _ref_constants()
+    if bad is None:
+        got = convert.constants_from_reference(ref)
+        assert got["bme"]["REFINE_R"] == 16
+        assert got["interp"]["REGULAR"].shape == (16, 8)
+        return
+    if bad == "value":
+        ref["selection"]["DEV_PEN"] += 1.0
+    elif bad == "missing":
+        del ref["bme"]["MARGIN"]
+    else:
+        ref["bme"]["ME_SHAPES"] = ref["bme"]["ME_SHAPES"][:-1]
+    with pytest.raises(ValueError):
+        convert.constants_from_reference(ref)

@@ -1,10 +1,11 @@
-"""The ported slice end to end on the CPU: all-intra preset-8 encode
-through svt_av1_tpu_torch (plain PyTorch versions of the kernels) against
-the JAX package's device path (its jitted programs on the CPU backend).
+"""The ported slices end to end on the CPU: all-intra and low-delay P
+(one key frame, then P frames) preset-8 encodes through svt_av1_tpu_torch
+(plain PyTorch versions of the kernels) against the JAX package's device
+path (its jitted programs on the CPU backend).
 
-The stream must be byte-identical; the JAX decoder must reproduce the
-port's recon exactly; the one-picture prefetch pipeline must not change a
-byte.
+The streams must be byte-identical; the JAX decoder must reproduce the
+port's recon exactly; the prefetch pipelines (the next key frame's intra
+decision, the next P frame's open-loop ME plan) must not change a byte.
 """
 import numpy as np
 import pytest
@@ -14,6 +15,7 @@ from svt_av1_tpu.config import EncoderConfig as RefConfig
 from svt_av1_tpu.config import PredStructure as RefPred
 from svt_av1_tpu_torch import api
 from svt_av1_tpu_torch.config import EncoderConfig, PredStructure
+from svt_av1_tpu_torch.pipeline.batched_md import TorchDecider
 
 from test_e2e import synthetic_clip
 
@@ -53,6 +55,29 @@ def port_64(tmp_path_factory):
     return _port_encode(tmp_path_factory.mktemp("port"), 64, 64, 2)
 
 
+IPP = dict(intra_period_length=-1)
+
+
+@pytest.fixture(scope="module")
+def jax_ipp_stream(tmp_path_factory):
+    """The JAX package's device path on the 192x128 low-delay P clip (the
+    smallest size whose buffer takes the batched inter plan)."""
+    frames = synthetic_clip(192, 128, 6, seed=13)
+    cfg = RefConfig(source_width=192, source_height=128,
+                    pred_structure=RefPred.LOW_DELAY_P, **{**SLICE, **IPP})
+    path = tmp_path_factory.mktemp("ref") / "ref_ipp.ivf"
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setenv("SVT_TPU_DEVICE", "1")
+        ref_api.encode_ivf(frames, cfg, str(path))
+    return path.read_bytes()
+
+
+@pytest.fixture(scope="module")
+def port_ipp(tmp_path_factory):
+    return _port_encode(tmp_path_factory.mktemp("port"), 192, 128, 6,
+                        "ipp.ivf", **IPP)
+
+
 def test_stream_byte_identical_to_jax_device_path(jax_device_stream,
                                                   port_64):
     data, _, _ = port_64
@@ -60,13 +85,22 @@ def test_stream_byte_identical_to_jax_device_path(jax_device_stream,
     assert data == jax_device_stream
 
 
-@pytest.mark.parametrize("size", [(64, 64), (176, 144)])
-def test_reference_decoder_reproduces_recon(tmp_path, port_64, size):
-    w, h = size
+def test_ipp_stream_byte_identical_to_jax_device_path(jax_ipp_stream,
+                                                      port_ipp):
+    data, _, _ = port_ipp
+    assert len(data) == len(jax_ipp_stream)
+    assert data == jax_ipp_stream
+
+
+@pytest.mark.parametrize("size", [(64, 64), (176, 144), "ipp"])
+def test_reference_decoder_reproduces_recon(tmp_path, port_64, port_ipp,
+                                            size):
     if size == (64, 64):
         _, recon, path = port_64
+    elif size == "ipp":
+        _, recon, path = port_ipp
     else:
-        _, recon, path = _port_encode(tmp_path, w, h, 1)
+        _, recon, path = _port_encode(tmp_path, *size, 1)
     frames, _ = ref_api.decode_ivf(str(path))
     assert len(frames) == len(recon)
     for got, want in zip(frames, recon):
@@ -84,13 +118,71 @@ def test_prefetch_pipeline_does_not_change_the_stream(tmp_path, port_64):
     assert serial == data
 
 
+def test_ipp_prefetch_does_not_change_the_stream(tmp_path, port_ipp,
+                                                monkeypatch):
+    """With the next P frame's plan prefetch disabled, every plan runs in
+    line."""
+    monkeypatch.setattr(api.Encoder, "_maybe_prefetch_inter",
+                        lambda self, job, nxt, fh, planes: None)
+    data, _, _ = port_ipp
+    inline, _, _ = _port_encode(tmp_path, 192, 128, 6, "inline.ivf", **IPP)
+    assert inline == data
+
+
+def test_ipp_prefetch_submits_and_hits(tmp_path, monkeypatch):
+    hits = {"submit": 0, "hit": 0}
+    orig_submit = TorchDecider.prefetch_inter
+    orig_take = TorchDecider._take_prefetched_inter
+
+    def submit(self, *a, **k):
+        hits["submit"] += 1
+        return orig_submit(self, *a, **k)
+
+    def take(self, codec, key):
+        got = orig_take(self, codec, key)
+        hits["hit"] += got is not None
+        return got
+
+    monkeypatch.setattr(TorchDecider, "prefetch_inter", submit)
+    monkeypatch.setattr(TorchDecider, "_take_prefetched_inter", take)
+    _port_encode(tmp_path, 192, 128, 4, "hits.ivf", **IPP)
+    assert hits["submit"] == 3 and hits["hit"] == 3
+
+
+def test_closed_loop_plan_decodes(tmp_path, monkeypatch):
+    """Without the references' source planes the P-frame plan searches
+    their reconstructions (TorchDecider._ref_plane, one upload per coded
+    picture); the stream still decodes to the port's recon."""
+    monkeypatch.setattr(api.Encoder, "_store_me_src",
+                        lambda self, display, plane: None)
+    uploads = []
+    orig = TorchDecider._ref_plane
+
+    def ref_plane(self, codec, name):
+        got = orig(self, codec, name)
+        uploads.append(id(got))
+        return got
+
+    monkeypatch.setattr(TorchDecider, "_ref_plane", ref_plane)
+    _, recon, path = _port_encode(tmp_path, 192, 128, 4, "closed.ivf",
+                                  **IPP)
+    # pictures 0, 1, 2 are each the reference of one P frame
+    assert len(uploads) == 3 and len(set(uploads)) == 3
+    frames, _ = ref_api.decode_ivf(str(path))
+    assert len(frames) == len(recon) == 4
+    for got, want in zip(frames, recon):
+        for p in range(3):
+            np.testing.assert_array_equal(got[p], want[p])
+
+
 @pytest.mark.parametrize("kw", [
     dict(enc_mode=6),
-    dict(intra_period_length=-1),
+    dict(intra_period_length=-1, pred_structure=PredStructure.RANDOM_ACCESS),
     dict(pred_structure=PredStructure.RANDOM_ACCESS),
     dict(encoder_bit_depth=10),
     dict(enable_restoration=1),
-], ids=["preset6", "inter", "random_access", "10bit", "restoration"])
+], ids=["preset6", "inter_random_access", "random_access", "10bit",
+        "restoration"])
 def test_unported_configuration_raises(kw):
     cfg = EncoderConfig(**{**dict(source_width=64, source_height=64,
                                   pred_structure=PredStructure.LOW_DELAY_P,

@@ -19,15 +19,21 @@ import numpy as np
 from svt_av1_tpu_torch.api import Encoder
 from svt_av1_tpu_torch.config import EncoderConfig, PredStructure
 rng = np.random.default_rng(0)
-y = rng.integers(0, 256, (64, 64)).astype(np.uint8)
-u = np.full((32, 32), 120, np.uint8)
-v = np.full((32, 32), 130, np.uint8)
-enc = Encoder(EncoderConfig(source_width=64, source_height=64, qp=40,
-                            enc_mode=8, intra_period_length=0,
+y = rng.integers(0, 256, (144, 224)).astype(np.uint8)
+u = np.full((64, 96), 120, np.uint8)
+v = np.full((64, 96), 130, np.uint8)
+# low-delay P at the smallest size the batched inter plan takes: one key
+# frame, then P frames of a moving picture
+enc = Encoder(EncoderConfig(source_width=192, source_height=128, qp=40,
+                            enc_mode=8, intra_period_length=-1,
                             pred_structure=PredStructure.LOW_DELAY_P),
               device="cpu")
-out = enc.send_picture((y, u, v)) + enc.flush()
-assert len(out) == 1 and len(out[0]) > 20
+out = []
+for i in range(3):
+    out += enc.send_picture((np.ascontiguousarray(y[i:i + 128, i:i + 192]),
+                             u, v))
+out += enc.flush()
+assert len(out) == 3 and all(len(p) > 20 for p in out)
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "svt_av1_tpu"))
 print("BAD", bad)

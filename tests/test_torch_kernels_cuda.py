@@ -1,7 +1,8 @@
 """The port's CUDA kernels against their plain PyTorch versions on the
 card, at small and ragged shapes (visible sizes that are no multiple of
-the unit sizes), and the slice's stream coded on the card against the
-plain versions on the CPU.  Needs a GPU; run it there with
+the unit sizes), and the slices' streams (all-intra and low-delay P)
+coded on the card against the plain versions on the CPU.  Needs a GPU;
+run it there with
 
     python -m pytest -m cuda --noconftest tests/test_torch_kernels_cuda.py
 
@@ -14,7 +15,8 @@ import torch
 
 from svt_av1_tpu_torch.api import encode_ivf
 from svt_av1_tpu_torch.config import EncoderConfig, PredStructure
-from svt_av1_tpu_torch.ops import cdef, dlf, omd
+from svt_av1_tpu_torch.ops import bme, cdef, dlf, omd
+from svt_av1_tpu_torch.pipeline import batched_inter as bi
 
 pytestmark = pytest.mark.cuda
 
@@ -116,6 +118,131 @@ def test_stream_on_the_card_equals_the_plain_stream(dev, tmp_path):
               for i in range(2)]
     cfg = EncoderConfig(source_width=176, source_height=144, qp=40,
                         enc_mode=8, intra_period_length=0,
+                        pred_structure=PredStructure.LOW_DELAY_P)
+    out = {}
+    for d in ("cuda", "cpu"):
+        p = tmp_path / f"{d}.ivf"
+        encode_ivf(frames, cfg, str(p), device=d)
+        out[d] = p.read_bytes()
+    assert out["cuda"] == out["cpu"]
+
+
+def _moving_pair(h, w, seed):
+    """(src, ref) uint8 planes: the source is the reference moved by a
+    fractional amount (the average of two shifts) plus noise."""
+    rng = np.random.default_rng(seed)
+    ref = _plane(h, w, seed)
+    a = np.roll(ref, (3, -5), axis=(0, 1)).astype(np.int32)
+    b = np.roll(ref, (4, -5), axis=(0, 1)).astype(np.int32)
+    src = ((a + b + 1) // 2 + rng.integers(-2, 3, (h, w))).clip(0, 255)
+    return src.astype(np.uint8), ref
+
+
+@pytest.mark.parametrize("r", [8, 12, 24])
+def test_me_coarse_matches_plain(dev, r):
+    src, ref = (torch.from_numpy(p).to(dev) for p in _moving_pair(192, 256,
+                                                                  r))
+    before = bme.me_coarse.launches
+    got = bme.me_coarse(src, ref, r)
+    assert torch.equal(got, bme.coarse_sb_search(src, ref, r))
+    assert bme.me_coarse.launches == before + 1
+
+
+@pytest.mark.parametrize("shapes", [bme.ME_SHAPES, ((16, 16), (64, 64))],
+                         ids=["all", "path"])
+def test_me_refine_matches_plain(dev, shapes):
+    src, ref = (torch.from_numpy(p).to(dev) for p in _moving_pair(192, 256,
+                                                                  7))
+    coarse = bme.me_coarse(src, ref, 8)
+    got = bme.me_refine(src, ref, coarse, shapes)
+    want = bme.refine_plain(src, ref, coarse, shapes)
+    for s in shapes:
+        for g, w in zip(got[s], want[s]):
+            assert torch.equal(g, w), s
+    assert torch.equal(got["win16"], want["win16"])
+
+
+def test_subpel_matches_plain(dev):
+    src, ref = (torch.from_numpy(p).to(dev) for p in _moving_pair(192, 256,
+                                                                  3))
+    rng = np.random.default_rng(0)
+    # MVs reaching past every edge, as well as the ME's own
+    me = bme.frame_me(src, ref, 8, ((16, 16),))
+    mv_r = bi._nested_to_grid(me[(16, 16)][0], 3, 4, 4, 4)
+    mv_c = bi._nested_to_grid(me[(16, 16)][1], 3, 4, 4, 4)
+    wild = torch.from_numpy(rng.integers(-40, 41, (2, 12, 16))
+                            .astype(np.int32)).to(dev)
+    for r, c in ((mv_r, mv_c), (wild[0], wild[1])):
+        got = bme.subpel_refine16(src, ref, r, c)
+        want = bme.subpel_plain(src, ref, r, c)
+        for g, w in zip(got, want):
+            assert torch.equal(g, w)
+        # the half-pel motion takes fractional MVs
+        assert bool((got[0] % 8 != 0).any())
+
+
+@pytest.mark.parametrize("k", [1, 3])
+@pytest.mark.parametrize("qindex", [60, 160])
+def test_inter_select_matches_plain(dev, k, qindex):
+    rng = np.random.default_rng(k)
+    H, W = 192, 256
+    src, ref = _moving_pair(H, W, k)
+    src_t = torch.from_numpy(src).to(dev)
+    preds, mr, mc, sr, sc = [], [], [], [], []
+    for i in range(k):
+        r = torch.from_numpy(np.roll(ref, (i, -i), axis=(0, 1))).to(dev)
+        me = bme.frame_me(src_t, r, 8, ((16, 16), (64, 64)))
+        a, b, p = bme.subpel_refine16(
+            src_t, r, bi._nested_to_grid(me[(16, 16)][0], 3, 4, 4, 4),
+            bi._nested_to_grid(me[(16, 16)][1], 3, 4, 4, 4))
+        preds.append(p)
+        mr.append(a)
+        mc.append(b)
+        sr.append(me[(64, 64)][0].reshape(3, 4))
+        sc.append(me[(64, 64)][1].reshape(3, 4))
+    args = (src_t, torch.stack(preds), torch.stack(mr), torch.stack(mc),
+            torch.stack(sr), torch.stack(sc), qindex, 250.0)
+    before = bi.inter_select.launches
+    f1, m1, c1 = bi.inter_select(*args)
+    f2, m2, c2 = bi.inter_select_plain(*args)
+    assert bi.inter_select.launches == before + 1
+    for key in bi.SEL_KEYS:
+        assert torch.equal(f1[key], f2[key]), key
+    assert torch.equal(m1, m2)
+    for s in omd.INTER_SHAPES:
+        close = torch.isclose(c1[s], c2[s], rtol=2e-4, atol=2.0)
+        assert close.float().mean().item() >= 0.99, s
+    if k == 3:
+        assert len(torch.unique(f1["sel"])) > 1
+
+
+def test_inter_wrappers_refuse_what_the_kernels_do_not_take(dev):
+    z = torch.zeros((128, 128), dtype=torch.uint8, device=dev)
+    with pytest.raises(ValueError):
+        bme.me_coarse(z.to(torch.int32), z)
+    with pytest.raises(ValueError):
+        bme.me_coarse(z[:, :96].contiguous(), z[:, :96].contiguous())
+    with pytest.raises(ValueError):
+        bme.me_refine(z, z, torch.zeros((2, 2, 2), dtype=torch.int64,
+                                        device=dev))
+    with pytest.raises(ValueError):
+        bme.subpel_refine16(z, z, torch.zeros((8, 8), dtype=torch.int32,
+                                              device=dev),
+                            torch.zeros((4, 8), dtype=torch.int32,
+                                        device=dev))
+
+
+def test_ipp_stream_on_the_card_equals_the_plain_stream(dev, tmp_path):
+    frames = []
+    rng = np.random.default_rng(9)
+    base = _plane(160, 224, 4)
+    for i in range(4):
+        y = np.roll(base, (i, 2 * i), axis=(0, 1))[:128, :192]
+        frames.append((np.ascontiguousarray(y),
+                       rng.integers(100, 140, (64, 96)).astype(np.uint8),
+                       rng.integers(110, 150, (64, 96)).astype(np.uint8)))
+    cfg = EncoderConfig(source_width=192, source_height=128, qp=40,
+                        enc_mode=8, intra_period_length=-1,
                         pred_structure=PredStructure.LOW_DELAY_P)
     out = {}
     for d in ("cuda", "cpu"):
