@@ -24,13 +24,31 @@ Phases, each of which must pass (the script exits non-zero otherwise):
    every kernel K1-K8 must have launched, the frame headers must show
    N_FRAMES - 1 inter frames, the plans must have chosen inter blocks
    with non-zero MVs, and every frame's PSNR must exceed the floor;
-6. agreement: small clips (all-intra and low-delay P) coded on the card
-   and with the plain versions on the CPU give byte-identical streams;
-7. one JSON line listing every kernel, then the device line last.
+6. random access, the configuration of bench.py (1920x1080, preset 8,
+   qp 40, RANDOM_ACCESS with hierarchical_levels 4, intra_period_length
+   33, TPL on, tf_level 2, compound_level 1): RA_FRAMES frames of the
+   moving clip, a key frame and two 16-frame mini-GOPs, counters as in
+   4; every kernel K1-K10 must have launched; it prints the fps of the
+   last 16 frames after a 17-frame warm-up (bench.py's window) and of
+   the whole run, the stage times, per frame the type, layer, qindex
+   and show_existing flag from the stream, and the share of 16x16 units
+   whose plan chose compound; the plans must have chosen compound and
+   the stream must hold show_existing frames; every shown frame's PSNR
+   must exceed the floor;
+7. agreement: small clips (all-intra, low-delay P and random access)
+   coded on the card and with the plain versions on the CPU give
+   byte-identical streams;
+8. one JSON line listing every kernel (launches on the random-access
+   encode), then the device line last.
 
-``--trace DIR`` adds a phase before the last two lines: encodes of
-TRACE_FRAMES frames under torch.profiler (all-intra frames, then P
-frames after a warm-up), which print the card's busy share of the wall
+The kernels phase also holds K9, K8 with the compound row, K10, and
+K5/K6 at the MCTF (1088x1920, 32x32) and TPL (576x960, 16x16)
+geometries against their plain versions.
+
+``--trace DIR`` adds a phase before the last two lines: encodes under
+torch.profiler (TRACE_FRAMES all-intra frames, TRACE_FRAMES P frames
+after a warm-up, and the second 16-frame mini-GOP of the random-access
+clip after the first), which print the card's busy share of the wall
 time and the device time by kernel, and write the Chrome traces into
 DIR (gzipped).
 
@@ -67,6 +85,9 @@ PSNR_FLOOR_DB = 25.0
 KERNEL_REPS = 20
 PLAIN_REPS = 5
 TRACE_FRAMES = 3
+# random access: a key frame and two 16-frame mini-GOPs; bench.py times
+# the last 16 after a 17-frame warm-up
+RA_FRAMES, RA_WARM = 33, 17
 
 # published peaks of one H100 SXM (NVIDIA's data sheet, dense rates):
 # HBM bytes/s and float32 (non-tensor-core) operations/s; the integer
@@ -142,6 +163,16 @@ def slice_config(w, h, intra_period=0):
     return EncoderConfig(source_width=w, source_height=h, qp=QP,
                          enc_mode=8, intra_period_length=intra_period,
                          pred_structure=PredStructure.LOW_DELAY_P)
+
+
+def ra_config(w, h, **kw):
+    """bench.py's configuration: preset 8, qp 40, intra_period_length 33,
+    and the defaults RANDOM_ACCESS, hierarchical_levels 4, TPL on,
+    tf_level 2 and compound_level 1 at preset 8."""
+    from svt_av1_tpu_torch.config import EncoderConfig
+
+    return EncoderConfig(source_width=w, source_height=h, qp=QP, enc_mode=8,
+                         intra_period_length=RA_FRAMES, **kw)
 
 
 def kernels_phase(dev, frame):
@@ -463,6 +494,166 @@ def inter_kernels_phase(dev, ref_frame, src_frame):
     return results
 
 
+def _half_res(y, W, H):
+    """The TPL statistics' plane: the buf-aligned luma, 2x2-averaged (the
+    rounding of tpl_gop_flow's bufal)."""
+    a = np.pad(y, ((0, H - y.shape[0]), (0, W - y.shape[1])), mode="edge")
+    a = a.astype(np.int32).reshape(H // 2, 2, W // 2, 2).sum((1, 3))
+    return ((a + 2) >> 2).astype(np.uint8)
+
+
+def ra_kernels_phase(dev, clip):
+    """K9, K8 with the compound row and K10 at the random-access path's
+    shapes, and K5/K6 at the MCTF and TPL geometries, each against its
+    plain version on the same card tensors.  ``clip``: three consecutive
+    frames of the moving clip; the middle one is predicted from the
+    outer two (one past, one future reference)."""
+    from svt_av1_tpu_torch.ops import bme, omd
+    from svt_av1_tpu_torch.pipeline import batched_inter as bi
+    from svt_av1_tpu_torch.pipeline import tpl
+    from svt_av1_tpu_torch.pipeline.rate_control import RateControl
+    from svt_av1_tpu_torch.pipeline.rdo import rd_lambda
+
+    W, H = -(-WIDTH // 128) * 128, -(-HEIGHT // 128) * 128
+    nr16, nc16 = H // 16, W // 16
+    ny, nx = H // 64, W // 64
+    src = omd.upload_plane(clip[1][0], W, H, 8, dev)
+    refs = [omd.upload_plane(clip[k][0], W, H, 8, dev) for k in (0, 2)]
+    bwd, rel = (False, True), (-1, 1)
+    parts = []
+    for k, ref in enumerate(refs):
+        m = bme.frame_me(src, ref, bme.coarse_r_for_dist(rel[k]),
+                         ((16, 16), (64, 64)))
+        a, b, pr = bme.subpel_refine16(
+            src, ref, bi._nested_to_grid(m[(16, 16)][0], ny, nx, 4, 4),
+            bi._nested_to_grid(m[(16, 16)][1], ny, nx, 4, 4))
+        parts.append((pr, a, b, m[(64, 64)][0].reshape(ny, nx),
+                      m[(64, 64)][1].reshape(ny, nx)))
+    preds, mvq_r, mvq_c, sb_r, sb_c = (
+        torch.stack([p[i] for p in parts]).contiguous() for i in range(5))
+    ref_stack = torch.stack(refs).contiguous()
+    cfg = ra_config(WIDTH, HEIGHT)
+    rc = RateControl(cfg, float(cfg.frame_rate))
+    rc.hierarchical_levels = cfg.hierarchical_levels
+    qindex = rc.pick_qindex(False, 1, 8, (0, 16), -1)
+    lam = rd_lambda(qindex, 8)
+    results = {}
+
+    # -- K9 the compound candidate
+    k9_args = (src, ref_stack, preds, mvq_r, mvq_c, sb_r, sb_c, bwd, rel,
+               qindex)
+    k9 = lambda: bi.compound_joint(*k9_args)  # noqa: E731
+    k9_plain = lambda: bi.compound_joint_plain(*k9_args)  # noqa: E731
+    comp, want = k9(), k9_plain()
+    torch.cuda.synchronize()
+    err = max((comp[k].to(torch.int32) - want[k].to(torch.int32)).abs()
+              .max().item() for k in bi.COMP_KEYS)
+    refined = ((comp["mv1_r"] != mvq_r[1]) | (comp["mv1_c"] != mvq_c[1])
+               | (comp["mv_r"] != mvq_r[0]) | (comp["mv_c"] != mvq_c[0]))
+    print(f"K9 compound_joint: max |kernel - plain| {err} over "
+          f"{len(bi.COMP_KEYS)} outputs, units with a jointly refined arm "
+          f"{refined.float().mean().item():.4f}")
+    assert err == 0
+    units = nr16 * nc16
+    # per unit: 2 arms x 49 offsets x 256 pixels of (add, shift, |diff|,
+    # accumulate), the plain average's SAD and the per-reference SADs
+    ops = units * (2 * 49 * 256 * 4 + 256 * 4 + 2 * 256 * 3)
+    results["compound_joint"] = dict(
+        ms=cuda_ms(k9, KERNEL_REPS), plain_ms=cuda_ms(k9_plain, PLAIN_REPS),
+        max_abs_err=err,
+        bound=bound_ms(nbytes(src, ref_stack, preds, mvq_r, mvq_c, sb_r, sb_c,
+                              *comp.values()), ops),
+        per_call=f"1 launch, 2 references, {units} units "
+                 f"({ops / 1e9:.2f} G integer operations)")
+
+    # -- K8 with the compound row: the random-access path's call
+    args = (src, preds, mvq_r, mvq_c, sb_r, sb_c, qindex, lam)
+    f1, m1, c1 = bi.inter_select(*args, comp=comp)
+    f2, m2, c2 = bi.inter_select_plain(*args, comp=comp)
+    torch.cuda.synchronize()
+    for key in bi.SEL_KEYS:
+        assert torch.equal(f1[key], f2[key]), ("compound row", key)
+    mv_err = (m1 - m2).abs().max().item()
+    assert mv_err <= 1e-4, mv_err
+    worst, err = 1.0, 0.0
+    for s in omd.INTER_SHAPES:
+        close = torch.isclose(c1[s], c2[s], rtol=2e-4, atol=2.0)
+        worst = min(worst, close.float().mean().item())
+        err = max(err, (c1[s] - c2[s]).abs().max().item())
+    hist = torch.bincount(f1["sel"].flatten(), minlength=3).tolist()
+    print(f"K8 inter_select with the compound row: selection fields "
+          f"equal, units per candidate (past, future, compound) {hist}, "
+          f"max |mvbits| diff {mv_err}, costs within rtol 2e-4 / atol 2: "
+          f"worst shape {worst:.6f}")
+    assert worst >= 0.99, worst
+    k8 = lambda: bi.inter_select(*args, comp=comp)  # noqa: E731
+    k8_plain = lambda: bi.inter_select_plain(*args, comp=comp)  # noqa
+    dct_flops = 2 * sum(w + h for (w, h) in omd.INTER_SHAPES) * H * W
+    flops = dct_flops + 12 * len(omd.INTER_SHAPES) * H * W + 3 * 3 * H * W
+    out_b = units * 32 + sum((H // h) * (W // w) * 4
+                             for (w, h) in omd.INTER_SHAPES)
+    results["inter_select"] = dict(
+        ms=cuda_ms(k8, KERNEL_REPS), plain_ms=cuda_ms(k8_plain, PLAIN_REPS),
+        max_abs_err=err,
+        bound=bound_ms(nbytes(src, preds, mvq_r, mvq_c, sb_r, sb_c,
+                              *comp.values()) + out_b, flops),
+        per_call=f"1 launch, 2 references + the compound row "
+                 f"({dct_flops / 1e9:.2f} GFLOP of DCT)")
+
+    # -- K10 at the TPL geometry
+    Hh, Wh = H // 2, W // 2
+    half = [torch.from_numpy(_half_res(clip[k][0], W, H)).to(dev)
+            for k in (0, 1)]
+    k10 = lambda: tpl.block_var16(half[0])  # noqa: E731
+    k10_plain = lambda: tpl.block_var16_plain(half[0])  # noqa: E731
+    a, b = k10(), k10_plain()
+    torch.cuda.synchronize()
+    rel_err = ((a - b).abs() / b.abs().clamp_min(1e-9)).max().item()
+    err = (a - b).abs().max().item()
+    print(f"K10 block_var16 {Wh}x{Hh}: max |kernel - plain| {err}, max "
+          f"relative {rel_err}")
+    assert rel_err <= 1e-6, rel_err
+    results["block_var16"] = dict(
+        ms=cuda_ms(k10, KERNEL_REPS), plain_ms=cuda_ms(k10_plain, PLAIN_REPS),
+        max_abs_err=err, bound=bound_ms(nbytes(half[0], a), 5 * Hh * Wh),
+        per_call=f"1 launch, {Wh}x{Hh}")
+
+    # -- K5/K6 at the MCTF geometry (32x32 alone) and the TPL geometry
+    # (16x16 alone)
+    Hm = -(-HEIGHT // 64) * 64
+    mctf = [torch.from_numpy(np.ascontiguousarray(np.pad(
+        clip[k][0], ((0, Hm - HEIGHT), (0, 0)), mode="edge"))).to(dev)
+        for k in (1, 0)]
+    r = bme.COARSE_R
+    for what, (c, n), shape in (("MCTF", mctf, (32, 32)),
+                                ("TPL", (half[1], half[0]), (16, 16))):
+        got = bme.frame_me(c, n, shapes=(shape,))
+        coarse = bme.coarse_sb_search(c, n)
+        want = bme.refine_plain(c, n, coarse, (shape,))
+        torch.cuda.synchronize()
+        err = max((g - w).abs().max().item()
+                  for g, w in zip(got[shape], want[shape]))
+        assert err == 0
+        hh, ww = c.shape
+        n_sb = (hh // 64) * (ww // 64)
+        times = [cuda_ms(f, reps) for f, reps in (
+            (lambda: bme.me_coarse(c, n), KERNEL_REPS),
+            (lambda: bme.coarse_sb_search(c, n), PLAIN_REPS),
+            (lambda: bme.me_refine(c, n, coarse, (shape,)), KERNEL_REPS),
+            (lambda: bme.refine_plain(c, n, coarse, (shape,)), PLAIN_REPS))]
+        # the bounds count as the K5 and K6 rows do
+        b5 = bound_ms(nbytes(c, n, coarse),
+                      2 * hh * ww + n_sb * (2 * r + 1) ** 2 * 64 * 3)
+        b6 = bound_ms(nbytes(c, n, coarse, *got[shape]),
+                      n_sb * 2 * bme.NPOS ** 2 * 64 * 64 * 3)
+        print(f"K5/K6 at the {what} geometry {ww}x{hh}, shape "
+              f"{shape[0]}x{shape[1]} alone: max |kernel - plain| {err}; "
+              f"K5 {times[0]:.4f} ms (plain {times[1]:.4f} ms, bound "
+              f"{b5[0]:.5f} ms, {b5[1]}), K6 {times[2]:.4f} ms (plain "
+              f"{times[3]:.4f} ms, bound {b6[0]:.5f} ms, {b6[1]})")
+    return results
+
+
 # --------------------------------------------------------------------------
 # phases 4 and 5: the main paths
 # --------------------------------------------------------------------------
@@ -574,7 +765,7 @@ def ipp_phase(counters, frames, out_dir):
                                    slice_config(WIDTH, HEIGHT, -1), path,
                                    on_packet)
     print("low-delay P main path launches:", json.dumps(launches))
-    missing = [n for n, c in launches.items() if c == 0]
+    missing = [n for n in IPP_KERNELS if launches[n] == 0]
     assert not missing, f"kernels not launched on the main path: {missing}"
     params = stream_frame_params(path)
     print("per frame (frame type, deblocking level, CDEF y, CDEF uv) from "
@@ -590,6 +781,140 @@ def ipp_phase(counters, frames, out_dir):
     return launches
 
 
+def stream_headers(path):
+    """Per temporal unit of the IVF at ``path``: dict(show_existing,
+    display, type, qindex), read back from the frame headers (the
+    reference slots' order hints tracked as a decoder tracks them)."""
+    from svt_av1_tpu_torch.bitstream.bits import BitReader
+    from svt_av1_tpu_torch.bitstream.headers import (iter_obus,
+                                                     parse_frame_header,
+                                                     parse_sequence_header)
+    from svt_av1_tpu_torch.constants import ObuType
+    from svt_av1_tpu_torch.io import IvfReader
+
+    seq, hints, out = None, [0] * 8, []
+    for pkt, _ in IvfReader(str(path)):
+        for obu_type, payload in iter_obus(pkt):
+            if obu_type == ObuType.OBU_SEQUENCE_HEADER:
+                seq = parse_sequence_header(payload)
+            elif obu_type in (ObuType.OBU_FRAME, ObuType.OBU_FRAME_HEADER):
+                fh = parse_frame_header(BitReader(payload), seq, tuple(hints))
+                if isinstance(fh, int):
+                    out.append(dict(show_existing=True, display=hints[fh]))
+                    continue
+                out.append(dict(show_existing=False, display=fh.order_hint,
+                                type=int(fh.frame_type),
+                                qindex=fh.base_q_idx, shown=fh.show_frame))
+                for i in range(8):
+                    if (fh.refresh_frame_flags >> i) & 1:
+                        hints[i] = fh.order_hint
+    return out
+
+
+def ra_phase(counters, frames, out_dir):
+    """bench.py's configuration on RA_FRAMES frames of the moving clip;
+    returns the launches of the run."""
+    from svt_av1_tpu_torch.api import Encoder
+    from svt_av1_tpu_torch.io import IvfWriter
+
+    path = Path(out_dir) / "smoke_1080p_ra.ivf"
+    cfg = ra_config(WIDTH, HEIGHT)
+    enc = Encoder(cfg)                      # the default device: CUDA
+    assert enc.device.type == "cuda"
+    layers, comp = {}, []
+    run_job = enc._run_job
+
+    def logged(job, nxt=None):
+        out = run_job(job, nxt)
+        if job.kind == "code":
+            layers[job.display] = job.layer
+            if not job.is_key:
+                dec = enc._decider_obj
+                comp.append((job.display, float(
+                    (dec._sf["sel"] >= len(dec._names)).mean())))
+        return out
+
+    enc._run_job = logged
+    # the frame ME's launches by use: MCTF, TPL, and the rest (the plans)
+    by_use = {"MCTF": 0, "TPL": 0}
+
+    def counting(use, method):
+        def run(*a, **k):
+            before = counters["me_coarse"].launches
+            out = method(*a, **k)
+            by_use[use] += counters["me_coarse"].launches - before
+            return out
+        return run
+
+    enc._tf_source = counting("MCTF", enc._tf_source)
+    enc._maybe_tpl = counting("TPL", enc._maybe_tpl)
+    for fn in counters.values():
+        fn.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with IvfWriter(str(path), WIDTH, HEIGHT, cfg.frame_rate) as w:
+        pts = 0
+        for i, planes in enumerate(list(frames) + [None]):
+            if i == RA_WARM:
+                torch.cuda.synchronize()
+                t_warm = time.perf_counter()
+            pkts = enc.flush() if planes is None else enc.send_picture(planes)
+            for pkt in pkts:
+                w.write_frame(pkt, pts=pts)
+                pts += 1
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    launches = {name: fn.launches for name, fn in counters.items()}
+    n_timed = len(frames) - RA_WARM
+    print(f"random access (bench.py's configuration: RANDOM_ACCESS, "
+          f"hierarchical_levels {cfg.hierarchical_levels}, "
+          f"intra_period_length {cfg.intra_period_length}, qp {QP}, preset "
+          f"8, TPL on, tf_level 2, compound_level 1): {len(frames)} frames "
+          f"{WIDTH}x{HEIGHT}; last {n_timed} frames after a {RA_WARM}-frame "
+          f"warm-up in {t1 - t_warm:.3f} s, {n_timed / (t1 - t_warm):.4f} "
+          f"fps; whole run {t1 - t0:.3f} s, {len(frames) / (t1 - t0):.4f} "
+          f"fps; {path.stat().st_size} bytes")
+    rep = enc.perf_report()
+    print("random access stage ms/frame (host wall clock):", json.dumps(
+        {k: v.get("ms_per_frame") for k, v in rep.items() if k != "_wall"}))
+    print("random access main path launches:", json.dumps(launches))
+    print(f"K5/K6 launches by use: MCTF {by_use['MCTF']}, TPL "
+          f"{by_use['TPL']}, inter plans "
+          f"{launches['me_coarse'] - by_use['MCTF'] - by_use['TPL']}")
+    missing = [n for n, c in launches.items() if c == 0]
+    assert not missing, f"kernels not launched on the main path: {missing}"
+
+    heads = stream_headers(path)
+    for h in heads:
+        if not h["show_existing"]:
+            h["layer"] = layers[h["display"]]
+    print("per temporal unit from the stream (display, type, layer, "
+          "qindex, show_existing):", json.dumps(
+              [(h["display"], h.get("type"), h.get("layer"), h.get("qindex"),
+                h["show_existing"]) for h in heads]))
+    shown = [h["display"] for h in heads
+             if h["show_existing"] or h["shown"]]
+    assert shown == list(range(len(frames))), shown
+    assert any(h["show_existing"] for h in heads)
+    coded = [h for h in heads if not h["show_existing"]]
+    assert sorted(h["display"] for h in coded) == list(range(len(frames)))
+    assert [h["type"] for h in coded].count(0) == 1
+    print("compound share of the 16x16 units per inter frame (display, "
+          "share):", json.dumps([(d, round(c, 4)) for d, c in comp]))
+    assert max(c for _, c in comp) > 0, "no unit chose compound"
+
+    scores = []
+    for d, src in enumerate(frames):
+        rec = enc.recon_by_display[d]
+        for p in range(3):
+            assert rec[p].shape == src[p].shape
+        scores.append(psnr(src[0], rec[0]))
+    print(f"random access recon luma PSNR per shown frame (dB): "
+          f"{[round(x, 3) for x in scores]}")
+    assert min(scores) > PSNR_FLOOR_DB, (min(scores), PSNR_FLOOR_DB)
+    return launches
+
+
 # --------------------------------------------------------------------------
 # phase 6: small clips, kernels on the card vs plain versions on the CPU
 # --------------------------------------------------------------------------
@@ -599,18 +924,23 @@ def agreement_phase(out_dir):
 
     clips = {0: synth_clip(176, 144, 2, seed=13),
              -1: synth_clip(192, 128, 6, seed=13)}
-    for (w, h, n, period) in ((64, 64, 2, 0), (176, 144, 2, 0),
-                              (192, 128, 6, -1)):
+    kinds = {0: "all-intra", -1: "low-delay P", "ra": "random access"}
+    for (w, h, n, kind) in ((64, 64, 2, 0), (176, 144, 2, 0),
+                            (192, 128, 6, -1), (192, 128, 5, "ra")):
         frames = [tuple(np.ascontiguousarray(p[:h >> (i > 0), :w >> (i > 0)])
-                        for i, p in enumerate(f)) for f in clips[period]]
-        cfg = slice_config(w, h, period)
+                        for i, p in enumerate(f))
+                  for f in clips[-1 if kind == "ra" else kind][:n]]
+        # random access: a key frame, then one 4-frame mini-GOP (MCTF on
+        # its base, compound, show_existing)
+        cfg = ra_config(w, h, hierarchical_levels=2) if kind == "ra" \
+            else slice_config(w, h, kind)
         streams = {}
         for dev in ("cuda", "cpu"):
-            p = Path(out_dir) / f"agree_{w}x{h}_{dev}.ivf"
+            p = Path(out_dir) / f"agree_{w}x{h}_{kind}_{dev}.ivf"
             encode_ivf(frames, cfg, str(p), device=dev)
             streams[dev] = p.read_bytes()
         same = streams["cuda"] == streams["cpu"]
-        kind = "all-intra" if period == 0 else "low-delay P"
+        kind = kinds[kind]
         print(f"{w}x{h}x{n} {kind}: card stream {len(streams['cuda'])} "
               f"bytes, CPU stream {len(streams['cpu'])} bytes, identical "
               f"{same}")
@@ -638,6 +968,13 @@ def _profiled(enc, frames, flush=True):
     return prof, wall
 
 
+def _short(name):
+    """A device event's name without its parameter list (copies keep
+    their direction)."""
+    name = name.replace("(anonymous namespace)::", "")
+    return name if name.startswith("Memcpy") else name.split("(")[0]
+
+
 def _report_trace(prof, wall, what, out_file):
     from torch.autograd import DeviceType
 
@@ -646,8 +983,8 @@ def _report_trace(prof, wall, what, out_file):
     by_name = {}
     for e in prof.key_averages():
         if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0:
-            by_name[e.key] = by_name.get(e.key, 0.0) \
-                + e.self_device_time_total
+            k = _short(e.key)
+            by_name[k] = by_name.get(k, 0.0) + e.self_device_time_total
     busy_ms = sum(by_name.values()) / 1e3
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:14]
     print(f"trace, {what}: wall {wall * 1e3:.3f} ms, device busy "
@@ -662,7 +999,7 @@ def _report_trace(prof, wall, what, out_file):
     Path(out_file).unlink()
 
 
-def trace_phase(ai_frames, ipp_frames, trace_dir):
+def trace_phase(ai_frames, ipp_frames, ra_frames, trace_dir):
     from svt_av1_tpu_torch.api import Encoder
 
     out = Path(trace_dir)
@@ -683,10 +1020,22 @@ def trace_phase(ai_frames, ipp_frames, trace_dir):
     assert enc.frame_count == TRACE_FRAMES + 1
     _report_trace(prof, wall, f"{TRACE_FRAMES} P frames",
                   out / "encode_1080p_ipp.json")
+    # random access: the key frame and the first mini-GOP code outside the
+    # window; the window sends the second mini-GOP and flushes
+    enc = Encoder(ra_config(WIDTH, HEIGHT))
+    for planes in ra_frames[:RA_WARM]:
+        enc.send_picture(planes)
+    prof, wall = _profiled(enc, ra_frames[RA_WARM:])
+    assert enc.frame_count == len(ra_frames)
+    _report_trace(prof, wall, f"the second random-access mini-GOP "
+                  f"({len(ra_frames) - RA_WARM} frames)",
+                  out / "encode_1080p_ra.json")
 
 
 ALLINTRA_KERNELS = ("intra_decision", "deblock", "cdef_direction",
                     "cdef_search", "cdef_apply")
+IPP_KERNELS = ALLINTRA_KERNELS + ("me_coarse", "me_refine",
+                                  "subpel_refine16", "inter_select")
 
 
 def main() -> int:
@@ -697,6 +1046,7 @@ def main() -> int:
     from svt_av1_tpu_torch.kernels import build
     from svt_av1_tpu_torch.ops import bme, cdef, dlf, omd
     from svt_av1_tpu_torch.pipeline import batched_inter as bi
+    from svt_av1_tpu_torch.pipeline import tpl
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -716,11 +1066,13 @@ def main() -> int:
     half = N_FRAMES // 2
     frames = synth_clip(WIDTH, HEIGHT, half) + synth_clip(
         WIDTH, HEIGHT, N_FRAMES - half, tex_sigma=SMOOTH_SIGMA)
-    # the moving clip of the low-delay P phase: texture and rectangle move
-    # by (1.7, 3.1) and (3, 5) pixels per frame
-    ipp_frames = synth_clip(WIDTH, HEIGHT, N_FRAMES)
+    # the moving clip of the low-delay P and random-access phases: texture
+    # and rectangle move by (1.7, 3.1) and (3, 5) pixels per frame
+    ra_frames = synth_clip(WIDTH, HEIGHT, RA_FRAMES)
+    ipp_frames = ra_frames[:N_FRAMES]
     kres = kernels_phase(dev, frames[0])
     kres.update(inter_kernels_phase(dev, ipp_frames[0], ipp_frames[1]))
+    kres.update(ra_kernels_phase(dev, ra_frames[:3]))
 
     counters = {"intra_decision": omd.intra_decision,
                 "deblock": dlf.deblock,
@@ -730,14 +1082,17 @@ def main() -> int:
                 "me_coarse": bme.me_coarse,
                 "me_refine": bme.me_refine,
                 "subpel_refine16": bme.subpel_refine16,
-                "inter_select": bi.inter_select}
+                "inter_select": bi.inter_select,
+                "compound_joint": bi.compound_joint,
+                "block_var16": tpl.block_var16}
     out_dir = Path(os.environ.get("TMPDIR") or tempfile.gettempdir())
     with tempfile.TemporaryDirectory(dir=out_dir) as tmp:
         ai_launches = allintra_phase(counters, frames, tmp)
-        launches = ipp_phase(counters, ipp_frames, tmp)
+        ipp_launches = ipp_phase(counters, ipp_frames, tmp)
+        launches = ra_phase(counters, ra_frames, tmp)
         agreement_phase(tmp)
     if "--trace" in sys.argv:
-        trace_phase(frames, ipp_frames,
+        trace_phase(frames, ipp_frames, ra_frames,
                     sys.argv[sys.argv.index("--trace") + 1])
 
     sources = {"intra_decision": ("intra_decision.cu",
@@ -754,7 +1109,11 @@ def main() -> int:
                "subpel_refine16": ("subpel_refine.cu",
                                    "svt_av1_tpu/ops/bme.py:320"),
                "inter_select": ("inter_select.cu",
-                                "svt_av1_tpu/pipeline/batched_inter.py:174")}
+                                "svt_av1_tpu/pipeline/batched_inter.py:174"),
+               "compound_joint": ("compound_joint.cu",
+                                  "svt_av1_tpu/pipeline/batched_inter.py:119"),
+               "block_var16": ("block_var16.cu",
+                               "svt_av1_tpu/pipeline/tpl.py:28")}
     rows = []
     for name, (src, replaces) in sources.items():
         r = kres[name]
@@ -765,12 +1124,12 @@ def main() -> int:
             replaces=replaces, launches=launches[name],
             max_abs_err=r["max_abs_err"], ms=r["ms"], plain_ms=r["plain_ms"],
             bound_ms=b_ms, bound_by=b_by, library_ms=None))
-        ai = f", {ai_launches[name]} on the all-intra encode" \
-            if name in ALLINTRA_KERNELS else ""
         print(f"{name}: {r['per_call']}: kernel {r['ms']:.4f} ms, plain "
               f"{r['plain_ms']:.4f} ms, bound {b_ms:.5f} ms ({b_by}); "
-              f"{launches[name]} launches on the {N_FRAMES}-frame low-delay "
-              f"P encode{ai}")
+              f"launches: {launches[name]} on the {RA_FRAMES}-frame random-"
+              f"access encode, {ipp_launches[name]} on the {N_FRAMES}-frame "
+              f"low-delay P encode, {ai_launches[name]} on the all-intra "
+              f"encode")
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

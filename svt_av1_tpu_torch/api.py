@@ -3,11 +3,14 @@
 ``Encoder(cfg, device=None)`` accepts frames and emits OBU packets; it
 runs on CUDA unless the caller asks for another device.  Orchestration
 mirrors the reference API at frame granularity: picture decision, DPB
-bookkeeping, packetization.  This slice of the port covers preset 8,
-8-bit 4:2:0, all-intra and low-delay P (IPP: one key frame, then P
-frames predicted from past pictures): every other configuration
-raises NotImplementedError instead of running host code in place of
-device programs that are not ported yet.  Decoding stays with the JAX
+bookkeeping, packetization.  The port covers preset 8, 8-bit 4:2:0,
+in three configurations: all-intra, low-delay P (IPP: one key frame,
+then P frames predicted from past pictures) and random access (dyadic
+mini-GOPs with show_existing frames, MCTF on key and base-layer
+pictures, a TPL lookahead per mini-GOP feeding the qindex ladder, and
+averaged compound prediction): every other configuration raises
+NotImplementedError instead of running host code in place of device
+programs that are not ported yet.  Decoding stays with the JAX
 package's ``svt_av1_tpu.api.Decoder``.
 """
 from __future__ import annotations
@@ -19,9 +22,10 @@ import numpy as np
 from .bitstream.bits import BitWriter
 from .bitstream.headers import (FrameHeader, temporal_delimiter_obu,
                                 wrap_obu, write_frame_header,
-                                write_sequence_header, SequenceHeader)
+                                write_sequence_header,
+                                write_show_existing_header, SequenceHeader)
 from .config import ColorFormat, EncoderConfig, PredStructure, \
-    derive_signals
+    RateControlMode, derive_signals
 from .constants import FrameType, ObuType
 from .device import resolve_device
 from .entropy.tables import FrameCdfs
@@ -207,12 +211,11 @@ def check_slice(cfg: EncoderConfig, sig, pd: PictureDecision) -> None:
         why = "bit depths other than 8"
     elif cfg.encoder_color_format != ColorFormat.YUV420:
         why = "chroma formats other than 4:2:0"
-    elif pd.gop > 1 and pd.key_interval != 1:
-        why = ("random-access inter frames (MCTF, TPL and compound "
-               "prediction); use pred_structure=LOW_DELAY_P")
-    elif sig.tf_level > 0 and pd.gop > 1:
-        why = ("temporal filtering of key frames (MCTF); use "
+    elif sig.tf_level > 0 and pd.gop > 1 and pd.key_interval == 1:
+        why = ("temporal filtering of all-intra key frames (MCTF); use "
                "pred_structure=LOW_DELAY_P")
+    elif sig.compound_level >= 2:
+        why = "masked compound prediction (compound_level 2)"
     elif sig.cdef_multi or sig.enable_restoration:
         why = "per-64x64 CDEF presets and loop restoration"
     elif cfg.film_grain_denoise_strength > 0:
@@ -274,6 +277,7 @@ class Encoder:
         self._me_src = {}            # display -> buf-aligned ME luma on
         #                              the device (open-loop plan refs)
         self._next_display = 0       # display idx of _buffer[0]
+        self._tpl_seed = None        # last picture of the previous group
         self._sent = 0
         self.dpb = Dpb()
         self._anchor = 0             # most recent layer-0/key display
@@ -306,8 +310,13 @@ class Encoder:
         """Keep one picture in flight: while the host codes a picture, the
         device plans the next one on a worker thread (its intra decision
         for a key frame, its open-loop ME plan for a P frame), bounded by
-        ``pictures_in_flight``."""
+        ``pictures_in_flight``.  Random access holds nothing back: each
+        mini-GOP is coded as soon as it is complete, so MCTF and TPL see
+        the pictures the JAX encoder gives them (its plans prefetch
+        within the mini-GOP)."""
         if getattr(self, "_pipeline_off", False):
+            return False
+        if self.pd.gop > 1 and self.pd.key_interval != 1:
             return False
         pif = self.cfg.pictures_in_flight
         return not (0 <= pif < 2)
@@ -336,8 +345,11 @@ class Encoder:
         return self._drain(eos=True)
 
     def encode_frame(self, planes) -> bytes:
-        """Zero-latency wrapper; disables the one-picture pipeline that
-        send/flush runs."""
+        """Zero-latency wrapper (all-intra / low-delay); disables the
+        one-picture pipeline that send/flush runs."""
+        if self.pd.gop > 1 and self.pd.key_interval != 1:
+            raise ValueError("random-access configurations reorder "
+                             "pictures: use send_picture and flush")
         self._pipeline_off = True
         try:
             out = self.send_picture(planes)
@@ -380,6 +392,8 @@ class Encoder:
                 self._next_display, len(self._buffer), eos)
             if jobs is None:
                 break
+            with self.prof("tpl"):
+                self._maybe_tpl(consumed)
             for ji, job in enumerate(jobs):
                 nxt = next((j for j in jobs[ji + 1:] if j.kind == "code"),
                            None)
@@ -395,10 +409,37 @@ class Encoder:
                     # the NEXT key frame's decision maps
                     self._prefetch(nxt.display, self._buffer[
                         nxt.display - self._next_display][0])
-                packets.append(self._encode_display(job, nxt))
+                packets.append(self._run_job(job, nxt))
+            # the last picture of the group seeds the next group's TPL
+            self._tpl_seed = self._buffer[consumed - 1]
             self._buffer = self._buffer[consumed:]
             self._next_display += consumed
         return packets
+
+    def _maybe_tpl(self, consumed: int) -> None:
+        """TPL lookahead over the scheduled mini-GOP: per-frame r0 from the
+        propagated dependency model feeds the kf/gf-boost qindex ladder
+        (tpl_mc_flow -> generate_r0beta -> cqp_qindex_calc_tpl_la
+        analog; ME statistics on the device, propagation on the host).
+        The window is the previous group's last picture, then this
+        group's pictures, all as they were buffered."""
+        if (not self.cfg.enable_tpl_la
+                or self.cfg.rate_control_mode != RateControlMode.CQP
+                or self.pd.gop <= 1 or consumed < 2):
+            return
+        from .pipeline.tpl import tpl_gop_flow
+
+        seed = self._tpl_seed
+        window = ([seed] if seed is not None else []) \
+            + self._buffer[:consumed]
+        displays = list(range(self._next_display - (seed is not None),
+                              self._next_display + consumed))
+        buf_w, buf_h = self._buf_dims()
+        r0s = tpl_gop_flow([np.asarray(f[0]) for f in window], displays,
+                           buf_w, buf_h, self.cfg.encoder_bit_depth,
+                           self.device, include_first=seed is None)
+        self.rc.r0.update(r0s)
+        self.rc.tpl_group_size = consumed
 
     def _decider_cached(self):
         """One decider per encoder (its state is keyed on the codec
@@ -439,6 +480,10 @@ class Encoder:
         if nxt is None or nxt.kind != "code" or nxt.is_key:
             return
         if not self.sig.open_loop_me or self.pd.key_interval == 1:
+            return
+        # the next frame's plan source must be its buffered source, and
+        # MCTF filters a base-layer picture when it is coded
+        if nxt.layer == 0 and self.sig.tf_level > 0 and self.pd.gop > 1:
             return
         dec = self._decider_cached()
         # this frame's coded source is nxt's likeliest reference
@@ -484,6 +529,16 @@ class Encoder:
                            tuple(ref_disp), qindex, ref_sel,
                            self.sig.compound_level, buf_w, buf_h,
                            self.cfg.encoder_bit_depth)
+
+    def _run_job(self, job: CodeJob, nxt: CodeJob | None = None) -> bytes:
+        if job.kind == "show_existing":
+            w = BitWriter()
+            write_show_existing_header(w, self.dpb.slot_of_display(
+                job.display))
+            w.trailing_bits()
+            return temporal_delimiter_obu() + wrap_obu(
+                ObuType.OBU_FRAME_HEADER, w.bytes())
+        return self._encode_display(job, nxt)
 
     def _qindex_for(self, job: CodeJob, ref_displays: tuple = ()) -> int:
         return self.rc.pick_qindex(job.is_key, job.layer, job.display,
@@ -551,9 +606,40 @@ class Encoder:
                 return 1 << i
         return 1 << order[0]
 
+    def _tf_source(self, job: CodeJob, planes):
+        """MCTF for key / base-layer pictures of random access: filter the
+        source against its buffered neighbours, up to altref_nframes of
+        them (mctf_frame analog); ``look_ahead_distance`` bounds the
+        future reach.  The motion search runs on the encoder's device."""
+        if self.sig.tf_level <= 0 or self.pd.gop <= 1:
+            return planes
+        if not (job.is_key or job.layer == 0):
+            return planes
+        from .pipeline.mctf import temporal_filter
+
+        # tf_level 2 = the reference's small-window mode at fast presets
+        half = 1 if self.sig.tf_level >= 2 \
+            else max((self.cfg.altref_nframes - 1) // 2, 1)
+        fwd = half
+        lad = self.cfg.look_ahead_distance
+        if lad >= 0:
+            fwd = min(fwd, lad)
+        neighbors = []
+        for d in range(job.display - half, job.display + fwd + 1):
+            idx = d - self._next_display
+            if d == job.display or idx < 0 or idx >= len(self._buffer):
+                continue
+            neighbors.append(self._buffer[idx])
+        if not neighbors:
+            return planes
+        return temporal_filter(planes, neighbors, self.cfg.qp,
+                               self.cfg.encoder_bit_depth, self.device)
+
     def _encode_display(self, job: CodeJob, nxt: CodeJob | None = None
                         ) -> bytes:
-        planes = self._buffer[job.display - self._next_display]
+        with self.prof("temporal_filter"):
+            planes = self._tf_source(
+                job, self._buffer[job.display - self._next_display])
         refs = None
         refs_idx = (0,) * 7
         sign_bias = [0] * 8

@@ -8,7 +8,8 @@ takes the three table files' arrays and checks them, array by array,
 against the copies this package loads, the way a strict state-dict load
 refuses a mismatch.  ``constants_from_reference`` does the same for the
 constants the inter kernels bake in (motion-search geometry, selection
-penalties, the REGULAR interpolation taps).
+penalties, the REGULAR interpolation taps, the compound joint search)
+and for those of the temporal filter and the TPL model.
 """
 from __future__ import annotations
 
@@ -91,10 +92,12 @@ def tables_from_reference(npz_arrays: dict) -> dict:
 
 
 def own_constants() -> dict:
-    """{group: {name: value}} of the constants the inter kernels (K5-K8)
-    bake in, from this package's modules."""
+    """{group: {name: value}} of the constants the inter kernels (K5-K9)
+    bake in and of the MCTF and TPL models, from this package's
+    modules."""
     from .ops import bme, inter
     from .pipeline import batched_inter as bi
+    from .pipeline import mctf, tpl
 
     return {
         "bme": {n: getattr(bme, n) for n in (
@@ -106,6 +109,12 @@ def own_constants() -> dict:
         "interp": {"REGULAR": np.stack(
             [inter.interp_kernel(inter.REGULAR, q4, 16)
              for q4 in range(16)])},
+        "compound": {n: getattr(bi, n) for n in ("MC_PAD", "JOINT_R")},
+        "mctf": {n: getattr(mctf, n) for n in (
+            "BLK", "WINDOW_BALANCE", "WEIGHT_SCALE", "DIST_THRESHOLD",
+            "EDGE_THRESHOLD", "SQRT_PI_BY_2")},
+        "tpl": {n: getattr(tpl, n) for n in ("QSTEP_PER_OCTAVE",
+                                             "MAX_BOOST")},
     }
 
 

@@ -50,6 +50,8 @@ CUDA_SOURCES = {
     "me_refine": "me_refine.cu",
     "subpel_refine": "subpel_refine.cu",
     "inter_select": "inter_select.cu",
+    "compound_joint": "compound_joint.cu",
+    "block_var16": "block_var16.cu",
 }
 
 _lock = threading.Lock()

@@ -304,8 +304,9 @@ class TorchIntraDecider(ModeDecider):
 class TorchDecider(TorchIntraDecider):
     """Key frames: the batched intra plan; inter frames: the batched
     intra + ME plan (pipeline/batched_inter.py) with a per-block
-    intra/inter choice over up to three single references (the
-    counterpart of BatchedDecider)."""
+    intra/inter choice over up to three single references and the
+    averaged compound of a forward and a backward one (the counterpart
+    of BatchedDecider)."""
 
     def __init__(self, device):
         super().__init__(device)
@@ -365,7 +366,11 @@ class TorchDecider(TorchIntraDecider):
         those whose picture an earlier name already brings.  A duplicate
         never wins the selection (ties go to the first candidate, and
         every reference but the first pays the SB penalty), so dropping
-        it leaves the plan as it was and saves its motion search."""
+        it leaves the plan as it was and saves its motion search.  Under
+        compound the same holds: a duplicate's score row equals its
+        original's, so the first minimum over its side (fwd_i / bwd_i)
+        is still the original, and the compound index moves down with
+        the reference count, which the replay reads as "compound"."""
         names, seen = [], set()
         for n in searched[:3]:
             pic = picture_of(n)
@@ -541,7 +546,10 @@ class TorchDecider(TorchIntraDecider):
             s = 0
             for ui, uj in idx:
                 y, x = int(ui) * 16, int(uj) * 16
-                ref = names[int(sel[ui, uj])]
+                sv = int(sel[ui, uj])
+                # a compound unit is sampled on its forward arm
+                ref = names[sv] if sv < len(names) \
+                    else names[int(sf["fwd_i"][ui, uj])]
                 mv = (int(mvr[ui, uj]), int(mvc[ui, uj]))
                 pred = codec.predict_inter(0, mv, x, y, 16, 16, ref)
                 s += int(np.abs(src[y:y + 16, x:x + 16].astype(np.int32)
@@ -562,6 +570,50 @@ class TorchDecider(TorchIntraDecider):
 
     # -- replay ---------------------------------------------------------
 
+    def _decide_compound(self, codec, x, y, bw, bh, mi_row, mi_col, w4,
+                         h4, u16):
+        """Replay a compound-selected unit against the true compound MV
+        stack (NEW_NEW vs NEAREST_NEAREST, like the per-block search);
+        None when neither pair's windows stay in the frame."""
+        from . import mv_pred as mp
+        from .batched_inter import SEL_MV_W, selection_pens
+
+        sf = self._sf
+        rf = self._names[int(sf["fwd_i"][u16])]
+        rb = self._names[int(sf["bwd_i"][u16])]
+        mv0 = (int(sf["mv_r"][u16]), int(sf["mv_c"][u16]))
+        mv1 = (int(sf["mv1_r"][u16]), int(sf["mv1_c"][u16]))
+        stack = mp.find_mv_stack(
+            codec.mi, mi_row, mi_col, w4, h4, rf,
+            codec.mi_rows, codec.mi_cols, sb_mi=codec.seq.sb_size // 4,
+            sign_bias=codec.sign_bias, ref_frame1=rb, tile=codec.tile,
+            **codec.gm_stack_kwargs(rf, rb, mi_row, mi_col, w4, h4)).stack
+        ps = float(selection_pens(codec.fh.base_q_idx,
+                                  codec.seq.bit_depth)[3]) / SEL_MV_W
+        trials = [(mp.NEW_NEWMV, mv0, mv1, 96 * ps)]
+        if stack:
+            trials.append((mp.NEAREST_NEARESTMV,
+                           mp.lower_mv_precision(stack[0][0], False, False),
+                           mp.lower_mv_precision(stack[0][1], False, False),
+                           0))
+        src_blk = codec.source[0][y:y + bh, x:x + bw].astype(np.int32)
+        best = None
+        for mode, m0, m1, pen in trials:
+            if not (codec.mv_window_in_frame(m0, x, y, bw, bh)
+                    and codec.mv_window_in_frame(m1, x, y, bw, bh)):
+                continue
+            pred = codec.predict_compound(0, m0, m1, x, y, bw, bh, rf, rb)
+            sad = int(np.abs(src_blk - pred).sum()) + pen
+            if best is None or sad < best[0]:
+                best = (sad, mode, m0, m1)
+        if best is None:
+            return None
+        _, mode, m0, m1 = best
+        return BlockDecision(is_inter=True, inter_mode=mode,
+                             mv=(int(m0[0]), int(m0[1])),
+                             mv1=(int(m1[0]), int(m1[1])),
+                             ref=rf, ref1=rb)
+
     def decide_inter(self, codec, x, y, bw, bh, mi_row, mi_col, w4,
                      h4=None):
         from . import mv_pred as mp
@@ -576,7 +628,14 @@ class TorchDecider(TorchIntraDecider):
             return self.decide(codec, x, y, bw, bh)
         sf = self._sf
         u16 = (y // 16, x // 16)
-        ref = self._names[int(sf["sel"][u16])]
+        sel = int(sf["sel"][u16])
+        if sel >= len(self._names):            # compound unit
+            d = self._decide_compound(codec, x, y, bw, bh, mi_row, mi_col,
+                                      w4, h4, u16)
+            if d is not None:
+                return d
+            sel = int(sf["fwd_i"][u16])        # windows failed: single
+        ref = self._names[sel]
         mv = (int(sf["mv_r"][u16]), int(sf["mv_c"][u16]))
         stack_res = mp.find_mv_stack(
             codec.mi, mi_row, mi_col, w4, h4, ref,

@@ -10,7 +10,6 @@ gate (tests/test_batched_inter_device.py): within rtol 2e-4 / atol 2 on
 at least 99% of the blocks of every shape."""
 import numpy as np
 import pytest
-import torch
 
 from svt_av1_tpu.entropy.tables import FrameCdfs
 from svt_av1_tpu.pipeline import batched_inter as ref_bi
@@ -96,9 +95,19 @@ def test_mv_bits_table_equals_numpy_log2():
         np.log2(1.0 + d / 8.0))
 
 
-def test_compound_with_a_backward_reference_raises():
+def test_compound_with_a_backward_reference():
+    """With the second picture as a backward reference the averaged
+    compound candidate joins the selection; the fields equal the twin's."""
     src, refs = _clip()
-    t = [torch.from_numpy(a) for a in (src, refs[0], refs[1])]
-    with pytest.raises(NotImplementedError):
-        bi.inter_frame_maps(t[0], t[1:], 60, 900.0, (0.0,) * 13,
-                            bwd_mask=(False, True), allow_compound=True)
+    qindex, lam = 60, 900.0
+    mode_bits = default_mode_bits(FrameCdfs(qindex))
+    want = ref_bi.inter_frame_maps(
+        src, np.stack(refs[:2]), W, H, qindex, lam, mode_bits, 8, np,
+        bwd_mask=(False, True), allow_compound=True,
+        pens=ref_bi.selection_pens(qindex, 8))
+    _, _, sf, mvb = bi.inter_maps_dispatch(src, refs[:2], W, H, qindex, lam,
+                                           mode_bits, 8, "cpu",
+                                           (False, True), True)
+    for key in bi.SEL_KEYS:
+        np.testing.assert_array_equal(sf[key], np.asarray(want[2][key]), key)
+    np.testing.assert_allclose(mvb, np.asarray(want[3]), atol=1e-4)

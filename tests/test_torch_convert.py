@@ -13,6 +13,8 @@ from svt_av1_tpu import config as ref_config
 from svt_av1_tpu.ops import bme as ref_bme
 from svt_av1_tpu.ops import inter as ref_inter
 from svt_av1_tpu.pipeline import batched_inter as ref_bi
+from svt_av1_tpu.pipeline import mctf as ref_mctf
+from svt_av1_tpu.pipeline import tpl as ref_tpl
 from svt_av1_tpu_torch import config, convert
 
 REF_DIR = Path(svt_av1_tpu.__file__).resolve().parent
@@ -95,7 +97,29 @@ def _ref_constants():
         "interp": {"REGULAR": np.stack(
             [ref_inter.interp_kernel(ref_inter.REGULAR, q4, 16)
              for q4 in range(16)]).tolist()},
+        "compound": {n: getattr(ref_bi, n) for n in ("MC_PAD", "JOINT_R")},
+        "mctf": {n: getattr(ref_mctf, n) for n in (
+            "BLK", "WINDOW_BALANCE", "WEIGHT_SCALE", "DIST_THRESHOLD",
+            "EDGE_THRESHOLD", "SQRT_PI_BY_2")},
+        "tpl": {n: getattr(ref_tpl, n) for n in ("QSTEP_PER_OCTAVE",
+                                                 "MAX_BOOST")},
     }
+
+
+@pytest.mark.parametrize("group", ["compound", "mctf", "tpl"])
+def test_random_access_constants_equal_the_reference(group):
+    """The compound joint search (K9), the temporal filter and the TPL
+    model's constants, each against the JAX module's value."""
+    ref = _ref_constants()
+    got = convert.constants_from_reference(ref)[group]
+    assert set(got) == set(ref[group])
+    for k, v in ref[group].items():
+        assert got[k] == v, (group, k)
+    bad = {g: dict(v) for g, v in ref.items()}
+    name = sorted(bad[group])[0]
+    bad[group][name] = bad[group][name] * 2 + 1
+    with pytest.raises(ValueError):
+        convert.constants_from_reference(bad)
 
 
 @pytest.mark.parametrize("bad", [None, "value", "missing", "shape"])

@@ -177,15 +177,35 @@ def test_closed_loop_plan_decodes(tmp_path, monkeypatch):
 
 @pytest.mark.parametrize("kw", [
     dict(enc_mode=6),
-    dict(intra_period_length=-1, pred_structure=PredStructure.RANDOM_ACCESS),
+    dict(film_grain_denoise_strength=10),
+    # all-intra key frames under the random-access structure: MCTF of key
+    # frames with the one-picture pipeline is not ported
     dict(pred_structure=PredStructure.RANDOM_ACCESS),
     dict(encoder_bit_depth=10),
     dict(enable_restoration=1),
-], ids=["preset6", "inter_random_access", "random_access", "10bit",
-        "restoration"])
+    dict(superres_mode=1),
+    dict(intra_period_length=-1, pred_structure=PredStructure.RANDOM_ACCESS,
+         compound_level=2),
+], ids=["preset6", "film_grain", "random_access", "10bit", "restoration",
+        "superres", "masked_compound"])
 def test_unported_configuration_raises(kw):
     cfg = EncoderConfig(**{**dict(source_width=64, source_height=64,
                                   pred_structure=PredStructure.LOW_DELAY_P,
                                   **SLICE), **kw})
     with pytest.raises(NotImplementedError):
         api.Encoder(cfg, device="cpu")
+
+
+def test_bench_configuration_is_the_random_access_slice():
+    """bench.py's settings: RANDOM_ACCESS, hierarchical_levels 4, TPL on
+    and tf_level 2 stay at their defaults and the encoder takes them; it
+    reorders pictures, so the zero-latency wrapper refuses it."""
+    cfg = EncoderConfig(source_width=1920, source_height=1080, qp=40,
+                        enc_mode=8, intra_period_length=33)
+    assert cfg.pred_structure == PredStructure.RANDOM_ACCESS
+    assert cfg.hierarchical_levels == 4 and cfg.enable_tpl_la
+    enc = api.Encoder(cfg, device="cpu")
+    assert enc.sig.tf_level == 2 and enc.sig.compound_level == 1
+    assert enc.pd.gop == 16 and enc.pd.key_interval == 34
+    with pytest.raises(ValueError):
+        enc.encode_frame(synthetic_clip(64, 64, 1)[0])

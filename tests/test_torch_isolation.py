@@ -34,6 +34,16 @@ for i in range(3):
                              u, v))
 out += enc.flush()
 assert len(out) == 3 and all(len(p) > 20 for p in out)
+# random access: MCTF, TPL, compound and show_existing frames
+enc = Encoder(EncoderConfig(source_width=192, source_height=128, qp=40,
+                            enc_mode=8, intra_period_length=-1,
+                            hierarchical_levels=2), device="cpu")
+out = []
+for i in range(5):
+    out += enc.send_picture((np.ascontiguousarray(y[i:i + 128, i:i + 192]),
+                             u, v))
+out += enc.flush()
+assert len(out) == 7 and enc.frame_count == 5
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "svt_av1_tpu"))
 print("BAD", bad)

@@ -1,7 +1,8 @@
 """The port's CUDA kernels against their plain PyTorch versions on the
 card, at small and ragged shapes (visible sizes that are no multiple of
-the unit sizes), and the slices' streams (all-intra and low-delay P)
-coded on the card against the plain versions on the CPU.  Needs a GPU;
+the unit sizes), and the slices' streams (all-intra, low-delay P and
+random access) coded on the card against the plain versions on the
+CPU.  Needs a GPU;
 run it there with
 
     python -m pytest -m cuda --noconftest tests/test_torch_kernels_cuda.py
@@ -17,6 +18,7 @@ from svt_av1_tpu_torch.api import encode_ivf
 from svt_av1_tpu_torch.config import EncoderConfig, PredStructure
 from svt_av1_tpu_torch.ops import bme, cdef, dlf, omd
 from svt_av1_tpu_torch.pipeline import batched_inter as bi
+from svt_av1_tpu_torch.pipeline import tpl
 
 pytestmark = pytest.mark.cuda
 
@@ -244,6 +246,125 @@ def test_ipp_stream_on_the_card_equals_the_plain_stream(dev, tmp_path):
     cfg = EncoderConfig(source_width=192, source_height=128, qp=40,
                         enc_mode=8, intra_period_length=-1,
                         pred_structure=PredStructure.LOW_DELAY_P)
+    out = {}
+    for d in ("cuda", "cpu"):
+        p = tmp_path / f"{d}.ivf"
+        encode_ivf(frames, cfg, str(p), device=d)
+        out[d] = p.read_bytes()
+    assert out["cuda"] == out["cpu"]
+
+
+def _unit_inputs(dev, H, W, shifts, seed):
+    """(src, refs, preds, mvq_r, mvq_c, sb_r, sb_c) on the card: one
+    pattern per reference; the source is the first pattern moved by the
+    first shift on its left third and the average of the first two
+    moved patterns elsewhere (a cross-fade, where compound wins), then
+    through the path's own K5-K7."""
+    rng = np.random.default_rng(seed)
+    yy, xx = np.mgrid[0:H, 0:W]
+    pats = [(110 + 60 * np.sin(xx / (9 + 4 * i) + i)
+             + 40 * np.cos(yy / (7 + 3 * i))
+             + rng.integers(-12, 13, (H, W))).clip(0, 255).astype(np.int32)
+            for i in range(len(shifts))]
+    moved = [np.roll(p, sh, axis=(0, 1)) for p, sh in zip(pats, shifts)]
+    src = np.where(xx < W // 3, moved[0], (moved[0] + moved[1] + 1) // 2)
+    src = (src + rng.integers(-2, 3, (H, W))).clip(0, 255).astype(np.uint8)
+    src_t = torch.from_numpy(src).to(dev)
+    ny, nx = H // 64, W // 64
+    refs, parts = [], []
+    for pat in pats:
+        r = torch.from_numpy(pat.astype(np.uint8)).to(dev)
+        me = bme.frame_me(src_t, r, 8, ((16, 16), (64, 64)))
+        a, b, p = bme.subpel_refine16(
+            src_t, r, bi._nested_to_grid(me[(16, 16)][0], ny, nx, 4, 4),
+            bi._nested_to_grid(me[(16, 16)][1], ny, nx, 4, 4))
+        refs.append(r)
+        parts.append((p, a, b, me[(64, 64)][0].reshape(ny, nx),
+                      me[(64, 64)][1].reshape(ny, nx)))
+    return (src_t, torch.stack(refs).contiguous()) + tuple(
+        torch.stack([q[i] for q in parts]).contiguous() for i in range(5))
+
+
+@pytest.mark.parametrize("case", [
+    ((0, 0), (7, -9)), ((2, -3), (-6, 5), (9, 11))], ids=["K2", "K3"])
+@pytest.mark.parametrize("dists", ["near", "far"])
+def test_compound_joint_and_its_row_match_plain(dev, case, dists):
+    k = len(case)
+    bwd = (False, True, True)[:k] if dists == "near" \
+        else (True, False, True)[:k]
+    rel = (-1, 1, 2)[:k] if dists == "near" else (3, -2, 5)[:k]
+    src, refs, preds, mr, mc, sr, sc = _unit_inputs(dev, 192, 256, case, k)
+    before = bi.compound_joint.launches
+    got = bi.compound_joint(src, refs, preds, mr, mc, sr, sc, bwd, rel, 100)
+    want = bi.compound_joint_plain(src, refs, preds, mr, mc, sr, sc, bwd,
+                                   rel, 100)
+    assert bi.compound_joint.launches == before + 1
+    for key in bi.COMP_KEYS:
+        assert torch.equal(got[key], want[key]), key
+    args = (src, preds, mr, mc, sr, sc, 100, 250.0)
+    f1, m1, c1 = bi.inter_select(*args, comp=got)
+    f2, m2, c2 = bi.inter_select_plain(*args, comp=got)
+    for key in bi.SEL_KEYS:
+        assert torch.equal(f1[key], f2[key]), key
+    assert torch.equal(m1, m2)
+    for s in omd.INTER_SHAPES:
+        close = torch.isclose(c1[s], c2[s], rtol=2e-4, atol=2.0)
+        assert close.float().mean().item() >= 0.99, s
+    assert bool((f1["sel"] == k).any())
+
+
+@pytest.mark.parametrize("size", [(576, 960), (48, 80), (16, 16)])
+def test_block_var16_matches_plain(dev, size):
+    p = torch.from_numpy(_plane(*size, size[1])).to(dev)
+    before = tpl.block_var16.launches
+    got = tpl.block_var16(p)
+    assert tpl.block_var16.launches == before + 1
+    assert torch.equal(got, tpl.block_var16_plain(p))
+
+
+@pytest.mark.parametrize("shape", [(32, 32), (16, 16)])
+@pytest.mark.parametrize("size", [(192, 256), (320, 192)])
+def test_me_single_shape_matches_plain(dev, shape, size):
+    src, ref = (torch.from_numpy(p).to(dev) for p in _moving_pair(*size, 2))
+    got = bme.frame_me(src, ref, shapes=(shape,))
+    want = bme.refine_plain(src, ref, bme.coarse_sb_search(src, ref),
+                            (shape,))
+    for g, w in zip(got[shape], want[shape]):
+        assert torch.equal(g, w)
+
+
+def test_compound_wrappers_refuse_what_the_kernels_do_not_take(dev):
+    src, refs, preds, mr, mc, sr, sc = _unit_inputs(
+        dev, 128, 128, ((0, 0), (3, 3)), 1)
+    with pytest.raises(ValueError):        # both references forward
+        bi.compound_joint(src, refs, preds, mr, mc, sr, sc, (False, False),
+                          (-1, -2), 100)
+    with pytest.raises(ValueError):        # refs of another type
+        bi.compound_joint(src, refs.to(torch.int32), preds, mr, mc, sr, sc,
+                          (False, True), (-1, 1), 100)
+    comp = bi.compound_joint(src, refs, preds, mr, mc, sr, sc, (False, True),
+                             (-1, 1), 100)
+    comp["sad"] = comp["sad"].to(torch.int64)
+    with pytest.raises(ValueError):
+        bi.inter_select(src, preds, mr, mc, sr, sc, 100, 250.0, comp=comp)
+    with pytest.raises(ValueError):
+        tpl.block_var16(torch.zeros((24, 32), dtype=torch.uint8, device=dev))
+    with pytest.raises(ValueError):
+        tpl.block_var16(torch.zeros((32, 32), dtype=torch.int32, device=dev))
+
+
+def test_ra_stream_on_the_card_equals_the_plain_stream(dev, tmp_path):
+    frames = []
+    rng = np.random.default_rng(11)
+    base = _plane(160, 224, 6)
+    for i in range(5):
+        y = np.roll(base, (i, 2 * i), axis=(0, 1))[:128, :192]
+        frames.append((np.ascontiguousarray(y),
+                       rng.integers(100, 140, (64, 96)).astype(np.uint8),
+                       rng.integers(110, 150, (64, 96)).astype(np.uint8)))
+    cfg = EncoderConfig(source_width=192, source_height=128, qp=40,
+                        enc_mode=8, intra_period_length=-1,
+                        hierarchical_levels=2)
     out = {}
     for d in ("cuda", "cpu"):
         p = tmp_path / f"{d}.ivf"
