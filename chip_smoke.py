@@ -38,12 +38,33 @@ Phases, each of which must pass (the script exits non-zero otherwise):
 7. agreement: small clips (all-intra, low-delay P and random access)
    coded on the card and with the plain versions on the CPU give
    byte-identical streams;
-8. one JSON line listing every kernel (launches on the random-access
-   encode), then the device line last.
+8. stripes (B14, ``parallel/``): ``dryrun_stripes`` at the JAX dryrun's
+   geometry (4 stripes, 1280x256) and at full width (17 stripes,
+   1920x1088), each on a P frame coded by the port's encoder, with every
+   count set to 0 just before and read just after; every stripe output
+   must equal the whole frame's run of the same kernels (MVs, selection,
+   deblocking level, CDEF strength and plane exactly; intra modes and
+   costs, inter costs at the JAX gates, measured shares printed); K1-K8
+   and the step must have launched; the step's and the whole frame's
+   wall ms and the launches per kernel are printed; at 1280x256 the
+   plain versions' step on the card must give the same outputs; the
+   closed-GOP half (8 frames of 128x64 as one stream and as two GOPs)
+   must decode, with the port's Decoder, to identical pictures;
+9. decode: the port's Decoder on the card decodes the 192x128x5
+   random-access card stream of phase 7 and the first three temporal
+   units of the 1080p low-delay P stream of phase 5, counts as in 4;
+   every shown frame must equal the encoder's recon; K2, K3 and K4's
+   apply must have launched; md5 and ms per frame (host tile walk,
+   card filters) printed;
+10. one JSON line listing every kernel (launches on the main paths: the
+    random-access encode, the stripe dryruns and the decodes) and the
+    stripe step (B14), then the device line last.
 
 The kernels phase also holds K9, K8 with the compound row, K10, and
 K5/K6 at the MCTF (1088x1920, 32x32) and TPL (576x960, 16x16)
-geometries against their plain versions.
+geometries against their plain versions, and the stripe modes: K5/K6/K7
+at row0 64 of a 1280x256 reference, K1 with true halo rows, K4's search
+and apply with and without the neighbours' rows.
 
 ``--trace DIR`` adds a phase before the last two lines: encodes under
 torch.profiler (TRACE_FRAMES all-intra frames, TRACE_FRAMES P frames
@@ -761,9 +782,9 @@ def ipp_phase(counters, frames, out_dir):
         nz = float(((dec._sf["mv_r"] != 0) | (dec._sf["mv_c"] != 0)).mean())
         plans.append((inter, nz, len(dec._names), int(sel.max())))
 
-    launches, _, _, _ = run_encode(counters, frames,
-                                   slice_config(WIDTH, HEIGHT, -1), path,
-                                   on_packet)
+    launches, _, enc, _ = run_encode(counters, frames,
+                                     slice_config(WIDTH, HEIGHT, -1), path,
+                                     on_packet)
     print("low-delay P main path launches:", json.dumps(launches))
     missing = [n for n in IPP_KERNELS if launches[n] == 0]
     assert not missing, f"kernels not launched on the main path: {missing}"
@@ -778,7 +799,8 @@ def ipp_phase(counters, frames, out_dir):
               f"{inter[(16, 16)]:.4f} / {inter[(64, 64)]:.4f}, units with "
               f"a non-zero MV {nz:.4f}, plan references {n_refs}")
         assert max(inter.values()) > 0 and nz > 0, (i, inter, nz)
-    return launches
+    return launches, (path, [enc.recon_by_display[d]
+                             for d in sorted(enc.recon_by_display)])
 
 
 def stream_headers(path):
@@ -920,6 +942,7 @@ def ra_phase(counters, frames, out_dir):
 # --------------------------------------------------------------------------
 
 def agreement_phase(out_dir):
+    """Returns the random-access card stream (path, recon)."""
     from svt_av1_tpu_torch.api import encode_ivf
 
     clips = {0: synth_clip(176, 144, 2, seed=13),
@@ -937,14 +960,307 @@ def agreement_phase(out_dir):
         streams = {}
         for dev in ("cuda", "cpu"):
             p = Path(out_dir) / f"agree_{w}x{h}_{kind}_{dev}.ivf"
-            encode_ivf(frames, cfg, str(p), device=dev)
+            recon = encode_ivf(frames, cfg, str(p), device=dev)
             streams[dev] = p.read_bytes()
+            if kind == "ra" and dev == "cuda":
+                ra_card = (p, recon)
         same = streams["cuda"] == streams["cpu"]
         kind = kinds[kind]
         print(f"{w}x{h}x{n} {kind}: card stream {len(streams['cuda'])} "
               f"bytes, CPU stream {len(streams['cpu'])} bytes, identical "
               f"{same}")
         assert same, (w, h)
+    return ra_card
+
+
+# --------------------------------------------------------------------------
+# the stripe modes of K1 and K4-K7 against their plain versions
+# --------------------------------------------------------------------------
+
+def stripe_kernels_phase(dev, ref_plane, src_plane, row0s):
+    """At each of ``row0s`` (a middle stripe and the last one of the
+    planes' height): K5/K6/K7 on the 64-row stripe against the whole
+    reference, K1 in stripe mode with the true halo rows, K4's search and
+    apply with every set of the neighbours' rows that exists there; each
+    equal to its plain version on the same card tensors, and K1 and
+    K5/K6/K7 to the whole plane's kernel run on the stripe's rows."""
+    from svt_av1_tpu_torch.ops import bme, cdef, omd
+    from svt_av1_tpu_torch.pipeline import batched_inter as bi
+
+    H, W = ref_plane.shape
+    ref = torch.from_numpy(np.ascontiguousarray(ref_plane)).to(dev)
+    src = torch.from_numpy(np.ascontiguousarray(src_plane)).to(dev)
+    whole_me = bme.frame_me(src, ref, 8, bme.ME_SHAPES)
+    mb = tuple(np.linspace(1.0, 6.0, 13).tolist())
+    whole_k1 = {(w, h): omd.intra_decision(src, w, h, 140, 250.0, mb)
+                for (w, h) in omd.ALL_SHAPES}
+    # K4's input: a noisy deblocked plane of the reference
+    rng = np.random.default_rng(4)
+    full = (ref.to(torch.int32) + torch.from_numpy(
+        rng.integers(-6, 7, (H, W)).astype(np.int32)).to(dev)).clamp(0, 255)
+    n_sbx = W // 64
+    for row0 in row0s:
+        stripe = src[row0:row0 + 64].contiguous()
+        coarse = bme.me_coarse(stripe, ref, 8, row0)
+        want_c = bme.coarse_sb_search(stripe, ref, 8, row0)
+        me = bme.me_refine(stripe, ref, coarse, bme.ME_SHAPES, row0)
+        want_me = bme.refine_plain(stripe, ref, coarse, bme.ME_SHAPES, row0)
+        sbs = slice(row0 // 64 * n_sbx, (row0 // 64 + 1) * n_sbx)
+        mv_r = bi._nested_to_grid(me[(16, 16)][0], 1, n_sbx, 4, 4)
+        mv_c = bi._nested_to_grid(me[(16, 16)][1], 1, n_sbx, 4, 4)
+        sub = bme.subpel_refine16(stripe, ref, mv_r, mv_c, 8, row0)
+        want_sub = bme.subpel_plain(stripe, ref, mv_r, mv_c, 8, row0)
+        torch.cuda.synchronize()
+        err = (coarse - want_c).abs().max().item()
+        for s in bme.ME_SHAPES:
+            for g, w, a in zip(me[s], want_me[s], whole_me[s]):
+                err = max(err, (g - w).abs().max().item(),
+                          (g - a[sbs]).abs().max().item())
+        for g, w in zip(sub, want_sub):
+            err = max(err, (g.to(torch.int32) - w.to(torch.int32)).abs()
+                      .max().item())
+        print(f"K5/K6/K7 at row0 {row0} of a {W}x{H} reference (stripe "
+              f"{W}x64): max |kernel - plain| and |stripe - whole frame's "
+              f"rows| {err}")
+        assert err == 0
+
+        # K1: true rows above and below; the last stripe's halo repeats
+        # its own last row, which the whole plane's pad does too
+        above = src[row0 - 1].contiguous()
+        halo = src[row0 + 64:row0 + 96].contiguous() if row0 + 64 < H \
+            else stripe[-1:].expand(32, W).contiguous()
+        worst_m, worst_c, exact = 1.0, 1.0, True
+        for (w, h) in omd.ALL_SHAPES:
+            m, c = omd.intra_decision(stripe, w, h, 140, 250.0, mb, 8, above,
+                                      halo)
+            m2, c2 = omd.intra_decision_plain(stripe, w, h, 140, 250.0, mb,
+                                              8, above, halo)
+            mw, cw = whole_k1[(w, h)]
+            worst_m = min(worst_m, (m == m2).float().mean().item())
+            worst_c = min(worst_c, torch.isclose(c, c2, rtol=1e-5).float()
+                          .mean().item())
+            exact &= torch.equal(m, mw[row0 // h:(row0 + 64) // h]) \
+                and torch.equal(c, cw[row0 // h:(row0 + 64) // h])
+        print(f"K1 stripe mode, rows {row0}..{row0 + 63} of {W}x{H}: modes "
+              f"equal to the plain version {worst_m:.6f} (worst shape), "
+              f"costs within rtol 1e-5 {worst_c:.6f}; bit-equal to the "
+              f"whole plane's rows {exact}")
+        assert worst_m >= 0.99 and worst_c >= 0.99 and exact
+
+        # K4: the neighbours' 2 rows where they exist
+        d = full[row0:row0 + 64].contiguous()
+        s8 = ref[row0:row0 + 64].contiguous()
+        ns = torch.from_numpy(rng.random((8, W // 8)) < 0.8).to(dev)
+        dirs, var = cdef.cdef_direction(d, W, 64)
+        tops = (None, full[row0 - 2:row0].contiguous())
+        bots = (None,) + ((full[row0 + 64:row0 + 66].contiguous(),)
+                          if row0 + 64 < H else ())
+        err = 0
+        for top in tops:
+            for bot in bots:
+                halos = [(top, bot)]
+                e = cdef.cdef_search([s8], [d], dirs, var, ns, W, 64, 3, 8,
+                                     halos=halos)[0]
+                e2 = cdef.search_plain([s8], [d], dirs, var, ns, W, 64, 3, 8,
+                                       halos=halos)[0]
+                ystr = cdef.pick_strength(e, cdef.PRI_SET, cdef.SEC_SET)
+                a = cdef.cdef_apply([d], ns, dirs, var, ystr, 0, 3, W, 64, 8,
+                                    halos)[0]
+                b = cdef.cdef_apply_plain([d], ns, dirs, var, ystr, 0, 3, W,
+                                          64, 8, halos)[0]
+                torch.cuda.synchronize()
+                err = max(err, (e - e2).abs().max().item(),
+                          (a - b).abs().max().item())
+                print(f"K4 at row0 {row0} of {W}x{H} with halo rows (above "
+                      f"{top is not None}, below {bot is not None}): "
+                      f"strength {ystr}, max |kernel - plain| {err}")
+        assert err == 0
+
+
+# --------------------------------------------------------------------------
+# the stripe path (B14) and the decoder path
+# --------------------------------------------------------------------------
+
+def _median_ms(fn):
+    """Median of 3 wall-clock runs of ``fn``, each after a synchronize."""
+    times = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
+def step_bound(rep):
+    """Sum of the least times of the stripe step's kernel calls (the
+    kernels phase's counts at each stripe's shapes): per stripe K5, K6,
+    K7, K8 once, K1 once per shape, K2 twice (both directions) per
+    candidate level, K3 once, K4's search and apply once each.
+    Returns (ms, the kind that bounds most of it)."""
+    from svt_av1_tpu_torch.ops import bme, omd
+
+    frame, stripes = rep["frame"], rep["stripes"]
+    H, W = frame.ref.shape
+    by = {"bytes": 0.0, "operations": 0.0}
+
+    def add(n_bytes, n_ops):
+        t, kind = bound_ms(n_bytes, n_ops)
+        by[kind] += t
+
+    for s in stripes:
+        rows = s.src.shape[0]
+        n_sb, units = (rows // 64) * (W // 64), (rows // 16) * (W // 16)
+        px = rows * W
+        r = frame.coarse_r
+        add(px + H * W + n_sb * 8, (px + H * W) + n_sb * (2 * r + 1) ** 2
+            * 64 * 3)
+        add(px + H * W + n_sb * 8 + n_sb * 17 * 16,
+            n_sb * 2 * bme.NPOS ** 2 * 64 * 64 * 3)
+        add(px + H * W + units * 16 + px,
+            units * (16 * (16 * 23 + 16 * 16) * 8 * 2 + 8 * 256 * 8 * 2
+                     + 25 * 256 * 3))
+        add(2 * px + units * 12 + units * 36 + sum(
+            (rows // h) * (W // w) * 4 for (w, h) in omd.INTER_SHAPES),
+            2 * sum(w + h for (w, h) in omd.INTER_SHAPES) * px
+            + 12 * len(omd.INTER_SHAPES) * px + 3 * px)
+        add(px + 33 * W + sum(8 * (rows // h) * (W // w)
+                              for (w, h) in omd.ALL_SHAPES),
+            sum(13 * 2 * px * (w + h) for (w, h) in omd.ALL_SHAPES))
+        ext = (rows + 32) * W
+        for _ in frame.dlf_levels:
+            add(2 * ext * 4 + nbytes(s.av, s.fv, s.ah, s.fh), 0)
+        n_u = (rows // 8) * (W // 8)
+        add(px * 4 + n_u * 8, n_u * (8 * 64 + 8 * 15 * 3 + 16))
+        frac = s.nonskip.float().mean().item()
+        combos = len(frame.pri_set) * len(frame.sec_set)
+        add(px * 5 + 4 * W * 4 + n_u * 9, px * frac * combos * 116)
+        add(2 * px * 4 + 4 * W * 4 + n_u * 9, px * frac * 113)
+    return by["bytes"] + by["operations"], max(by, key=by.get)
+
+
+STRIPE_GEOMETRIES = ((4, 1280), (17, 1920))
+
+
+def stripes_phase(counters):
+    """The stripe dryrun (B14) at the JAX geometry (4 stripes, 1280x256)
+    and at full width (17 stripes, 1920x1088), each on a coded frame of
+    the port's encoder with every count set to 0 just before and read
+    just after; the plain versions' step on the card at both geometries;
+    the closed-GOP half.  Returns the launches of both paths (the kernels'
+    and the step's own count) and per stripe count the step's
+    measurements."""
+    from svt_av1_tpu_torch.parallel import dryrun, stripes
+
+    counters = dict(counters, stripe_step=stripes.stripe_step)
+    total = {name: 0 for name in counters}
+    b14 = {}
+    for n, width in STRIPE_GEOMETRIES:
+        for fn in counters.values():
+            fn.launches = 0
+        torch.cuda.synchronize()
+        rep = dryrun.dryrun_stripes(n, width=width)      # CUDA by default
+        torch.cuda.synchronize()
+        launches = {name: fn.launches for name, fn in counters.items()}
+        for k, v in launches.items():
+            total[k] += v
+        missing = [k for k in STRIPE_KERNELS + ("stripe_step",)
+                   if launches[k] == 0]
+        assert not missing, f"kernels not launched on the stripe path: " \
+                            f"{missing}"
+        frame, parts = rep["frame"], rep["stripes"]
+        comm = stripes.LocalStripes(n)
+        for fn in counters.values():
+            fn.launches = 0
+        step_ms = _median_ms(lambda: stripes.stripe_step(frame, parts, comm))
+        per_step = {k: fn.launches // 3 for k, fn in counters.items()
+                    if fn.launches}
+        whole_ms = _median_ms(lambda: dryrun.whole_frame(
+            rep["state"], frame, frame.ref.device))
+        b_ms, b_by = step_bound(rep)
+        print(f"stripes {n} x {width}x64 ({width}x{64 * n}), qindex "
+              f"{rep['qindex']}: step {rep['step_ms']:.3f} ms first run, "
+              f"{step_ms:.3f} ms warm (median of 3, wall after a "
+              f"synchronize); the whole frame's run of the same kernels "
+              f"{rep['whole_ms']:.3f} ms first, {whole_ms:.3f} ms warm; "
+              f"bound of the step's kernels {b_ms:.5f} ms ({b_by})")
+        print(f"stripes {n}: agreement with the whole frame "
+              f"{json.dumps(rep['agreement'])}, max |stripe - whole| of the "
+              f"costs and MV bits {rep['max_abs_err']} (selection fields "
+              f"with the MVs, deblocking level {rep['level']}, CDEF "
+              f"strength {rep['ystr']}, SSE and error totals and the CDEF "
+              f"plane equal); winner margins "
+              f"{json.dumps(rep['margins'])}; SSE per candidate "
+              f"{rep['whole']['dlf_sse'].tolist()}; CDEF errors "
+              f"{rep['whole']['cdef_err'].min().item()}.."
+              f"{rep['whole']['cdef_err'].max().item()} (below 2^24 "
+              f"= {1 << 24} every float32 partial sum is exact)")
+        print(f"stripes {n}: launches on the path (capture encode, step, "
+              f"whole frame, GOP half): {json.dumps(launches)}; per step: "
+              f"{json.dumps(per_step)}")
+        if "gop" in rep:
+            print(f"stripes {n}: closed-GOP half {json.dumps(rep['gop'])}: "
+                  "the two GOPs decode, with the port's Decoder on the "
+                  "card, to the single stream's pictures and its recon")
+        # the plain versions' step on the same card tensors, held to the
+        # kernels phase's gates: modes equal on more than 99% of every
+        # shape's blocks, K1's costs within rtol 1e-5 and K8's within rtol
+        # 2e-4, atol 2 on more than 99%, every integer output equal
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        plain = stripes.stripe_step(frame, parts, comm, plain=True)
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        agreement, err = dryrun.compare(rep["outs"], plain, comm.indices,
+                                        modes=0.99, intra_tol=(1e-5, 1e-8))
+        print(f"stripes {n}: the plain versions' step on the card gives "
+              f"the same outputs ({json.dumps(agreement)}, max |kernel - "
+              f"plain| {err}); plain step {plain_ms:.3f} ms")
+        b14[n] = dict(ms=step_ms, plain_ms=plain_ms, max_abs_err=err,
+                      bound=(b_ms, b_by))
+    return total, b14
+
+
+DECODE_KERNELS = ("deblock", "cdef_direction", "cdef_apply")
+
+
+def decode_phase(counters, streams):
+    """The port's Decoder on the card, counts set to 0 just before and read
+    just after: ``streams`` is a list of (name, IVF path, encoder recon per
+    display, temporal units to decode); every shown frame must equal the
+    recon of its display."""
+    from svt_av1_tpu_torch.api import Decoder
+    from svt_av1_tpu_torch.io import IvfReader
+
+    for fn in counters.values():
+        fn.launches = 0
+    torch.cuda.synchronize()
+    for name, path, recon, n_tu in streams:
+        dec = Decoder()                         # the default device: CUDA
+        assert dec.device.type == "cuda"
+        pkts = [p for p, _ in IvfReader(str(path))][:n_tu]
+        t0 = time.perf_counter()
+        shown = [g for g in (dec.decode_frame(p) for p in pkts)
+                 if g is not None]
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        for d, g in enumerate(shown):
+            for p in range(3):
+                assert np.array_equal(g[p], recon[d][p]), (name, d, p)
+        rep = dec.prof.report(dec.frames_decoded)
+        print(f"decode {name}: {len(pkts)} temporal units, "
+              f"{dec.frames_decoded} coded frames, {len(shown)} shown, all "
+              f"equal to the encoder's recon; md5 {dec.md5.hexdigest()}; "
+              f"{wall * 1e3 / dec.frames_decoded:.3f} ms per coded frame: "
+              f"tile walk (host) {rep['tile_walk']['ms_per_frame']} ms, "
+              f"filters (card, copies included) "
+              f"{rep['filters']['ms_per_frame']} ms")
+    launches = {name: fn.launches for name, fn in counters.items()}
+    print("decode path launches:", json.dumps(launches))
+    missing = [k for k in DECODE_KERNELS if launches[k] == 0]
+    assert not missing, f"kernels not launched on the decode path: {missing}"
+    return launches
 
 
 # --------------------------------------------------------------------------
@@ -1036,6 +1352,7 @@ ALLINTRA_KERNELS = ("intra_decision", "deblock", "cdef_direction",
                     "cdef_search", "cdef_apply")
 IPP_KERNELS = ALLINTRA_KERNELS + ("me_coarse", "me_refine",
                                   "subpel_refine16", "inter_select")
+STRIPE_KERNELS = IPP_KERNELS
 
 
 def main() -> int:
@@ -1088,9 +1405,28 @@ def main() -> int:
     out_dir = Path(os.environ.get("TMPDIR") or tempfile.gettempdir())
     with tempfile.TemporaryDirectory(dir=out_dir) as tmp:
         ai_launches = allintra_phase(counters, frames, tmp)
-        ipp_launches = ipp_phase(counters, ipp_frames, tmp)
-        launches = ra_phase(counters, ra_frames, tmp)
-        agreement_phase(tmp)
+        ipp_launches, ipp_stream = ipp_phase(counters, ipp_frames, tmp)
+        ra_launches = ra_phase(counters, ra_frames, tmp)
+        ra_card = agreement_phase(tmp)
+        # the stripe modes against their plain versions, after the encodes
+        # so that those run on the process state they ran on before: the
+        # JAX geometry (1280x256, stripes at rows 64 and 192) and the full
+        # width (1920x1088, the edge rows repeated below the 1080, stripes
+        # at rows 512 and 1024)
+        stripe_kernels_phase(dev, ra_frames[0][0][:256, :1280],
+                             ra_frames[1][0][:256, :1280], (64, 192))
+        tall = [np.pad(f[0], ((0, 1088 - HEIGHT), (0, 0)), mode="edge")
+                for f in ra_frames[:2]]
+        stripe_kernels_phase(dev, *tall, (512, 1024))
+        stripe_launches, b14 = stripes_phase(counters)
+        dec_launches = decode_phase(counters, [
+            ("192x128x5 random access (card stream)", *ra_card, 7),
+            (f"{WIDTH}x{HEIGHT} low-delay P, first 3 temporal units",
+             *ipp_stream, 3)])
+    # the kernels line counts the launches of every main path: the
+    # random-access encode, the two stripe dryruns and the decodes
+    launches = {k: ra_launches[k] + stripe_launches[k] + dec_launches[k]
+                for k in counters}
     if "--trace" in sys.argv:
         trace_phase(frames, ipp_frames, ra_frames,
                     sys.argv[sys.argv.index("--trace") + 1])
@@ -1126,10 +1462,32 @@ def main() -> int:
             bound_ms=b_ms, bound_by=b_by, library_ms=None))
         print(f"{name}: {r['per_call']}: kernel {r['ms']:.4f} ms, plain "
               f"{r['plain_ms']:.4f} ms, bound {b_ms:.5f} ms ({b_by}); "
-              f"launches: {launches[name]} on the {RA_FRAMES}-frame random-"
-              f"access encode, {ipp_launches[name]} on the {N_FRAMES}-frame "
-              f"low-delay P encode, {ai_launches[name]} on the all-intra "
-              f"encode")
+              f"launches: {launches[name]} on the main paths = "
+              f"{ra_launches[name]} on the {RA_FRAMES}-frame random-access "
+              f"encode + {stripe_launches[name]} on the stripe dryruns + "
+              f"{dec_launches[name]} on the decodes; {ipp_launches[name]} on "
+              f"the {N_FRAMES}-frame low-delay P encode, {ai_launches[name]} "
+              f"on the all-intra encode")
+    # the row's times are the JAX geometry's (4 stripes of 1280x64); its
+    # error is the larger of both geometries' kernel - plain differences
+    four = b14[4]
+    b_ms, b_by = four["bound"]
+    rows.append(dict(
+        name="stripe_step", route="cuda",
+        composed_of="composite: K1-K8 stripe modes",
+        source="svt_av1_tpu_torch/parallel/stripes.py",
+        replaces="__graft_entry__.py:74",
+        launches=stripe_launches["stripe_step"],
+        max_abs_err=max(r["max_abs_err"] for r in b14.values()),
+        ms=four["ms"], plain_ms=four["plain_ms"], bound_ms=b_ms,
+        bound_by=b_by, library_ms=None))
+    for n, r in b14.items():
+        print(f"stripe_step: {n} stripes, the warm step's wall time "
+              f"{r['ms']:.3f} ms, plain {r['plain_ms']:.3f} ms, max |kernel "
+              f"- plain| {r['max_abs_err']}, the sum of its kernels' bounds "
+              f"{r['bound'][0]:.5f} ms ({r['bound'][1]})")
+    print(f"stripe_step: {stripe_launches['stripe_step']} steps on the "
+          f"stripe dryruns")
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,29 +1,41 @@
-"""Public encode API of the port (counterpart of svt_av1_tpu/api.py).
+"""Public API of the port (counterpart of svt_av1_tpu/api.py).
 
-``Encoder(cfg, device=None)`` accepts frames and emits OBU packets; it
-runs on CUDA unless the caller asks for another device.  Orchestration
-mirrors the reference API at frame granularity: picture decision, DPB
-bookkeeping, packetization.  The port covers preset 8, 8-bit 4:2:0,
-in three configurations: all-intra, low-delay P (IPP: one key frame,
-then P frames predicted from past pictures) and random access (dyadic
-mini-GOPs with show_existing frames, MCTF on key and base-layer
-pictures, a TPL lookahead per mini-GOP feeding the qindex ladder, and
-averaged compound prediction): every other configuration raises
-NotImplementedError instead of running host code in place of device
-programs that are not ported yet.  Decoding stays with the JAX
-package's ``svt_av1_tpu.api.Decoder``.
+``Encoder(cfg, device=None)`` accepts frames and emits OBU packets;
+``Decoder(device=None)`` maps OBU payloads to pictures, and ``encode_ivf``
+/ ``decode_ivf`` wrap both around IVF files.  Both run on CUDA unless the
+caller asks for another device.  Orchestration mirrors the reference API
+at frame granularity: picture decision, DPB bookkeeping, packetization.
+
+The encoder covers preset 8, 8-bit 4:2:0, in three configurations:
+all-intra, low-delay P (IPP: one key frame, then P frames predicted from
+past pictures) and random access (dyadic mini-GOPs with show_existing
+frames, MCTF on key and base-layer pictures, a TPL lookahead per mini-GOP
+feeding the qindex ladder, and averaged compound prediction): every other
+configuration raises NotImplementedError instead of running host code in
+place of device programs that are not ported yet.
+
+The decoder walks the tiles on the host (the conformant walker of
+``FrameCodec``) and runs the normative deblocking and CDEF on the device
+(the deblocking and CDEF kernels); loop restoration, super-resolution and
+film grain run on the host.  Streams with per-64x64 CDEF strength presets
+(``cdef_bits > 0``) raise ApiError(UNSUPPORTED_BITSTREAM).
 """
 from __future__ import annotations
 
 import dataclasses
+import enum
+import hashlib
 
 import numpy as np
 
-from .bitstream.bits import BitWriter
-from .bitstream.headers import (FrameHeader, temporal_delimiter_obu,
-                                wrap_obu, write_frame_header,
-                                write_sequence_header,
-                                write_show_existing_header, SequenceHeader)
+from .bitstream.bits import BitReader, BitWriter
+from .bitstream.headers import (FrameHeader, GM_IDENTITY_MAT,
+                                PRIMARY_REF_NONE, SequenceHeader,
+                                UnsupportedBitstream, iter_obus,
+                                parse_frame_header, parse_sequence_header,
+                                temporal_delimiter_obu, wrap_obu,
+                                write_frame_header, write_sequence_header,
+                                write_show_existing_header)
 from .config import ColorFormat, EncoderConfig, PredStructure, \
     RateControlMode, derive_signals
 from .constants import FrameType, ObuType
@@ -34,6 +46,22 @@ from .pipeline.frame_codec import FrameCodec
 LAST, LAST2, LAST3, GOLDEN, BWDREF, ALTREF2, ALTREF = range(1, 8)
 # FrameCodec.search_refs' preference order of the named references
 _SEARCH_ORDER = (LAST, BWDREF, ALTREF, GOLDEN, LAST2, LAST3, ALTREF2)
+
+
+class ErrorCode(enum.IntEnum):
+    """Library error surface (the EbSvtAv1ErrorCodes.h analog; raised as
+    typed exceptions instead of returned codes)."""
+    OK = 0
+    BAD_PARAMETER = 0x80001005
+    NO_OUTPUT = 0x80001006
+    DECODE_ERROR = 0x80001010
+    UNSUPPORTED_BITSTREAM = 0x80001011
+
+
+class ApiError(RuntimeError):
+    def __init__(self, code: ErrorCode, msg: str):
+        super().__init__(f"[{code.name}] {msg}")
+        self.code = code
 
 
 def _assemble_tile_group(blobs: list, fh: FrameHeader) -> bytes:
@@ -760,7 +788,6 @@ class Encoder:
             ref_planes = [p.astype(np.int32) for p in self.last_recon]
             # SavedCdfs: the adapted end state of the frame's last tile;
             # SavedGmParams: this frame's matrices (identity here)
-            from .bitstream.headers import GM_IDENTITY_MAT
             gm_mats = tuple(
                 (fh.global_motion[i][1] if i < len(fh.global_motion)
                  else GM_IDENTITY_MAT) for i in range(7))
@@ -825,6 +852,185 @@ def encode_ivf(frames, cfg: EncoderConfig, path: str,
             w.write_frame(payload, pts=pts)
             pts += 1
     return [enc.recon_by_display[d] for d in sorted(enc.recon_by_display)]
+
+
+# --------------------------------------------------------------------------
+# Decoder
+# --------------------------------------------------------------------------
+
+class Decoder:
+    """Decoder: OBU payloads -> pictures (display order).  The tile walk
+    runs on the host; the normative deblocking and CDEF run on ``device``
+    (CUDA unless the caller asks for another device).  ``prof`` times
+    the stages ``tile_walk`` and ``filters`` (the device filters, their
+    copies included)."""
+
+    def __init__(self, device=None):
+        from .profiling import StageTimer
+
+        self.device = resolve_device(device)
+        self.seq: SequenceHeader | None = None
+        self.md5 = hashlib.md5()
+        self.dpb = Dpb()
+        self.prof = StageTimer()
+        self.frames_decoded = 0
+
+    def get_stream_info(self) -> dict:
+        if self.seq is None:
+            raise ApiError(ErrorCode.NO_OUTPUT, "no sequence header seen")
+        return dict(width=self.seq.max_frame_width,
+                    height=self.seq.max_frame_height,
+                    bit_depth=self.seq.bit_depth,
+                    seq_level_idx=self.seq.seq_level_idx)
+
+    def decode_frame(self, data: bytes):
+        """Decode one temporal unit; returns (y, u, v) planes or None.
+
+        Raises ApiError(UNSUPPORTED_BITSTREAM) for legal AV1 features
+        outside this decoder's scope, ApiError(DECODE_ERROR) for
+        malformed data."""
+        try:
+            return self._decode_frame(data)
+        except ApiError:
+            raise
+        except UnsupportedBitstream as e:
+            raise ApiError(ErrorCode.UNSUPPORTED_BITSTREAM, str(e)) from e
+        except (AssertionError, IndexError, ValueError) as e:
+            raise ApiError(ErrorCode.DECODE_ERROR, repr(e)) from e
+
+    def _decode_frame(self, data: bytes):
+        planes = None
+        for obu_type, payload in iter_obus(data):
+            if obu_type == ObuType.OBU_TEMPORAL_DELIMITER:
+                continue
+            if obu_type == ObuType.OBU_SEQUENCE_HEADER:
+                self.seq = parse_sequence_header(payload)
+            elif obu_type == ObuType.OBU_FRAME:
+                planes = self._decode_frame_obu(payload)
+            elif obu_type == ObuType.OBU_FRAME_HEADER:
+                r = BitReader(payload)
+                res = parse_frame_header(r, self.seq, self._hints())
+                assert isinstance(res, int), "frame header without tiles"
+                slot = self.dpb.slots[res]
+                planes = tuple(np.asarray(p) for p in slot["planes"])
+                planes = self._output(planes, slot.get("film_grain"))
+        return planes
+
+    def _output(self, planes, film_grain=None):
+        dt = np.uint8 if self.seq.bit_depth == 8 else np.uint16
+        out = tuple(p.astype(dt) for p in planes)
+        if film_grain is not None and film_grain.apply_grain:
+            from .ops.film_grain import apply_grain
+            out = apply_grain(film_grain, out, self.seq.bit_depth)
+        for p in out:
+            self.md5.update(np.ascontiguousarray(p).tobytes())
+        return out
+
+    def _hints(self):
+        if self.seq is None or not self.seq.enable_order_hint:
+            return (0,) * 8
+        mask = (1 << self.seq.order_hint_bits) - 1
+        return [0 if s is None else (s["order_hint"] & mask)
+                for s in self.dpb.slots]
+
+    def _decode_frame_obu(self, payload: bytes):
+        assert self.seq is not None, "no sequence header seen"
+        r = BitReader(payload)
+        saved_gm = [None if s is None else s.get("gm")
+                    for s in self.dpb.slots]
+        fh = parse_frame_header(r, self.seq, self._hints(), saved_gm)
+        assert isinstance(fh, FrameHeader)
+        tile_data = payload[r.byte_pos:]
+        is_key = fh.frame_type == FrameType.KEY_FRAME
+        refs = None
+        init_fc = None
+        if not is_key:
+            refs = {n: Dpb.padded(self.dpb.slots[fh.ref_frame_idx[n - 1]])
+                    for n in range(1, 8)}
+            if fh.primary_ref_frame != PRIMARY_REF_NONE:
+                slot = self.dpb.slots[
+                    fh.ref_frame_idx[fh.primary_ref_frame]]
+                init_fc = slot.get("cdfs")
+                if init_fc is None:
+                    raise ApiError(ErrorCode.UNSUPPORTED_BITSTREAM,
+                                   "primary ref without saved CDFs")
+        codec = FrameCodec(self.seq, fh, refs=refs, init_fc=init_fc,
+                           device=self.device)
+        if not is_key and self.seq.enable_order_hint:
+            bits = self.seq.order_hint_bits
+
+            def rel(a, b):
+                diff = (a - b) & ((1 << bits) - 1)
+                m = 1 << (bits - 1)
+                return (diff & (m - 1)) - (diff & m)
+
+            for n in range(1, 8):
+                ref_oh = self.dpb.slots[fh.ref_frame_idx[n - 1]]["order_hint"]
+                codec.sign_bias[n] = int(rel(ref_oh, fh.order_hint) > 0)
+        rects = codec.tile_rects()
+        with self.prof("tile_walk"):
+            if len(rects) > 1:
+                # tile group header: tile_start_and_end_present_flag (0)
+                # + byte alignment = one zero byte, then sized tiles
+                assert tile_data[0] == 0, "tile_start_and_end must be 0"
+                off = 1
+                blobs = []
+                for _ in range(len(rects) - 1):
+                    sz = int.from_bytes(
+                        tile_data[off:off + fh.tile_size_bytes],
+                        "little") + 1
+                    off += fh.tile_size_bytes
+                    blobs.append(tile_data[off:off + sz])
+                    off += sz
+                blobs.append(tile_data[off:])
+                codec.decode_tiles(blobs)
+            else:
+                codec.decode_tile(tile_data)
+        with self.prof("filters"):
+            codec.apply_loop_filter()
+            codec.apply_cdef()
+        codec.apply_superres()
+        codec.apply_lr()
+        planes = codec.cropped_recon()
+        self.frames_decoded += 1
+        mask = 0xFF if is_key and fh.show_frame else fh.refresh_frame_flags
+        if mask:
+            gm_mats = tuple(
+                (fh.global_motion[i][1] if i < len(fh.global_motion)
+                 else GM_IDENTITY_MAT) for i in range(7))
+            saved_fc = getattr(codec, "saved_fc", None) or codec.fc
+            if fh.disable_frame_end_update_cdf:
+                saved_fc = init_fc if init_fc is not None \
+                    else FrameCdfs(fh.base_q_idx)
+            saved_fc = saved_fc.copy()
+            saved_fc.zero_counters()
+            self.dpb.refresh(mask, [p.astype(np.int32) for p in planes],
+                             fh.order_hint, fh.order_hint,
+                             cdfs=saved_fc, gm=gm_mats,
+                             qindex=fh.base_q_idx)
+            for i in range(8):
+                if mask & (1 << i):
+                    self.dpb.slots[i]["film_grain"] = fh.film_grain
+        if fh.show_frame:
+            return self._output(planes, fh.film_grain)
+        return None
+
+
+def decode_ivf(path: str, device=None):
+    """Decode an IVF file; returns (frames, md5hex) in display order."""
+    from .io import IvfReader
+
+    dec = Decoder(device)
+    frames = []
+    r = IvfReader(path)
+    try:
+        for payload, _pts in r:
+            planes = dec.decode_frame(payload)
+            if planes is not None:
+                frames.append(planes)
+    finally:
+        r.close()
+    return frames, dec.md5.hexdigest()
 
 
 def _variance_aq(y_plane: np.ndarray, sb_size: int, base_q: int):

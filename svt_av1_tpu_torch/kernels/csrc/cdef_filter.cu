@@ -15,7 +15,9 @@
 // Design: one thread per pixel of the in-frame region.  The thread reads
 // its sample and the 12 taps along its unit's direction (primary taps
 // along the direction, secondary taps along the directions rotated by 2
-// and 6), CDEF_VERY_LARGE outside the frame; the clip bounds ignore
+// and 6), CDEF_VERY_LARGE outside the frame; a stripe of the frame reads
+// the two rows above and below it from its neighbours' halo rows where
+// the frame continues (the JAX padded_planes); the clip bounds ignore
 // CDEF_VERY_LARGE for the maximum as the reference does.  Combinations
 // with a zero primary strength use direction 0, as the reference's
 // zero-direction context.  Search: every combination is evaluated from
@@ -67,14 +69,27 @@ struct Taps {
   int mx, mn;
 };
 
-__device__ __forceinline__ int sample(const int* plane, int W, int ph,
-                                      int pw, int y, int x) {
-  return (y >= 0 && y < ph && x >= 0 && x < pw) ? plane[y * W + x]
-                                                : kVeryLarge;
+// The plane with its surroundings: rows [0, ph) of the plane, rows -2, -1
+// from top[2, W] and rows ph, ph + 1 from bottom[2, W] where given;
+// CDEF_VERY_LARGE elsewhere and at every column outside [0, pw).
+struct Src {
+  const int* plane;
+  const int* top;
+  const int* bottom;
+  int W, ph, pw;
+};
+
+__device__ __forceinline__ int sample(const Src& p, int y, int x) {
+  if (x < 0 || x >= p.pw) return kVeryLarge;
+  if (y >= 0 && y < p.ph) return p.plane[y * p.W + x];
+  if (y < 0 && y >= -2 && p.top) return p.top[(y + 2) * p.W + x];
+  if (y >= p.ph && y < p.ph + 2 && p.bottom)
+    return p.bottom[(y - p.ph) * p.W + x];
+  return kVeryLarge;
 }
 
-__device__ void gather(const int* plane, int W, int ph, int pw, int y,
-                       int x, int v, int d, Taps& t) {
+__device__ void gather(const Src& p, int y, int x, int v, int d,
+                       Taps& t) {
   t.mx = v;
   t.mn = v;
 #pragma unroll
@@ -82,8 +97,8 @@ __device__ void gather(const int* plane, int W, int ph, int pw, int y,
 #pragma unroll
     for (int sg = 0; sg < 2; ++sg) {
       const int sign = sg ? -1 : 1;
-      const int a = sample(plane, W, ph, pw, y + sign * kDir[d][k][0],
-                           x + sign * kDir[d][k][1]);
+      const int a =
+          sample(p, y + sign * kDir[d][k][0], x + sign * kDir[d][k][1]);
       t.p[2 * k + sg] = a;
       if (a != kVeryLarge) t.mx = max(t.mx, a);
       t.mn = min(t.mn, a);
@@ -94,7 +109,7 @@ __device__ void gather(const int* plane, int W, int ph, int pw, int y,
 #pragma unroll
       for (int sg = 0; sg < 2; ++sg) {
         const int sign = sg ? -1 : 1;
-        const int a = sample(plane, W, ph, pw, y + sign * kDir[dr][k][0],
+        const int a = sample(p, y + sign * kDir[dr][k][0],
                              x + sign * kDir[dr][k][1]);
         t.s[4 * k + 2 * ri + sg] = a;
         if (a != kVeryLarge) t.mx = max(t.mx, a);
@@ -131,7 +146,9 @@ __global__ void cdef_search_kernel(
     int ph, int pw, int bsl, const int* __restrict__ dirs,
     const int* __restrict__ var, const uint8_t* __restrict__ nonskip,
     int uw, int is_luma, unsigned pri_pack, int n_pri, unsigned sec_pack,
-    int n_sec, int damping, int cs, unsigned long long* __restrict__ err) {
+    int n_sec, int damping, int cs, const int* __restrict__ top,
+    const int* __restrict__ bottom, unsigned long long* __restrict__ err) {
+  const Src sp = {rec, top, bottom, W, ph, pw};
   __shared__ int blk[kMaxCombos];
   const int tid = threadIdx.y * blockDim.x + threadIdx.x;
   const int n_combo = n_pri * n_sec;
@@ -152,8 +169,8 @@ __global__ void cdef_search_kernel(
     s = src[y * W + x];
     d = dirs[u];
     vr = var[u];
-    gather(rec, W, ph, pw, y, x, v, d, td);
-    gather(rec, W, ph, pw, y, x, v, 0, t0);
+    gather(sp, y, x, v, d, td);
+    gather(sp, y, x, v, 0, t0);
   }
   const int lane = tid & 31;
   for (int pi = 0; pi < n_pri; ++pi) {
@@ -183,7 +200,9 @@ __global__ void cdef_apply_kernel(
     const int* __restrict__ rec, int* __restrict__ out, int H, int W,
     int ph, int pw, int bsl, const int* __restrict__ dirs,
     const int* __restrict__ var, const uint8_t* __restrict__ nonskip,
-    int uw, int is_luma, int pri, int sec, int damping, int cs) {
+    int uw, int is_luma, int pri, int sec, int damping, int cs,
+    const int* __restrict__ top, const int* __restrict__ bottom) {
+  const Src sp = {rec, top, bottom, W, ph, pw};
   const int x = blockIdx.x * blockDim.x + threadIdx.x;
   const int y = blockIdx.y * blockDim.y + threadIdx.y;
   if (y >= H || x >= W) return;
@@ -193,7 +212,7 @@ __global__ void cdef_apply_kernel(
     const int u = (y >> bsl) * uw + (x >> bsl);
     if (nonskip[u]) {
       Taps t;
-      gather(rec, W, ph, pw, y, x, v, pri > 0 ? dirs[u] : 0, t);
+      gather(sp, y, x, v, pri > 0 ? dirs[u] : 0, t);
       o = filter(t, v, is_luma ? adjust_strength(pri, var[u]) : pri, sec,
                  damping, cs);
     }
@@ -206,14 +225,18 @@ __global__ void cdef_apply_kernel(
 // rec: int32 [H, W]; src: uint8 [H, W]; frame [0, ph) x [0, pw); dirs,
 // var: int32 unit maps and nonskip uint8 [uh, uw] (luma 8x8 units, 4x4
 // in chroma); pri_pack: 4-bit coded primaries, sec_pack: 2-bit coded
-// secondaries; err: int64 [n_pri * n_sec] totals to add to.
+// secondaries; top, bottom: int32 [2, W] rows above and below a stripe
+// of the frame, or null at the frame's edges; err: int64 [n_pri * n_sec]
+// totals to add to.
 extern "C" int cdef_search_launch(const void* rec, const void* src, int H,
                                   int W, int ph, int pw, int bsl,
                                   const void* dirs, const void* var,
                                   const void* nonskip, int uw, int is_luma,
                                   unsigned pri_pack, int n_pri,
                                   unsigned sec_pack, int n_sec, int damping,
-                                  int cs, void* err, void* stream) {
+                                  int cs, const void* top,
+                                  const void* bottom, void* err,
+                                  void* stream) {
   if (n_pri * n_sec > kMaxCombos || n_pri * n_sec < 1 || ph > H || pw > W)
     return (int)cudaErrorInvalidValue;
   const dim3 threads(32, 8);
@@ -222,23 +245,25 @@ extern "C" int cdef_search_launch(const void* rec, const void* src, int H,
       (const int*)rec, (const uint8_t*)src, W, ph, pw, bsl,
       (const int*)dirs, (const int*)var, (const uint8_t*)nonskip, uw,
       is_luma, pri_pack, n_pri, sec_pack, n_sec, damping, cs,
-      (unsigned long long*)err);
+      (const int*)top, (const int*)bottom, (unsigned long long*)err);
   return (int)cudaGetLastError();
 }
 
 // pri, sec: this plane's strengths in filter units (sec 3 already 4);
-// out: int32 [H, W], the filtered frame region and a copy elsewhere.
+// top, bottom: as for cdef_search_launch; out: int32 [H, W], the filtered
+// frame region and a copy elsewhere.
 extern "C" int cdef_apply_launch(const void* rec, void* out, int H, int W,
                                  int ph, int pw, int bsl, const void* dirs,
                                  const void* var, const void* nonskip,
                                  int uw, int is_luma, int pri, int sec,
-                                 int damping, int cs, void* stream) {
+                                 int damping, int cs, const void* top,
+                                 const void* bottom, void* stream) {
   if (ph > H || pw > W) return (int)cudaErrorInvalidValue;
   const dim3 threads(32, 8);
   const dim3 blocks((W + 31) / 32, (H + 7) / 8);
   cdef_apply_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(
       (const int*)rec, (int*)out, H, W, ph, pw, bsl, (const int*)dirs,
       (const int*)var, (const uint8_t*)nonskip, uw, is_luma, pri, sec,
-      damping, cs);
+      damping, cs, (const int*)top, (const int*)bottom);
   return (int)cudaGetLastError();
 }

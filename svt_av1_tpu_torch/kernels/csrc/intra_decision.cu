@@ -12,7 +12,9 @@
 //
 // Design: one thread block per prediction block, one thread per pixel.
 // The block builds its above/left edge vectors once in shared memory
-// (edge replication = clamped reads, as pad_plane's mode="edge"), loads
+// (edge replication = clamped reads, as pad_plane's mode="edge"; in
+// stripe mode the row above the stripe and the halo rows below it are
+// read where the whole frame's plane would be, see sample()), loads
 // the two DCT matrices, then loops over the 13 modes: predict the pixel
 // directly (DC/V/H/Paeth/smooth in integers; the six directional modes
 // through a per-(mode, shape) table of at most two taps per pixel whose
@@ -36,8 +38,26 @@ __device__ __forceinline__ int clampi(int v, int lo, int hi) {
   return v < lo ? lo : (v > hi ? hi : v);
 }
 
+// Sample (r, c) of the plane as the prediction edges read it: the column
+// clamped to [0, buf_w); row -1 from the row above the stripe when one
+// is given (above), rows [buf_h, buf_h + n_halo) from the halo rows below
+// it; every other row outside the plane repeats its nearest edge row.
+__device__ __forceinline__ int sample(const uint8_t* __restrict__ plane,
+                                      const uint8_t* __restrict__ above,
+                                      const uint8_t* __restrict__ halo,
+                                      int buf_h, int buf_w, int n_halo,
+                                      int r, int c) {
+  c = clampi(c, 0, buf_w - 1);
+  if (r < 0) return (r == -1 && above) ? above[c] : plane[c];
+  if (r < buf_h) return plane[r * buf_w + c];
+  if (r < buf_h + n_halo) return halo[(r - buf_h) * buf_w + c];
+  return plane[(buf_h - 1) * buf_w + c];
+}
+
 __global__ void intra_decision_kernel(
-    const uint8_t* __restrict__ plane, int buf_h, int buf_w, int w, int h,
+    const uint8_t* __restrict__ plane, const uint8_t* __restrict__ above_row,
+    const uint8_t* __restrict__ halo, int buf_h, int buf_w, int n_halo,
+    int w, int h,
     const int* __restrict__ dir_taps, const int* __restrict__ sm_weights,
     const float* __restrict__ dct_h, const float* __restrict__ dct_wt,
     float zbin_dc, float zbin_ac, float rnd_dc, float rnd_ac,
@@ -63,11 +83,11 @@ __global__ void intra_decision_kernel(
   const int x0 = blockIdx.x * w;
   const int L = w + h + 1;
 
-  const int ey = clampi(y0 - 1, 0, buf_h - 1);
-  const int ex = clampi(x0 - 1, 0, buf_w - 1);
   for (int k = tid; k < L; k += n) {
-    above[k] = plane[ey * buf_w + clampi(x0 - 1 + k, 0, buf_w - 1)];
-    left[k] = plane[clampi(y0 - 1 + k, 0, buf_h - 1) * buf_w + ex];
+    above[k] = sample(plane, above_row, halo, buf_h, buf_w, n_halo, y0 - 1,
+                      x0 - 1 + k);
+    left[k] = sample(plane, above_row, halo, buf_h, buf_w, n_halo,
+                     y0 - 1 + k, x0 - 1);
   }
   for (int k = tid; k < h * h; k += n) dh[k] = dct_h[k];
   for (int k = tid; k < w * w; k += n) dwt[k] = dct_wt[k];
@@ -175,22 +195,28 @@ __global__ void intra_decision_kernel(
 
 }  // namespace
 
-// plane: uint8 [buf_h, buf_w]; dir_taps: int32 [6, h*w] (see
+// plane: uint8 [buf_h, buf_w]; above_row: uint8 [buf_w] and halo: uint8
+// [n_halo, buf_w], the true neighbour rows of a stripe (both null for a
+// whole plane); dir_taps: int32 [6, h*w] (see
 // ops/omd.py _dir_taps); sm_weights: int32 smooth weight table;
 // dct_h: float32 [h, h]; dct_wt: float32 [w, w] (transposed DCT);
 // mode_bits: float32 [13]; out_mode int32 / out_cost float32
 // [buf_h / h, buf_w / w].  Returns the CUDA error of the launch.
 extern "C" int intra_decision_launch(
-    const void* plane, int buf_h, int buf_w, int w, int h,
+    const void* plane, const void* above_row, const void* halo, int buf_h,
+    int buf_w, int n_halo, int w, int h,
     const void* dir_taps, const void* sm_weights, const void* dct_h,
     const void* dct_wt, float zbin_dc, float zbin_ac, float rnd_dc,
     float rnd_ac, float step_dc, float step_ac, float lam,
     const void* mode_bits, void* out_mode, void* out_cost, void* stream) {
-  if (w * h > 1024 || (w * h) % 32 != 0 || w + h + 1 > kMaxEdge)
+  if (w * h > 1024 || (w * h) % 32 != 0 || w + h + 1 > kMaxEdge ||
+      (above_row == nullptr) != (halo == nullptr) || n_halo < 0)
     return (int)cudaErrorInvalidValue;
   dim3 grid(buf_w / w, buf_h / h);
   intra_decision_kernel<<<grid, w * h, 0, (cudaStream_t)stream>>>(
-      (const uint8_t*)plane, buf_h, buf_w, w, h, (const int*)dir_taps,
+      (const uint8_t*)plane, (const uint8_t*)above_row,
+      (const uint8_t*)halo, buf_h, buf_w, halo ? n_halo : 0, w, h,
+      (const int*)dir_taps,
       (const int*)sm_weights, (const float*)dct_h, (const float*)dct_wt,
       zbin_dc, zbin_ac, rnd_dc, rnd_ac, step_dc, step_ac, lam,
       (const float*)mode_bits, (int*)out_mode, (float*)out_cost);

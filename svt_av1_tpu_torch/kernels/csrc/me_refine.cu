@@ -14,6 +14,9 @@
 // instruction) bring that to 1.2 G SIMD operations.
 //
 // Design: one thread block per SB, 1024 threads, one window at a time.
+// The source may be a stripe of the frame starting at global row row0:
+// its SBs then sit row0 rows further down the whole reference, whose
+// height bounds the window clamps.
 // The 64x64 source SB (4 KB) and the 96x96 window (read with clamped
 // indices: the JAX form's edge pad; rows padded to 100 bytes so every
 // unaligned 8-byte run is two funnel shifts of three aligned words) sit
@@ -71,8 +74,9 @@ __device__ __forceinline__ void warp_min(int& c, int& i) {
 
 __global__ void __launch_bounds__(kThreads, 1) me_refine_kernel(
     const uint8_t* __restrict__ src, const uint8_t* __restrict__ ref, int H,
-    int W, const int* __restrict__ coarse, const int* __restrict__ spec,
-    int n_shapes, int n_out, int* __restrict__ out) {
+    int W, int row0, const int* __restrict__ coarse,
+    const int* __restrict__ spec, int n_shapes, int n_out,
+    int* __restrict__ out) {
   extern __shared__ __align__(16) uint8_t smem[];
   uint16_t* sad8 = reinterpret_cast<uint16_t*>(smem);
   uint32_t* win = reinterpret_cast<uint32_t*>(smem + kSadBytesAligned);
@@ -86,14 +90,16 @@ __global__ void __launch_bounds__(kThreads, 1) me_refine_kernel(
 
   const int n = blockIdx.x;
   const int n_sbx = W / kSB;
-  const int pos_y = (n / n_sbx) * kSB, pos_x = (n % n_sbx) * kSB;
+  // the SB's row in the source, and its global row in the reference
+  const int src_y = (n / n_sbx) * kSB, pos_x = (n % n_sbx) * kSB;
+  const int pos_y = src_y + row0;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
 
   if (tid < n_shapes * 2) shp[tid] = spec[tid];
   {
     const int r = tid >> 4, cw = tid & 15;     // 64 rows x 16 words
     sbw[tid] = *reinterpret_cast<const uint32_t*>(
-        src + (size_t)(pos_y + r) * W + pos_x + cw * 4);
+        src + (size_t)(src_y + r) * W + pos_x + cw * 4);
   }
 
   for (int cand = 0; cand < 2; ++cand) {
@@ -212,25 +218,29 @@ __global__ void __launch_bounds__(kThreads, 1) me_refine_kernel(
 
 }  // namespace
 
-// src, ref: uint8 [H, W] (whole 64x64 SBs, H and W >= 96); coarse: int32
-// [N, 2] full-pel coarse MVs per SB (raster order); spec: int32
+// src: uint8 [rows, W], the frame or a stripe starting at global row
+// row0; ref: uint8 [H, W], the whole reference (whole 64x64 SBs, row0 +
+// rows <= H; below 96 samples a window's origin clamps to -16, where
+// both clip bounds meet at 64); coarse: int32 [N, 2] full-pel coarse MVs per
+// SB of the source (raster order); spec: int32
 // [n_shapes, 2] (h/8, w/8) per shape; out: int32 [N, n_out, 4] = (mv_r,
 // mv_c, raw SAD, winning window) per output block, shapes in spec order,
 // blocks raster within each shape.  Returns the CUDA error of the launch.
-extern "C" int me_refine_launch(const void* src, const void* ref, int H,
-                                int W, const void* coarse, const void* spec,
-                                int n_shapes, int n_out, void* out,
-                                void* stream) {
-  if (H % kSB || W % kSB || H < kWin || W < kWin || n_shapes < 1 ||
-      n_shapes > kMaxShapes || n_out < 1 || n_out > kMaxOut)
+extern "C" int me_refine_launch(const void* src, const void* ref, int rows,
+                                int H, int W, int row0, const void* coarse,
+                                const void* spec, int n_shapes, int n_out,
+                                void* out, void* stream) {
+  if (rows < kSB || rows % kSB || H % kSB || W < kSB || W % kSB ||
+      row0 < 0 || row0 % kSB || row0 + rows > H ||
+      n_shapes < 1 || n_shapes > kMaxShapes || n_out < 1 || n_out > kMaxOut)
     return (int)cudaErrorInvalidValue;
   cudaError_t e = cudaFuncSetAttribute(
       me_refine_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)kSmemBytes);
   if (e != cudaSuccess) return (int)e;
-  const int n = (H / kSB) * (W / kSB);
+  const int n = (rows / kSB) * (W / kSB);
   me_refine_kernel<<<n, kThreads, kSmemBytes, (cudaStream_t)stream>>>(
-      (const uint8_t*)src, (const uint8_t*)ref, H, W, (const int*)coarse,
-      (const int*)spec, n_shapes, n_out, (int*)out);
+      (const uint8_t*)src, (const uint8_t*)ref, H, W, row0,
+      (const int*)coarse, (const int*)spec, n_shapes, n_out, (int*)out);
   return (int)cudaGetLastError();
 }

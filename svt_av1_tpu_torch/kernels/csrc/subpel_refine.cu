@@ -11,6 +11,9 @@
 // rate.
 //
 // Design: one thread block per 16x16 unit, one thread per output pixel.
+// The source may be a stripe of the frame starting at global row row0:
+// its units then sit row0 rows further down the whole reference, whose
+// height bounds the patch origin.
 // The 25x25 reference patch at the clipped origin (bme.py:344-345; the
 // edge pad is clamped reads) goes to shared memory.  The five horizontal
 // phases (dx8 in -4..4 step 2) are filtered once over all 25 patch rows
@@ -37,7 +40,8 @@ __device__ __forceinline__ int clampi(int v, int lo, int hi) {
 
 __global__ void subpel_refine_kernel(
     const uint8_t* __restrict__ src, const uint8_t* __restrict__ ref, int H,
-    int W, const int* __restrict__ mv_r16, const int* __restrict__ mv_c16,
+    int W, int row0, const int* __restrict__ mv_r16,
+    const int* __restrict__ mv_c16,
     const int* __restrict__ taps, int* __restrict__ out_r,
     int* __restrict__ out_c, uint8_t* __restrict__ pred) {
   __shared__ int patch[kP * kP];
@@ -48,7 +52,8 @@ __global__ void subpel_refine_kernel(
   const int u = uy * nc16 + ux;
   const int tid = threadIdx.x, r = tid >> 4, c = tid & 15;
   const int mr = mv_r16[u], mc = mv_c16[u];
-  const int oy = clampi(uy * 16 + mr - 4 + kPad, 0, H + 2 * kPad - kP) - kPad;
+  const int oy =
+      clampi(uy * 16 + row0 + mr - 4 + kPad, 0, H + 2 * kPad - kP) - kPad;
   const int ox = clampi(ux * 16 + mc - 4 + kPad, 0, W + 2 * kPad - kP) - kPad;
   for (int k = tid; k < kP * kP; k += 256) {
     const int i = k / kP, j = k - (k / kP) * kP;
@@ -127,19 +132,24 @@ __global__ void subpel_refine_kernel(
 
 }  // namespace
 
-// src, ref: uint8 [H, W] (H, W multiples of 16); mv_r16, mv_c16: int32
-// [H/16, W/16] full-pel; taps: int32 [16, 8] REGULAR 8-tap kernels by q4
-// phase; out_r, out_c: int32 [H/16, W/16] eighth-pel MVs; pred: uint8
-// [H, W] winning predictions.  Returns the CUDA error of the launch.
-extern "C" int subpel_refine_launch(const void* src, const void* ref, int H,
-                                    int W, const void* mv_r16,
-                                    const void* mv_c16, const void* taps,
-                                    void* out_r, void* out_c, void* pred,
-                                    void* stream) {
-  if (H % 16 || W % 16 || H < kP || W < kP) return (int)cudaErrorInvalidValue;
-  subpel_refine_kernel<<<dim3(W / 16, H / 16), 256, 0,
+// src: uint8 [rows, W], the frame or a stripe starting at global row
+// row0; ref: uint8 [H, W], the whole reference (rows, H, W multiples of
+// 16, row0 + rows <= H); mv_r16, mv_c16: int32 [rows/16, W/16] full-pel;
+// taps: int32 [16, 8] REGULAR 8-tap kernels by q4 phase; out_r, out_c:
+// int32 [rows/16, W/16] eighth-pel MVs; pred: uint8 [rows, W] winning
+// predictions.  Returns the CUDA error of the launch.
+extern "C" int subpel_refine_launch(const void* src, const void* ref,
+                                    int rows, int H, int W, int row0,
+                                    const void* mv_r16, const void* mv_c16,
+                                    const void* taps, void* out_r,
+                                    void* out_c, void* pred, void* stream) {
+  if (rows < 16 || rows % 16 || H % 16 || W % 16 || H < kP || W < kP ||
+      row0 < 0 || row0 + rows > H)
+    return (int)cudaErrorInvalidValue;
+  subpel_refine_kernel<<<dim3(W / 16, rows / 16), 256, 0,
                          (cudaStream_t)stream>>>(
-      (const uint8_t*)src, (const uint8_t*)ref, H, W, (const int*)mv_r16,
+      (const uint8_t*)src, (const uint8_t*)ref, H, W, row0,
+      (const int*)mv_r16,
       (const int*)mv_c16, (const int*)taps, (int*)out_r, (int*)out_c,
       (uint8_t*)pred);
   return (int)cudaGetLastError();

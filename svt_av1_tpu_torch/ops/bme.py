@@ -78,16 +78,20 @@ def _decimate8(plane: torch.Tensor) -> torch.Tensor:
     return p.sum((1, 3), dtype=torch.int32) >> 6
 
 
-def coarse_sb_search(src, ref, coarse_r: int = COARSE_R) -> torch.Tensor:
+def coarse_sb_search(src, ref, coarse_r: int = COARSE_R,
+                     row0: int = 0) -> torch.Tensor:
     """SB-level full search on /8 planes: mv [n_sby, n_sbx, 2] int32
     (full-pel, (row, col)); strict < over offsets in raster order, the
-    centre bias added before the compare."""
+    centre bias added before the compare.  ``src`` may be a stripe of the
+    frame whose first row is global row ``row0`` while ``ref`` is the
+    whole reference plane: the offsets then shift the stripe's rows by
+    ``row0 // 8`` in the decimated reference."""
     s8 = _decimate8(src)
     r8 = _decimate8(ref)
     h8, w8 = s8.shape
     n_sby, n_sbx = h8 // 8, w8 // 8
     C = int(coarse_r)
-    pad = _clamped(r8, -C, -C, h8 + 2 * C, w8 + 2 * C)
+    pad = _clamped(r8, row0 // 8 - C, -C, h8 + 2 * C, w8 + 2 * C)
     best = bdy = bdx = None
     for dy in range(-C, C + 1):
         for dx in range(-C, C + 1):
@@ -153,10 +157,12 @@ def best_offsets(sads: torch.Tensor):
     return dy, dx, sad
 
 
-def _sb_geometry(src: torch.Tensor):
+def _sb_geometry(src: torch.Tensor, row0: int = 0):
+    """(n_sby, n_sbx, pos): the SB grid of ``src`` and each SB's global
+    (row, col) origin, ``src`` starting at global row ``row0``."""
     n_sby, n_sbx = src.shape[0] // SB, src.shape[1] // SB
     dev = src.device
-    gy, gx = torch.meshgrid(torch.arange(n_sby, device=dev) * SB,
+    gy, gx = torch.meshgrid(torch.arange(n_sby, device=dev) * SB + row0,
                             torch.arange(n_sbx, device=dev) * SB,
                             indexing="ij")
     pos = torch.stack([gy.reshape(-1), gx.reshape(-1)], dim=-1)
@@ -174,12 +180,14 @@ def _window_origins(pos, cvec, H: int, W: int):
     ], dim=-1)
 
 
-def refine_plain(src, ref, coarse, shapes=ME_SHAPES) -> dict:
+def refine_plain(src, ref, coarse, shapes=ME_SHAPES, row0: int = 0) -> dict:
     """Step 2 of frame_me (plain): {(w, h): (mv_r, mv_c, sad) [N, oy, ox]
     int32} per requested shape, "win16" (the winning window per 16x16
-    block) when (16, 16) is asked for, and "grid" (n_sby, n_sbx)."""
+    block) when (16, 16) is asked for, and "grid" (n_sby, n_sbx).  With
+    ``row0``, ``src`` is a stripe at that global row of the whole
+    reference ``ref``: window origins and their clamps are the frame's."""
     H, W = ref.shape
-    n_sby, n_sbx, pos = _sb_geometry(src)
+    n_sby, n_sbx, pos = _sb_geometry(src, row0)
     n = n_sby * n_sbx
     src_sbs = src.reshape(n_sby, SB, n_sbx, SB).permute(0, 2, 1, 3) \
         .reshape(n, SB, SB)
@@ -227,10 +235,11 @@ def refine_plain(src, ref, coarse, shapes=ME_SHAPES) -> dict:
     return out
 
 
-def subpel_plain(src, ref, mv_r16, mv_c16, bd: int = 8):
+def subpel_plain(src, ref, mv_r16, mv_c16, bd: int = 8, row0: int = 0):
     """Quarter-pel refinement per 16x16 unit (plain): returns (mvq8_r,
     mvq8_c) int32 [nr16, nc16] and the assembled best prediction, uint8
-    [H, W]."""
+    [rows, W] for the ``rows`` of ``src`` (a stripe at global row
+    ``row0`` of the whole reference ``ref``, or the whole frame)."""
     from .inter import convolve_2d_sr_torch
 
     H, W = ref.shape
@@ -241,7 +250,7 @@ def subpel_plain(src, ref, mv_r16, mv_c16, bd: int = 8):
                             torch.arange(nc16, device=dev) * 16,
                             indexing="ij")
     P = SUBPEL_PAD
-    base_y = gy.reshape(-1) + mv_r16.reshape(-1)
+    base_y = gy.reshape(-1) + row0 + mv_r16.reshape(-1)
     base_x = gx.reshape(-1) + mv_c16.reshape(-1)
     # patch origin in the edge-padded plane, clipped to the pad, then
     # read from the plane with clamped indices
@@ -304,20 +313,29 @@ def to_block_maps(me_out, buf_w: int, buf_h: int):
 # K5, K6, K7: the CUDA kernels and their wrappers
 # --------------------------------------------------------------------------
 
-def _check_planes(name: str, src: torch.Tensor, ref: torch.Tensor):
+def _check_planes(name: str, src: torch.Tensor, ref: torch.Tensor,
+                  row0: int):
+    """The planes K5-K7 take: ``ref`` the whole [H, W] reference, ``src``
+    the whole frame or a stripe of its rows starting at ``row0``, both
+    contiguous uint8 on one CUDA device, whole 64x64 superblocks (a
+    plane of one SB row or column clamps its windows to one origin, as
+    the numpy twin's clip does)."""
     for t in (src, ref):
         if t.device.type != "cuda":
             raise ValueError(f"{name}: unsupported device {t.device}")
         if t.dtype != torch.uint8 or t.dim() != 2 or not t.is_contiguous():
             raise ValueError(f"{name} takes contiguous 8-bit [H, W] uint8 "
                              "planes")
-    if src.shape != ref.shape:
-        raise ValueError(f"{name}: source {tuple(src.shape)} and reference "
-                         f"{tuple(ref.shape)} differ")
-    H, W = src.shape
-    if H % SB or W % SB or H < WIN or W < WIN:
-        raise ValueError(f"{name}: planes must be whole 64x64 superblocks "
-                         f"and at least {WIN} samples each way")
+    if src.device != ref.device:
+        raise ValueError(f"{name}: planes on different devices")
+    rows, w_src = src.shape
+    H, W = ref.shape
+    if w_src != W or row0 < 0 or row0 % SB or row0 + rows > H:
+        raise ValueError(f"{name}: source {tuple(src.shape)} at row {row0} "
+                         f"is not a 64-aligned stripe of the reference "
+                         f"{tuple(ref.shape)}")
+    if rows % SB or rows == 0 or H % SB or W % SB or W == 0:
+        raise ValueError(f"{name}: planes must be whole 64x64 superblocks")
 
 
 def _fn(lib_name: str, entry: str, argtypes):
@@ -333,26 +351,29 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 
 
 def me_coarse(src: torch.Tensor, ref: torch.Tensor,
-              coarse_r: int = COARSE_R) -> torch.Tensor:
-    """K5: the SB-level coarse search, mv [n_sby, n_sbx, 2] int32.  CPU
-    tensors take the plain version; CUDA tensors launch
-    kernels/csrc/me_coarse.cu."""
+              coarse_r: int = COARSE_R, row0: int = 0) -> torch.Tensor:
+    """K5: the SB-level coarse search, mv [n_sby, n_sbx, 2] int32, of
+    ``src`` (the frame, or a stripe at global row ``row0``) against the
+    whole reference ``ref``.  CPU tensors take the plain version; CUDA
+    tensors launch kernels/csrc/me_coarse.cu."""
     if src.device.type == "cpu":
-        return coarse_sb_search(src, ref, coarse_r)
-    _check_planes("me_coarse", src, ref)
+        return coarse_sb_search(src, ref, coarse_r, row0)
+    _check_planes("me_coarse", src, ref, row0)
     if not 1 <= int(coarse_r) <= 32:
         raise ValueError(f"me_coarse: coarse_r {coarse_r} outside 1..32")
     from ..kernels.build import check_launch, ptr, stream
 
-    H, W = src.shape
-    h8, w8 = H // 8, W // 8
-    s8 = torch.empty((h8, w8), dtype=torch.int32, device=src.device)
-    r8 = torch.empty_like(s8)
-    out = torch.empty((h8 // 8, w8 // 8, 2), dtype=torch.int32,
+    rows = src.shape[0]
+    H, W = ref.shape
+    s8 = torch.empty((rows // 8, W // 8), dtype=torch.int32,
+                     device=src.device)
+    r8 = torch.empty((H // 8, W // 8), dtype=torch.int32, device=src.device)
+    out = torch.empty((rows // SB, W // SB, 2), dtype=torch.int32,
                       device=src.device)
-    fn = _fn("me_coarse", "me_coarse_launch", [_P, _P, _I, _I, _I] + [_P] * 4)
-    err = fn(ptr(src), ptr(ref), H, W, int(coarse_r), ptr(s8), ptr(r8),
-             ptr(out), stream(src))
+    fn = _fn("me_coarse", "me_coarse_launch",
+             [_P, _P, _I, _I, _I, _I, _I] + [_P] * 4)
+    err = fn(ptr(src), ptr(ref), rows, H, W, int(coarse_r), int(row0),
+             ptr(s8), ptr(r8), ptr(out), stream(src))
     check_launch("me_coarse", err)
     me_coarse.launches += 1
     return out
@@ -362,19 +383,21 @@ me_coarse.launches = 0
 
 
 def me_refine(src: torch.Tensor, ref: torch.Tensor, coarse: torch.Tensor,
-              shapes=ME_SHAPES) -> dict:
+              shapes=ME_SHAPES, row0: int = 0) -> dict:
     """K6: refinement around the coarse winner and the zero MV, the
     shapes' biased argmins and the window merge; the same dict as
-    ``refine_plain``.  CPU tensors take the plain version; CUDA tensors
-    launch kernels/csrc/me_refine.cu."""
+    ``refine_plain``.  ``src`` is the frame or a stripe at global row
+    ``row0`` of the whole reference ``ref``.  CPU tensors take the plain
+    version; CUDA tensors launch kernels/csrc/me_refine.cu."""
     if src.device.type == "cpu":
-        return refine_plain(src, ref, coarse, shapes)
-    _check_planes("me_refine", src, ref)
+        return refine_plain(src, ref, coarse, shapes, row0)
+    _check_planes("me_refine", src, ref, row0)
     shapes = tuple(tuple(s) for s in shapes)
     if not shapes or any(s not in ME_SHAPES for s in shapes):
         raise ValueError(f"me_refine: shapes must come from {ME_SHAPES}")
-    H, W = src.shape
-    n_sby, n_sbx = H // SB, W // SB
+    rows = src.shape[0]
+    H, W = ref.shape
+    n_sby, n_sbx = rows // SB, W // SB
     n = n_sby * n_sbx
     if coarse.dtype != torch.int32 or tuple(coarse.shape) != (
             n_sby, n_sbx, 2) or not coarse.is_contiguous() \
@@ -389,9 +412,9 @@ def me_refine(src: torch.Tensor, ref: torch.Tensor, coarse: torch.Tensor,
                         dtype=torch.int32).to(src.device)
     res = torch.empty((n, n_out, 4), dtype=torch.int32, device=src.device)
     fn = _fn("me_refine", "me_refine_launch",
-             [_P, _P, _I, _I, _P, _P, _I, _I, _P, _P])
-    err = fn(ptr(src), ptr(ref), H, W, ptr(coarse), ptr(spec), len(shapes),
-             n_out, ptr(res), stream(src))
+             [_P, _P, _I, _I, _I, _I, _P, _P, _I, _I, _P, _P])
+    err = fn(ptr(src), ptr(ref), rows, H, W, int(row0), ptr(coarse),
+             ptr(spec), len(shapes), n_out, ptr(res), stream(src))
     check_launch("me_refine", err)
     me_refine.launches += 1
     out = {"grid": (n_sby, n_sbx)}
@@ -408,10 +431,13 @@ def me_refine(src: torch.Tensor, ref: torch.Tensor, coarse: torch.Tensor,
 me_refine.launches = 0
 
 
-def frame_me(src, ref, coarse_r: int = COARSE_R, shapes=ME_SHAPES) -> dict:
-    """Full-frame single-reference ME: K5 then K6 (their plain versions
-    for CPU tensors)."""
-    return me_refine(src, ref, me_coarse(src, ref, coarse_r), shapes)
+def frame_me(src, ref, coarse_r: int = COARSE_R, shapes=ME_SHAPES,
+             row0: int = 0) -> dict:
+    """Single-reference ME of the frame, or of a stripe at global row
+    ``row0`` against the whole reference: K5 then K6 (their plain
+    versions for CPU tensors)."""
+    return me_refine(src, ref, me_coarse(src, ref, coarse_r, row0), shapes,
+                     row0)
 
 
 @functools.cache
@@ -423,33 +449,37 @@ def _regular_taps(device: torch.device) -> torch.Tensor:
 
 
 def subpel_refine16(src: torch.Tensor, ref: torch.Tensor,
-                    mv_r16: torch.Tensor, mv_c16: torch.Tensor, bd: int = 8):
+                    mv_r16: torch.Tensor, mv_c16: torch.Tensor, bd: int = 8,
+                    row0: int = 0):
     """K7: quarter-pel refinement of every 16x16 unit around its full-pel
     MV through the REGULAR 8-tap filter.  Returns (mvq8_r, mvq8_c) int32
-    [nr16, nc16] in eighth-pel and the winners' prediction plane, uint8
-    [H, W].  CPU tensors take the plain version; CUDA tensors launch
-    kernels/csrc/subpel_refine.cu."""
+    [rows/16, W/16] in eighth-pel and the winners' prediction plane, uint8
+    [rows, W], for ``src`` (the frame, or a stripe at global row ``row0``
+    of the whole reference ``ref``).  CPU tensors take the plain version;
+    CUDA tensors launch kernels/csrc/subpel_refine.cu."""
     if src.device.type == "cpu":
-        return subpel_plain(src, ref, mv_r16, mv_c16, bd)
-    _check_planes("subpel_refine16", src, ref)
+        return subpel_plain(src, ref, mv_r16, mv_c16, bd, row0)
+    _check_planes("subpel_refine16", src, ref, row0)
     if bd != 8:
         raise ValueError("subpel_refine16: 8-bit only")
-    H, W = src.shape
+    rows = src.shape[0]
+    H, W = ref.shape
     for t in (mv_r16, mv_c16):
-        if t.dtype != torch.int32 or tuple(t.shape) != (H // 16, W // 16) \
+        if t.dtype != torch.int32 or tuple(t.shape) != (rows // 16, W // 16) \
                 or not t.is_contiguous() or t.device != src.device:
             raise ValueError("subpel_refine16: MVs must be contiguous int32 "
-                             "[H/16, W/16] on the planes' device")
+                             "[rows/16, W/16] on the planes' device")
     from ..kernels.build import check_launch, ptr, stream
 
     mvq_r = torch.empty_like(mv_r16)
     mvq_c = torch.empty_like(mv_c16)
-    pred = torch.empty((H, W), dtype=torch.uint8, device=src.device)
+    pred = torch.empty((rows, W), dtype=torch.uint8, device=src.device)
     taps = _regular_taps(src.device)
     fn = _fn("subpel_refine", "subpel_refine_launch",
-             [_P, _P, _I, _I] + [_P] * 7)
-    err = fn(ptr(src), ptr(ref), H, W, ptr(mv_r16), ptr(mv_c16), ptr(taps),
-             ptr(mvq_r), ptr(mvq_c), ptr(pred), stream(src))
+             [_P, _P, _I, _I, _I, _I] + [_P] * 7)
+    err = fn(ptr(src), ptr(ref), rows, H, W, int(row0), ptr(mv_r16),
+             ptr(mv_c16), ptr(taps), ptr(mvq_r), ptr(mvq_c), ptr(pred),
+             stream(src))
     check_launch("subpel_refine16", err)
     subpel_refine16.launches += 1
     return mvq_r, mvq_c, pred

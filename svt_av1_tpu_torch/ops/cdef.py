@@ -171,6 +171,32 @@ def pad_very_large(plane, fw: int, fh: int, bs: int):
     return out
 
 
+def pad_halo(plane, fw: int, fh: int, bs: int, top=None, bottom=None):
+    """``pad_very_large`` of a stripe of the frame, with the true rows of
+    its neighbours where the frame continues: ``top`` [2, >= fw] the two
+    rows above the stripe, ``bottom`` [2, >= fw] the two below it (None at
+    the frame's top or bottom, which keeps CDEF_VERY_LARGE).  Columns
+    outside [0, fw) stay CDEF_VERY_LARGE, corners included."""
+    out = pad_very_large(plane, fw, fh, bs)
+    if top is not None:
+        out[0:2, 2:2 + fw] = top[:, :fw].to(torch.int32)
+    if bottom is not None:
+        out[2 + fh:4 + fh, 2:2 + fw] = bottom[:, :fw].to(torch.int32)
+    return out
+
+
+def _halo_pads(planes, fw: int, fh: int, halos):
+    """Per plane, its ``pad_halo``: ``halos`` one (top, bottom) pair per
+    plane (None entries, or None for all, give the plain frame pad)."""
+    out = []
+    for pli, plane in enumerate(planes):
+        sub = 0 if pli == 0 else 1
+        top, bottom = halos[pli] if halos is not None else (None, None)
+        out.append(pad_halo(plane, fw >> sub, fh >> sub,
+                            8 if pli == 0 else 4, top, bottom))
+    return out
+
+
 def _expand(unit_map, bs: int):
     return unit_map.repeat_interleave(bs, 0).repeat_interleave(bs, 1)
 
@@ -253,20 +279,25 @@ def _strength_parts(strength: int, cs: int):
 
 def cdef_search_errs(source, recon, dirs, var, nonskip, fw: int, fh: int,
                      damping: int, bit_depth: int = 8,
-                     pri_set=PRI_SET, sec_set=SEC_SET):
+                     pri_set=PRI_SET, sec_set=SEC_SET, padded_planes=None):
     """SSE of every (pri, sec) strength combo over the in-frame non-skip
     pixels (plain PyTorch).  Returns (err_y, err_uv): exact int64
-    [len(pri_set), len(sec_set)]; err_uv sums both chroma planes."""
+    [len(pri_set), len(sec_set)]; err_uv sums both chroma planes (None
+    for luma alone).  ``padded_planes``: the planes already padded, one
+    per plane of ``recon`` (a stripe's ``pad_halo``)."""
     cs = max(bit_depth - 8, 0)
     nonskip = nonskip.bool()
     errs = []
     for group in ((0,), (1, 2)):
         acc = None
         for pli in group:
+            if pli >= len(recon):
+                continue
             bs = 8 if pli == 0 else 4
             sub = 0 if pli == 0 else 1
             pw, ph = fw >> sub, fh >> sub
-            padded = pad_very_large(recon[pli], pw, ph, bs)
+            padded = padded_planes[pli] if padded_planes is not None \
+                else pad_very_large(recon[pli], pw, ph, bs)
             H, Wd = padded.shape[0] - 4, padded.shape[1] - 4
             keep = _expand(nonskip, bs)
             keep[ph:, :] = False
@@ -300,10 +331,18 @@ def cdef_search_errs(source, recon, dirs, var, nonskip, fw: int, fh: int,
 
 def cdef_apply_plain(planes, nonskip, dirs, var, y_strength: int,
                      uv_strength: int, damping: int, fw: int, fh: int,
-                     bd: int):
+                     bd: int, halos=None):
     """Normative CDEF apply given the (dirs, var) unit maps (plain
     PyTorch).  Returns full-size planes: the in-frame region filtered
-    where its unit is non-skip, everything else copied."""
+    where its unit is non-skip, everything else copied.  ``halos``: per
+    plane the (top, bottom) neighbour rows of a stripe (``pad_halo``)."""
+    return _apply_padded(planes, _halo_pads(planes, fw, fh, halos), nonskip,
+                         dirs, var, y_strength, uv_strength, damping, fw, fh,
+                         bd)
+
+
+def _apply_padded(planes, pads, nonskip, dirs, var, y_strength: int,
+                  uv_strength: int, damping: int, fw: int, fh: int, bd: int):
     cs = max(bd - 8, 0)
     nonskip = nonskip.bool()
     out = []
@@ -313,7 +352,7 @@ def cdef_apply_plain(planes, nonskip, dirs, var, y_strength: int,
         pw, ph = fw >> sub, fh >> sub
         pri, sec = _strength_parts(y_strength if pli == 0 else uv_strength,
                                    cs)
-        padded = pad_very_large(plane, pw, ph, bs)
+        padded = pads[pli]
         ctx = _PlaneCtx(padded, dirs if pri > 0 else torch.zeros_like(dirs),
                         bs)
         if pli == 0:
@@ -331,13 +370,33 @@ def cdef_apply_plain(planes, nonskip, dirs, var, y_strength: int,
 
 
 def _cdef_apply_traced(planes, nonskip, y_strength: int, uv_strength: int,
-                       damping: int, fw: int, fh: int, bd: int):
-    """Direction search + apply (the reference's traced apply body)."""
-    cs = max(bd - 8, 0)
-    padded_y = pad_very_large(planes[0], fw, fh, 8)
-    dirs, var = find_dir_grid(_units_of(padded_y, fw, fh, 8), cs)
-    return cdef_apply_plain(planes, nonskip, dirs, var, y_strength,
-                            uv_strength, damping, fw, fh, bd)
+                       damping: int, fw: int, fh: int, bd: int,
+                       padded_planes=None):
+    """Direction search + apply (the reference's traced apply body);
+    ``padded_planes`` as for ``cdef_search_errs``."""
+    pads = padded_planes if padded_planes is not None \
+        else _halo_pads(planes, fw, fh, None)
+    dirs, var = find_dir_grid(_units_of(pads[0], fw, fh, 8), max(bd - 8, 0))
+    return _apply_padded(planes, pads, nonskip, dirs, var, y_strength,
+                         uv_strength, damping, fw, fh, bd)
+
+
+def direction_plain(plane, fw: int, fh: int, coeff_shift: int = 0):
+    """Plain version of K3: ``find_dir_grid`` of the frame's 8x8 units
+    (a unit reads only its own samples)."""
+    padded = pad_very_large(plane, fw, fh, 8)
+    return find_dir_grid(_units_of(padded, fw, fh, 8), coeff_shift)
+
+
+def search_plain(source, recon, dirs, var, nonskip, fw: int, fh: int,
+                 damping: int, bit_depth: int = 8, pri_set=PRI_SET,
+                 sec_set=SEC_SET, halos=None):
+    """Plain version of K4's search: ``cdef_search_errs`` of the planes
+    padded with the stripe's neighbour rows ``halos`` (see
+    ``cdef_search``)."""
+    return cdef_search_errs(source, recon, dirs, var, nonskip, fw, fh,
+                            damping, bit_depth, pri_set, sec_set,
+                            _halo_pads(recon, fw, fh, halos))
 
 
 # --------------------------------------------------------------------------
@@ -370,8 +429,7 @@ def cdef_direction(plane, fw: int, fh: int, coeff_shift: int = 0):
     CDEF_VERY_LARGE.  Returns (dirs, var) int32 [ceil(fh/8), ceil(fw/8)].
     CPU tensors take find_dir_grid; CUDA tensors launch the kernel."""
     if plane.device.type == "cpu":
-        padded = pad_very_large(plane, fw, fh, 8)
-        return find_dir_grid(_units_of(padded, fw, fh, 8), coeff_shift)
+        return direction_plain(plane, fw, fh, coeff_shift)
     if plane.device.type != "cuda":
         raise ValueError(f"unsupported device {plane.device}")
     _check_plane(plane, "cdef_direction")
@@ -413,16 +471,39 @@ def _filter_fn(name: str):
     return fn
 
 
+def _halo_ptrs(halos, pli, plane):
+    """(top, bottom) device pointers of one plane's stripe rows (None
+    where absent), after checking them: contiguous int32 [2, W] beside
+    the plane."""
+    from ..kernels.build import ptr
+
+    pair = halos[pli] if halos is not None else (None, None)
+    out = []
+    for t in pair:
+        if t is None:
+            out.append(None)
+            continue
+        if t.dtype != torch.int32 or tuple(t.shape) != (2, plane.shape[1]) \
+                or not t.is_contiguous() or t.device != plane.device:
+            raise ValueError(f"CDEF halo rows must be contiguous int32 "
+                             f"(2, {plane.shape[1]}) beside the plane")
+        out.append(ptr(t))
+    return out
+
+
 def cdef_search(source, recon, dirs, var, nonskip, fw: int, fh: int,
                 damping: int, bit_depth: int = 8, pri_set=PRI_SET,
-                sec_set=SEC_SET):
+                sec_set=SEC_SET, halos=None):
     """K4 search: exact int64 SSE of every (pri, sec) combo of the grid
     for luma and for the two chroma planes together (source: narrow
-    planes, recon: int32 planes, both full size).  CPU tensors take
-    cdef_search_errs; CUDA tensors launch the kernel once per plane."""
+    planes, recon: int32 planes, both full size; luma alone gives err_uv
+    None).  ``halos``: per plane the (top, bottom) [2, W] int32 rows
+    around a stripe of the frame, read where the frame continues (None:
+    the frame's edge, CDEF_VERY_LARGE).  CPU tensors take search_plain;
+    CUDA tensors launch the kernel once per plane."""
     if recon[0].device.type == "cpu":
-        return cdef_search_errs(source, recon, dirs, var, nonskip, fw, fh,
-                                damping, bit_depth, pri_set, sec_set)
+        return search_plain(source, recon, dirs, var, nonskip, fw, fh,
+                            damping, bit_depth, pri_set, sec_set, halos)
     if recon[0].device.type != "cuda":
         raise ValueError(f"unsupported device {recon[0].device}")
     from ..kernels.build import check_launch, ptr, stream
@@ -432,11 +513,14 @@ def cdef_search(source, recon, dirs, var, nonskip, fw: int, fh: int,
     fn.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_int] * 5 \
         + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 2 \
         + [ctypes.c_uint, ctypes.c_int, ctypes.c_uint, ctypes.c_int] \
-        + [ctypes.c_int] * 2 + [ctypes.c_void_p] * 2
+        + [ctypes.c_int] * 2 + [ctypes.c_void_p] * 4
     cs = max(bit_depth - 8, 0)
     ns = nonskip.to(torch.uint8).contiguous()
     errs = []
     for group in ((0,), (1, 2)):
+        if group[0] >= len(recon):
+            errs.append(None)
+            continue
         acc = torch.zeros(len(pri_set) * len(sec_set), dtype=torch.int64,
                           device=recon[0].device)
         for pli in group:
@@ -447,11 +531,13 @@ def cdef_search(source, recon, dirs, var, nonskip, fw: int, fh: int,
             if rec.shape != src.shape:
                 raise ValueError("source and recon planes differ in shape")
             H, W = rec.shape
+            top, bottom = _halo_ptrs(halos, pli, rec)
             err = fn(ptr(rec), ptr(src), H, W, fh >> sub, fw >> sub,
                      3 - sub, ptr(dirs), ptr(var), ptr(ns), ns.shape[1],
                      int(pli == 0), _pack(pri_set, 4), len(pri_set),
                      _pack(sec_set, 2), len(sec_set),
-                     damping + cs - sub, cs, ptr(acc), stream(rec))
+                     damping + cs - sub, cs, top, bottom, ptr(acc),
+                     stream(rec))
             check_launch("cdef_search", err)
             cdef_search.launches += 1
         errs.append(acc.reshape(len(pri_set), len(sec_set)))
@@ -462,14 +548,15 @@ cdef_search.launches = 0
 
 
 def cdef_apply(planes, nonskip, dirs, var, y_strength: int,
-               uv_strength: int, damping: int, fw: int, fh: int, bd: int):
+               uv_strength: int, damping: int, fw: int, fh: int, bd: int,
+               halos=None):
     """K4 apply: normative CDEF of the int32 planes at the coded
-    strengths (pri*4+sec), given the (dirs, var) unit maps.  Returns
-    full-size planes.  CPU tensors take cdef_apply_plain; CUDA tensors
-    launch the kernel once per plane."""
+    strengths (pri*4+sec), given the (dirs, var) unit maps; ``halos`` as
+    for ``cdef_search``.  Returns full-size planes.  CPU tensors take
+    cdef_apply_plain; CUDA tensors launch the kernel once per plane."""
     if planes[0].device.type == "cpu":
         return cdef_apply_plain(planes, nonskip, dirs, var, y_strength,
-                                uv_strength, damping, fw, fh, bd)
+                                uv_strength, damping, fw, fh, bd, halos)
     if planes[0].device.type != "cuda":
         raise ValueError(f"unsupported device {planes[0].device}")
     from ..kernels.build import check_launch, ptr, stream
@@ -477,7 +564,8 @@ def cdef_apply(planes, nonskip, dirs, var, y_strength: int,
     _check_units(dirs, var, nonskip, fw, fh)
     fn = _filter_fn("cdef_apply_launch")
     fn.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_int] * 5 \
-        + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+        + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 6 \
+        + [ctypes.c_void_p] * 3
     cs = max(bd - 8, 0)
     ns = nonskip.to(torch.uint8).contiguous()
     out = []
@@ -487,10 +575,12 @@ def cdef_apply(planes, nonskip, dirs, var, y_strength: int,
         pri, sec = _strength_parts(y_strength if pli == 0 else uv_strength,
                                    cs)
         H, W = plane.shape
+        top, bottom = _halo_ptrs(halos, pli, plane)
         o = torch.empty_like(plane)
         err = fn(ptr(plane), ptr(o), H, W, fh >> sub, fw >> sub, 3 - sub,
                  ptr(dirs), ptr(var), ptr(ns), ns.shape[1], int(pli == 0),
-                 pri, sec, damping + cs - sub, cs, stream(plane))
+                 pri, sec, damping + cs - sub, cs, top, bottom,
+                 stream(plane))
         check_launch("cdef_apply", err)
         cdef_apply.launches += 1
         out.append(o)

@@ -314,11 +314,35 @@ def shape_costs(src_blocks, above, left, w: int, h: int, qindex: int,
     return best_mode, best_cost
 
 
+def pad_stripe(stripe: torch.Tensor, above_row: torch.Tensor,
+               halo: torch.Tensor) -> torch.Tensor:
+    """The padded plane of a stripe of the frame: ``pad_plane`` of the
+    stripe with its true neighbours written in, the row above
+    (``above_row`` [W], corners included) and the ``halo`` rows below
+    ([n, W], plus the column left of the plane).  Rows further out keep
+    the stripe's edge pad."""
+    rows, W = stripe.shape
+    padded = pad_plane(stripe)
+    above = above_row.to(torch.int32)
+    below = halo.to(torch.int32)
+    padded[PAD - 1, PAD:PAD + W] = above
+    padded[PAD - 1, :PAD] = above[0]
+    padded[PAD - 1, PAD + W:] = above[-1]
+    r0 = PAD + rows
+    padded[r0:r0 + below.shape[0], PAD:PAD + W] = below
+    padded[r0:r0 + below.shape[0], PAD - 1] = below[:, 0]
+    return padded
+
+
 def intra_decision_plain(plane: torch.Tensor, w: int, h: int, qindex: int,
-                         lam: float, mode_bits, bd: int = 8):
-    """One shape grid of a buf-aligned plane (plain PyTorch)."""
+                         lam: float, mode_bits, bd: int = 8, above_row=None,
+                         halo=None):
+    """One shape grid of a buf-aligned plane (plain PyTorch); with
+    ``above_row`` and ``halo``, of a stripe of the frame between its true
+    neighbour rows (``pad_stripe``)."""
     buf_h, buf_w = plane.shape
-    padded = pad_plane(plane)
+    padded = pad_plane(plane) if halo is None \
+        else pad_stripe(plane, above_row, halo)
     above, left = grid_edges(padded, w, h, buf_w, buf_h)
     src = grid_blocks(padded, w, h, buf_w, buf_h)
     pq = qz.build_quantizer(bd)[0]
@@ -376,14 +400,18 @@ def _k1_consts(w: int, h: int, device: torch.device):
 
 
 def intra_decision(plane: torch.Tensor, w: int, h: int, qindex: int,
-                   lam: float, mode_bits, bd: int = 8):
+                   lam: float, mode_bits, bd: int = 8, above_row=None,
+                   halo=None):
     """K1: best intra mode and its cost for every (w, h) block of a
     buf-aligned 8-bit plane.  Returns (mode int32 [nr, nc], cost float32
-    [nr, nc]) on the plane's device.  CPU tensors take the plain PyTorch
-    version; CUDA tensors launch the kernel."""
+    [nr, nc]) on the plane's device.  Stripe mode: ``plane`` is a stripe
+    of the frame, ``above_row`` [W] the row above it and ``halo`` [n, W]
+    the rows below it (uint8), read where the whole frame's plane would
+    be (``pad_stripe``).  CPU tensors take the plain PyTorch version;
+    CUDA tensors launch the kernel."""
     if plane.device.type == "cpu":
         return intra_decision_plain(plane, w, h, qindex, lam, mode_bits,
-                                    bd)
+                                    bd, above_row, halo)
     if plane.device.type != "cuda":
         raise ValueError(f"unsupported device {plane.device}")
     if plane.dtype != torch.uint8 or plane.dim() != 2 or bd != 8:
@@ -397,14 +425,25 @@ def intra_decision(plane: torch.Tensor, w: int, h: int, qindex: int,
     buf_h, buf_w = plane.shape
     if buf_h % h or buf_w % w:
         raise ValueError("plane is not a whole number of blocks")
+    if (above_row is None) != (halo is None):
+        raise ValueError("stripe mode needs both above_row and halo")
+    n_halo = 0
+    if halo is not None:
+        n_halo = halo.shape[0]
+        for t, shape in ((above_row, (buf_w,)), (halo, (n_halo, buf_w))):
+            if t.dtype != torch.uint8 or tuple(t.shape) != shape \
+                    or not t.is_contiguous() or t.device != plane.device:
+                raise ValueError(f"intra_decision: stripe rows must be "
+                                 f"contiguous uint8 {shape} on the plane's "
+                                 "device")
     from ..kernels.build import check_launch, cuda_lib, ptr, stream
 
     lib = cuda_lib("intra_decision")
     fn = lib.intra_decision_launch
     fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
-                   ctypes.c_int, ctypes.c_int] + [ctypes.c_void_p] * 4 \
-        + [ctypes.c_float] * 7 + [ctypes.c_void_p] * 4
+    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5 \
+        + [ctypes.c_void_p] * 4 + [ctypes.c_float] * 7 \
+        + [ctypes.c_void_p] * 4
     taps, sw, dh, dwt = _k1_consts(w, h, plane.device)
     pq = qz.build_quantizer(bd)[0]
     (zd, za), (rd, ra), (sd, sa) = _quant_scalars(w, h, qindex, pq)
@@ -413,7 +452,9 @@ def intra_decision(plane: torch.Tensor, w: int, h: int, qindex: int,
     nr, nc = buf_h // h, buf_w // w
     mode = torch.empty((nr, nc), dtype=torch.int32, device=plane.device)
     cost = torch.empty((nr, nc), dtype=torch.float32, device=plane.device)
-    err = fn(ptr(plane), buf_h, buf_w, w, h, ptr(taps), ptr(sw),
+    err = fn(ptr(plane), None if halo is None else ptr(above_row),
+             None if halo is None else ptr(halo), buf_h, buf_w, n_halo, w, h,
+             ptr(taps), ptr(sw),
              ptr(dh), ptr(dwt), float(zd), float(za), float(rd),
              float(ra), float(sd), float(sa), float(np.float32(lam)),
              ptr(mb), ptr(mode), ptr(cost), stream(plane))

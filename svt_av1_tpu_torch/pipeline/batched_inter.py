@@ -529,7 +529,7 @@ compound_joint.launches = 0
 
 def inter_frame_maps(src, refs, qindex, lam, mode_bits, bd=8,
                      bwd_mask=None, allow_compound=False, coarse_r=None,
-                     rel_dists=None):
+                     rel_dists=None, row0=0, with_intra=True):
     """(intra_maps, inter_cost_maps, sel_fields, mvbits16): the open-loop
     decision state of one inter frame against 1..3 references, as tensors
     on the device of ``src`` (a buf-aligned uint8 [H, W] plane; ``refs`` a
@@ -537,6 +537,13 @@ def inter_frame_maps(src, refs, qindex, lam, mode_bits, bd=8,
     K9 for the compound candidate, then K8, then K1 for the intra maps;
     CPU planes run the plain versions.  MVs are quarter-pel (eighth-pel
     values, multiples of 2).
+
+    Stripes: with ``row0`` > 0, ``src`` is a stripe of 64-row multiples
+    starting at that global row, the references stay whole frames, and
+    every output equals the same rows of the whole frame's run.  The
+    intra maps need the stripe's halo rows, so a stripe's caller passes
+    ``with_intra=False`` (intra_maps is then None); the compound
+    candidate is not taken on stripes.
 
     ``bwd_mask[k]`` marks backward references and ``rel_dists[k]`` gives
     each reference's signed display distance (default -1 forward, +1
@@ -555,13 +562,21 @@ def inter_frame_maps(src, refs, qindex, lam, mode_bits, bd=8,
         coarse_r = bme.COARSE_R
     if not isinstance(coarse_r, (tuple, list)):
         coarse_r = (coarse_r,) * K
+    do_comp = allow_compound and any(bwd_mask[:K]) and not all(bwd_mask[:K])
+    if do_comp and row0:
+        raise NotImplementedError("the compound candidate of a stripe (its "
+                                  "joint search reads global positions)")
+    if with_intra and row0:
+        raise ValueError("the intra maps of a stripe need its halo rows "
+                         "(omd.intra_decision's stripe mode): pass "
+                         "with_intra=False")
     mvq_r, mvq_c, preds, sb_r, sb_c = [], [], [], [], []
     for k, ref in enumerate(refs):
-        me = bme.frame_me(src, ref, coarse_r[k], shapes=((16, 16), (64, 64)))
+        me = bme.frame_me(src, ref, coarse_r[k], ((16, 16), (64, 64)), row0)
         n_sby, n_sbx = me["grid"]
         mv_r16 = _nested_to_grid(me[(16, 16)][0], n_sby, n_sbx, 4, 4)
         mv_c16 = _nested_to_grid(me[(16, 16)][1], n_sby, n_sbx, 4, 4)
-        r, c, pred = bme.subpel_refine16(src, ref, mv_r16, mv_c16, bd)
+        r, c, pred = bme.subpel_refine16(src, ref, mv_r16, mv_c16, bd, row0)
         mvq_r.append(r)
         mvq_c.append(c)
         preds.append(pred)
@@ -571,15 +586,17 @@ def inter_frame_maps(src, refs, qindex, lam, mode_bits, bd=8,
                  torch.stack(mvq_c), torch.stack(sb_r).contiguous(),
                  torch.stack(sb_c).contiguous())
     comp = None
-    if allow_compound and any(bwd_mask[:K]) and not all(bwd_mask[:K]):
+    if do_comp:
         comp = compound_joint(unit_args[0], torch.stack(refs),
                               *unit_args[1:], bwd_mask, rel_dists, qindex,
                               bd)
     fields, mvb, inter_cost = inter_select(*unit_args, qindex, lam, bd,
                                            comp=comp)
-    intra = {(w, h): omd.intra_decision(src, w, h, qindex, lam, mode_bits,
-                                        bd)
-             for (w, h) in omd.ALL_SHAPES}
+    intra = None
+    if with_intra:
+        intra = {(w, h): omd.intra_decision(src, w, h, qindex, lam,
+                                            mode_bits, bd)
+                 for (w, h) in omd.ALL_SHAPES}
     return intra, inter_cost, fields, mvb
 
 

@@ -2220,17 +2220,22 @@ class FrameCodec:
         self.bedge_y[plane][y4, x4:x4 + w4] = True
 
     def apply_loop_filter(self):
-        """Encoder in-loop deblocking, applied after the whole frame
-        reconstructs (intra prediction saw the unfiltered recon, matching
-        the spec pipeline): the level search over the candidate ladder
-        and the apply of the winner on the codec's device (the deblocking
-        kernel; EbDlfProcess.c level search analog).  The searched level
-        lands in the header."""
+        """In-loop deblocking, applied after the whole frame reconstructs
+        (intra prediction saw the unfiltered recon, matching the spec
+        pipeline), on the codec's device (the deblocking kernel).  The
+        encoder searches the level over the candidate ladder and applies
+        the winner (EbDlfProcess.c level search analog); the searched
+        level lands in the header.  The decoder applies the header's
+        levels."""
         from ..ops import dlf
 
         fh = self.fh
         if fh.coded_lossless or fh.allow_intrabc \
                 or max(fh.filter_level) == 0:
+            self._save_deblocked()
+            return
+        if self.source is None:
+            self._apply_header_deblocking()
             self._save_deblocked()
             return
         if self.num_planes != 3:
@@ -2252,6 +2257,67 @@ class FrameCodec:
             for p in range(3):
                 self.recon[p] = out[p]
         self._save_deblocked()
+
+    def _apply_header_deblocking(self):
+        """Decoder: normative deblocking of every plane at the header's
+        levels (luma vertical / horizontal, then filter_level_uv per
+        chroma plane) through the deblocking kernel."""
+        import torch
+
+        from ..ops import dlf
+
+        fh = self.fh
+        levels = [tuple(fh.filter_level), (fh.filter_level_uv[0],) * 2,
+                  (fh.filter_level_uv[1],) * 2]
+        for p in range(self.num_planes):
+            lv, lh = levels[p]
+            if lv == 0 and lh == 0:
+                continue
+            sub = 1 if p else 0
+            vw = (fh.frame_width + sub) >> sub
+            vh = (fh.frame_height + sub) >> sub
+            masks = dlf.edge_params(
+                self.tx_w_grid[p], self.tx_h_grid[p], self.skip_grid[p],
+                self.bedge_x[p], self.bedge_y[p], vw, vh, p > 0)
+            plane = torch.from_numpy(np.ascontiguousarray(
+                self.recon[p], np.int32)).to(self.device)
+            out = dlf.deblock(plane, *masks, vw, vh, lv, lh, fh.sharpness,
+                              self.seq.bit_depth)
+            self.recon[p] = out.cpu().numpy()
+
+    def apply_cdef(self):
+        """Decoder: normative CDEF at the header's frame-level strengths
+        (spec 7.15) on the codec's device: the direction search, then the
+        filter (the CDEF kernels)."""
+        import torch
+
+        from ..ops import cdef as cdef_ops
+
+        fh = self.fh
+        if (not self.seq.enable_cdef or fh.coded_lossless
+                or fh.allow_intrabc):
+            return
+        if fh.cdef_bits > 0:
+            raise UnsupportedBitstream(
+                "per-64x64 CDEF strength presets (cdef_bits > 0, "
+                "cdef_frame_multi) are not ported")
+        y_str, uv_str = fh.cdef_y_strengths[0], fh.cdef_uv_strengths[0]
+        if y_str == 0 and uv_str == 0:
+            return
+        ns = cdef_ops.nonskip_grid(self.skips, self.mi_rows, self.mi_cols)
+        if not ns.any():
+            return
+        fw, fh_px = self.mi_cols * 4, self.mi_rows * 4
+        planes = [torch.from_numpy(np.ascontiguousarray(p, np.int32)).to(
+            self.device) for p in self.recon[:self.num_planes]]
+        bd = self.seq.bit_depth
+        dirs, var = cdef_ops.cdef_direction(planes[0], fw, fh_px,
+                                            max(bd - 8, 0))
+        out = cdef_ops.cdef_apply(planes, torch.from_numpy(ns).to(
+            self.device), dirs, var, y_str, uv_str, fh.cdef_damping, fw,
+            fh_px, bd)
+        for p, o in enumerate(out):
+            self.recon[p] = o.cpu().numpy()
 
     def _save_deblocked(self):
         if self.seq.enable_restoration:

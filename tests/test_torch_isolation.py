@@ -44,6 +44,16 @@ for i in range(5):
                              u, v))
 out += enc.flush()
 assert len(out) == 7 and enc.frame_count == 5
+# the port's decoder on the random-access stream, and the stripe step
+from svt_av1_tpu_torch.api import Decoder
+dec = Decoder(device="cpu")
+shown = [g for g in (dec.decode_frame(p) for p in out) if g is not None]
+assert len(shown) == 5
+for d, g in enumerate(shown):
+    assert all(np.array_equal(g[k], enc.recon_by_display[d][k])
+               for k in range(3))
+from svt_av1_tpu_torch.parallel import stripes
+assert stripes.LocalStripes(2).from_above([1, 2]) == [None, 1]
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "svt_av1_tpu"))
 print("BAD", bad)
@@ -57,6 +67,13 @@ def _forbidden(name: str) -> bool:
 def _sources():
     files = sorted(PORT.rglob("*.py"))
     return files + [ROOT / "chip_smoke.py"]
+
+
+def test_the_scan_covers_every_package_of_the_port():
+    scanned = {p.relative_to(PORT).parts[0] for p in _sources()
+               if p.is_relative_to(PORT)}
+    assert {"parallel", "pipeline", "ops", "kernels"} <= scanned
+    assert PORT / "parallel" / "stripes.py" in _sources()
 
 
 def test_port_encode_loads_no_jax_module():
@@ -97,6 +114,15 @@ def test_entry_points_default_to_cuda():
     with pytest.raises(RuntimeError, match="CUDA"):
         omd.intra_decision_frame(torch.zeros(64, 64).numpy(), 64, 64, 100,
                                  1.0, (0.0,) * 13)
+    from svt_av1_tpu_torch.api import Decoder, decode_ivf
+    from svt_av1_tpu_torch.parallel.dryrun import dryrun_stripes
+
+    with pytest.raises(RuntimeError, match="CUDA"):
+        Decoder()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        decode_ivf("no-such-file.ivf")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        dryrun_stripes(2, width=256)
 
 
 def test_chip_smoke_refuses_without_cuda(tmp_path):

@@ -371,3 +371,187 @@ def test_ra_stream_on_the_card_equals_the_plain_stream(dev, tmp_path):
         encode_ivf(frames, cfg, str(p), device=d)
         out[d] = p.read_bytes()
     assert out["cuda"] == out["cpu"]
+
+
+# -- stripe modes (the stripe step of svt_av1_tpu_torch/parallel) -----------
+
+@pytest.mark.parametrize("row0", [0, 64, 192])
+def test_me_stripe_modes_match_plain(dev, row0):
+    src, ref = (torch.from_numpy(p).to(dev) for p in _moving_pair(256, 256,
+                                                                  row0))
+    stripe = src[row0:row0 + 64].contiguous()
+    before = (bme.me_coarse.launches, bme.me_refine.launches,
+              bme.subpel_refine16.launches)
+    coarse = bme.me_coarse(stripe, ref, 8, row0)
+    assert torch.equal(coarse, bme.coarse_sb_search(stripe, ref, 8, row0))
+    got = bme.me_refine(stripe, ref, coarse, bme.ME_SHAPES, row0)
+    want = bme.refine_plain(stripe, ref, coarse, bme.ME_SHAPES, row0)
+    for s in bme.ME_SHAPES:
+        for g, w in zip(got[s], want[s]):
+            assert torch.equal(g, w), s
+    mv_r = bi._nested_to_grid(got[(16, 16)][0], 1, 4, 4, 4)
+    mv_c = bi._nested_to_grid(got[(16, 16)][1], 1, 4, 4, 4)
+    sub = bme.subpel_refine16(stripe, ref, mv_r, mv_c, 8, row0)
+    for g, w in zip(sub, bme.subpel_plain(stripe, ref, mv_r, mv_c, 8, row0)):
+        assert torch.equal(g, w)
+    assert (bme.me_coarse.launches, bme.me_refine.launches,
+            bme.subpel_refine16.launches) == tuple(b + 1 for b in before)
+    # the stripe's outputs are the whole frame's rows
+    whole = bme.frame_me(src, ref, 8, bme.ME_SHAPES)
+    rows = slice(row0 // 64 * 4, row0 // 64 * 4 + 4)
+    for s in bme.ME_SHAPES:
+        for g, w in zip(got[s], whole[s]):
+            assert torch.equal(g, w[rows]), s
+
+
+@pytest.mark.parametrize("index", [0, 1, 2], ids=["first", "middle", "last"])
+def test_intra_halo_mode_matches_plain(dev, index):
+    plane = torch.from_numpy(_plane(192, 256, index)).to(dev)
+    r0 = index * 64
+    stripe = plane[r0:r0 + 64].contiguous()
+    above = stripe[0] if index == 0 else plane[r0 - 1].contiguous()
+    halo = stripe[-1:].expand(32, 256).contiguous() if index == 2 \
+        else plane[r0 + 64:r0 + 96].contiguous()
+    mb = tuple(np.linspace(1.0, 6.0, 13).tolist())
+    for (w, h) in omd.ALL_SHAPES:
+        m, c = omd.intra_decision(stripe, w, h, 140, 250.0, mb, 8, above,
+                                  halo)
+        m2, c2 = omd.intra_decision_plain(stripe, w, h, 140, 250.0, mb, 8,
+                                          above, halo)
+        assert (m == m2).float().mean().item() >= 0.99, (w, h)
+        assert torch.isclose(c, c2, rtol=1e-5).float().mean().item() >= 0.99
+        # the whole plane's decision on the stripe's rows
+        mw, cw = omd.intra_decision(plane, w, h, 140, 250.0, mb)
+        assert torch.equal(m, mw[r0 // h:(r0 + 64) // h]), (w, h)
+
+
+@pytest.mark.parametrize("top,bottom", [(False, False), (True, False),
+                                        (False, True), (True, True)],
+                         ids=["none", "top", "bottom", "both"])
+def test_cdef_halo_modes_match_plain(dev, top, bottom):
+    full = torch.from_numpy(_plane(68, 256, 3).astype(np.int32)).to(dev)
+    d = full[2:66].contiguous()
+    src = (d + torch.randint(-5, 6, d.shape, device=dev)).clamp(0, 255) \
+        .to(torch.uint8)
+    rng = np.random.default_rng(top + 2 * bottom)
+    ns = torch.from_numpy(rng.random((8, 32)) < 0.8).to(dev)
+    halos = [(full[:2].contiguous() if top else None,
+              full[66:].contiguous() if bottom else None)]
+    dirs, var = cdef.cdef_direction(d, 256, 64)
+    got = cdef.cdef_search([src], [d], dirs, var, ns, 256, 64, 4,
+                           halos=halos)
+    want = cdef.search_plain([src], [d], dirs, var, ns, 256, 64, 4,
+                             halos=halos)
+    assert torch.equal(got[0], want[0]) and got[1] is None
+    for ys in (0, 33, 61):
+        a = cdef.cdef_apply([d], ns, dirs, var, ys, 0, 4, 256, 64, 8, halos)
+        b = cdef.cdef_apply_plain([d], ns, dirs, var, ys, 0, 4, 256, 64, 8,
+                                  halos)
+        assert torch.equal(a[0], b[0]), ys
+
+
+def test_stripe_step_matches_the_plain_step_and_the_whole_frame(dev):
+    from svt_av1_tpu_torch.parallel import dryrun, stripes
+
+    rep = dryrun.dryrun_stripes(2, width=256, device=dev)
+    assert min(rep["agreement"].values()) > 0.97
+    plain = stripes.stripe_step(rep["frame"], rep["stripes"],
+                                stripes.LocalStripes(2), plain=True)
+    for a, b in zip(rep["outs"], plain):
+        assert (a["level"], a["ystr"]) == (b["level"], b["ystr"])
+        assert torch.equal(a["cdef"], b["cdef"])
+        for k in ("mv_r", "mv_c", "sel"):
+            assert torch.equal(a["fields"][k], b["fields"][k]), k
+
+
+def test_decoder_on_the_card_equals_the_cpu_decoder(dev, tmp_path):
+    from svt_av1_tpu_torch.api import Decoder
+
+    frames = []
+    base = _plane(160, 224, 8)
+    for i in range(4):
+        y = np.roll(base, (i, 2 * i), axis=(0, 1))[:128, :192]
+        frames.append((np.ascontiguousarray(y),
+                       np.full((64, 96), 120, np.uint8),
+                       np.full((64, 96), 130, np.uint8)))
+    cfg = EncoderConfig(source_width=192, source_height=128, qp=40,
+                        enc_mode=8, intra_period_length=-1,
+                        hierarchical_levels=2)
+    path = tmp_path / "s.ivf"
+    recon = encode_ivf(frames, cfg, str(path), device=dev)
+    from svt_av1_tpu_torch.io import IvfReader
+
+    pkts = [p for p, _ in IvfReader(str(path))]
+    outs = {}
+    for d in ("cuda", "cpu"):
+        dec = Decoder(device=d)
+        outs[d] = [g for g in (dec.decode_frame(p) for p in pkts)
+                   if g is not None]
+    assert len(outs["cuda"]) == len(outs["cpu"]) == len(recon)
+    for a, b, r in zip(outs["cuda"], outs["cpu"], recon):
+        for p in range(3):
+            assert np.array_equal(a[p], b[p]) and np.array_equal(a[p], r[p])
+
+
+def _nccl_worker(rank, n, store_path, inputs, out_path):
+    import torch.distributed as dist
+    from svt_av1_tpu_torch.parallel import stripes
+
+    dev = torch.device("cuda", rank)
+    torch.cuda.set_device(dev)
+    dist.init_process_group("nccl", store=dist.FileStore(store_path, n),
+                            rank=rank, world_size=n, device_id=dev)
+    try:
+        frame, parts = torch.load(inputs, map_location=dev,
+                                  weights_only=False)
+        out = stripes.stripe_step(frame, [parts[rank]],
+                                  stripes.DistStripes())
+        torch.cuda.synchronize(dev)
+        torch.save(out[0], f"{out_path}.{rank}")
+    finally:
+        dist.destroy_process_group()
+
+
+def test_dist_stripes_over_nccl_equal_local_stripes(dev, tmp_path):
+    """One stripe per card through NCCL (a machine with several cards):
+    every output equals LocalStripes' on one card."""
+    import time
+
+    n = torch.cuda.device_count()
+    if n < 2:
+        pytest.skip("needs two or more CUDA devices")
+    from svt_av1_tpu_torch.parallel import dryrun, stripes
+
+    cap = dryrun.capture_inter_frame(n, 256, dev)
+    frame = dryrun.frame_params(cap, dev)
+    parts = dryrun.build_stripes(cap, n, dev)
+    local = stripes.stripe_step(frame, parts, stripes.LocalStripes(n))
+    inputs = tmp_path / "inputs.pt"
+    torch.save((frame, parts), inputs)
+    ctx = torch.multiprocessing.get_context("spawn")
+    procs = [ctx.Process(target=_nccl_worker,
+                         args=(r, n, str(tmp_path / "store"), str(inputs),
+                               str(tmp_path / "out")))
+             for r in range(n)]
+    for p in procs:
+        p.start()
+    deadline = time.monotonic() + 300
+    for p in procs:
+        p.join(timeout=max(deadline - time.monotonic(), 0))
+    hung = [p.pid for p in procs if p.is_alive()]
+    for p in procs:
+        if p.is_alive():
+            p.kill()
+            p.join()
+    assert not hung, f"ranks still running after 300 s: {hung}"
+    assert [p.exitcode for p in procs] == [0] * n
+    for r, want in enumerate(local):
+        got = torch.load(tmp_path / f"out.{r}", map_location=dev,
+                         weights_only=False)
+        assert (got["level"], got["ystr"]) == (want["level"], want["ystr"])
+        for k in ("cdef", "dlf_sse", "cdef_err"):
+            assert torch.equal(got[k], want[k]), (r, k)
+        for k, v in want["fields"].items():
+            assert torch.equal(got["fields"][k], v), (r, k)
+        for s, (m, c) in want["intra"].items():
+            assert torch.equal(got["intra"][s][0], m), (r, s)
