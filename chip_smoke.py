@@ -11,7 +11,12 @@ Phases, each of which must pass (the script exits non-zero otherwise):
    shapes, held against its plain PyTorch version on the same inputs
    (integers exact; intra costs to rtol 1e-5 with >= 99% of the modes
    equal; inter costs to rtol 2e-4 / atol 2 on >= 99%; MV bits to
-   1e-4), with CUDA-event times of both;
+   1e-4), with CUDA-event times of both; K1 is timed as its one launch
+   for the 7 shapes of a frame (and, for comparison, as 7 one-shape
+   launches), K6 at the path's shapes (the 16x16 table) and at all 8
+   shapes (the 8x8 table), each set held against the plain version, and
+   both print their design ceilings (k1_ceiling, k6_ceiling) beside
+   their bounds;
 4. all-intra encode: the port's Encoder on N_FRAMES synthetic 1920x1080
    frames, preset 8 (LOW_DELAY_P, qp 40, intra_period_length 0), with
    every launch counter set to 0 just before and read just after; K1-K4
@@ -58,12 +63,15 @@ Phases, each of which must pass (the script exits non-zero otherwise):
    card filters) printed;
 10. one JSON line listing every kernel (launches on the main paths: the
     random-access encode, the stripe dryruns and the decodes) and the
-    stripe step (B14), then the device line last.
+    stripe step (B14), then the device line last; K1's and K6's design
+    ceilings are printed beside their bounds, not put in that line.  Phase 6 also prints the K1 and K6 launches of the
+    random-access encode alone.
 
 The kernels phase also holds K9, K8 with the compound row, K10, and
 K5/K6 at the MCTF (1088x1920, 32x32) and TPL (576x960, 16x16)
 geometries against their plain versions, and the stripe modes: K5/K6/K7
-at row0 64 of a 1280x256 reference, K1 with true halo rows, K4's search
+at row0 64 of a 1280x256 reference (K6 at every ME shape and at the
+step's shapes 16x16 and 64x64), K1 with true halo rows, K4's search
 and apply with and without the neighbours' rows.
 
 ``--trace DIR`` adds a phase before the last two lines: encodes under
@@ -104,6 +112,8 @@ TEXTURE_SIGMA, SMOOTH_SIGMA = 12.0, 2.0
 # that is broken lands far below the floor
 PSNR_FLOOR_DB = 25.0
 KERNEL_REPS = 20
+# the ME shapes of the inter plans and the stripe step (K6's 16x16 table)
+PATH_ME_SHAPES = ((16, 16), (64, 64))
 PLAIN_REPS = 5
 TRACE_FRAMES = 3
 # random access: a key frame and two 16-frame mini-GOPs; bench.py times
@@ -162,6 +172,44 @@ def bound_ms(n_bytes, n_ops):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+# the design ceilings of the kernels redesigned for Hopper: the least
+# time their own work takes at the card's published peaks, beside the
+# bound of the function (operations at the float32 / integer rate)
+PEAK_TF32_S = 495e12            # dense TF32 tensor-core FLOP/s
+PEAK_LANE_INSTR_S = 132 * 128 * 1.98e9   # lane-instructions/s: 4 x 32 per SM
+
+
+def k1_ceiling(px, shapes):
+    """K1 (ms, what): its DCT products on the tensor cores, two TF32
+    passes for the first (h multiply-adds per pixel) and three for the
+    second (w), a dummy 14th mode where a side is 8, against its
+    per-(pixel, mode) work on the float32/integer pipes (prediction,
+    residual, the TF32 split, the dead-zone path of the quantizer model
+    and the sums: about 20 operations); the larger of the two."""
+    tc = sum((14 if 8 in s else 13) * px * 2 * (2 * s[1] + 3 * s[0])
+             for s in shapes) / PEAK_TF32_S
+    alu = sum(13 * px * 20 for _ in shapes) / PEAK_OPS_S
+    return (tc * 1e3, "tensor cores") if tc >= alu else (alu * 1e3,
+                                                         "float32 pipes")
+
+
+def k6_ops(n_sb):
+    """K6's operations for ``n_sb`` SBs: per SB, window and offset the
+    4096 absolute differences and their sum, as packed-byte operations (4
+    pixel pairs and their sum each: the card's widest form of the work;
+    3 scalar operations per pixel pair give a bound that the kernel
+    beats)."""
+    return n_sb * 2 * 1089 * 64 * 64 // 4
+
+
+def k6_ceiling(n_sb):
+    """K6 (ms, what): the packed-byte SAD instructions it issues (per SB,
+    window and offset 64 8x8 blocks of 16 VABSDIFF4 with accumulate,
+    one instruction each on sm_90a) at 4 x 32 lanes per SM and clock."""
+    return (n_sb * 2 * 1089 * 64 * 16 / PEAK_LANE_INSTR_S * 1e3,
+            "SAD instructions")
+
+
 def nbytes(*tensors):
     return sum(t.numel() * t.element_size() for t in tensors)
 
@@ -218,6 +266,9 @@ def kernels_phase(dev, frame):
     shapes = omd.ALL_SHAPES
 
     def k1():
+        return omd.intra_decision_packed(plane, qindex, lam, mb)
+
+    def k1_by_shape():
         return [omd.intra_decision(plane, w, h, qindex, lam, mb)
                 for (w, h) in shapes]
 
@@ -225,23 +276,28 @@ def kernels_phase(dev, frame):
         return [omd.intra_decision_plain(plane, w, h, qindex, lam, mb)
                 for (w, h) in shapes]
 
-    got, want = k1(), k1_plain()
+    packed = k1()
+    got = omd.unpack_decisions(packed, shapes, buf_w, buf_h)
+    want = k1_plain()
     torch.cuda.synchronize()
     err = 0.0
-    for (w, h), (m, c), (m2, c2) in zip(shapes, got, want):
+    for (w, h), (m2, c2) in zip(shapes, want):
+        m, c = got[(w, h)]
         same = (m == m2).float().mean().item()
         close = torch.isclose(c, c2, rtol=1e-5).float().mean().item()
         err = max(err, (c - c2).abs().max().item())
         print(f"K1 intra_decision {w}x{h}: modes equal {same:.6f}, "
               f"costs within rtol 1e-5 {close:.6f}")
         assert same >= 0.99 and close >= 0.99, (w, h, same, close)
-    flops = sum(13 * 2 * buf_w * buf_h * (w + h) for (w, h) in shapes)
-    out_b = sum(nbytes(m, c) for m, c in got)
+    px = buf_w * buf_h
+    flops = sum(13 * 2 * px * (w + h) for (w, h) in shapes)
     results["intra_decision"] = dict(
         ms=cuda_ms(k1, KERNEL_REPS), plain_ms=cuda_ms(k1_plain, PLAIN_REPS),
-        max_abs_err=err, bound=bound_ms(nbytes(plane) + out_b, flops),
-        per_call=f"7 launches, one per block shape ({flops / 1e9:.2f} "
-                 "GFLOP)")
+        max_abs_err=err, bound=bound_ms(nbytes(plane, packed), flops),
+        ceiling=k1_ceiling(px, shapes),
+        per_call=f"1 launch, 7 shapes ({flops / 1e9:.2f} GFLOP)")
+    print(f"K1 intra_decision as 7 one-shape launches (the same kernel): "
+          f"{cuda_ms(k1_by_shape, KERNEL_REPS):.4f} ms")
 
     # -- K2 deblocking: one luma plane at one level, both directions
     src_y = torch.from_numpy(np.ascontiguousarray(
@@ -415,16 +471,31 @@ def inter_kernels_phase(dev, ref_frame, src_frame):
     print(f"K6 me_refine, all {len(bme.ME_SHAPES)} ME shapes: max |kernel "
           f"- plain| {err}")
     assert err == 0
-    path = ((16, 16), (64, 64))
+    all_ms = cuda_ms(lambda: bme.me_refine(src, ref, coarse, bme.ME_SHAPES),
+                     KERNEL_REPS)
+    print(f"K6 me_refine, all {len(bme.ME_SHAPES)} ME shapes (the 8x8 "
+          f"table): {all_ms:.4f} ms")
+    # the path's shapes (the 16x16 table, both windows at once): held
+    # against the plain version on their own, since they run another
+    # instantiation of the kernel than the 8x8 table above
+    path = PATH_ME_SHAPES
     k6 = lambda: bme.me_refine(src, ref, coarse, path)  # noqa: E731
     k6_plain = lambda: bme.refine_plain(src, ref, coarse, path)  # noqa
-    me = k6()
+    me, want = k6(), k6_plain()
+    torch.cuda.synchronize()
+    err = max((g - w).abs().max().item() for s in path
+              for g, w in zip(me[s], want[s]))
+    err = max(err, (me["win16"] - want["win16"]).abs().max().item())
+    print(f"K6 me_refine, the path's shapes 16x16 and 64x64 (the 16x16 "
+          f"table): max |kernel - plain| {err}")
+    assert err == 0
     out_b = sum(nbytes(*me[s]) for s in path)
     results["me_refine"] = dict(
         ms=cuda_ms(k6, KERNEL_REPS), plain_ms=cuda_ms(k6_plain, PLAIN_REPS),
         max_abs_err=err,
         bound=bound_ms(nbytes(src, ref, coarse) + out_b,
-                       n_sb * 2 * bme.NPOS ** 2 * 64 * 64 * 3),
+                       k6_ops(n_sb)),
+        ceiling=k6_ceiling(n_sb),
         per_call="1 launch, shapes 16x16 and 64x64")
 
     # -- K7 quarter-pel refinement of the 16x16 MVs
@@ -666,12 +737,14 @@ def ra_kernels_phase(dev, clip):
         b5 = bound_ms(nbytes(c, n, coarse),
                       2 * hh * ww + n_sb * (2 * r + 1) ** 2 * 64 * 3)
         b6 = bound_ms(nbytes(c, n, coarse, *got[shape]),
-                      n_sb * 2 * bme.NPOS ** 2 * 64 * 64 * 3)
+                      k6_ops(n_sb))
+        c6 = k6_ceiling(n_sb)
         print(f"K5/K6 at the {what} geometry {ww}x{hh}, shape "
               f"{shape[0]}x{shape[1]} alone: max |kernel - plain| {err}; "
               f"K5 {times[0]:.4f} ms (plain {times[1]:.4f} ms, bound "
               f"{b5[0]:.5f} ms, {b5[1]}), K6 {times[2]:.4f} ms (plain "
-              f"{times[3]:.4f} ms, bound {b6[0]:.5f} ms, {b6[1]})")
+              f"{times[3]:.4f} ms, bound {b6[0]:.5f} ms, {b6[1]}; design "
+              f"ceiling {c6[0]:.5f} ms, {c6[1]})")
     return results
 
 
@@ -900,6 +973,9 @@ def ra_phase(counters, frames, out_dir):
     print("random access stage ms/frame (host wall clock):", json.dumps(
         {k: v.get("ms_per_frame") for k, v in rep.items() if k != "_wall"}))
     print("random access main path launches:", json.dumps(launches))
+    print(f"random-access encode alone: K1 intra_decision "
+          f"{launches['intra_decision']} launches, K6 me_refine "
+          f"{launches['me_refine']} launches")
     print(f"K5/K6 launches by use: MCTF {by_use['MCTF']}, TPL "
           f"{by_use['TPL']}, inter plans "
           f"{launches['me_coarse'] - by_use['MCTF'] - by_use['TPL']}")
@@ -1003,8 +1079,12 @@ def stripe_kernels_phase(dev, ref_plane, src_plane, row0s):
         stripe = src[row0:row0 + 64].contiguous()
         coarse = bme.me_coarse(stripe, ref, 8, row0)
         want_c = bme.coarse_sb_search(stripe, ref, 8, row0)
+        # every ME shape (the 8x8 table) and the step's own shapes (the
+        # 16x16 table: the other instantiation of K6)
         me = bme.me_refine(stripe, ref, coarse, bme.ME_SHAPES, row0)
         want_me = bme.refine_plain(stripe, ref, coarse, bme.ME_SHAPES, row0)
+        me_p = bme.me_refine(stripe, ref, coarse, PATH_ME_SHAPES, row0)
+        want_p = bme.refine_plain(stripe, ref, coarse, PATH_ME_SHAPES, row0)
         sbs = slice(row0 // 64 * n_sbx, (row0 // 64 + 1) * n_sbx)
         mv_r = bi._nested_to_grid(me[(16, 16)][0], 1, n_sbx, 4, 4)
         mv_c = bi._nested_to_grid(me[(16, 16)][1], 1, n_sbx, 4, 4)
@@ -1016,6 +1096,14 @@ def stripe_kernels_phase(dev, ref_plane, src_plane, row0s):
             for g, w, a in zip(me[s], want_me[s], whole_me[s]):
                 err = max(err, (g - w).abs().max().item(),
                           (g - a[sbs]).abs().max().item())
+        for s in PATH_ME_SHAPES:
+            for g, w, a in zip(me_p[s], want_p[s], whole_me[s]):
+                err = max(err, (g - w).abs().max().item(),
+                          (g - a[sbs]).abs().max().item())
+        for got_me, w in ((me, want_me), (me_p, want_p)):
+            err = max(err, (got_me["win16"] - w["win16"]).abs().max().item(),
+                      (got_me["win16"] - whole_me["win16"][sbs]).abs().max()
+                      .item())
         for g, w in zip(sub, want_sub):
             err = max(err, (g.to(torch.int32) - w.to(torch.int32)).abs()
                       .max().item())
@@ -1117,7 +1205,7 @@ def step_bound(rep):
         add(px + H * W + n_sb * 8, (px + H * W) + n_sb * (2 * r + 1) ** 2
             * 64 * 3)
         add(px + H * W + n_sb * 8 + n_sb * 17 * 16,
-            n_sb * 2 * bme.NPOS ** 2 * 64 * 64 * 3)
+            k6_ops(n_sb))
         add(px + H * W + units * 16 + px,
             units * (16 * (16 * 23 + 16 * 16) * 8 * 2 + 8 * 256 * 8 * 2
                      + 25 * 256 * 3))
@@ -1391,7 +1479,7 @@ def main() -> int:
     kres.update(inter_kernels_phase(dev, ipp_frames[0], ipp_frames[1]))
     kres.update(ra_kernels_phase(dev, ra_frames[:3]))
 
-    counters = {"intra_decision": omd.intra_decision,
+    counters = {"intra_decision": omd.intra_decision_packed,
                 "deblock": dlf.deblock,
                 "cdef_direction": cdef.cdef_direction,
                 "cdef_search": cdef.cdef_search,
@@ -1454,14 +1542,22 @@ def main() -> int:
     for name, (src, replaces) in sources.items():
         r = kres[name]
         b_ms, b_by = r["bound"]
-        rows.append(dict(
+        row = dict(
             name=name, route="cuda",
             source=f"svt_av1_tpu_torch/kernels/csrc/{src}",
             replaces=replaces, launches=launches[name],
             max_abs_err=r["max_abs_err"], ms=r["ms"], plain_ms=r["plain_ms"],
-            bound_ms=b_ms, bound_by=b_by, library_ms=None))
+            bound_ms=b_ms, bound_by=b_by, library_ms=None)
+        # the design ceilings rest on assumed peaks, not on this run: they
+        # are printed, not put in the kernels line
+        ceiling = ""
+        if "ceiling" in r:
+            ceiling = (f", design ceiling {r['ceiling'][0]:.5f} ms "
+                       f"({r['ceiling'][1]})")
+        rows.append(row)
         print(f"{name}: {r['per_call']}: kernel {r['ms']:.4f} ms, plain "
-              f"{r['plain_ms']:.4f} ms, bound {b_ms:.5f} ms ({b_by}); "
+              f"{r['plain_ms']:.4f} ms, bound {b_ms:.5f} ms ({b_by})"
+              f"{ceiling}; "
               f"launches: {launches[name]} on the main paths = "
               f"{ra_launches[name]} on the {RA_FRAMES}-frame random-access "
               f"encode + {stripe_launches[name]} on the stripe dryruns + "

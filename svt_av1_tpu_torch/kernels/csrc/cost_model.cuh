@@ -22,16 +22,37 @@ constexpr float kRateTxb = 36.242f;
 // SSE), whether it codes (nz) and its log2 magnitude term.  ``coded``
 // false models a coefficient outside the coded band of a 64-point
 // transform: it quantizes to 0 and its energy counts as distortion.
+// entries of an optional table of log2f(1 + q) for q = 0 .. kLog2Table-1
+constexpr int kLog2Table = 256;
+
+// A coefficient of magnitude ac outside the dead zone.  ``log2_1p``, when
+// given, holds log2f(1 + q) for small q, computed by the same log2f.
+__device__ __forceinline__ void coef_coded(float ac, float rnd, float step,
+                                           const float* log2_1p, float& e2,
+                                           int& nz, float& mg) {
+  const float q = fmaxf(floorf(__fdiv_rn(__fadd_rn(ac, rnd), step)), 0.f);
+  const float err = __fsub_rn(ac, __fmul_rn(q, step));
+  e2 = __fmul_rn(err, err);
+  nz = q > 0.f ? 1 : 0;
+  mg = (log2_1p != nullptr && q < (float)kLog2Table)
+           ? log2_1p[(int)q]
+           : log2f(__fadd_rn(1.f, q));
+}
+
+// A coefficient inside the dead zone (most of them) quantizes to 0: its
+// error is ac itself and its log2 term log2(1 + 0) = 0, so the division
+// and the logarithm run only for the others, with the same results.
 __device__ __forceinline__ void coef(float cf, float zbin, float rnd,
                                      float step, bool coded, float& e2,
                                      int& nz, float& mg) {
   const float ac = fabsf(cf);
-  float q = floorf(__fdiv_rn(__fadd_rn(ac, rnd), step));
-  q = (coded && ac >= zbin) ? fmaxf(q, 0.f) : 0.f;
-  const float err = __fsub_rn(ac, __fmul_rn(q, step));
-  e2 = __fmul_rn(err, err);
-  nz = q > 0.f ? 1 : 0;
-  mg = log2f(__fadd_rn(1.f, q));
+  if (!(coded && ac >= zbin)) {
+    e2 = __fmul_rn(ac, ac);
+    nz = 0;
+    mg = 0.f;
+    return;
+  }
+  coef_coded(ac, rnd, step, nullptr, e2, nz, mg);
 }
 
 // cost = sse + lam * (A*nnz + B*mag + C*(nnz > 0) + extra_bits)

@@ -9,28 +9,46 @@
 //
 // What bounds it on the H100: integer work.  Per reference at 1080p,
 // 540 SBs x 2 windows x 1089 offsets x 4096 pixels is 4.8 G absolute
-// differences; the planes are 2 MB each.  Packed-byte sums
-// (__vsadu4: four absolute differences and their sum in one
-// instruction) bring that to 1.2 G SIMD operations.
+// differences; the planes are 2 MB each.  Packed-byte sums (four
+// absolute differences and their sum per instruction, sad4() below)
+// bring that to 1.2 G SIMD operations; the rest is loading window rows
+// and aggregating.
 //
-// Design: one thread block per SB, 1024 threads, one window at a time.
-// The source may be a stripe of the frame starting at global row row0:
-// its SBs then sit row0 rows further down the whole reference, whose
-// height bounds the window clamps.
-// The 64x64 source SB (4 KB) and the 96x96 window (read with clamped
-// indices: the JAX form's edge pad; rows padded to 100 bytes so every
-// unaligned 8-byte run is two funnel shifts of three aligned words) sit
-// in shared memory.  Thread t keeps 8x8 source block (t mod 64) in
-// registers and produces that block's SAD for every 16th offset; the
-// 8x8 SADs of all 1089 offsets (uint16, exact: at most 64 x 255) stay in
-// shared memory (143 KB, rows of 66 halfwords so the reductions below
-// read without bank conflicts).  The block then finds the unbiased
-// 64x64 winner, and one warp per output block of the requested shapes
-// sums its 8x8 SADs per offset, adds the bias area*(|dy-d64y|+|dx-d64x|)
-// and keeps the lexicographic (cost, raster index) minimum: the
-// first-minimum rule of argmin over the flattened 33x33 grid.  The raw
-// SAD is restored from the biased minimum; the second window replaces
-// the first only where its raw SAD is strictly smaller.
+// Design: one CTA per SB.  The source may be a stripe of the frame
+// starting at global row row0: its SBs then sit row0 rows further down
+// the whole reference, whose height bounds the window clamps.
+// * Windows: 96x96 bytes at origins clamped at most 16 outside the plane,
+//   each row stored as 112 bytes from the 16-byte boundary below the
+//   window's first column.  A window inside the plane (and a 16-byte
+//   aligned reference) loads with 16-byte cp.async; one that touches the
+//   border reads bytes at clamped indices (the JAX form's edge pad; TMA
+//   would fill zeros there).
+// * SADs by a vertical sliding window: a thread owns one band of F 8x8
+//   block rows (8F source rows, kept in registers), one block column bx
+//   and one horizontal offset dx, and walks the window rows of its band
+//   once: each window row is loaded once (three aligned words and two
+//   funnel shifts) and compared with every source row it meets, adding
+//   to the accumulator of that row pair's vertical offset dy (33
+//   accumulators in registers).  A window row then costs 5 loads and
+//   shifts per 16F SIMD SADs, where a row per offset costs 5 per 2.
+// * Only the requested shapes' level is kept.  When a requested shape
+//   has a side of 8 ("fine": 8x8, 16x8, 8x16), F = 1 and the 8x8 SADs of
+//   all 1089 offsets go to shared memory (uint16, 140 KB), one window at
+//   a time, one CTA per SM.  Otherwise ("coarse": the main path's 16x16
+//   and 64x64, TPL's 16x16, MCTF's 32x32) F = 2, each thread's sums are
+//   8x16 SADs, and one shuffle with the neighbouring column's lane
+//   (bx ^ 1) makes them 16x16 SADs (uint16, exact: at most 256 x 255),
+//   so both windows' tables (70 KB) fit one CTA and two CTAs fit an SM.
+// * Aggregation: the 64x64 SAD of every offset is built once from the
+//   table and gives the window's unbiased 64x64 winner (first minimum);
+//   then one warp per output block of the requested shapes and window
+//   sums its table entries per offset (the 64x64 shape reads the 64x64
+//   sums), adds the bias area*(|dy-d64y|+|dx-d64x|) and keeps the
+//   lexicographic (cost, raster index) minimum over its lanes and then
+//   by warp shuffles: the first-minimum rule of argmin over the
+//   flattened 33x33 grid.  The raw SAD is restored from the biased
+//   minimum; the second window replaces the first only where its raw
+//   SAD is strictly smaller.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -41,17 +59,39 @@ constexpr int kR = 16;
 constexpr int kWin = kSB + 2 * kR;      // 96
 constexpr int kNpos = 2 * kR + 1;       // 33
 constexpr int kNoff = kNpos * kNpos;    // 1089
-constexpr int kRowWords = 25;           // 100-byte window rows
-constexpr int kSadStride = 66;          // halfwords per offset row
-constexpr int kThreads = 1024;
-constexpr int kMaxOut = 165;            // all 8 ME shapes of one SB
+constexpr int kRowBytes = 112;          // window row from its 16-byte floor
+constexpr int kRowWords = kRowBytes / 4;
+constexpr int kChunks = kRowBytes / 16;
+constexpr int kTabStride = 1090;        // halfwords per table entry
 constexpr int kMaxShapes = 8;
+constexpr int kBandTasks = 8 * kNpos;   // (dx, bx) pairs of a band
 
-constexpr size_t kSadBytes = (size_t)kNoff * kSadStride * 2;   // 143748
-constexpr size_t kSadBytesAligned = (kSadBytes + 15) / 16 * 16;
-constexpr size_t kWinBytes = (size_t)kWin * kRowWords * 4;
-constexpr size_t kSrcBytes = (size_t)kSB * kSB;
-constexpr size_t kSmemBytes = kSadBytesAligned + kWinBytes + kSrcBytes;
+template <bool kFine>
+struct Cfg {
+  static constexpr int F = kFine ? 1 : 2;            // block rows per band
+  static constexpr int kBands = 8 / F;
+  static constexpr int kEntries = kFine ? 64 : 16;   // table entries
+  static constexpr int kWins = kFine ? 1 : 2;        // windows at once
+  static constexpr int kTasks = kWins * kBands * kBandTasks;
+  static constexpr int kThreads = kFine ? 704 : 352;
+  static constexpr int kMinBlocks = kFine ? 1 : 2;
+  static constexpr int kMaxOut = kFine ? 165 : 37;   // blocks of all shapes
+  static constexpr size_t kSrcBytes = (size_t)kSB * kSB;
+  static constexpr size_t kWinBytes = (size_t)kWins * kWin * kRowBytes;
+  static constexpr size_t kTabBytes =
+      (size_t)kWins * kEntries * kTabStride * 2;
+  static constexpr size_t kS64Bytes = (size_t)kWins * kNoff * 4;
+  static constexpr size_t kResBytes = (size_t)2 * kMaxOut * 3 * 4;
+  static constexpr size_t kSmemBytes =
+      kSrcBytes + kWinBytes + kTabBytes + kS64Bytes + kResBytes;
+  static_assert(kTasks % kThreads == 0, "every lane takes whole tasks");
+  static_assert(kThreads % 32 == 0, "whole warps");
+};
+
+struct Spec {
+  int n_shapes, n_out;
+  int fy[kMaxShapes], fx[kMaxShapes];   // shape in 8x8 units (h/8, w/8)
+};
 
 __device__ __forceinline__ int clampi(int v, int lo, int hi) {
   return v < lo ? lo : (v > hi ? hi : v);
@@ -72,21 +112,49 @@ __device__ __forceinline__ void warp_min(int& c, int& i) {
   }
 }
 
-__global__ void __launch_bounds__(kThreads, 1) me_refine_kernel(
-    const uint8_t* __restrict__ src, const uint8_t* __restrict__ ref, int H,
-    int W, int row0, const int* __restrict__ coarse,
-    const int* __restrict__ spec, int n_shapes, int n_out,
-    int* __restrict__ out) {
+// acc + sum of |a - b| over the four byte pairs: one VABSDIFF4.U8.ACC on
+// sm_90a with the accumulator as its third operand (__vsadu4(a, b) + acc
+// compiles to the same instruction with a zero operand and an IADD3)
+__device__ __forceinline__ uint32_t sad4(uint32_t a, uint32_t b,
+                                         uint32_t acc) {
+  uint32_t d;
+  asm("vabsdiff4.u32.u32.u32.add %0, %1, %2, %3;\n"
+      : "=r"(d)
+      : "r"(a), "r"(b), "r"(acc));
+  return d;
+}
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
+               "l"(src));
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.commit_group;\n" ::);
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+template <bool kFine>
+__global__ void __launch_bounds__(Cfg<kFine>::kThreads, Cfg<kFine>::kMinBlocks)
+me_refine_kernel(const uint8_t* __restrict__ src,
+                 const uint8_t* __restrict__ ref, int H, int W, int row0,
+                 const int* __restrict__ coarse, Spec spec,
+                 int* __restrict__ out) {
+  using C = Cfg<kFine>;
+  constexpr int F = C::F;
+  constexpr int kT = C::kThreads;
+  constexpr int kNWarps = kT / 32;
   extern __shared__ __align__(16) uint8_t smem[];
-  uint16_t* sad8 = reinterpret_cast<uint16_t*>(smem);
-  uint32_t* win = reinterpret_cast<uint32_t*>(smem + kSadBytesAligned);
-  uint32_t* sbw = reinterpret_cast<uint32_t*>(smem + kSadBytesAligned +
-                                              kWinBytes);
-  __shared__ int res0[kMaxOut * 3];
-  __shared__ int red_c[kThreads / 32];
-  __shared__ int red_i[kThreads / 32];
-  __shared__ int d64[2];
-  __shared__ int shp[kMaxShapes * 2];
+  uint32_t* sbw = reinterpret_cast<uint32_t*>(smem);
+  uint8_t* winb = smem + C::kSrcBytes;
+  uint16_t* tab = reinterpret_cast<uint16_t*>(winb + C::kWinBytes);
+  uint32_t* s64 = reinterpret_cast<uint32_t*>(smem + C::kSrcBytes +
+                                              C::kWinBytes + C::kTabBytes);
+  int* res = reinterpret_cast<int*>(s64 + C::kWins * kNoff);
+  __shared__ int red_c[2][kNWarps];
+  __shared__ int red_i[2][kNWarps];
+  __shared__ int d64[2][2];
 
   const int n = blockIdx.x;
   const int n_sbx = W / kSB;
@@ -94,86 +162,144 @@ __global__ void __launch_bounds__(kThreads, 1) me_refine_kernel(
   const int src_y = (n / n_sbx) * kSB, pos_x = (n % n_sbx) * kSB;
   const int pos_y = src_y + row0;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const bool ref_aligned = ((uintptr_t)ref & 15) == 0;
 
-  if (tid < n_shapes * 2) shp[tid] = spec[tid];
-  {
-    const int r = tid >> 4, cw = tid & 15;     // 64 rows x 16 words
-    sbw[tid] = *reinterpret_cast<const uint32_t*>(
-        src + (size_t)(src_y + r) * W + pos_x + cw * 4);
-  }
+  for (int k = tid; k < kSB * 16; k += kT)     // 64 rows x 16 words
+    sbw[k] = *reinterpret_cast<const uint32_t*>(
+        src + (size_t)(src_y + (k >> 4)) * W + pos_x + (k & 15) * 4);
 
-  for (int cand = 0; cand < 2; ++cand) {
-    const int cy = cand == 0 ? coarse[n * 2] : 0;
-    const int cx = cand == 0 ? coarse[n * 2 + 1] : 0;
-    const int oy = clampi(pos_y + cy - kR, -kR, H - kWin + kR);
-    const int ox = clampi(pos_x + cx - kR, -kR, W - kWin + kR);
-    uint8_t* wb = reinterpret_cast<uint8_t*>(win);
-    for (int k = tid; k < kWin * kRowWords * 4; k += kThreads) {
-      const int i = k / (kRowWords * 4), j = k - i * (kRowWords * 4);
-      wb[k] = ref[(size_t)clampi(oy + i, 0, H - 1) * W +
-                  clampi(ox + j, 0, W - 1)];
-    }
-    __syncthreads();
-
-    // 8x8 SADs: thread t owns source block b = t mod 64 for every 16th
-    // offset
-    {
-      const int b = tid & 63, by = b >> 3, bx = b & 7;
-      uint32_t s_lo[8], s_hi[8];
+  for (int pass = 0; pass < 2 / C::kWins; ++pass) {
+    // window origins of this pass: candidate 0 at the coarse winner,
+    // candidate 1 at the zero MV, clipped so a window starts at most kR
+    // outside the plane; oxa is the origin's 16-byte floor
+    auto origin = [&](int wi) {
+      const int cand = pass * C::kWins + wi;
+      const int cy = cand == 0 ? coarse[n * 2] : 0;
+      const int cx = cand == 0 ? coarse[n * 2 + 1] : 0;
+      return make_int2(clampi(pos_y + cy - kR, -kR, H - kWin + kR),
+                       clampi(pos_x + cx - kR, -kR, W - kWin + kR));
+    };
 #pragma unroll
-      for (int r = 0; r < 8; ++r) {
-        s_lo[r] = sbw[(by * 8 + r) * 16 + bx * 2];
-        s_hi[r] = sbw[(by * 8 + r) * 16 + bx * 2 + 1];
-      }
-      for (int o = tid >> 6; o < kNoff; o += kThreads / 64) {
-        const int dy = o / kNpos, dx = o - dy * kNpos;
-        const int x0 = bx * 8 + dx;
-        const int sh = (x0 & 3) * 8;
-        const uint32_t* row = win + (by * 8 + dy) * kRowWords + (x0 >> 2);
-        unsigned acc = 0;
-#pragma unroll
-        for (int r = 0; r < 8; ++r) {
-          const uint32_t w0 = row[r * kRowWords];
-          const uint32_t w1 = row[r * kRowWords + 1];
-          const uint32_t w2 = row[r * kRowWords + 2];
-          acc += __vsadu4(__funnelshift_r(w0, w1, sh), s_lo[r]);
-          acc += __vsadu4(__funnelshift_r(w1, w2, sh), s_hi[r]);
+    for (int wi = 0; wi < C::kWins; ++wi) {
+      const int2 o = origin(wi);
+      const int oxa = o.y - (o.y & 15);
+      uint8_t* wb = winb + (size_t)wi * kWin * kRowBytes;
+      const bool inside = ref_aligned && o.x >= 0 && o.x + kWin <= H &&
+                          oxa >= 0 && oxa + kRowBytes <= W;
+      if (inside) {
+        for (int k = tid; k < kWin * kChunks; k += kT) {
+          const int i = k / kChunks, ch = k - i * kChunks;
+          cp_async16(wb + i * kRowBytes + ch * 16,
+                     ref + (size_t)(o.x + i) * W + oxa + ch * 16);
         }
-        sad8[o * kSadStride + b] = (uint16_t)acc;
+      } else {
+        for (int k = tid; k < kWin * kRowBytes; k += kT) {
+          const int i = k / kRowBytes, j = k - i * kRowBytes;
+          wb[k] = ref[(size_t)clampi(o.x + i, 0, H - 1) * W +
+                      clampi(oxa + j, 0, W - 1)];
+        }
+      }
+    }
+    cp_async_wait_all();
+    __syncthreads();
+
+    // SADs: task = (window, band, dx, bx), bx fastest
+    for (int task = tid; task < C::kTasks; task += kT) {
+      const int wi = task / (C::kBands * kBandTasks);
+      const int rem = task - wi * (C::kBands * kBandTasks);
+      const int band = rem / kBandTasks;
+      const int q = rem - band * kBandTasks;
+      const int dx = q >> 3, bx = q & 7;
+      uint32_t s_lo[8 * F], s_hi[8 * F];
+#pragma unroll
+      for (int i = 0; i < 8 * F; ++i) {
+        s_lo[i] = sbw[(band * 8 * F + i) * 16 + bx * 2];
+        s_hi[i] = sbw[(band * 8 * F + i) * 16 + bx * 2 + 1];
+      }
+      const int x = (origin(wi).y & 15) + bx * 8 + dx;
+      const int sh = (x & 3) * 8;
+      const uint32_t* wrow =
+          reinterpret_cast<const uint32_t*>(winb + (size_t)wi * kWin *
+                                                       kRowBytes) +
+          band * 8 * F * kRowWords + (x >> 2);
+      uint32_t acc[kNpos];
+#pragma unroll
+      for (int d = 0; d < kNpos; ++d) acc[d] = 0;
+#pragma unroll
+      for (int yy = 0; yy < 8 * F + kNpos - 1; ++yy) {
+        const uint32_t w0 = wrow[yy * kRowWords];
+        const uint32_t w1 = wrow[yy * kRowWords + 1];
+        const uint32_t w2 = wrow[yy * kRowWords + 2];
+        const uint32_t lo = __funnelshift_r(w0, w1, sh);
+        const uint32_t hi = __funnelshift_r(w1, w2, sh);
+#pragma unroll
+        for (int i = 0; i < 8 * F; ++i) {
+          const int dy = yy - i;
+          if (dy >= 0 && dy < kNpos)
+            acc[dy] = sad4(hi, s_hi[i], sad4(lo, s_lo[i], acc[dy]));
+        }
+      }
+      if (kFine) {
+        uint16_t* t = tab + (size_t)(band * 8 + bx) * kTabStride + dx;
+#pragma unroll
+        for (int d = 0; d < kNpos; ++d) t[d * kNpos] = (uint16_t)acc[d];
+      } else {
+        uint16_t* t = tab + (size_t)(wi * C::kEntries + band * 4 + (bx >> 1)) *
+                                kTabStride + dx;
+#pragma unroll
+        for (int d = 0; d < kNpos; ++d) {
+          const uint32_t v = acc[d] + __shfl_xor_sync(0xffffffffu, acc[d], 1);
+          if (!(bx & 1)) t[d * kNpos] = (uint16_t)v;
+        }
       }
     }
     __syncthreads();
 
-    // unbiased 64x64 winner of this window
+    // the 64x64 SAD of every offset and each window's unbiased winner
     {
-      int bc = 0x7fffffff, bi = 0x7fffffff;
-      for (int o = tid; o < kNoff; o += kThreads) {
-        int s = 0;
-        for (int b = 0; b < 64; ++b) s += sad8[o * kSadStride + b];
-        keep_min(bc, bi, s, o);
+      int bc[C::kWins], bi[C::kWins];
+#pragma unroll
+      for (int wi = 0; wi < C::kWins; ++wi) {
+        bc[wi] = 0x7fffffff;
+        bi[wi] = 0x7fffffff;
       }
-      warp_min(bc, bi);
-      if (lane == 0) {
-        red_c[warp] = bc;
-        red_i[warp] = bi;
+      for (int o = tid; o < kNoff; o += kT) {
+#pragma unroll
+        for (int wi = 0; wi < C::kWins; ++wi) {
+          const uint16_t* t = tab + (size_t)wi * C::kEntries * kTabStride + o;
+          int s = 0;
+#pragma unroll 16
+          for (int e = 0; e < C::kEntries; ++e) s += t[e * kTabStride];
+          s64[wi * kNoff + o] = s;
+          keep_min(bc[wi], bi[wi], s, o);
+        }
+      }
+#pragma unroll
+      for (int wi = 0; wi < C::kWins; ++wi) {
+        warp_min(bc[wi], bi[wi]);
+        if (lane == 0) {
+          red_c[wi][warp] = bc[wi];
+          red_i[wi][warp] = bi[wi];
+        }
       }
       __syncthreads();
-      if (tid == 0) {
-        for (int w = 1; w < kThreads / 32; ++w)
-          keep_min(bc, bi, red_c[w], red_i[w]);
-        d64[0] = bi / kNpos - kR;
-        d64[1] = bi % kNpos - kR;
+      if (tid < C::kWins) {
+        int c = red_c[tid][0], i = red_i[tid][0];
+        for (int w = 1; w < kNWarps; ++w) keep_min(c, i, red_c[tid][w],
+                                                    red_i[tid][w]);
+        d64[tid][0] = i / kNpos - kR;
+        d64[tid][1] = i % kNpos - kR;
       }
       __syncthreads();
     }
-    const int d64y = d64[0], d64x = d64[1];
 
-    // one warp per output block of the requested shapes
-    for (int j = warp; j < n_out; j += kThreads / 32) {
+    // one warp per (window, output block) of the requested shapes
+    for (int jw = warp; jw < C::kWins * spec.n_out; jw += kNWarps) {
+      const int wi = jw / spec.n_out, j = jw - wi * spec.n_out;
       int s = 0, base = 0, fy = 0, fx = 0, cnt = 0;
-      for (; s < n_shapes; ++s) {
-        fy = shp[2 * s];
-        fx = shp[2 * s + 1];
+      for (; s < spec.n_shapes; ++s) {
+        fy = spec.fy[s];
+        fx = spec.fx[s];
         cnt = (8 / fy) * (8 / fx);
         if (j < base + cnt) break;
         base += cnt;
@@ -181,13 +307,23 @@ __global__ void __launch_bounds__(kThreads, 1) me_refine_kernel(
       const int jj = j - base, nox = 8 / fx;
       const int oby = (jj / nox) * fy, obx = (jj % nox) * fx;
       const int area = 64 * fy * fx;
+      const int d64y = d64[wi][0], d64x = d64[wi][1];
+      // table entries of the block: 8x8 units (fine) or 16x16 (coarse)
+      const int u = kFine ? 1 : 2, tw = 8 / u;
+      const int ey0 = oby / u, ex0 = obx / u, ny = fy / u, nx = fx / u;
+      const uint16_t* t = tab + (size_t)wi * C::kEntries * kTabStride;
+      const uint32_t* t64 = s64 + wi * kNoff;
+      const bool whole = fy == 8 && fx == 8;
       int bc = 0x7fffffff, bi = 0x7fffffff;
       for (int o = lane; o < kNoff; o += 32) {
-        const uint16_t* row = sad8 + o * kSadStride;
         int agg = 0;
-        for (int yy = 0; yy < fy; ++yy)
-          for (int xx = 0; xx < fx; ++xx)
-            agg += row[(oby + yy) * 8 + obx + xx];
+        if (whole) {
+          agg = t64[o];
+        } else {
+          for (int yy = 0; yy < ny; ++yy)
+            for (int xx = 0; xx < nx; ++xx)
+              agg += t[((ey0 + yy) * tw + ex0 + xx) * kTabStride + o];
+        }
         const int dy = o / kNpos - kR, dx = o % kNpos - kR;
         agg += area * (abs(dy - d64y) + abs(dx - d64x));
         keep_min(bc, bi, agg, o);
@@ -195,25 +331,45 @@ __global__ void __launch_bounds__(kThreads, 1) me_refine_kernel(
       warp_min(bc, bi);
       if (lane == 0) {
         const int dy = bi / kNpos - kR, dx = bi % kNpos - kR;
-        const int raw = bc - area * (abs(dy - d64y) + abs(dx - d64x));
-        const int mv_r = oy + kR + dy - pos_y;
-        const int mv_c = ox + kR + dx - pos_x;
-        if (cand == 0) {
-          res0[j * 3] = mv_r;
-          res0[j * 3 + 1] = mv_c;
-          res0[j * 3 + 2] = raw;
-        } else {
-          int* o4 = out + ((size_t)n * n_out + j) * 4;
-          const bool take = raw < res0[j * 3 + 2];
-          o4[0] = take ? mv_r : res0[j * 3];
-          o4[1] = take ? mv_c : res0[j * 3 + 1];
-          o4[2] = take ? raw : res0[j * 3 + 2];
-          o4[3] = take ? 1 : 0;
-        }
+        int* r = res + ((pass * C::kWins + wi) * C::kMaxOut + j) * 3;
+        const int2 og = origin(wi);
+        r[0] = og.x + kR + dy - pos_y;
+        r[1] = og.y + kR + dx - pos_x;
+        r[2] = bc - area * (abs(dy - d64y) + abs(dx - d64x));
       }
     }
     __syncthreads();
   }
+
+  // the second window replaces the first where its raw SAD is smaller
+  for (int j = tid; j < spec.n_out; j += kT) {
+    const int* r0 = res + j * 3;
+    const int* r1 = res + (C::kMaxOut + j) * 3;
+    int* o4 = out + ((size_t)n * spec.n_out + j) * 4;
+    const bool take = r1[2] < r0[2];
+    o4[0] = take ? r1[0] : r0[0];
+    o4[1] = take ? r1[1] : r0[1];
+    o4[2] = take ? r1[2] : r0[2];
+    o4[3] = take ? 1 : 0;
+  }
+}
+
+template <bool kFine>
+int launch(const void* src, const void* ref, int rows, int H, int W,
+           int row0, const void* coarse, const Spec& spec, void* out,
+           void* stream) {
+  using C = Cfg<kFine>;
+  if (spec.n_out > C::kMaxOut) return (int)cudaErrorInvalidValue;
+  cudaError_t e = cudaFuncSetAttribute(
+      me_refine_kernel<kFine>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)C::kSmemBytes);
+  if (e != cudaSuccess) return (int)e;
+  const int n = (rows / kSB) * (W / kSB);
+  me_refine_kernel<kFine><<<n, C::kThreads, C::kSmemBytes,
+                            (cudaStream_t)stream>>>(
+      (const uint8_t*)src, (const uint8_t*)ref, H, W, row0,
+      (const int*)coarse, spec, (int*)out);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -221,26 +377,37 @@ __global__ void __launch_bounds__(kThreads, 1) me_refine_kernel(
 // src: uint8 [rows, W], the frame or a stripe starting at global row
 // row0; ref: uint8 [H, W], the whole reference (whole 64x64 SBs, row0 +
 // rows <= H; below 96 samples a window's origin clamps to -16, where
-// both clip bounds meet at 64); coarse: int32 [N, 2] full-pel coarse MVs per
-// SB of the source (raster order); spec: int32
-// [n_shapes, 2] (h/8, w/8) per shape; out: int32 [N, n_out, 4] = (mv_r,
-// mv_c, raw SAD, winning window) per output block, shapes in spec order,
-// blocks raster within each shape.  Returns the CUDA error of the launch.
+// both clip bounds meet at 64); coarse: int32 [N, 2] full-pel coarse MVs
+// per SB of the source (raster order); spec: host int32 [n_shapes, 2]
+// (h/8, w/8) per shape, each of the 8 ME shapes at most once; out: int32
+// [N, n_out, 4] = (mv_r, mv_c, raw SAD, winning window) per output
+// block, shapes in spec order, blocks raster within each shape.  Returns
+// the CUDA error of the launch.
 extern "C" int me_refine_launch(const void* src, const void* ref, int rows,
                                 int H, int W, int row0, const void* coarse,
-                                const void* spec, int n_shapes, int n_out,
-                                void* out, void* stream) {
+                                const int* spec, int n_shapes, void* out,
+                                void* stream) {
   if (rows < kSB || rows % kSB || H % kSB || W < kSB || W % kSB ||
-      row0 < 0 || row0 % kSB || row0 + rows > H ||
-      n_shapes < 1 || n_shapes > kMaxShapes || n_out < 1 || n_out > kMaxOut)
+      row0 < 0 || row0 % kSB || row0 + rows > H || n_shapes < 1 ||
+      n_shapes > kMaxShapes)
     return (int)cudaErrorInvalidValue;
-  cudaError_t e = cudaFuncSetAttribute(
-      me_refine_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)kSmemBytes);
-  if (e != cudaSuccess) return (int)e;
-  const int n = (rows / kSB) * (W / kSB);
-  me_refine_kernel<<<n, kThreads, kSmemBytes, (cudaStream_t)stream>>>(
-      (const uint8_t*)src, (const uint8_t*)ref, H, W, row0,
-      (const int*)coarse, (const int*)spec, n_shapes, n_out, (int*)out);
-  return (int)cudaGetLastError();
+  Spec sp{};
+  sp.n_shapes = n_shapes;
+  bool fine = false;
+  for (int s = 0; s < n_shapes; ++s) {
+    const int fy = spec[2 * s], fx = spec[2 * s + 1];
+    const bool ok = (fy == 1 || fy == 2 || fy == 4 || fy == 8) &&
+                    (fx == 1 || fx == 2 || fx == 4 || fx == 8) &&
+                    fy * fx <= 64 && fy * 2 >= fx && fx * 2 >= fy &&
+                    !(fy == 8 && fx != 8) && !(fx == 8 && fy != 8);
+    if (!ok) return (int)cudaErrorInvalidValue;
+    sp.fy[s] = fy;
+    sp.fx[s] = fx;
+    sp.n_out += (8 / fy) * (8 / fx);
+    fine |= fy == 1 || fx == 1;
+  }
+  return fine ? launch<true>(src, ref, rows, H, W, row0, coarse, sp, out,
+                             stream)
+              : launch<false>(src, ref, rows, H, W, row0, coarse, sp, out,
+                              stream);
 }

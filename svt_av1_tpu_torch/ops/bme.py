@@ -382,6 +382,20 @@ def me_coarse(src: torch.Tensor, ref: torch.Tensor,
 me_coarse.launches = 0
 
 
+def refine_spec(shapes):
+    """What K6 is told of the requested shapes: (spec, counts) with spec
+    the flat (h/8, w/8) pairs and counts the output blocks per shape in
+    one SB.  Each shape of ME_SHAPES may be asked for once."""
+    shapes = tuple(tuple(s) for s in shapes)
+    if not shapes or len(set(shapes)) != len(shapes) \
+            or any(s not in ME_SHAPES for s in shapes):
+        raise ValueError(f"me_refine: shapes must come from {ME_SHAPES}, "
+                         "each at most once")
+    spec = [v for (w, h) in shapes for v in (h // 8, w // 8)]
+    counts = [(SB // h) * (SB // w) for (w, h) in shapes]
+    return spec, counts
+
+
 def me_refine(src: torch.Tensor, ref: torch.Tensor, coarse: torch.Tensor,
               shapes=ME_SHAPES, row0: int = 0) -> dict:
     """K6: refinement around the coarse winner and the zero MV, the
@@ -392,9 +406,8 @@ def me_refine(src: torch.Tensor, ref: torch.Tensor, coarse: torch.Tensor,
     if src.device.type == "cpu":
         return refine_plain(src, ref, coarse, shapes, row0)
     _check_planes("me_refine", src, ref, row0)
+    spec, counts = refine_spec(shapes)
     shapes = tuple(tuple(s) for s in shapes)
-    if not shapes or any(s not in ME_SHAPES for s in shapes):
-        raise ValueError(f"me_refine: shapes must come from {ME_SHAPES}")
     rows = src.shape[0]
     H, W = ref.shape
     n_sby, n_sbx = rows // SB, W // SB
@@ -406,15 +419,13 @@ def me_refine(src: torch.Tensor, ref: torch.Tensor, coarse: torch.Tensor,
                          "[n_sby, n_sbx, 2] output of me_coarse")
     from ..kernels.build import check_launch, ptr, stream
 
-    counts = [(SB // h) * (SB // w) for (w, h) in shapes]
     n_out = sum(counts)
-    spec = torch.tensor([v for (w, h) in shapes for v in (h // 8, w // 8)],
-                        dtype=torch.int32).to(src.device)
+    spec = (ctypes.c_int * len(spec))(*spec)
     res = torch.empty((n, n_out, 4), dtype=torch.int32, device=src.device)
     fn = _fn("me_refine", "me_refine_launch",
-             [_P, _P, _I, _I, _I, _I, _P, _P, _I, _I, _P, _P])
-    err = fn(ptr(src), ptr(ref), rows, H, W, int(row0), ptr(coarse),
-             ptr(spec), len(shapes), n_out, ptr(res), stream(src))
+             [_P, _P, _I, _I, _I, _I, _P, _P, _I, _P, _P])
+    err = fn(ptr(src), ptr(ref), rows, H, W, int(row0), ptr(coarse), spec,
+             len(shapes), ptr(res), stream(src))
     check_launch("me_refine", err)
     me_refine.launches += 1
     out = {"grid": (n_sby, n_sbx)}

@@ -12,7 +12,9 @@ Two forms of the same function:
   with the JAX package's names and ``[nr, nc, ...]`` layouts), taken for
   CPU tensors;
 * K1, the hand-written CUDA kernel ``kernels/csrc/intra_decision.cu``,
-  launched by ``intra_decision`` for CUDA tensors (one launch per shape).
+  launched by ``intra_decision_packed`` for CUDA tensors: one launch for
+  all the shapes of a plane, one packed output (``unpack_decisions``);
+  ``intra_decision`` is its one-shape form.
 """
 from __future__ import annotations
 
@@ -392,38 +394,123 @@ def _dir_taps(w: int, h: int) -> np.ndarray:
 
 
 @functools.cache
-def _k1_consts(w: int, h: int, device: torch.device):
+def _k1_taps():
+    """The tap tables of every shape of ALL_SHAPES, one after another
+    (int32, flat), and the offset of each shape's table in it."""
+    tables = [_dir_taps(w, h).reshape(-1) for (w, h) in ALL_SHAPES]
+    offsets = np.cumsum([0] + [t.size for t in tables[:-1]])
+    return np.concatenate(tables), dict(zip(ALL_SHAPES, offsets.tolist()))
+
+
+def tf32_split(m: np.ndarray):
+    """(big, small) float32 with big = m rounded to TF32 (10 mantissa
+    bits, to nearest, ties away from zero: ``cvt.rna.tf32.f32``) and
+    small = m - big exactly, so big + small == m; the tensor cores read
+    small's TF32 part."""
+    bits = np.ascontiguousarray(m, np.float32).view(np.uint32)
+    big = ((bits + np.uint32(0x1000)) & np.uint32(0xFFFFE000)).view(
+        np.float32)
+    return big, (np.asarray(m, np.float32) - big).astype(np.float32)
+
+
+# DCT sizes whose fragments K1 holds, in the order of _k1_fragments
+FRAG_SIZES = (8, 16, 32)
+
+
+@functools.cache
+def _k1_fragments() -> np.ndarray:
+    """The B operands of K1's two products, float32 [2 * (64 + 256 +
+    1024)]: per DCT size s in FRAG_SIZES, B = D_s^T (K = N = s) cut into
+    8x8 tiles (k-step ks, n-tile nt) and, per lane l (g = l // 4, t = l %
+    4) of the tile's mma.sync m16n8k8 B fragment, the float4 (big b0, big
+    b1, small b0, small b1) with b0 = B[8ks + t, 8nt + g] and b1 = B[8ks
+    + t + 4, 8nt + g]."""
+    out = []
+    lane = np.arange(32)
+    g, t = lane // 4, lane % 4
+    for s in FRAG_SIZES:
+        big, small = tf32_split(_dct_mat(s).T)
+        tiles = np.empty((s // 8, s // 8, 32, 4), np.float32)
+        for ks in range(s // 8):
+            for nt in range(s // 8):
+                k0, n = 8 * ks + t, 8 * nt + g
+                tiles[ks, nt] = np.stack([big[k0, n], big[k0 + 4, n],
+                                          small[k0, n], small[k0 + 4, n]],
+                                         axis=-1)
+        out.append(tiles.reshape(-1))
+    return np.concatenate(out)
+
+
+@functools.cache
+def _k1_consts(device: torch.device):
+    """(directional tap tables, smooth weights, split DCT fragments) on
+    ``device``."""
     sw = intra_ops._sm_weights().astype(np.int32)
     return tuple(torch.as_tensor(np.ascontiguousarray(a), device=device)
-                 for a in (_dir_taps(w, h), sw, _dct_mat(h),
-                           np.ascontiguousarray(_dct_mat(w).T)))
+                 for a in (_k1_taps()[0], sw, _k1_fragments()))
 
 
-def intra_decision(plane: torch.Tensor, w: int, h: int, qindex: int,
-                   lam: float, mode_bits, bd: int = 8, above_row=None,
-                   halo=None):
-    """K1: best intra mode and its cost for every (w, h) block of a
-    buf-aligned 8-bit plane.  Returns (mode int32 [nr, nc], cost float32
-    [nr, nc]) on the plane's device.  Stripe mode: ``plane`` is a stripe
-    of the frame, ``above_row`` [W] the row above it and ``halo`` [n, W]
-    the rows below it (uint8), read where the whole frame's plane would
-    be (``pad_stripe``).  CPU tensors take the plain PyTorch version;
-    CUDA tensors launch the kernel."""
+def pack_decisions(maps: dict, shapes) -> torch.Tensor:
+    """The packed form of per-shape maps {(w, h): (mode [nr, nc] int32,
+    cost [nr, nc] float32)}: int32 [2, n], row 0 the modes and row 1 the
+    costs' float32 bits, shapes in the order of ``shapes`` and blocks in
+    raster order within a shape (K1's output)."""
+    modes = torch.cat([maps[s][0].reshape(-1).to(torch.int32)
+                       for s in shapes])
+    costs = torch.cat([maps[s][1].reshape(-1).to(torch.float32)
+                       for s in shapes])
+    return torch.stack([modes, costs.view(torch.int32)])
+
+
+def unpack_decisions(packed, shapes, buf_w: int, buf_h: int) -> dict:
+    """Per-shape (mode int32 [nr, nc], cost float32 [nr, nc]) views of a
+    packed decision (``pack_decisions``) of a [buf_h, buf_w] plane; takes
+    a tensor or a numpy array and returns the same kind."""
+    is_np = isinstance(packed, np.ndarray)
+    out, off = {}, 0
+    for (w, h) in shapes:
+        nr, nc = buf_h // h, buf_w // w
+        n = nr * nc
+        cost = packed[1, off:off + n]
+        cost = cost.view(np.float32) if is_np else cost.view(torch.float32)
+        out[(w, h)] = (packed[0, off:off + n].reshape(nr, nc),
+                       cost.reshape(nr, nc))
+        off += n
+    if off != packed.shape[1]:
+        raise ValueError("packed decision does not match the shapes")
+    return out
+
+
+def intra_decision_packed(plane: torch.Tensor, qindex: int, lam: float,
+                          mode_bits, bd: int = 8, above_row=None, halo=None,
+                          shapes=ALL_SHAPES) -> torch.Tensor:
+    """K1: best intra mode and its cost for every block of every shape
+    in ``shapes`` of a buf-aligned 8-bit plane, packed
+    (``pack_decisions``; ``unpack_decisions`` gives the maps).  Stripe
+    mode: ``plane`` is a stripe of the frame, ``above_row`` [W] the row
+    above it and ``halo`` [n, W] the rows below it (uint8), read where
+    the whole frame's plane would be (``pad_stripe``).  CPU tensors take
+    the plain PyTorch version per shape; CUDA tensors launch the kernel
+    once for all shapes."""
+    shapes = tuple(tuple(s) for s in shapes)
     if plane.device.type == "cpu":
-        return intra_decision_plain(plane, w, h, qindex, lam, mode_bits,
-                                    bd, above_row, halo)
+        return pack_decisions(
+            {s: intra_decision_plain(plane, *s, qindex, lam, mode_bits, bd,
+                                     above_row, halo) for s in shapes},
+            shapes)
     if plane.device.type != "cuda":
         raise ValueError(f"unsupported device {plane.device}")
     if plane.dtype != torch.uint8 or plane.dim() != 2 or bd != 8:
         raise ValueError("intra_decision takes an 8-bit [H, W] uint8 plane")
     if not plane.is_contiguous():
         raise ValueError("intra_decision needs a contiguous plane")
-    if (w, h) not in ALL_SHAPES:
-        raise ValueError(f"unsupported block shape {(w, h)}")
+    if not shapes or len(set(shapes)) != len(shapes) \
+            or any(s not in ALL_SHAPES for s in shapes):
+        raise ValueError(f"block shapes must come from {ALL_SHAPES}")
     if len(mode_bits) != len(ALL_MODES):
         raise ValueError("mode_bits needs one entry per intra mode")
     buf_h, buf_w = plane.shape
-    if buf_h % h or buf_w % w:
+    if any(buf_h % h or buf_w % w for (w, h) in shapes):
         raise ValueError("plane is not a whole number of blocks")
     if (above_row is None) != (halo is None):
         raise ValueError("stripe mode needs both above_row and halo")
@@ -438,32 +525,50 @@ def intra_decision(plane: torch.Tensor, w: int, h: int, qindex: int,
                                  "device")
     from ..kernels.build import check_launch, cuda_lib, ptr, stream
 
-    lib = cuda_lib("intra_decision")
-    fn = lib.intra_decision_launch
+    fn = cuda_lib("intra_decision").intra_decision_launch
     fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5 \
-        + [ctypes.c_void_p] * 4 + [ctypes.c_float] * 7 \
-        + [ctypes.c_void_p] * 4
-    taps, sw, dh, dwt = _k1_consts(w, h, plane.device)
+    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 \
+        + [ctypes.c_void_p] * 8 + [ctypes.c_float] + [ctypes.c_void_p] * 2
+    taps, sw, frags = _k1_consts(plane.device)
+    tap0 = _k1_taps()[1]
     pq = qz.build_quantizer(bd)[0]
-    (zd, za), (rd, ra), (sd, sa) = _quant_scalars(w, h, qindex, pq)
+    n = len(shapes)
+    quant = (ctypes.c_float * (6 * n))(*[
+        float(v) for (w, h) in shapes
+        for pair in _quant_scalars(w, h, qindex, pq) for v in pair])
     mb = torch.as_tensor(np.asarray(mode_bits, np.float32),
                          device=plane.device)
-    nr, nc = buf_h // h, buf_w // w
-    mode = torch.empty((nr, nc), dtype=torch.int32, device=plane.device)
-    cost = torch.empty((nr, nc), dtype=torch.float32, device=plane.device)
+    n_total = sum((buf_h // h) * (buf_w // w) for (w, h) in shapes)
+    out = torch.empty((2, n_total), dtype=torch.int32, device=plane.device)
     err = fn(ptr(plane), None if halo is None else ptr(above_row),
-             None if halo is None else ptr(halo), buf_h, buf_w, n_halo, w, h,
-             ptr(taps), ptr(sw),
-             ptr(dh), ptr(dwt), float(zd), float(za), float(rd),
-             float(ra), float(sd), float(sa), float(np.float32(lam)),
-             ptr(mb), ptr(mode), ptr(cost), stream(plane))
+             None if halo is None else ptr(halo), buf_h, buf_w, n_halo, n,
+             (ctypes.c_int * n)(*[w for (w, _) in shapes]),
+             (ctypes.c_int * n)(*[h for (_, h) in shapes]), quant,
+             (ctypes.c_int * n)(*[tap0[s] for s in shapes]), ptr(taps),
+             ptr(sw), ptr(frags), ptr(mb),
+             float(np.float32(lam)), ptr(out), stream(plane))
     check_launch("intra_decision", err)
-    intra_decision.launches += 1
-    return mode, cost
+    intra_decision_packed.launches += 1
+    return out
 
 
-intra_decision.launches = 0
+intra_decision_packed.launches = 0
+
+
+def intra_decision(plane: torch.Tensor, w: int, h: int, qindex: int,
+                   lam: float, mode_bits, bd: int = 8, above_row=None,
+                   halo=None):
+    """One shape of ``intra_decision_packed`` (one K1 launch on a CUDA
+    plane): (mode int32 [nr, nc], cost float32 [nr, nc]) on the plane's
+    device.  The cost is copied out of the packed tensor, so the two do
+    not view one storage as two types (which torch.save refuses)."""
+    if (w, h) not in ALL_SHAPES:
+        raise ValueError(f"unsupported block shape {(w, h)}")
+    packed = intra_decision_packed(plane, qindex, lam, mode_bits, bd,
+                                   above_row, halo, ((w, h),))
+    mode, cost = unpack_decisions(packed, ((w, h),), plane.shape[1],
+                                  plane.shape[0])[(w, h)]
+    return mode, cost.clone()
 
 
 # --------------------------------------------------------------------------
@@ -503,8 +608,6 @@ def intra_decision_frame(source_plane, buf_w: int, buf_h: int, qindex: int,
     else:
         dev = resolve_device(device)
     plane = upload_plane(source_plane, buf_w, buf_h, bd, dev)
-    out = {}
-    for (w, h) in shapes:
-        m, c = intra_decision(plane, w, h, qindex, lam, mode_bits, bd)
-        out[(w, h)] = (m.cpu().numpy(), c.cpu().numpy())
-    return out
+    packed = intra_decision_packed(plane, qindex, lam, mode_bits, bd,
+                                   shapes=shapes)
+    return unpack_decisions(packed.cpu().numpy(), shapes, buf_w, buf_h)

@@ -182,6 +182,7 @@ def whole_frame(cap: dict, frame: st.StripeFrame, device) -> dict:
     recon = torch.from_numpy(cap["recon"]).to(device)
     intra, inter_cost, fields, mvb = bi.inter_frame_maps(
         src, [frame.ref], frame.qindex, frame.lam, frame.mode_bits, frame.bd)
+    intra = omd.unpack_decisions(intra, omd.ALL_SHAPES, width, height)
     masks = [torch.from_numpy(np.ascontiguousarray(m, np.uint8)).to(device)
              for m in _edge_maps(cap)]
     s64 = src.to(torch.int64)

@@ -530,12 +530,14 @@ compound_joint.launches = 0
 def inter_frame_maps(src, refs, qindex, lam, mode_bits, bd=8,
                      bwd_mask=None, allow_compound=False, coarse_r=None,
                      rel_dists=None, row0=0, with_intra=True):
-    """(intra_maps, inter_cost_maps, sel_fields, mvbits16): the open-loop
+    """(intra, inter_cost_maps, sel_fields, mvbits16): the open-loop
     decision state of one inter frame against 1..3 references, as tensors
     on the device of ``src`` (a buf-aligned uint8 [H, W] plane; ``refs`` a
     list of such planes).  CUDA planes run K5 -> K6 -> K7 per reference,
-    K9 for the compound candidate, then K8, then K1 for the intra maps;
-    CPU planes run the plain versions.  MVs are quarter-pel (eighth-pel
+    K9 for the compound candidate, then K8, then one K1 launch for the
+    intra maps of all omd.ALL_SHAPES, whose packed output ``intra`` is
+    (``omd.unpack_decisions`` gives the maps); CPU planes run the plain
+    versions.  MVs are quarter-pel (eighth-pel
     values, multiples of 2).
 
     Stripes: with ``row0`` > 0, ``src`` is a stripe of 64-row multiples
@@ -594,9 +596,7 @@ def inter_frame_maps(src, refs, qindex, lam, mode_bits, bd=8,
                                            comp=comp)
     intra = None
     if with_intra:
-        intra = {(w, h): omd.intra_decision(src, w, h, qindex, lam,
-                                            mode_bits, bd)
-                 for (w, h) in omd.ALL_SHAPES}
+        intra = omd.intra_decision_packed(src, qindex, lam, mode_bits, bd)
     return intra, inter_cost, fields, mvb
 
 
@@ -624,8 +624,8 @@ def inter_maps_dispatch(src, refs, buf_w, buf_h, qindex, lam, mode_bits,
         bwd_mask=tuple(bool(b) for b in bwd_mask),
         allow_compound=allow_compound, coarse_r=coarse_r,
         rel_dists=tuple(int(d) for d in rel_dists))
-    intra = {s: (m.cpu().numpy(), c.cpu().numpy())
-             for s, (m, c) in intra.items()}
+    intra = omd.unpack_decisions(intra.cpu().numpy(), omd.ALL_SHAPES,
+                                 src_t.shape[1], src_t.shape[0])
     inter_cost = {s: c.cpu().numpy() for s, c in inter_cost.items()}
     sf = {k: v.cpu().numpy() for k, v in sf.items()}
     return intra, inter_cost, sf, mvb.cpu().numpy()

@@ -100,3 +100,38 @@ def test_constants_and_reach_equal_the_reference():
         assert getattr(bme, name) == getattr(ref_bme, name), name
     for d in range(-12, 13):
         assert bme.coarse_r_for_dist(d) == ref_bme.coarse_r_for_dist(d)
+
+
+def test_refine_spec_describes_the_requested_shapes():
+    """K6's shape spec: (h/8, w/8) per shape in request order, the output
+    blocks per SB, and each shape of ME_SHAPES at most once."""
+    spec, counts = bme.refine_spec(((16, 16), (64, 64)))
+    assert (spec, counts) == ([2, 2, 8, 8], [16, 1])
+    assert bme.refine_spec(((8, 16), (32, 32))) == ([2, 1, 4, 4], [32, 4])
+    spec, counts = bme.refine_spec(bme.ME_SHAPES)
+    assert len(spec) == 2 * len(bme.ME_SHAPES) and sum(counts) == 165
+    for bad in ((), ((16, 16), (16, 16)), ((24, 24),)):
+        with pytest.raises(ValueError):
+            bme.refine_spec(bad)
+
+
+@pytest.mark.parametrize("kind", ["flat", "periodic"])
+def test_refinement_ties_take_the_first_minimum(kind):
+    """On a flat plane every offset ties, on a period-8 one every eighth
+    does: the plain refinement (K6's reference) still equals the numpy
+    twin's first-minimum argmin, window merge included."""
+    if kind == "flat":
+        src = np.full((H, W), 97, np.uint8)
+        ref = src.copy()
+    else:
+        yy, xx = np.mgrid[0:H, 0:W]
+        ref = (100 + 30 * (xx % 8) + 7 * (yy % 8)).astype(np.uint8)
+        src = np.roll(ref, (2, 3), axis=(0, 1))
+    coarse = bme.coarse_sb_search(_t(src), _t(ref))
+    got = bme.refine_plain(_t(src), _t(ref), coarse)
+    want = ref_bme.frame_me(src.astype(np.int32), ref.astype(np.int32),
+                            xp=np)
+    for s in bme.ME_SHAPES:
+        for g, w in zip(got[s], want[s]):
+            np.testing.assert_array_equal(g.numpy(), w, err_msg=str(s))
+    np.testing.assert_array_equal(got["win16"].numpy(), want["win16"])

@@ -41,13 +41,13 @@ def _plane(h, w, seed):
 def test_intra_decision_matches_plain(dev, qindex):
     plane = torch.from_numpy(_plane(192, 256, qindex)).to(dev)
     mb = tuple(np.linspace(1.0, 6.0, 13).tolist())
-    before = omd.intra_decision.launches
+    before = omd.intra_decision_packed.launches
     for (w, h) in omd.ALL_SHAPES:
         m, c = omd.intra_decision(plane, w, h, qindex, 250.0, mb)
         m2, c2 = omd.intra_decision_plain(plane, w, h, qindex, 250.0, mb)
         assert (m == m2).float().mean().item() >= 0.99, (w, h)
         assert torch.isclose(c, c2, rtol=1e-5).float().mean().item() >= 0.99
-    assert omd.intra_decision.launches == before + len(omd.ALL_SHAPES)
+    assert omd.intra_decision_packed.launches == before + len(omd.ALL_SHAPES)
 
 
 def _edge_inputs(h, w, vw, vh, chroma, seed):
@@ -555,3 +555,117 @@ def test_dist_stripes_over_nccl_equal_local_stripes(dev, tmp_path):
             assert torch.equal(got["fields"][k], v), (r, k)
         for s, (m, c) in want["intra"].items():
             assert torch.equal(got["intra"][s][0], m), (r, s)
+
+
+# -- the Hopper redesigns of K1 and K6 ----------------------------------------
+
+def _tie_plane(h, w):
+    """Flat regions, vertical steps every 16 columns and horizontal steps
+    every 8 rows: blocks where several intra modes predict equally well."""
+    yy, xx = np.mgrid[0:h, 0:w]
+    p = np.full((h, w), 128, np.int32)
+    mid = slice(w // 3, 2 * w // 3)
+    p[:, mid] = 64 + 32 * ((xx[:, mid] // 16) % 4)
+    p[h // 2:, :w // 3] = 200 - 40 * ((yy[h // 2:, :w // 3] // 8) % 3)
+    return p.astype(np.uint8)
+
+
+@pytest.mark.parametrize("kind", ["textured", "ties"])
+def test_fused_intra_decision_matches_plain(dev, kind):
+    """One K1 launch for all 7 shapes of a 1920-wide plane, against the
+    plain version per shape (modes equal on >= 99% of the blocks, costs
+    within rtol 1e-5 on >= 99%); with equal mode bits the flat blocks tie
+    in every mode, and the first mode must win.  The one-shape calls run
+    the same kernel and give the fused call's values exactly."""
+    h, w = 128, 1920
+    plane = torch.from_numpy(_plane(h, w, 11) if kind == "textured"
+                             else _tie_plane(h, w)).to(dev)
+    mb = tuple(np.linspace(1.0, 6.0, 13).tolist()) if kind == "textured" \
+        else (2.0,) * 13
+    before = omd.intra_decision_packed.launches
+    packed = omd.intra_decision_packed(plane, 140, 250.0, mb)
+    assert omd.intra_decision_packed.launches == before + 1
+    got = omd.unpack_decisions(packed, omd.ALL_SHAPES, w, h)
+    for s in omd.ALL_SHAPES:
+        m, c = got[s]
+        m2, c2 = omd.intra_decision_plain(plane, *s, 140, 250.0, mb)
+        assert (m == m2).float().mean().item() >= 0.99, s
+        assert torch.isclose(c, c2, rtol=1e-5).float().mean().item() >= 0.99
+        if kind == "ties":
+            # DC predicts the block exactly: cost lam * 2 bits, which no
+            # mode undercuts, so every mode ties at best and DC must win
+            flat = (c2 == 250.0 * 2.0) & (m2 == 0)
+            assert flat.any() and bool((m[flat] == 0).all()), s
+        m1, c1 = omd.intra_decision(plane, *s, 140, 250.0, mb)
+        assert torch.equal(m1, m) and torch.equal(c1, c), s
+    assert omd.intra_decision_packed.launches == before + 1 + len(
+        omd.ALL_SHAPES)
+
+
+@pytest.mark.parametrize("mode", [int(m) for m in omd.DIR_MODES],
+                         ids=[m.name for m in omd.DIR_MODES])
+def test_each_directional_mode_alone_matches_plain(dev, mode):
+    """K1's directional predictions one mode at a time: every other mode
+    costs 1e7 bits more, so the mode is the only affordable one in every
+    block of a textured 1920-wide plane, and the cost it reports follows
+    its prediction of every pixel (at qindex 255 most coefficients sit in
+    the dead zone and add their square).  Modes equal on 100% of the
+    blocks of every shape, costs within rtol 1e-5 on 100%."""
+    h, w = 128, 1920
+    plane = torch.from_numpy(_plane(h, w, 17)).to(dev)
+    mb = [1e7] * 13
+    mb[mode] = 1.0
+    packed = omd.intra_decision_packed(plane, 255, 250.0, mb)
+    got = omd.unpack_decisions(packed, omd.ALL_SHAPES, w, h)
+    for s in omd.ALL_SHAPES:
+        m, c = got[s]
+        m2, c2 = omd.intra_decision_plain(plane, *s, 255, 250.0, mb)
+        assert bool((m2 == mode).all()), s
+        assert torch.equal(m, m2), s
+        assert bool(torch.isclose(c, c2, rtol=1e-5).all()), (
+            s, (c - c2).abs().max().item())
+
+
+def _tie_pair(kind, h, w):
+    yy, xx = np.mgrid[0:h, 0:w]
+    if kind == "flat":
+        ref = np.full((h, w), 97, np.uint8)
+        return ref.copy(), ref
+    ref = (100 + 30 * (xx % 8) + 7 * (yy % 8)).astype(np.uint8)
+    return np.roll(ref, (2, 3), axis=(0, 1)), ref
+
+
+@pytest.mark.parametrize("shapes", [bme.ME_SHAPES, ((16, 16), (64, 64)),
+                                    ((32, 32),)],
+                         ids=["all", "path", "mctf"])
+@pytest.mark.parametrize("size", [(192, 256), (64, 320)],
+                         ids=["frame", "one_sb_row"])
+@pytest.mark.parametrize("kind", ["flat", "periodic", "moving"])
+def test_me_refine_ties_and_borders_match_plain(dev, kind, size, shapes):
+    """K6 against refine_plain where offsets tie (a flat plane: every
+    offset; a period-8 plane: every eighth), on a moving pair, over frames
+    whose SBs are border SBs and a plane of one SB row; with the coarse
+    winners of K5 and with arbitrary ones (windows at any alignment)."""
+    if kind == "moving":
+        pair = _moving_pair(*size, 5)
+    else:
+        pair = _tie_pair(kind, *size)
+    src, ref = (torch.from_numpy(np.ascontiguousarray(p)).to(dev)
+                for p in pair)
+    if kind == "moving":
+        # a reference that starts one byte past a 16-byte boundary: every
+        # window takes the clamped byte path
+        ref = torch.empty(ref.numel() + 16, dtype=torch.uint8, device=dev)[
+            1:1 + ref.numel()].view(ref.shape).copy_(ref)
+    rng = np.random.default_rng(size[1])
+    n_sby, n_sbx = size[0] // 64, size[1] // 64
+    for coarse in (bme.me_coarse(src, ref, 8), torch.from_numpy(
+            rng.integers(-40, 41, (n_sby, n_sbx, 2)).astype(np.int32))
+            .to(dev)):
+        got = bme.me_refine(src, ref, coarse, shapes)
+        want = bme.refine_plain(src, ref, coarse, shapes)
+        for s in shapes:
+            for g, w in zip(got[s], want[s]):
+                assert torch.equal(g, w), s
+        if (16, 16) in shapes:
+            assert torch.equal(got["win16"], want["win16"])
