@@ -67,6 +67,18 @@ Phases, each of which must pass (the script exits non-zero otherwise):
     ceilings are printed beside their bounds, not put in that line.  Phase 6 also prints the K1 and K6 launches of the
     random-access encode alone.
 
+K1 and K8 decide a coefficient near a quantizer decision point from its
+float64 value (ops/omd.py decide_near_boundary); the kernels phase prints
+how many coefficients each kernel and its plain version recomputed on
+its 1080p frame, beside the coefficients they code, and phase 6 the
+kernels' recomputes over the random-access encode, per frame.  K8's
+bound counts the DCT work of the coded band (416 multiply-adds per pixel
+over the 10 shapes, against 576 for the whole products) and K4's
+search's the distinct constrains and the combinations of its shared form
+(about 580 operations per filtered pixel at preset 8, against 116 per
+pixel and combination, 1740); both print the bound of the larger count
+beside.
+
 The kernels phase also holds K9, K8 with the compound row, K10, and
 K5/K6 at the MCTF (1088x1920, 32x32) and TPL (576x960, 16x16)
 geometries against their plain versions, and the stripe modes: K5/K6/K7
@@ -170,6 +182,49 @@ def bound_ms(n_bytes, n_ops):
     t_bytes = n_bytes / PEAK_BYTES_S * 1e3
     t_ops = n_ops / PEAK_OPS_S * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def k8_dct_macs(shapes):
+    """K8's DCT multiply-adds per pixel that the cost maps need: the first
+    product's rows of the coded band (min(h, 32) of D_h), the second's
+    band columns (min(w, 32) of D_w) on those rows; 416 over the 10
+    INTER_SHAPES (576 for the whole products)."""
+    return sum(min(h, 32) + min(h, 32) * min(w, 32) / h for (w, h) in shapes)
+
+
+def k4_search_ops(pri_set, sec_set):
+    """K4's search operations per filtered pixel in its shared form: 4
+    primary constrains per nonzero pri, 8 secondary ones per nonzero sec
+    for each of the two tap sets (9 operations each: the constrain and
+    its weighted add), and per combination the sum, rounding, clip and
+    squared error (10).  About 580 at the 5x3 grid."""
+    n_p = sum(1 for p in pri_set if p)
+    n_s = sum(1 for s in sec_set if s)
+    return (4 * n_p + 2 * 8 * n_s) * 9 + len(pri_set) * len(sec_set) * 10
+
+
+def near_counts(name, kernel_call, plain_call):
+    """Run ``kernel_call`` and ``plain_call`` on the card and return their
+    results and (the kernel's near-boundary recomputes, the plain
+    version's, the coefficients the plain version codes)."""
+    from svt_av1_tpu_torch.ops import omd
+
+    torch.cuda.synchronize()
+    omd.near_recomputes(name)                       # reset
+    before = dict(omd.NEAR_STATS)
+    got, want = kernel_call(), plain_call()
+    torch.cuda.synchronize()
+    return got, want, (omd.near_recomputes(name),
+                       omd.NEAR_STATS["near"] - before["near"],
+                       omd.NEAR_STATS["coded"] - before["coded"])
+
+
+def print_near(what, counts):
+    n_k, n_p, coded = counts
+    print(f"{what}: near-boundary float64 recomputes, kernel {n_k}, plain "
+          f"version {n_p}, of {coded} coded coefficients "
+          f"({100.0 * n_k / max(coded, 1):.4f}% / "
+          f"{100.0 * n_p / max(coded, 1):.4f}%)")
 
 
 # the design ceilings of the kernels redesigned for Hopper: the least
@@ -276,10 +331,9 @@ def kernels_phase(dev, frame):
         return [omd.intra_decision_plain(plane, w, h, qindex, lam, mb)
                 for (w, h) in shapes]
 
-    packed = k1()
+    packed, want, counts = near_counts("intra_decision", k1, k1_plain)
+    print_near("K1 intra_decision on the 1080p key frame", counts)
     got = omd.unpack_decisions(packed, shapes, buf_w, buf_h)
-    want = k1_plain()
-    torch.cuda.synchronize()
     err = 0.0
     for (w, h), (m2, c2) in zip(shapes, want):
         m, c = got[(w, h)]
@@ -398,16 +452,20 @@ def kernels_phase(dev, frame):
     combos = len(pri_set) * len(sec_set)
     vis_px = WIDTH * HEIGHT + 2 * (WIDTH // 2) * (HEIGHT // 2)
     frac = ns.float().mean().item()
-    # per filtered pixel and combination: 12 taps of constrain (7 ops)
-    # and multiply-add (2), rounding and clip (5), squared error (3)
+    # the apply's per filtered pixel: 12 taps of constrain (7 ops) and
+    # multiply-add (2), rounding and clip (5)
     ops_px = 12 * 9 + 5 + 3
     vis_bytes = vis_px * (4 + 1)            # int32 recon + uint8 source
+    in_bytes = vis_bytes + nbytes(d1, v1, ns)
+    old = bound_ms(in_bytes, vis_px * frac * combos * ops_px)
     results["cdef_search"] = dict(
         ms=cuda_ms(k4s, KERNEL_REPS), plain_ms=cuda_ms(k4s_plain, PLAIN_REPS),
         max_abs_err=err,
-        bound=bound_ms(vis_bytes + nbytes(d1, v1, ns),
-                       vis_px * frac * combos * ops_px),
-        per_call="3 launches, one per plane")
+        bound=bound_ms(in_bytes,
+                       vis_px * frac * k4_search_ops(pri_set, sec_set)),
+        per_call=f"1 launch, three planes ({k4_search_ops(pri_set, sec_set)}"
+                 f" operations per filtered pixel; the per-combination "
+                 f"count, {combos * ops_px}, bounds it at {old[0]:.5f} ms)")
     ystr, uvstr = 8 * 4 + 1, 4 * 4 + 2
     k4a = lambda: cdef.cdef_apply(  # noqa: E731
         rec, ns, d1, v1, ystr, uvstr, damping, WIDTH, HEIGHT, 8)
@@ -551,9 +609,10 @@ def inter_kernels_phase(dev, ref_frame, src_frame):
                            for i in range(5)) + (qindex, lam)
     err = 0.0
     for name, args in (("1 reference", one), ("3 references", three)):
-        f1, m1, c1 = bi.inter_select(*args)
-        f2, m2, c2 = bi.inter_select_plain(*args)
-        torch.cuda.synchronize()
+        (f1, m1, c1), (f2, m2, c2), counts = near_counts(
+            "inter_select", lambda: bi.inter_select(*args),
+            lambda: bi.inter_select_plain(*args))
+        print_near(f"K8 inter_select on the 1080p P frame, {name}", counts)
         bad = (f1["sel"] != f2["sel"]).sum().item()
         for key in bi.SEL_KEYS:
             assert torch.equal(f1[key], f2[key]), (name, key)
@@ -571,18 +630,21 @@ def inter_kernels_phase(dev, ref_frame, src_frame):
         assert worst >= 0.99, (name, worst)
     k8 = lambda: bi.inter_select(*one)  # noqa: E731
     k8_plain = lambda: bi.inter_select_plain(*one)  # noqa: E731
-    dct_flops = 2 * sum(w + h for (w, h) in omd.INTER_SHAPES) * H * W
+    dct_flops = 2 * k8_dct_macs(omd.INTER_SHAPES) * H * W
     # per coefficient and shape: the quantizer / rate model, about 12
     # float operations; per pixel and reference: the SAD
     flops = dct_flops + 12 * len(omd.INTER_SHAPES) * H * W + 3 * H * W
     out_b = (H // 16) * (W // 16) * 16 + sum(
         (H // h) * (W // w) * 4 for (w, h) in omd.INTER_SHAPES)
+    old = bound_ms(nbytes(*one[:6]) + out_b, flops + 2 * (
+        576 - k8_dct_macs(omd.INTER_SHAPES)) * H * W)
     results["inter_select"] = dict(
         ms=cuda_ms(k8, KERNEL_REPS), plain_ms=cuda_ms(k8_plain, PLAIN_REPS),
         max_abs_err=err,
         bound=bound_ms(nbytes(*one[:6]) + out_b, flops),
         per_call=f"1 launch, 1 reference ({dct_flops / 1e9:.2f} GFLOP of "
-                 "DCT)")
+                 f"DCT; the whole products' count bounds it at "
+                 f"{old[0]:.5f} ms)")
     return results
 
 
@@ -660,9 +722,11 @@ def ra_kernels_phase(dev, clip):
 
     # -- K8 with the compound row: the random-access path's call
     args = (src, preds, mvq_r, mvq_c, sb_r, sb_c, qindex, lam)
-    f1, m1, c1 = bi.inter_select(*args, comp=comp)
-    f2, m2, c2 = bi.inter_select_plain(*args, comp=comp)
-    torch.cuda.synchronize()
+    (f1, m1, c1), (f2, m2, c2), counts = near_counts(
+        "inter_select", lambda: bi.inter_select(*args, comp=comp),
+        lambda: bi.inter_select_plain(*args, comp=comp))
+    print_near("K8 inter_select with the compound row on the 1080p "
+               "random-access frame", counts)
     for key in bi.SEL_KEYS:
         assert torch.equal(f1[key], f2[key]), ("compound row", key)
     mv_err = (m1 - m2).abs().max().item()
@@ -680,17 +744,19 @@ def ra_kernels_phase(dev, clip):
     assert worst >= 0.99, worst
     k8 = lambda: bi.inter_select(*args, comp=comp)  # noqa: E731
     k8_plain = lambda: bi.inter_select_plain(*args, comp=comp)  # noqa
-    dct_flops = 2 * sum(w + h for (w, h) in omd.INTER_SHAPES) * H * W
+    dct_flops = 2 * k8_dct_macs(omd.INTER_SHAPES) * H * W
     flops = dct_flops + 12 * len(omd.INTER_SHAPES) * H * W + 3 * 3 * H * W
     out_b = units * 32 + sum((H // h) * (W // w) * 4
                              for (w, h) in omd.INTER_SHAPES)
+    in_b = nbytes(src, preds, mvq_r, mvq_c, sb_r, sb_c, *comp.values())
+    old = bound_ms(in_b + out_b, flops + 2 * (
+        576 - k8_dct_macs(omd.INTER_SHAPES)) * H * W)
     results["inter_select"] = dict(
         ms=cuda_ms(k8, KERNEL_REPS), plain_ms=cuda_ms(k8_plain, PLAIN_REPS),
-        max_abs_err=err,
-        bound=bound_ms(nbytes(src, preds, mvq_r, mvq_c, sb_r, sb_c,
-                              *comp.values()) + out_b, flops),
+        max_abs_err=err, bound=bound_ms(in_b + out_b, flops),
         per_call=f"1 launch, 2 references + the compound row "
-                 f"({dct_flops / 1e9:.2f} GFLOP of DCT)")
+                 f"({dct_flops / 1e9:.2f} GFLOP of DCT; the whole products' "
+                 f"count bounds it at {old[0]:.5f} ms)")
 
     # -- K10 at the TPL geometry
     Hh, Wh = H // 2, W // 2
@@ -911,6 +977,7 @@ def ra_phase(counters, frames, out_dir):
     returns the launches of the run."""
     from svt_av1_tpu_torch.api import Encoder
     from svt_av1_tpu_torch.io import IvfWriter
+    from svt_av1_tpu_torch.ops import omd
 
     path = Path(out_dir) / "smoke_1080p_ra.ivf"
     cfg = ra_config(WIDTH, HEIGHT)
@@ -946,6 +1013,8 @@ def ra_phase(counters, frames, out_dir):
     for fn in counters.values():
         fn.launches = 0
     torch.cuda.synchronize()
+    for name in ("intra_decision", "inter_select"):
+        omd.near_recomputes(name)                   # reset
     t0 = time.perf_counter()
     with IvfWriter(str(path), WIDTH, HEIGHT, cfg.frame_rate) as w:
         pts = 0
@@ -960,6 +1029,8 @@ def ra_phase(counters, frames, out_dir):
     torch.cuda.synchronize()
     t1 = time.perf_counter()
     launches = {name: fn.launches for name, fn in counters.items()}
+    near = {name: omd.near_recomputes(name)
+            for name in ("intra_decision", "inter_select")}
     n_timed = len(frames) - RA_WARM
     print(f"random access (bench.py's configuration: RANDOM_ACCESS, "
           f"hierarchical_levels {cfg.hierarchical_levels}, "
@@ -973,6 +1044,13 @@ def ra_phase(counters, frames, out_dir):
     print("random access stage ms/frame (host wall clock):", json.dumps(
         {k: v.get("ms_per_frame") for k, v in rep.items() if k != "_wall"}))
     print("random access main path launches:", json.dumps(launches))
+    print(f"random access near-boundary float64 recomputes: K1 "
+          f"{near['intra_decision']} over {launches['intra_decision']} "
+          f"frames ({near['intra_decision'] / max(launches['intra_decision'], 1):.1f}"
+          f" per frame), K8 {near['inter_select']} over "
+          f"{launches['inter_select']} inter frames "
+          f"({near['inter_select'] / max(launches['inter_select'], 1):.1f} "
+          f"per frame)")
     print(f"random-access encode alone: K1 intra_decision "
           f"{launches['intra_decision']} launches, K6 me_refine "
           f"{launches['me_refine']} launches")
@@ -1211,7 +1289,7 @@ def step_bound(rep):
                      + 25 * 256 * 3))
         add(2 * px + units * 12 + units * 36 + sum(
             (rows // h) * (W // w) * 4 for (w, h) in omd.INTER_SHAPES),
-            2 * sum(w + h for (w, h) in omd.INTER_SHAPES) * px
+            2 * k8_dct_macs(omd.INTER_SHAPES) * px
             + 12 * len(omd.INTER_SHAPES) * px + 3 * px)
         add(px + 33 * W + sum(8 * (rows // h) * (W // w)
                               for (w, h) in omd.ALL_SHAPES),
@@ -1222,8 +1300,8 @@ def step_bound(rep):
         n_u = (rows // 8) * (W // 8)
         add(px * 4 + n_u * 8, n_u * (8 * 64 + 8 * 15 * 3 + 16))
         frac = s.nonskip.float().mean().item()
-        combos = len(frame.pri_set) * len(frame.sec_set)
-        add(px * 5 + 4 * W * 4 + n_u * 9, px * frac * combos * 116)
+        add(px * 5 + 4 * W * 4 + n_u * 9,
+            px * frac * k4_search_ops(frame.pri_set, frame.sec_set))
         add(2 * px * 4 + 4 * W * 4 + n_u * 9, px * frac * 113)
     return by["bytes"] + by["operations"], max(by, key=by.get)
 

@@ -8,31 +8,45 @@
 // B13).
 //
 // What bounds it on the H100: integer throughput in the search (each
-// pixel evaluates 15 strength combinations at preset 8, up to 32, over
-// 12 taps), memory traffic in the apply (one read and one write of each
-// sample).  Both are a few MB per 1080p frame.
+// pixel evaluates 15 strength combinations at preset 8, up to 32), memory
+// traffic in the apply (one read and one write of each sample).  Both
+// are a few MB per 1080p frame.
 //
-// Design: one thread per pixel of the in-frame region.  The thread reads
-// its sample and the 12 taps along its unit's direction (primary taps
-// along the direction, secondary taps along the directions rotated by 2
-// and 6), CDEF_VERY_LARGE outside the frame; a stripe of the frame reads
-// the two rows above and below it from its neighbours' halo rows where
-// the frame continues (the JAX padded_planes); the clip bounds ignore
-// CDEF_VERY_LARGE for the maximum as the reference does.  Combinations
-// with a zero primary strength use direction 0, as the reference's
-// zero-direction context.  Search: every combination is evaluated from
-// that one read; the squared errors of the non-skip pixels are reduced
-// per warp, then per block in shared memory, then added to one exact
-// int64 total per combination with an integer atomic (order-free, so the
-// totals are deterministic).  Apply: the winner only; pixels outside the
-// frame are copied.
+// Both read a sample and the 12 taps along its unit's direction (primary
+// taps along the direction, secondary taps along the directions rotated
+// by 2 and 6), CDEF_VERY_LARGE outside the frame; a stripe of the frame
+// reads the two rows above and below it from its neighbours' halo rows
+// where the frame continues (the JAX padded_planes); the clip bounds
+// ignore CDEF_VERY_LARGE for the maximum as the reference does.
+// Combinations with a zero primary strength use direction 0, as the
+// reference's zero-direction context.
+//
+// Search:
+// * One launch for all three planes: luma tiles first, then each chroma
+//   plane's; luma adds to err_y, both chroma planes to err_uv.
+// * A CTA of 256 threads takes a 64x32 tile of one plane, loaded once into
+//   shared memory as int16 with its 2-row and 2-column halo
+//   (CDEF_VERY_LARGE outside the frame, the neighbours' rows in stripe
+//   mode); each thread takes 8 pixels of a row.
+// * The filter's sum is a primary part, 4 constrains that depend only on
+//   pri (luma: adjust_strength(pri, var), tap weights by its parity), plus
+//   a secondary part, 8 constrains that depend only on sec.  So each
+//   pixel computes the primary part once per nonzero pri, the secondary
+//   part once per nonzero sec for both tap sets (its unit's direction,
+//   and direction 0 for pri == 0), and then combines per (pri, sec): the
+//   rounding and the clip to that tap set's bounds.  At preset 8 (the
+//   5x3 grid) that is 48 constrains per pixel instead of 180.
+// * The squared errors accumulate per thread and combination in uint32
+//   registers, then one warp reduction and one int64 atomic per CTA and
+//   combination (exact, order-free: the totals are deterministic).
+// Apply: one thread per pixel, the winner only; pixels outside the frame
+// are copied.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
 constexpr int kVeryLarge = 16384;
-constexpr int kMaxCombos = 32;
 
 // cdef_directions as (dy, dx) for taps k = 0, 1
 __constant__ int kDir[8][2][2] = {
@@ -140,60 +154,231 @@ __device__ __forceinline__ int filter(const Taps& t, int v, int pri,
   return min(max(y, t.mn), t.mx);
 }
 
-// One plane; bsl = log2 of the unit size in this plane (3 luma, 2 chroma).
-__global__ void cdef_search_kernel(
-    const int* __restrict__ rec, const uint8_t* __restrict__ src, int W,
-    int ph, int pw, int bsl, const int* __restrict__ dirs,
-    const int* __restrict__ var, const uint8_t* __restrict__ nonskip,
-    int uw, int is_luma, unsigned pri_pack, int n_pri, unsigned sec_pack,
-    int n_sec, int damping, int cs, const int* __restrict__ top,
-    const int* __restrict__ bottom, unsigned long long* __restrict__ err) {
-  const Src sp = {rec, top, bottom, W, ph, pw};
-  __shared__ int blk[kMaxCombos];
-  const int tid = threadIdx.y * blockDim.x + threadIdx.x;
-  const int n_combo = n_pri * n_sec;
-  if (tid < kMaxCombos) blk[tid] = 0;
+constexpr int kMaxPri = 8, kMaxSec = 4;
+constexpr int kTileW = 64, kTileH = 32;
+constexpr int kSearchThreads = 256;
+constexpr int kHaloW = kTileW + 4, kHaloH = kTileH + 4;
+constexpr int kTileStride = 72;           // int16 per tile row
+
+struct SearchPlane {
+  const int* rec;
+  const uint8_t* src;
+  const int* top;                 // [2, W] above a stripe, or null
+  const int* bottom;              // [2, W] below it, or null
+  int W, ph, pw, bsl, is_luma, damping, grp, tiles_x, cta0;
+};
+
+struct SearchArgs {
+  SearchPlane pl[3];
+  int n_planes;
+  int pri[kMaxPri], n_pri;        // coded primaries (before << cs)
+  int sec[kMaxSec], n_sec;        // secondaries in filter units
+  int cs;
+};
+
+// |constrain(diff, s, damping)| for |diff| = ad at strength s > 0, with
+// shift = max(0, damping - min(msb(s), 7)); the caller applies the sign
+// and the tap's weight.
+__device__ __forceinline__ int cmag(int ad, int s, int shift) {
+  return min(ad, max(0, s - (ad >> shift)));
+}
+
+__device__ __forceinline__ int damp_shift(int s, int damping) {
+  const int m = msb(s) < 7 ? msb(s) : 7;
+  return damping - m > 0 ? damping - m : 0;
+}
+
+// The tile offsets of direction d's 12 taps: primary (k, sign) at 2k +
+// sg, then secondary (k, rotation 2 or 6, sign) at 4 + 4k + 2ri + sg.  A
+// lane's direction differs from its neighbours', so the search reads
+// this table from shared memory, where 8 directions' rows fall in
+// distinct banks, not from constant memory, which serializes divergent
+// reads.
+__device__ __forceinline__ int tap_offset(int d, int i) {
+  const bool prim = i < 4;
+  const int k = prim ? i >> 1 : (i - 4) >> 2;
+  const int ri = prim ? 0 : ((i - 4) >> 1) & 1;
+  const int sign = (i & 1) ? -1 : 1;
+  const int dd = prim ? d : (d + (ri ? 6 : 2)) & 7;
+  return sign * (kDir[dd][k][0] * kTileStride + kDir[dd][k][1]);
+}
+
+// The 12 taps of one direction around tile position at: |tap - v| and
+// the signed weight (primary: the sign; secondary: 2 or 1 times it), and
+// the clip bounds with v.  The maximum ignores CDEF_VERY_LARGE (1 << 14,
+// above every sample): a & (CDEF_VERY_LARGE - 1) is the sample itself or
+// 0, which no maximum of samples >= 0 takes.
+__device__ __forceinline__ void tile_taps(const int16_t* tile, int at,
+                                          const int* toff, int v,
+                                          int (&ad)[12], int (&ws)[12],
+                                          int& mx, int& mn) {
+  mx = v;
+  mn = v;
+#pragma unroll
+  for (int i = 0; i < 12; ++i) {
+    const int a = tile[at + toff[i]];
+    const int d = a - v;
+    ad[i] = abs(d);
+    const int w = i < 4 ? 1 : (i < 8 ? 2 : 1);
+    ws[i] = d < 0 ? -w : w;
+    mx = max(mx, a & (kVeryLarge - 1));
+    mn = min(mn, a);
+  }
+}
+
+// The secondary part of one tap set at strength sec > 0.
+__device__ __forceinline__ int sec_part(const int (&ad)[12],
+                                        const int (&ws)[12], int sec,
+                                        int shift) {
+  int sum = 0;
+#pragma unroll
+  for (int i = 4; i < 12; ++i) sum += ws[i] * cmag(ad[i], sec, shift);
+  return sum;
+}
+
+__device__ __forceinline__ int combine(int v, int sum, int mn, int mx) {
+  const int y = v + ((8 + sum - (sum < 0)) >> 4);
+  return min(max(y, mn), mx);
+}
+
+// Every plane's tiles in one launch; err: int64 [2, n_pri * n_sec] (luma,
+// chroma) to add to.  NPRI x NSEC is the grid (EXACT: with a zero
+// primary first and a zero secondary first, as both of the codec's
+// grids) or bounds it.
+template <int NPRI, int NSEC, bool EXACT>
+__global__ void __launch_bounds__(kSearchThreads) cdef_search_kernel(
+    SearchArgs a, const int* __restrict__ dirs, const int* __restrict__ var,
+    const uint8_t* __restrict__ nonskip, int uw,
+    unsigned long long* __restrict__ err) {
+  __shared__ int16_t tile[kHaloH * kTileStride];
+  __shared__ uint32_t wsum[kSearchThreads / 32][NPRI * NSEC];
+  __shared__ int toff[8][12];
+  // this CTA's plane, copied by constant indices (no local-memory copy of
+  // the parameter)
+  SearchPlane P = a.pl[0];
+  if (a.n_planes > 1 && (int)blockIdx.x >= a.pl[1].cta0) P = a.pl[1];
+  if (a.n_planes > 2 && (int)blockIdx.x >= a.pl[2].cta0) P = a.pl[2];
+  const int ti = (int)blockIdx.x - P.cta0;
+  const int y0 = (ti / P.tiles_x) * kTileH, x0 = (ti % P.tiles_x) * kTileW;
+  const Src sp = {P.rec, P.top, P.bottom, P.W, P.ph, P.pw};
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  if (tid < 96) toff[tid / 12][tid % 12] = tap_offset(tid / 12, tid % 12);
+  for (int i = tid; i < kHaloH * kHaloW; i += kSearchThreads) {
+    const int r = i / kHaloW, c = i - r * kHaloW;
+    tile[r * kTileStride + c] = (int16_t)sample(sp, y0 - 2 + r, x0 - 2 + c);
+  }
   __syncthreads();
-  const int x = blockIdx.x * blockDim.x + threadIdx.x;
-  const int y = blockIdx.y * blockDim.y + threadIdx.y;
-  bool valid = y < ph && x < pw;
-  int u = 0;
-  if (valid) {
-    u = (y >> bsl) * uw + (x >> bsl);
-    valid = nonskip[u] != 0;
-  }
-  Taps td, t0;
-  int v = 0, s = 0, d = 0, vr = 0;
-  if (valid) {
-    v = rec[y * W + x];
-    s = src[y * W + x];
-    d = dirs[u];
-    vr = var[u];
-    gather(sp, y, x, v, d, td);
-    gather(sp, y, x, v, 0, t0);
-  }
-  const int lane = tid & 31;
-  for (int pi = 0; pi < n_pri; ++pi) {
-    const int p = (int)((pri_pack >> (4 * pi)) & 15u) << cs;
-    const int pri = is_luma ? adjust_strength(p, vr) : p;
-    const Taps& t = p ? td : t0;
-    for (int si = 0; si < n_sec; ++si) {
-      const int sc = (int)((sec_pack >> (2 * si)) & 3u);
-      const int sec = (sc + (sc == 3)) << cs;
-      int e = 0;
-      if (valid) {
-        const int f = (p == 0 && sec == 0) ? v : filter(t, v, pri, sec,
-                                                         damping, cs);
-        e = (f - s) * (f - s);
+
+  const int n_pri = EXACT ? NPRI : a.n_pri, n_sec = EXACT ? NSEC : a.n_sec;
+  const int cs = a.cs, damping = P.damping;
+  // this thread's 8 pixels of one row; in luma they share one 8x8 unit,
+  // whose variance sets the primaries' strengths
+  const int y = y0 + (tid >> 3), xs = x0 + 8 * (tid & 7);
+  // its units: one 8x8 in luma, two 4x4 in chroma (pixels 0-3, 4-7)
+  int du[2] = {0, 0}, nsu[2] = {0, 0}, vr = 0;
+  if (y < P.ph) {
+#pragma unroll
+    for (int h2 = 0; h2 < 2; ++h2) {
+      const int x = xs + 4 * h2;
+      if (x < P.pw && (h2 == 0 || !P.is_luma)) {
+        const int u = (y >> P.bsl) * uw + (x >> P.bsl);
+        du[h2] = dirs[u];
+        nsu[h2] = nonskip[u];
+        if (P.is_luma) vr = var[u];
       }
-      for (int off = 16; off > 0; off >>= 1)
-        e += __shfl_down_sync(0xffffffffu, e, off);
-      if (lane == 0 && e) atomicAdd(&blk[pi * n_sec + si], e);
+    }
+    if (P.is_luma) {
+      du[1] = du[0];
+      nsu[1] = nsu[0];
     }
   }
+  int pa[NPRI], psh[NPRI], sec_sh[NSEC];
+#pragma unroll
+  for (int pi = 0; pi < NPRI; ++pi) {
+    const int p = a.pri[pi] << cs;
+    pa[pi] = P.is_luma ? adjust_strength(p, vr) : p;
+    psh[pi] = pa[pi] > 0 ? damp_shift(pa[pi], damping) : 0;
+  }
+#pragma unroll
+  for (int si = 0; si < NSEC; ++si)
+    sec_sh[si] = a.sec[si] > 0 ? damp_shift(a.sec[si], damping) : 0;
+  uint32_t acc[NPRI][NSEC];
+#pragma unroll
+  for (int pi = 0; pi < NPRI; ++pi)
+#pragma unroll
+    for (int si = 0; si < NSEC; ++si) acc[pi][si] = 0;
+
+  const int ly = (tid >> 3) + 2;
+#pragma unroll 1
+  for (int i = 0; i < 8; ++i) {
+    const int x = xs + i;
+    if (y >= P.ph || x >= P.pw) break;
+    if (!(i < 4 ? nsu[0] : nsu[1])) continue;
+    const int at = ly * kTileStride + x - x0 + 2;
+    const int v = tile[at];
+    const int s = P.src[y * P.W + x];
+    int add[12], wsd[12], ad0[12], ws0[12], mxd, mnd, mx0, mn0;
+    tile_taps(tile, at, toff[i < 4 ? du[0] : du[1]], v, add, wsd, mxd, mnd);
+    tile_taps(tile, at, toff[0], v, ad0, ws0, mx0, mn0);
+    int Sd[NSEC], S0[NSEC];
+#pragma unroll
+    for (int si = 0; si < NSEC; ++si) {
+      Sd[si] = 0;
+      S0[si] = 0;
+      if ((EXACT || si < n_sec) && (EXACT ? si > 0 : a.sec[si] > 0)) {
+        Sd[si] = sec_part(add, wsd, a.sec[si], sec_sh[si]);
+        S0[si] = sec_part(ad0, ws0, a.sec[si], sec_sh[si]);
+      }
+    }
+#pragma unroll
+    for (int pi = 0; pi < NPRI; ++pi) {
+      if (!EXACT && pi >= n_pri) continue;
+      if (EXACT ? pi == 0 : a.pri[pi] == 0) {
+#pragma unroll
+        for (int si = 0; si < NSEC; ++si) {
+          if (!EXACT && si >= n_sec) continue;
+          const int f = (EXACT ? si > 0 : a.sec[si] > 0)
+                            ? combine(v, S0[si], mn0, mx0) : v;
+          acc[pi][si] += (uint32_t)((f - s) * (f - s));
+        }
+        continue;
+      }
+      int prim = 0;
+      if (pa[pi] > 0) {
+        const int odd = (pa[pi] >> cs) & 1, sh = psh[pi];
+        prim = (odd ? 3 : 4) * (wsd[0] * cmag(add[0], pa[pi], sh) +
+                                wsd[1] * cmag(add[1], pa[pi], sh)) +
+               (odd ? 3 : 2) * (wsd[2] * cmag(add[2], pa[pi], sh) +
+                                wsd[3] * cmag(add[3], pa[pi], sh));
+      }
+#pragma unroll
+      for (int si = 0; si < NSEC; ++si) {
+        if (!EXACT && si >= n_sec) continue;
+        const int f = combine(v, prim + Sd[si], mnd, mxd);
+        acc[pi][si] += (uint32_t)((f - s) * (f - s));
+      }
+    }
+  }
+  // per combination: one warp reduction, then the CTA's warps in int64
+#pragma unroll
+  for (int pi = 0; pi < NPRI; ++pi)
+#pragma unroll
+    for (int si = 0; si < NSEC; ++si) {
+      if (!EXACT && (pi >= n_pri || si >= n_sec)) continue;
+      uint32_t e = acc[pi][si];
+#pragma unroll
+      for (int off = 16; off > 0; off >>= 1)
+        e += __shfl_xor_sync(0xffffffffu, e, off);
+      if (lane == 0) wsum[warp][pi * n_sec + si] = e;
+    }
   __syncthreads();
-  if (tid < n_combo && blk[tid])
-    atomicAdd(&err[tid], (unsigned long long)blk[tid]);
+  const int n_combo = n_pri * n_sec;
+  if (tid < n_combo) {
+    unsigned long long tot = 0;
+#pragma unroll
+    for (int w = 0; w < kSearchThreads / 32; ++w) tot += wsum[w][tid];
+    if (tot) atomicAdd(&err[P.grp * n_combo + tid], tot);
+  }
 }
 
 __global__ void cdef_apply_kernel(
@@ -222,30 +407,77 @@ __global__ void cdef_apply_kernel(
 
 }  // namespace
 
-// rec: int32 [H, W]; src: uint8 [H, W]; frame [0, ph) x [0, pw); dirs,
-// var: int32 unit maps and nonskip uint8 [uh, uw] (luma 8x8 units, 4x4
-// in chroma); pri_pack: 4-bit coded primaries, sec_pack: 2-bit coded
-// secondaries; top, bottom: int32 [2, W] rows above and below a stripe
-// of the frame, or null at the frame's edges; err: int64 [n_pri * n_sec]
-// totals to add to.
-extern "C" int cdef_search_launch(const void* rec, const void* src, int H,
-                                  int W, int ph, int pw, int bsl,
+// One launch for the search of n_planes planes (luma, then chroma):
+// rec[i]: int32 [H[i], W[i]]; src[i]: uint8 of the same shape; frame [0,
+// ph[i]) x [0, pw[i]); top[i], bottom[i]: int32 [2, W[i]] rows above and
+// below a stripe of the frame, or null at the frame's edges; dirs, var:
+// int32 luma unit maps and nonskip uint8 [uh, uw] (8x8 luma units, 4x4 in
+// chroma); pri_pack: 4-bit coded primaries, sec_pack: 2-bit coded
+// secondaries; damping: the luma damping (chroma takes one less); err:
+// int64 [2, n_pri * n_sec] totals (luma, chroma) to add to.
+extern "C" int cdef_search_launch(int n_planes, const void* const* rec,
+                                  const void* const* src,
+                                  const void* const* top,
+                                  const void* const* bottom, const int* H,
+                                  const int* W, const int* ph, const int* pw,
                                   const void* dirs, const void* var,
-                                  const void* nonskip, int uw, int is_luma,
+                                  const void* nonskip, int uw,
                                   unsigned pri_pack, int n_pri,
                                   unsigned sec_pack, int n_sec, int damping,
-                                  int cs, const void* top,
-                                  const void* bottom, void* err,
-                                  void* stream) {
-  if (n_pri * n_sec > kMaxCombos || n_pri * n_sec < 1 || ph > H || pw > W)
+                                  int cs, void* err, void* stream) {
+  if (n_planes < 1 || n_planes > 3 || n_pri < 1 || n_pri > kMaxPri ||
+      n_sec < 1 || n_sec > kMaxSec)
     return (int)cudaErrorInvalidValue;
-  const dim3 threads(32, 8);
-  const dim3 blocks((pw + 31) / 32, (ph + 7) / 8);
-  cdef_search_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(
-      (const int*)rec, (const uint8_t*)src, W, ph, pw, bsl,
-      (const int*)dirs, (const int*)var, (const uint8_t*)nonskip, uw,
-      is_luma, pri_pack, n_pri, sec_pack, n_sec, damping, cs,
-      (const int*)top, (const int*)bottom, (unsigned long long*)err);
+  SearchArgs a{};
+  a.n_planes = n_planes;
+  a.n_pri = n_pri;
+  a.n_sec = n_sec;
+  a.cs = cs;
+  for (int i = 0; i < n_pri; ++i) a.pri[i] = (int)((pri_pack >> (4 * i)) & 15u);
+  for (int i = 0; i < n_sec; ++i) {
+    const int sc = (int)((sec_pack >> (2 * i)) & 3u);
+    a.sec[i] = (sc + (sc == 3)) << cs;
+  }
+  int ctas = 0;
+  for (int i = 0; i < n_planes; ++i) {
+    if (ph[i] > H[i] || pw[i] > W[i] || ph[i] < 1 || pw[i] < 1)
+      return (int)cudaErrorInvalidValue;
+    SearchPlane& p = a.pl[i];
+    p.rec = (const int*)rec[i];
+    p.src = (const uint8_t*)src[i];
+    p.top = (const int*)top[i];
+    p.bottom = (const int*)bottom[i];
+    p.W = W[i];
+    p.ph = ph[i];
+    p.pw = pw[i];
+    p.bsl = i == 0 ? 3 : 2;
+    p.is_luma = i == 0;
+    p.damping = damping - (i == 0 ? 0 : 1);
+    p.grp = i == 0 ? 0 : 1;
+    p.tiles_x = (pw[i] + kTileW - 1) / kTileW;
+    p.cta0 = ctas;
+    ctas += p.tiles_x * ((ph[i] + kTileH - 1) / kTileH);
+  }
+  const dim3 grid(ctas), block(kSearchThreads);
+  cudaStream_t st = (cudaStream_t)stream;
+  const int* d = (const int*)dirs;
+  const int* vr = (const int*)var;
+  const uint8_t* ns = (const uint8_t*)nonskip;
+  unsigned long long* e = (unsigned long long*)err;
+  // the fast grid of the high presets (5 x 3) and the full grid (8 x 4)
+  // with their counts known at compile time; any other set bounded by 8
+  // x 4
+  bool zero_first = a.pri[0] == 0 && a.sec[0] == 0;
+  for (int i = 1; i < n_pri; ++i) zero_first &= a.pri[i] > 0;
+  for (int i = 1; i < n_sec; ++i) zero_first &= a.sec[i] > 0;
+  if (n_pri == 5 && n_sec == 3 && zero_first)
+    cdef_search_kernel<5, 3, true><<<grid, block, 0, st>>>(a, d, vr, ns, uw, e);
+  else if (n_pri == kMaxPri && n_sec == kMaxSec && zero_first)
+    cdef_search_kernel<kMaxPri, kMaxSec, true><<<grid, block, 0, st>>>(
+        a, d, vr, ns, uw, e);
+  else
+    cdef_search_kernel<kMaxPri, kMaxSec, false><<<grid, block, 0, st>>>(
+        a, d, vr, ns, uw, e);
   return (int)cudaGetLastError();
 }
 

@@ -60,6 +60,21 @@
 //   count by ballots; every lane holds the block's cost and the argmin
 //   stays in registers: a mode takes over only on a strictly smaller
 //   cost, in mode order 0..12 (the reference's tie rule).
+// * Near-boundary coefficients (cost_model.cuh near_margin; the rule of
+//   ops/omd.py decide_near_boundary): the queue keeps each entry's
+//   position beside its value (int16, in the transform rows that product
+//   2 has read), and also takes the
+//   coefficients within delta of the dead zone; the drain tests the coded
+//   ones' quotients against the rounding points and moves the positions
+//   of the near ones into the free transform buffer; the warp then
+//   recomputes each such coefficient in float64 FMA from the residual,
+//   predicted again pixel by pixel (integer, so exact), and the float32
+//   DCT entries (big + small of the fragments), and decides it from that
+//   value rounded to float32, as the plain version does.  That pass is
+//   cold code (0.02% of the coded coefficients at qindex 160): one
+//   function for every shape, out of line, so that neither the hot
+//   path's registers nor its code size carry it.  delta comes from the
+//   block's sum |R| (one warp reduction per mode).
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -77,6 +92,9 @@ constexpr int kRStride = 40;            // residual rows: conflict-free A loads
 constexpr int kTStride = 36;            // transform rows: conflict-free A loads
 constexpr int kRFloats = 32 * kRStride; // G*h <= 32 rows
 constexpr int kTFloats = 32 * kTStride;
+// the queue's positions (int16) live in the transform rows that product
+// 2 has read: an m-tile's entries fill at most its own 16 rows
+constexpr int kQPos = 1024;             // G*h*w <= 1024
 // per warp: residuals, transform rows, then the above / left edges
 constexpr int kWarpBytes = (4 * (kRFloats + kTFloats) + 2 * kEdge + 15) /
                            16 * 16;
@@ -185,18 +203,22 @@ __device__ __forceinline__ int dir_tap(int t, const uint8_t* above,
 // Residuals src - pred of mode m (kModes and above: zero) for this lane's
 // pixels p = i * 32 + lane, into Rg[r][c]; one pixel loop per mode.
 // taps: this shape's tap tables, [6, H*W] int32.
+// Returns this lane's sum of |residual|.
 template <int W, int H>
-__device__ __forceinline__ void residuals(int m, float* Rg,
-                                          const uint32_t* spk, int lane,
-                                          int dc, const uint8_t* above,
-                                          const uint8_t* left, const int* smw,
-                                          const int* __restrict__ taps) {
+__device__ __forceinline__ int residuals(int m, float* Rg,
+                                         const uint32_t* spk, int lane,
+                                         int dc, const uint8_t* above,
+                                         const uint8_t* left, const int* smw,
+                                         const int* __restrict__ taps) {
   constexpr int NP = W * H / 32;
+  int sabs = 0;
 #define K1_PIXELS(PRED)                                                    \
   _Pragma("unroll") for (int i = 0; i < NP; ++i) {                         \
     const int p = i * 32 + lane, r = p / W, c = p % W;                     \
     const int src = (spk[i >> 2] >> ((i & 3) * 8)) & 255;                  \
-    Rg[r * kRStride + c] = (float)(src - (PRED));                          \
+    const int rv = src - (PRED);                                           \
+    Rg[r * kRStride + c] = (float)rv;                                      \
+    sabs += abs(rv);                                                       \
   }
   switch (m) {
     case 0:
@@ -247,6 +269,96 @@ __device__ __forceinline__ void residuals(int m, float* Rg,
       break;
   }
 #undef K1_PIXELS
+  return sabs;
+}
+
+// The quantizer's (dc, ac) scalars of a shape.
+struct QuantDA {
+  float zb_dc, zb_ac, rn_dc, rn_ac, st_dc, st_ac;
+};
+
+// What the near-boundary pass adds to a group's sums: e2 and mg on lane
+// 0 (0 elsewhere), nz on every lane.
+struct NearSums {
+  float e2[2], mg[2];
+  int nz[2];
+};
+
+// The prediction of pixel (r, c) of a w x h block by mode m < kModes, as
+// residuals() computes it (one pixel; taps: the shape's tap tables).
+__device__ __forceinline__ int pred_pixel(int m, int r, int c, int w, int h,
+                                          int dc, const uint8_t* above,
+                                          const uint8_t* left, const int* smw,
+                                          const int* __restrict__ taps) {
+  switch (m) {
+    case 0:
+      return dc;
+    case 1:
+      return above[1 + c];
+    case 2:
+      return left[1 + r];
+    case 9:
+      return (above[1 + c] * smw[h + r] + left[h] * (256 - smw[h + r]) +
+              left[1 + r] * smw[w + c] + above[w] * (256 - smw[w + c]) +
+              256) >> 9;
+    case 10:
+      return (above[1 + c] * smw[h + r] + left[h] * (256 - smw[h + r]) +
+              128) >> 8;
+    case 11:
+      return (left[1 + r] * smw[w + c] + above[w] * (256 - smw[w + c]) +
+              128) >> 8;
+    case 12:
+      return paeth(above[1 + c], left[1 + r], above[0]);
+    default:                                // D45 .. D67
+      return dir_tap(__ldg(taps + (m - 3) * (w * h) + r * w + c), above,
+                     left);
+  }
+}
+
+// The near-boundary coefficients of one group of g modes of a w x h
+// block at (y0, x0) (positions nlist[0, nn): gm << 12 | n << 6 | j): each
+// recomputed in float64 FMA from the residual, predicted again pixel by
+// pixel (integer, so exact), and the float32 DCT entries, and decided
+// from that value rounded to float32.  Cold code: one copy, out of line,
+// with the block size at run time.
+__device__ __noinline__ NearSums near_pass(
+    int w, int h, int g, int grp, int nn, const int* nlist, Plane pl,
+    int y0, int x0, int lane, int dc, const uint8_t* above,
+    const uint8_t* left, const int* smw, const int* __restrict__ taps,
+    const float4* __restrict__ fh, const float4* __restrict__ fw,
+    QuantDA q, const float* log2_1p) {
+  NearSums out = {{0.f, 0.f}, {0.f, 0.f}, {0, 0}};
+  // each lane takes column c = lane % w (w divides 32) of rows lane / w +
+  // i * 32 / w, so D_w[j][c] is its one factor
+  const int rpi = 32 / w, c = lane % w, r0 = lane / w;
+  for (int e = 0; e < nn; ++e) {
+    const int pos = nlist[e];
+    const int gm = (pos >> 12) & 1, n = (pos >> 6) & 63, j = pos & 63;
+    const int m = grp * g + gm;
+    double a64 = 0.0;
+    for (int r = r0; r < h; r += rpi) {
+      const int rv = (int)pl.px[(y0 + r) * pl.buf_w + x0 + c] -
+                     pred_pixel(m, r, c, w, h, dc, above, left, smw, taps);
+      a64 = fma(cost_model::dct_at(fh, h, n, r), (double)rv, a64);
+    }
+    const double c64 =
+        cost_model::warp_sum_f64(a64 * cost_model::dct_at(fw, w, j, c));
+    const bool is_dc = n == 0 && j == 0;
+    float ce2, cmg;
+    int cnz;
+    cost_model::coef_decided(__double2float_rn(fabs(c64)),
+                             is_dc ? q.zb_dc : q.zb_ac,
+                             is_dc ? q.rn_dc : q.rn_ac,
+                             is_dc ? q.st_dc : q.st_ac, log2_1p, ce2, cnz,
+                             cmg);
+    if (lane == 0) {
+      out.e2[gm] = __fadd_rn(out.e2[gm], ce2);
+      out.mg[gm] = __fadd_rn(out.mg[gm], cmg);
+    }
+    out.nz[gm] += cnz;
+  }
+  if (lane == 0) cost_model::count_near(nn);
+  return out;
 }
 
 // One warp's blocks of one shape.
@@ -275,6 +387,7 @@ __device__ __forceinline__ void run_shape(
   const float zb_dc = sh.zbin_dc[s], zb_ac = sh.zbin_ac[s];
   const float rn_dc = sh.rnd_dc[s], rn_ac = sh.rnd_ac[s];
   const float st_dc = sh.step_dc[s], st_ac = sh.step_ac[s];
+  const float cdl = cost_model::near_margin(W, H);
   const int o0 = sh.out0[s];
   const int* tps = taps + sh.tap0[s];
 
@@ -309,11 +422,20 @@ __device__ __forceinline__ void run_shape(
     float best_cost = 0.f;
     int best_mode = 0;
     for (int grp = 0; grp < NG; ++grp) {
-      // residuals R[gm][r][c] of the group's modes
+      float dlt[G], e2[G], mg[G];
+      int nz[G], nq[G];
+      uint16_t* qpos = reinterpret_cast<uint16_t*>(T);
+      int* nlist = reinterpret_cast<int*>(R);
+      int nn = 0;
+      // residuals R[gm][r][c] of the group's modes, and each mode's
+      // near-boundary margin from its sum |R|
 #pragma unroll
-      for (int gm = 0; gm < G; ++gm)
-        residuals<W, H>(grp * G + gm, R + gm * H * kRStride, spk, lane, dc,
-                        above, left, smw, tps);
+      for (int gm = 0; gm < G; ++gm) {
+        const int sa = residuals<W, H>(grp * G + gm, R + gm * H * kRStride,
+                                       spk, lane, dc, above, left, smw, tps);
+        dlt[gm] = __fmul_rn(
+            (float)__reduce_add_sync(0xffffffffu, (unsigned)sa), cdl);
+      }
       __syncwarp();
 
       // product 1: T^T[(gm, c)][n] = sum_r R[gm][r][c] * Dh[n][r], one
@@ -368,8 +490,6 @@ __device__ __forceinline__ void run_shape(
       // DC coefficient's value negated), which the lanes then share, so
       // the division and log2f run once per coded coefficient instead of
       // once per slot that any lane codes.
-      float e2[G], mg[G];
-      int nz[G], nq[G];
 #pragma unroll
       for (int gm = 0; gm < G; ++gm) {
         e2[gm] = 0.f;
@@ -417,13 +537,15 @@ __device__ __forceinline__ void run_shape(
             const int gm = H == 8 ? 2 * mt + hi : (mt * 16) / H;
             const int n = H == 8 ? g : (mt * 16) % H + 8 * hi + g;
             const int j = nt * 8 + 2 * t + (i & 1);
-            const bool is_dc = n == 0 && j == 0;
             const float ac = fabsf(acc[nt][i]);
-            const bool coded = ac >= (is_dc ? zb_dc : zb_ac);
-            const unsigned ball = __ballot_sync(0xffffffffu, coded);
-            if (coded) {
+            const float zb = n == 0 && j == 0 ? zb_dc : zb_ac;
+            const bool queued =
+                ac >= zb || cost_model::near_zbin(ac, zb, dlt[gm]);
+            const unsigned ball = __ballot_sync(0xffffffffu, queued);
+            if (queued) {
               const int at = nq[gm] + __popc(ball & lanes_below);
-              R[gm == 0 ? at : kRFloats - 1 - at] = is_dc ? -ac : ac;
+              R[gm == 0 ? at : kRFloats - 1 - at] = ac;
+              qpos[gm == 0 ? at : kQPos - 1 - at] = (uint16_t)((n << 6) | j);
             } else {
               e2[gm] = __fadd_rn(e2[gm], __fmul_rn(ac, ac));
             }
@@ -431,27 +553,57 @@ __device__ __forceinline__ void run_shape(
           }
       }
       // the coefficients outside the dead zone, shared out over the lanes;
-      // their nonzero count is summed by ballots
+      // their nonzero count is summed by ballots.  Near-boundary entries
+      // move, as positions, to a list at the queue's start (compacted in
+      // place: a slot is written only after it was read; the second
+      // mode's queue, from R's end, lies beyond every slot written).
       __syncwarp();
 #pragma unroll
       for (int gm = 0; gm < G; ++gm) {
         for (int k0 = 0; k0 < nq[gm]; k0 += 32) {     // warp-uniform
           const int k = k0 + lane;
           int cnz = 0;
+          bool near = false;
+          int pos = 0;
           if (k < nq[gm]) {
             const float v = R[gm == 0 ? k : kRFloats - 1 - k];
-            const bool is_dc = signbit(v);
-            float ce2, cmg;
-            cost_model::coef_coded(fabsf(v), is_dc ? rn_dc : rn_ac,
-                                   is_dc ? st_dc : st_ac, log2_1p, ce2, cnz,
-                                   cmg);
-            e2[gm] = __fadd_rn(e2[gm], ce2);
-            mg[gm] = __fadd_rn(mg[gm], cmg);
+            pos = qpos[gm == 0 ? k : kQPos - 1 - k];
+            const bool is_dc = pos == 0;
+            const float st = is_dc ? st_dc : st_ac;
+            const float zb = is_dc ? zb_dc : zb_ac;
+            near = cost_model::near_zbin(v, zb, dlt[gm]);
+            if (!near) {
+              const float t =
+                  cost_model::quotient(v, is_dc ? rn_dc : rn_ac, st);
+              near = cost_model::near_round(t, st, dlt[gm]);
+              if (!near) {
+                float ce2, cmg;
+                cost_model::coef_from_t(v, t, st, log2_1p, ce2, cnz, cmg);
+                e2[gm] = __fadd_rn(e2[gm], ce2);
+                mg[gm] = __fadd_rn(mg[gm], cmg);
+              }
+            }
           }
+          const unsigned nb = __ballot_sync(0xffffffffu, near);
+          if (near) nlist[nn + __popc(nb & lanes_below)] = (gm << 12) | pos;
           nz[gm] += __popc(__ballot_sync(0xffffffffu, cnz));
+          nn += __popc(nb);
         }
       }
-      __syncwarp();                 // the queue is read: R may take residuals
+      if (nn > 0) {                 // warp-uniform; near ones are rare
+        __syncwarp();               // the queue is read, the list written
+        const NearSums ns = near_pass(
+            W, H, G, grp, nn, nlist, pl, y0, x0, lane, dc, above, left, smw,
+            tps, fh, fw, QuantDA{zb_dc, zb_ac, rn_dc, rn_ac, st_dc, st_ac},
+            log2_1p);
+#pragma unroll
+        for (int gm = 0; gm < G; ++gm) {
+          e2[gm] = __fadd_rn(e2[gm], ns.e2[gm]);
+          mg[gm] = __fadd_rn(mg[gm], ns.mg[gm]);
+          nz[gm] += ns.nz[gm];
+        }
+      }
+      __syncwarp();                 // R and T may take the next group
       // SSE over the warp (both modes of a pair in one butterfly); the
       // log2 terms only where the warp queued a coefficient (elsewhere
       // every lane's sum is 0)
@@ -524,6 +676,13 @@ __global__ void __launch_bounds__(kThreads, 4) intra_decision_kernel(
 }
 
 }  // namespace
+
+// The near-boundary recomputes since the last reset into *out (reset:
+// set the count to 0 after reading).  Returns the CUDA error.
+extern "C" int intra_decision_near_count(int reset,
+                                         unsigned long long* out) {
+  return cost_model::read_near_count(reset, out);
+}
 
 // plane: uint8 [buf_h, buf_w]; above_row: uint8 [buf_w] and halo: uint8
 // [n_halo, buf_w], the true neighbour rows of a stripe (both null for a

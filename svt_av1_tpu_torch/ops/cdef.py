@@ -500,7 +500,7 @@ def cdef_search(source, recon, dirs, var, nonskip, fw: int, fh: int,
     None).  ``halos``: per plane the (top, bottom) [2, W] int32 rows
     around a stripe of the frame, read where the frame continues (None:
     the frame's edge, CDEF_VERY_LARGE).  CPU tensors take search_plain;
-    CUDA tensors launch the kernel once per plane."""
+    CUDA tensors launch the kernel once for all the planes."""
     if recon[0].device.type == "cpu":
         return search_plain(source, recon, dirs, var, nonskip, fw, fh,
                             damping, bit_depth, pri_set, sec_set, halos)
@@ -509,39 +509,47 @@ def cdef_search(source, recon, dirs, var, nonskip, fw: int, fh: int,
     from ..kernels.build import check_launch, ptr, stream
 
     _check_units(dirs, var, nonskip, fw, fh)
+    n = len(recon)
+    if not 1 <= n <= 3 or len(source) < n:
+        raise ValueError("cdef_search takes 1 to 3 planes and their sources")
+    if len(pri_set) > 8 or len(sec_set) > 4:
+        raise ValueError("cdef_search takes at most 8 x 4 strengths")
     fn = _filter_fn("cdef_search_launch")
-    fn.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_int] * 5 \
-        + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 2 \
+    P = ctypes.c_void_p
+    fn.argtypes = [ctypes.c_int] + [P] * 8 + [P] * 3 + [ctypes.c_int] \
         + [ctypes.c_uint, ctypes.c_int, ctypes.c_uint, ctypes.c_int] \
-        + [ctypes.c_int] * 2 + [ctypes.c_void_p] * 4
+        + [ctypes.c_int] * 2 + [P] * 2
     cs = max(bit_depth - 8, 0)
     ns = nonskip.to(torch.uint8).contiguous()
-    errs = []
-    for group in ((0,), (1, 2)):
-        if group[0] >= len(recon):
-            errs.append(None)
-            continue
-        acc = torch.zeros(len(pri_set) * len(sec_set), dtype=torch.int64,
-                          device=recon[0].device)
-        for pli in group:
-            sub = 0 if pli == 0 else 1
-            rec, src = recon[pli], source[pli]
-            _check_plane(rec, "cdef_search recon")
-            _check_plane(src, "cdef_search source", (torch.uint8,))
-            if rec.shape != src.shape:
-                raise ValueError("source and recon planes differ in shape")
-            H, W = rec.shape
-            top, bottom = _halo_ptrs(halos, pli, rec)
-            err = fn(ptr(rec), ptr(src), H, W, fh >> sub, fw >> sub,
-                     3 - sub, ptr(dirs), ptr(var), ptr(ns), ns.shape[1],
-                     int(pli == 0), _pack(pri_set, 4), len(pri_set),
-                     _pack(sec_set, 2), len(sec_set),
-                     damping + cs - sub, cs, top, bottom, ptr(acc),
-                     stream(rec))
-            check_launch("cdef_search", err)
-            cdef_search.launches += 1
-        errs.append(acc.reshape(len(pri_set), len(sec_set)))
-    return errs[0], errs[1]
+    dims, halo = [], []
+    for pli in range(n):
+        rec, src = recon[pli], source[pli]
+        _check_plane(rec, "cdef_search recon")
+        _check_plane(src, "cdef_search source", (torch.uint8,))
+        if rec.shape != src.shape or rec.device != recon[0].device \
+                or src.device != rec.device:
+            raise ValueError("source and recon planes differ in shape or "
+                             "device")
+        sub = 0 if pli == 0 else 1
+        dims.append((*rec.shape, fh >> sub, fw >> sub))
+        halo.append(_halo_ptrs(halos, pli, rec))
+    combos = len(pri_set) * len(sec_set)
+    acc = torch.zeros(2 * combos, dtype=torch.int64, device=recon[0].device)
+
+    def arr(ctype, values):
+        return (ctype * n)(*values)
+
+    err = fn(n, arr(P, [ptr(r) for r in recon[:n]]),
+             arr(P, [ptr(s) for s in source[:n]]),
+             arr(P, [t for t, _ in halo]), arr(P, [b for _, b in halo]),
+             *(arr(ctypes.c_int, [d[i] for d in dims]) for i in range(4)),
+             ptr(dirs), ptr(var), ptr(ns), ns.shape[1], _pack(pri_set, 4),
+             len(pri_set), _pack(sec_set, 2), len(sec_set), damping + cs,
+             cs, ptr(acc), stream(recon[0]))
+    check_launch("cdef_search", err)
+    cdef_search.launches += 1
+    errs = acc.reshape(2, len(pri_set), len(sec_set))
+    return errs[0], (errs[1] if n > 1 else None)
 
 
 cdef_search.launches = 0

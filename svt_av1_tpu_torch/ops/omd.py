@@ -20,6 +20,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import math
 
 import numpy as np
 import torch
@@ -176,6 +177,92 @@ def _quant_maps(w: int, h: int, qindex: int, pq: qz.PlaneQuant):
 
 
 # --------------------------------------------------------------------------
+# Near-boundary coefficients in float64 (shared by K1, K8 and their plain
+# versions)
+# --------------------------------------------------------------------------
+
+# The kernels sum the DCT products in another order than the plain
+# versions (3xTF32 tensor-core products against SGEMM), so a coefficient
+# within float32 noise of a quantizer decision point could land on the
+# other side in one of them.  Both therefore recompute every coefficient
+# that lies within a margin delta of the dead zone ``zbin`` or of a point
+# where floor((ac + rnd) / step) changes, in float64, from the block's
+# integer residual and the float32 DCT matrices widened to float64, and
+# decide it from that value rounded to float32.
+#
+# delta bounds |cf_kernel - cf_plain|: a float32 product C = D_h R D_w^T
+# of K-term sums (two products: K = h + w; the tensor cores' TF32 splits
+# add about 24 more terms' worth, the dropped small x small parts and the
+# small parts' own TF32 rounding) rounds K times at 2^-24 of partial sums
+# bounded by sum |D_h||R||D_w| <= max|D_h| max|D_w| sum|R| = 2 / sqrt(h w)
+# * S, S = sum |R| of the block.  The rounding errors add like a random
+# walk, about sqrt(K) * 2^-24 of that; a factor 4 covers both sides:
+#     delta = 4 * sqrt(h + w + 24) * 2^-24 * 2 / sqrt(h w) * S
+# (for a 32x32 block of residuals of 10 in magnitude, 0.0014).  The
+# worst case, K * 2^-24 (3 * (h + w + 24) for both sides), is 7-10 times
+# larger, and its recomputes took K1 a third of its time on the card
+# (PERF.md); the measured float32 errors stay below delta / 8
+# (tests/test_torch_omd.py).
+NEAR_FACTOR = 4.0
+NEAR_TF32_TERMS = 24
+
+# counters of the plain versions' near-boundary recomputes and of the
+# coefficients they decide as coded (chip_smoke.py prints both)
+NEAR_STATS = {"near": 0, "coded": 0}
+
+
+@functools.cache
+def near_margin(w: int, h: int) -> np.float32:
+    """delta per unit of the block's sum |R| (float32; the kernels compute
+    the same double expression in the same order)."""
+    return np.float32(NEAR_FACTOR * math.sqrt(w + h + NEAR_TF32_TERMS)
+                      * 2.0 ** -24 * 2.0 / math.sqrt(w * h))
+
+
+def near_mask(ac, s_abs, zbin, rnd, step, w: int, h: int):
+    """Which coefficients of |cf| ``ac`` [..., h, w] lie within delta of a
+    decision point: |ac - zbin| < delta, or ac >= zbin and the quotient t
+    = (ac + rnd) / step within delta / step of an integer (float32
+    throughout, as the kernels test it).  ``s_abs`` [...] is each block's
+    sum |R|."""
+    delta = (s_abs.to(torch.float32) * float(near_margin(w, h)))[..., None,
+                                                                  None]
+    t = (ac + rnd) / step
+    return ((ac - zbin).abs() < delta) | (
+        (ac >= zbin) & ((t - torch.round(t)).abs() * step < delta))
+
+
+def decide_near_boundary(cf, resid, dh, dwt, zbin, rnd, step, w: int,
+                         h: int, band=None):
+    """|cf| with its near-boundary coefficients (``near_mask``, inside the
+    coded ``band`` [h, w] where given) recomputed in float64 from the
+    integer residual ``resid`` [..., h, w] and the float32 DCT matrices
+    ``dh`` [h, h], ``dwt`` [w, w] widened, then rounded to float32."""
+    ac = cf.abs()
+    near = near_mask(ac, resid.abs().sum(dim=(-1, -2)), zbin, rnd, step, w,
+                     h)
+    coded = ac >= zbin
+    if band is not None:
+        near &= band
+        coded &= band
+    n_near = int(near.sum())
+    NEAR_STATS["near"] += n_near
+    NEAR_STATS["coded"] += int(coded.sum())
+    if n_near == 0:
+        return ac
+    lead = ac.shape[:-2]
+    flat_ac = ac.reshape(-1, h, w).clone()
+    flat_near = near.reshape(-1, h, w)
+    blocks = flat_near.any(dim=(-1, -2)).nonzero()[:, 0]
+    r64 = resid.reshape(-1, h, w)[blocks].to(torch.float64)
+    c64 = dh.to(torch.float64) @ r64 @ dwt.to(torch.float64)
+    flat_ac[blocks] = torch.where(flat_near[blocks],
+                                  c64.abs().to(torch.float32),
+                                  flat_ac[blocks])
+    return flat_ac.reshape(*lead, h, w)
+
+
+# --------------------------------------------------------------------------
 # Plain PyTorch version
 # --------------------------------------------------------------------------
 
@@ -292,9 +379,9 @@ def shape_costs(src_blocks, above, left, w: int, h: int, qindex: int,
     best_mode = None
     for mi, mode in enumerate(ALL_MODES):
         pred = predict_mode(mode, above, left, w, h)
-        resid = (src_blocks - pred).to(torch.float32)
-        cf = dh @ resid @ dwt
-        ac = cf.abs()
+        resid = src_blocks - pred
+        cf = dh @ resid.to(torch.float32) @ dwt
+        ac = decide_near_boundary(cf, resid, dh, dwt, zbin, rnd, step, w, h)
         q = torch.floor((ac + rnd) / step)
         q = torch.where(ac >= zbin, q.clamp_min(0.0), 0.0)
         err = ac - q * step
@@ -413,22 +500,31 @@ def tf32_split(m: np.ndarray):
     return big, (np.asarray(m, np.float32) - big).astype(np.float32)
 
 
-# DCT sizes whose fragments K1 holds, in the order of _k1_fragments
+# DCT sizes whose fragments K1 holds, in the order of _k1_fragments; K8
+# holds the 64-point matrix as well
 FRAG_SIZES = (8, 16, 32)
+K8_FRAG_SIZES = FRAG_SIZES + (64,)
 
 
 @functools.cache
 def _k1_fragments() -> np.ndarray:
     """The B operands of K1's two products, float32 [2 * (64 + 256 +
-    1024)]: per DCT size s in FRAG_SIZES, B = D_s^T (K = N = s) cut into
-    8x8 tiles (k-step ks, n-tile nt) and, per lane l (g = l // 4, t = l %
-    4) of the tile's mma.sync m16n8k8 B fragment, the float4 (big b0, big
-    b1, small b0, small b1) with b0 = B[8ks + t, 8nt + g] and b1 = B[8ks
-    + t + 4, 8nt + g]."""
+    1024)] (``_dct_fragments`` of FRAG_SIZES)."""
+    return _dct_fragments(FRAG_SIZES)
+
+
+@functools.cache
+def _dct_fragments(sizes) -> np.ndarray:
+    """The B operands of the DCT products on the tensor cores, float32 [2
+    * sum(s * s)]: per DCT size s in ``sizes``, B = D_s^T (K = N = s) cut
+    into 8x8 tiles (k-step ks, n-tile nt) and, per lane l (g = l // 4, t
+    = l % 4) of the tile's mma.sync m16n8k8 B fragment, the float4 (big
+    b0, big b1, small b0, small b1) with b0 = B[8ks + t, 8nt + g] and b1 =
+    B[8ks + t + 4, 8nt + g]."""
     out = []
     lane = np.arange(32)
     g, t = lane // 4, lane % 4
-    for s in FRAG_SIZES:
+    for s in sizes:
         big, small = tf32_split(_dct_mat(s).T)
         tiles = np.empty((s // 8, s // 8, 32, 4), np.float32)
         for ks in range(s // 8):
@@ -553,6 +649,21 @@ def intra_decision_packed(plane: torch.Tensor, qindex: int, lam: float,
 
 
 intra_decision_packed.launches = 0
+
+
+def near_recomputes(name: str = "intra_decision", reset: bool = True) -> int:
+    """The near-boundary float64 recomputes (``decide_near_boundary``'s
+    rule) that the kernel library ``name`` (K1 "intra_decision", K8
+    "inter_select") made on the card since the last reset; ``reset`` sets
+    the count to 0 after reading."""
+    from ..kernels.build import check_launch, cuda_lib
+
+    fn = getattr(cuda_lib(name), f"{name}_near_count")
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_int, ctypes.c_void_p]
+    out = ctypes.c_ulonglong(0)
+    check_launch(f"{name}_near_count", fn(int(reset), ctypes.byref(out)))
+    return int(out.value)
 
 
 def intra_decision(plane: torch.Tensor, w: int, h: int, qindex: int,

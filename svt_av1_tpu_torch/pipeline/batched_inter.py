@@ -98,9 +98,9 @@ def _table_len(H: int, W: int) -> int:
 
 @functools.cache
 def _dct_stack(device: torch.device) -> torch.Tensor:
-    """Orthonormal DCT matrices of sizes 8, 16, 32, 64, concatenated."""
-    return torch.from_numpy(np.concatenate(
-        [omd._dct_mat(n).ravel() for n in (8, 16, 32, 64)])).to(device)
+    """K8's DCT operands: the split mma.sync fragments of the orthonormal
+    DCT matrices of sizes 8, 16, 32 and 64 (``omd._dct_fragments``)."""
+    return torch.from_numpy(omd._dct_fragments(omd.K8_FRAG_SIZES)).to(device)
 
 
 # --------------------------------------------------------------------------
@@ -126,13 +126,16 @@ def _mc_cost_maps(resid, buf_w, buf_h, qindex, lam, bd,
         dwt = torch.as_tensor(np.ascontiguousarray(omd._dct_mat(w).T),
                               device=dev)
         cf = dh @ blocks.to(torch.float32) @ dwt
-        ac = cf.abs()
+        band = None
+        if w > 32 or h > 32:
+            band = torch.zeros((h, w), dtype=torch.bool, device=dev)
+            band[:32, :32] = True
+        ac = omd.decide_near_boundary(cf, blocks, dh, dwt, zbin, rnd, step,
+                                      w, h, band)
         q = torch.floor((ac + rnd) / step)
         q = torch.where(ac >= zbin, q.clamp_min(0.0), 0.0)
-        if w > 32 or h > 32:
-            band = torch.zeros((h, w), dtype=torch.float32, device=dev)
-            band[:32, :32] = 1.0
-            q = q * band
+        if band is not None:
+            q = q * band.to(torch.float32)
         err = ac - q * step
         sse = (err * err).sum(dim=(-1, -2))
         nnz = (q > 0).sum(dim=(-1, -2)).to(torch.float32)

@@ -10,6 +10,7 @@ gate (tests/test_batched_inter_device.py): within rtol 2e-4 / atol 2 on
 at least 99% of the blocks of every shape."""
 import numpy as np
 import pytest
+import torch
 
 from svt_av1_tpu.entropy.tables import FrameCdfs
 from svt_av1_tpu.pipeline import batched_inter as ref_bi
@@ -111,3 +112,32 @@ def test_compound_with_a_backward_reference():
     for key in bi.SEL_KEYS:
         np.testing.assert_array_equal(sf[key], np.asarray(want[2][key]), key)
     np.testing.assert_allclose(mvb, np.asarray(want[3]), atol=1e-4)
+
+
+@pytest.mark.parametrize("kind", ["textured", "noise", "offset"])
+def test_mc_cost_maps_match_numpy_twin(kind):
+    """The plain residual cost model (with its float64 decision of the
+    near-boundary coefficients) against the JAX numpy twin's
+    ``_mc_cost_maps`` at 128x128, at the gate of the cost maps: a smooth
+    textured residual, uniform noise of 255 (high energy in every band)
+    and a flat offset of 200 per 64x64 (all the energy in the DC, the
+    64-point shapes' out-of-band part near zero)."""
+    rng = np.random.default_rng(11)
+    yy, xx = np.mgrid[0:128, 0:128]
+    if kind == "textured":
+        r = 30 * np.sin(xx / 7) * np.cos(yy / 5) + rng.integers(-6, 7,
+                                                                 (128, 128))
+    elif kind == "noise":
+        r = rng.integers(-255, 256, (128, 128))
+    else:
+        r = np.where(((yy // 64) + (xx // 64)) % 2, 200, -200) \
+            + rng.integers(-2, 3, (128, 128))
+    r = r.astype(np.int32)
+    for qindex, lam in ((60, 900.0), (160, 2500.0)):
+        got = bi._mc_cost_maps(torch.from_numpy(r), 128, 128, qindex, lam, 8)
+        want = ref_bi._mc_cost_maps(np.pad(r, omd.PAD), 128, 128, qindex,
+                                    lam, 8, np)
+        for s in omd.INTER_SHAPES:
+            close = np.isclose(got[s].numpy(), np.asarray(want[s]),
+                               rtol=2e-4, atol=2.0).mean()
+            assert close >= 0.99, (kind, qindex, s, close)

@@ -39,10 +39,12 @@ def _port_frame(w=W, h=H, qidx=QIDX, seed=1):
     return codec, ref
 
 
-def _twin_search(ref, fast):
+def _twin_search(ref, fast, totals=None):
     """Level and strengths by the chain's search rule, from the JAX numpy
     twins: luma SSE over {off, L/2, L, 3L/2}, then the (pri, sec) grid
-    argmin of cdef_search_errs on the deblocked planes."""
+    argmin of cdef_search_errs on the deblocked planes.  ``totals``, a
+    dict, receives the exact SSE per candidate ("dlf_sse") and the luma
+    error grid ("cdef_err")."""
     fh = ref.fh
     base = max(fh.filter_level)
     cands = sorted({max(base // 2, 1), max(base, 1),
@@ -56,10 +58,12 @@ def _twin_search(ref, fast):
     vw, vh = vis[0]
     src = ref.source[0][:vh, :vw].astype(np.int64)
     best, best_sse = 0, int(((ref.recon[0][:vh, :vw] - src) ** 2).sum())
+    sses = [best_sse]
     for lv in cands:
         fy = ref_dlf.loop_filter_plane_full(ref.recon[0], *prm[0], vw, vh,
                                             lv, lv, fh.sharpness, 8, np)
         sse = int(((fy[:vh, :vw] - src) ** 2).sum())
+        sses.append(sse)
         if sse < best_sse:
             best, best_sse = lv, sse
     deb = [ref.recon[p] if best == 0 else ref_dlf.loop_filter_plane_full(
@@ -78,6 +82,9 @@ def _twin_search(ref, fast):
     errs = ref_cdef.cdef_search_errs(srcs, rec, dirs, var, ns, fw, fhp,
                                      fh.cdef_damping, 8, pri_set, sec_set,
                                      np)
+    if totals is not None:
+        totals["dlf_sse"] = torch.tensor(sses, dtype=torch.int64)
+        totals["cdef_err"] = torch.as_tensor(np.asarray(errs[0], np.int64))
     strengths = []
     for e in errs:
         i = int(np.argmin(np.asarray(e)))
@@ -182,3 +189,33 @@ def test_decline_branch_runs_the_same_search():
         (a.fh.cdef_y_strengths, a.fh.cdef_uv_strengths)
     for p in range(3):
         np.testing.assert_array_equal(a.recon[p], b.recon[p])
+
+
+@pytest.mark.slow
+def test_jax_fused_chain_equals_the_port_chain_at_1080p(monkeypatch):
+    """C2: the JAX fused chain (device path, float32 SSE sums) against the
+    port's plain chain (exact int64 sums) on a synthetic 1080p key frame
+    that both packages code alike: the same deblocking level and CDEF
+    strengths at the fast grid of preset 8.  Prints the winners' margins
+    over the exact totals (``dryrun.margins``): a margin above about k *
+    2^-24 of a k-term float32 sum cannot flip the argmin."""
+    monkeypatch.setenv("SVT_TPU_DEVICE", "1")
+    from svt_av1_tpu.ops.filter_chain import dlf_cdef_chain as jax_chain
+    from svt_av1_tpu_torch.parallel import dryrun
+
+    codec, ref = _port_frame(1920, 1080, 120, seed=3)
+    for p in range(3):
+        np.testing.assert_array_equal(codec.recon[p], ref.recon[p])
+    codec.cdef_fast = ref.cdef_fast = True
+    totals = {}
+    twin = _twin_search(ref, True, totals)
+    assert jax_chain(ref)
+    assert dlf_cdef_chain(codec)
+    got = (codec.fh.filter_level[0], (codec.fh.cdef_y_strengths[0],
+                                      codec.fh.cdef_uv_strengths[0]))
+    want = (ref.fh.filter_level[0], (ref.fh.cdef_y_strengths[0],
+                                     ref.fh.cdef_uv_strengths[0]))
+    print(f"C2 at 1920x1080: port {got}, JAX fused chain {want}, exact "
+          f"twins {twin}; margins {dryrun.margins(totals)}; luma SSE per "
+          f"candidate {totals['dlf_sse'].tolist()}")
+    assert got == want == twin

@@ -669,3 +669,230 @@ def test_me_refine_ties_and_borders_match_plain(dev, kind, size, shapes):
                 assert torch.equal(g, w), s
         if (16, 16) in shapes:
             assert torch.equal(got["win16"], want["win16"])
+
+
+# -- near-boundary coefficients in float64, and K8 and K4's search on the
+# tensor cores and in their shared form ---------------------------------------
+
+def _assert_k8_equals_plain(args, comp=None):
+    """K8 against its plain version: the selection fields exactly, the MV
+    bits within 1e-4, the costs within rtol 2e-4 / atol 2 on every block
+    of every shape; one launch."""
+    before = bi.inter_select.launches
+    f1, m1, c1 = bi.inter_select(*args, comp=comp)
+    f2, m2, c2 = bi.inter_select_plain(*args, comp=comp)
+    assert bi.inter_select.launches == before + 1
+    for key in bi.SEL_KEYS:
+        assert torch.equal(f1[key], f2[key]), key
+    assert (m1 - m2).abs().max().item() <= 1e-4
+    for s in omd.INTER_SHAPES:
+        close = torch.isclose(c1[s], c2[s], rtol=2e-4, atol=2.0)
+        assert bool(close.all()), (s, (c1[s] - c2[s]).abs().max().item(),
+                                   close.float().mean().item())
+    return f1
+
+
+def _k8_planes(kind, H, W, seed):
+    """(src, ref) uint8: a textured picture moved by a fraction of a pixel
+    plus noise ("textured"), uniform noise against noise ("noise", high
+    energy in every band), or the textured picture moved by (13, -21)
+    with its right half fading ("motion")."""
+    rng = np.random.default_rng(seed)
+    if kind == "noise":
+        ref = rng.integers(0, 256, (H, W)).astype(np.uint8)
+        src = np.roll(ref, (1, 2), axis=(0, 1)).astype(np.int32) \
+            + rng.integers(-60, 61, (H, W))
+        return src.clip(0, 255).astype(np.uint8), ref
+    if kind == "textured":
+        return _moving_pair(H, W, seed)
+    ref = _plane(H, W, seed)
+    src = np.roll(ref, (13, -21), axis=(0, 1)).astype(np.int32)
+    src[:, W // 2:] = (src[:, W // 2:] * 3) // 4 + 40
+    return (src + rng.integers(-3, 4, (H, W))).clip(0, 255).astype(
+        np.uint8), ref
+
+
+def _k8_args(dev, src, refs, qindex=160, lam=2500.0):
+    H, W = src.shape
+    src_t = torch.from_numpy(src).to(dev)
+    ny, nx = H // 64, W // 64
+    parts = []
+    for ref in refs:
+        r = torch.from_numpy(ref).to(dev)
+        me = bme.frame_me(src_t, r, 8, ((16, 16), (64, 64)))
+        a, b, p = bme.subpel_refine16(
+            src_t, r, bi._nested_to_grid(me[(16, 16)][0], ny, nx, 4, 4),
+            bi._nested_to_grid(me[(16, 16)][1], ny, nx, 4, 4))
+        parts.append((p, a, b, me[(64, 64)][0].reshape(ny, nx),
+                      me[(64, 64)][1].reshape(ny, nx)))
+    return (src_t,) + tuple(torch.stack([q[i] for q in parts]).contiguous()
+                            for i in range(5)) + (qindex, lam)
+
+
+@pytest.mark.parametrize("k", [1, 3])
+@pytest.mark.parametrize("kind", ["textured", "noise", "motion"])
+def test_k8_matches_plain_on_every_block_at_1080p(dev, kind, k):
+    """K8 on 1920x1088 planes with 1 and 3 references: every selection
+    field equal, every cost of every shape within the gate."""
+    src, ref = _k8_planes(kind, 1088, 1920, 3)
+    refs = [np.roll(ref, (i, -2 * i), axis=(0, 1)) for i in range(k)]
+    f = _assert_k8_equals_plain(_k8_args(dev, src, refs))
+    if k == 3 and kind != "noise":
+        assert len(torch.unique(f["sel"])) > 1
+
+
+@pytest.mark.parametrize("qindex", [20, 160, 255])
+def test_k8_one_sb_row_matches_plain(dev, qindex):
+    """One row of SBs (64x1920), the shape of a stripe."""
+    src, ref = _k8_planes("textured", 64, 1920, qindex)
+    _assert_k8_equals_plain(_k8_args(dev, src, [ref], qindex, 250.0))
+
+
+def test_k8_compound_row_matches_plain_at_1080p(dev):
+    """K8 with K9's compound row at 1920x1088 (past and future
+    reference), every block."""
+    src, refs, preds, mr, mc, sr, sc = _unit_inputs(
+        dev, 1088, 1920, ((2, -3), (-6, 5)), 6)
+    comp = bi.compound_joint(src, refs, preds, mr, mc, sr, sc,
+                             (False, True), (-1, 1), 160)
+    f = _assert_k8_equals_plain((src, preds, mr, mc, sr, sc, 160, 2500.0),
+                                comp)
+    assert bool((f["sel"] == 2).any())
+
+
+@pytest.mark.parametrize("kind", ["offset", "noise", "edges"])
+def test_k8_high_energy_residuals_match_plain(dev, kind):
+    """High-energy residuals, where the 64-point shapes' energy outside
+    the coded 32x32 band matters: a flat offset of about 200 (all of it in
+    the DC: a Parseval form would lose its float32 error), residual noise
+    of full range (three quarters outside the band), and sharp edges every
+    13 columns; the prediction is given directly (zero MVs)."""
+    H, W = 256, 512
+    rng = np.random.default_rng(5)
+    yy, xx = np.mgrid[0:H, 0:W]
+    if kind == "offset":
+        src = 228 + rng.integers(-3, 4, (H, W))
+        pred = 28 + rng.integers(-3, 4, (H, W))
+    elif kind == "noise":
+        src = rng.integers(0, 256, (H, W))
+        pred = rng.integers(0, 256, (H, W))
+    else:
+        src = np.where((xx // 13) % 2, 250, 5) + 0 * yy
+        pred = np.where((yy // 11) % 2, 240, 10) + 0 * xx
+    src_t = torch.from_numpy(src.astype(np.uint8)).to(dev)
+    pred_t = torch.from_numpy(pred.astype(np.uint8))[None].to(dev)
+    z16 = torch.zeros((1, H // 16, W // 16), dtype=torch.int32, device=dev)
+    z64 = torch.zeros((1, H // 64, W // 64), dtype=torch.int32, device=dev)
+    for qindex, lam in ((60, 900.0), (255, 9000.0)):
+        _assert_k8_equals_plain((src_t, pred_t.contiguous(), z16, z16.clone(),
+                                 z64, z64.clone(), qindex, lam))
+
+
+def test_k8_near_boundary_recomputes_are_counted(dev):
+    """The kernels' near-boundary float64 recomputes show in their
+    counters (K8 and K1), well under 1% of the coefficients they code."""
+    src, ref = _k8_planes("textured", 1088, 1920, 4)
+    omd.near_recomputes("inter_select")
+    args = _k8_args(dev, src, [ref])
+    stats = dict(omd.NEAR_STATS)
+    bi.inter_select_plain(*args)
+    coded = omd.NEAR_STATS["coded"] - stats["coded"]
+    plain_near = omd.NEAR_STATS["near"] - stats["near"]
+    bi.inter_select(*args)
+    torch.cuda.synchronize()
+    near = omd.near_recomputes("inter_select")
+    assert 0 < near < 0.01 * coded and 0 < plain_near < 0.01 * coded
+    assert omd.near_recomputes("inter_select") == 0
+    plane = torch.from_numpy(_plane(1088, 1920, 4)).to(dev)
+    omd.intra_decision_packed(plane, 160, 2500.0, (2.0,) * 13)
+    torch.cuda.synchronize()
+    assert omd.near_recomputes("intra_decision") > 0
+
+
+@pytest.mark.parametrize("grid", ["fast", "full", "other"])
+@pytest.mark.parametrize("halos", [False, True], ids=["frame", "stripe"])
+def test_cdef_search_one_launch_over_three_planes(dev, grid, halos):
+    """K4's search in one launch for luma and both chroma planes, on a
+    random skip map at 1920x1080 (and, as a stripe, with every plane's
+    neighbour rows above and below): both totals bit-equal to the plain
+    version's, at the fast 5x3 grid, the full 8x4 grid and a set of
+    another shape and order (the kernel's general instantiation)."""
+    ps, ss = {"fast": (cdef.PRI_SET_FAST, cdef.SEC_SET_FAST),
+              "full": (cdef.PRI_SET, cdef.SEC_SET),
+              "other": ((4, 0, 12), (1, 3))}[grid]
+    rng = np.random.default_rng(len(ps) + 2 * halos)
+    fw, fh = (1920, 1080) if not halos else (1920, 64)
+    H, W = -(-fh // 8) * 8, fw
+    full = [torch.from_numpy(_plane((H >> s) + 4, W >> s, s + 7)
+                             .astype(np.int32)).to(dev) for s in (0, 1, 1)]
+    rec = [f[2:-2].contiguous() for f in full]
+    src = [(r + torch.randint(-6, 7, r.shape, device=dev)).clamp(0, 255)
+           .to(torch.uint8) for r in rec]
+    dirs, var = cdef.cdef_direction(rec[0], fw, fh)
+    ns = torch.from_numpy(rng.random(dirs.shape) < 0.6).to(dev)
+    hal = [(f[:2].contiguous(), f[-2:].contiguous()) for f in full] \
+        if halos else None
+    before = cdef.cdef_search.launches
+    got = cdef.cdef_search(src, rec, dirs, var, ns, fw, fh, 4, 8, ps, ss,
+                           halos=hal)
+    assert cdef.cdef_search.launches == before + 1
+    want = cdef.search_plain(src, rec, dirs, var, ns, fw, fh, 4, 8, ps, ss,
+                             halos=hal)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    luma = cdef.cdef_search(src[:1], rec[:1], dirs, var, ns, fw, fh, 4, 8,
+                            ps, ss, halos=hal[:1] if hal else None)
+    assert torch.equal(luma[0], got[0]) and luma[1] is None
+
+
+def _stripes_of(plane, row0s):
+    """(stripe, the row above, 32 halo rows below) of a plane per row0."""
+    H = plane.shape[0]
+    out = []
+    for r0 in row0s:
+        stripe = plane[r0:r0 + 64].contiguous()
+        halo = plane[r0 + 64:r0 + 96].contiguous() if r0 + 64 < H \
+            else stripe[-1:].expand(32, plane.shape[1]).contiguous()
+        out.append((stripe, plane[r0 - 1].contiguous(), halo))
+    return out
+
+
+@pytest.mark.parametrize("kind", ["ties", "textured"])
+def test_intra_costs_equal_plain_on_every_block_of_1920_stripes(dev, kind):
+    """C1: K1 in stripe mode on 1920x64 stripes of tie-heavy and textured
+    planes, at three quantizers: modes equal and costs within rtol 1e-5 on
+    100% of every shape's blocks."""
+    h, w = 256, 1920
+    plane = torch.from_numpy(_tie_plane(h, w) if kind == "ties"
+                             else _plane(h, w, 21)).to(dev)
+    mb = tuple(np.linspace(1.0, 6.0, 13).tolist())
+    for qindex in (40, 140, 220):
+        for stripe, above, halo in _stripes_of(plane, (64, 128, 192)):
+            for (bw, bh) in omd.ALL_SHAPES:
+                m, c = omd.intra_decision(stripe, bw, bh, qindex, 250.0, mb,
+                                          8, above, halo)
+                m2, c2 = omd.intra_decision_plain(stripe, bw, bh, qindex,
+                                                  250.0, mb, 8, above, halo)
+                assert torch.equal(m, m2), (qindex, bw, bh)
+                assert bool(torch.isclose(c, c2, rtol=1e-5).all()), (
+                    qindex, bw, bh, (c - c2).abs().max().item())
+
+
+def test_stripe_step_costs_equal_the_plain_step_on_every_block(dev):
+    """C1 on the stripe path: the kernels' step on 4 stripes of a coded
+    1920x256 P frame against the plain versions' step: K1's modes equal
+    and costs within rtol 1e-5, K8's costs within rtol 2e-4 / atol 2, on
+    every block of every shape of every stripe."""
+    from svt_av1_tpu_torch.parallel import dryrun, stripes
+
+    rep = dryrun.dryrun_stripes(4, width=1920, device=dev)
+    plain = stripes.stripe_step(rep["frame"], rep["stripes"],
+                                stripes.LocalStripes(4), plain=True)
+    for a, b in zip(rep["outs"], plain):
+        for s, (m, c) in a["intra"].items():
+            m2, c2 = b["intra"][s]
+            assert torch.equal(m, m2), s
+            assert bool(torch.isclose(c, c2, rtol=1e-5, atol=1e-8).all()), s
+        for s, c in a["inter_cost"].items():
+            assert bool(torch.isclose(c, b["inter_cost"][s], rtol=2e-4,
+                                      atol=2.0).all()), s

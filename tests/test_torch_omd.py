@@ -211,3 +211,137 @@ def test_packed_decision_unpacks_to_the_plain_version(stripe):
                                                        64)[(16, 8)][1])
     with pytest.raises(ValueError):
         omd.unpack_decisions(packed, shapes[1:], 96, 64)
+
+
+# -- near-boundary coefficients in float64 (K1, K8 and their plain
+# versions) ------------------------------------------------------------------
+
+def _frag_entry(frags, off, s, n, k):
+    """D_s[n][k] read from the fragments the way the kernels' dct_at reads
+    it (cost_model.cuh): float4 index ((k/8) * (s/8) + n/8) * 32 + (n % 8)
+    * 4 + k % 4 from the size's offset, b1 for k % 8 >= 4, big + small."""
+    v = frags[off + 4 * (((k // 8) * (s // 8) + n // 8) * 32 + (n % 8) * 4
+                         + k % 4):][:4]
+    big, small = (v[1], v[3]) if k % 8 >= 4 else (v[0], v[2])
+    return np.float32(big + small)
+
+
+@pytest.mark.parametrize("size", omd.K8_FRAG_SIZES)
+def test_dct_fragments_hold_the_split_transposed_dct(size):
+    """K8's fragments (``_dct_fragments`` of 8, 16, 32 and 64): K1's
+    fragments first, then the 64-point matrix; read back the way a lane of
+    mma.sync m16n8k8 reads its B fragment they give D^T's big and small
+    halves, and the kernels' float64 reading (dct_at) gives D exactly."""
+    frags = omd._dct_fragments(omd.K8_FRAG_SIZES)
+    assert frags.shape == (2 * sum(s * s for s in omd.K8_FRAG_SIZES),)
+    np.testing.assert_array_equal(frags[:omd._k1_fragments().size],
+                                  omd._k1_fragments())
+    off = sum(2 * s * s for s in omd.K8_FRAG_SIZES if s < size)
+    s = size
+    tiles = frags[off:off + 2 * s * s].reshape(s // 8, s // 8, 32, 4)
+    lane = np.arange(32)
+    g, t = lane // 4, lane % 4
+    big, small = omd.tf32_split(omd._dct_mat(s).T)
+    got_big = np.zeros((s, s), np.float32)
+    got_small = np.zeros((s, s), np.float32)
+    for ks in range(s // 8):
+        for nt in range(s // 8):
+            for k4, (ib, is_) in enumerate(((0, 2), (1, 3))):
+                rows, cols = 8 * ks + t + 4 * k4, 8 * nt + g
+                got_big[rows, cols] = tiles[ks, nt, :, ib]
+                got_small[rows, cols] = tiles[ks, nt, :, is_]
+    np.testing.assert_array_equal(got_big, big)
+    np.testing.assert_array_equal(got_small, small)
+    d = omd._dct_mat(s)
+    read = np.array([[_frag_entry(frags, off, s, n, k) for k in range(s)]
+                     for n in range(s)])
+    np.testing.assert_array_equal(read, d)
+
+
+@pytest.mark.parametrize("shape", omd.INTER_SHAPES)
+def test_near_margin_bounds_the_float32_error(shape):
+    """delta = near_margin(w, h) * sum |R| is the float32 expression both
+    sides compute, and it lies above the float32 products' error |cf32 -
+    cf64| on residual blocks of every magnitude (uniform noise of 255,
+    flat offsets, sparse spikes)."""
+    w, h = shape
+    want = np.float32(omd.NEAR_FACTOR
+                      * np.sqrt(np.float64(w + h + omd.NEAR_TF32_TERMS))
+                      * 2.0 ** -24 * 2.0 / np.sqrt(np.float64(w * h)))
+    assert omd.near_margin(w, h) == want
+    rng = np.random.default_rng(w * 100 + h)
+    blocks = np.concatenate([
+        rng.integers(-255, 256, (16, h, w)),
+        np.full((4, h, w), 200) * rng.choice([-1, 1], (4, 1, 1)),
+        np.where(rng.random((8, h, w)) < 0.02,
+                 rng.integers(-255, 256, (8, h, w)), 0)]).astype(np.int32)
+    r = torch.from_numpy(blocks)
+    dh = torch.from_numpy(omd._dct_mat(h))
+    dwt = torch.from_numpy(np.ascontiguousarray(omd._dct_mat(w).T))
+    cf32 = dh @ r.to(torch.float32) @ dwt
+    cf64 = dh.double() @ r.double() @ dwt.double()
+    err = (cf32.double() - cf64).abs().amax(dim=(-1, -2))
+    delta = r.abs().sum(dim=(-1, -2)).to(torch.float32) \
+        * float(omd.near_margin(w, h))
+    # with room to spare (delta / 8); an all-zero block is exact in both
+    # (delta 0)
+    assert bool(((err < delta.double() / 8) | (err == 0)).all()), \
+        (err / delta.double()).max().item()
+
+
+def _ulps(x, n):
+    """x moved by n float32 ulps (n may be negative)."""
+    x = np.float32(x)
+    for _ in range(abs(n)):
+        x = np.nextafter(x, np.float32(np.inf if n > 0 else -np.inf))
+    return x
+
+
+def test_near_mask_flags_the_decision_points():
+    """Coefficients exactly on, and a few ulps around, the dead zone and
+    the rounding points are near; those half a step away are not."""
+    # (at qindex 160 zbin + rnd lies within 0.01 of the step: the dead zone
+    # and the first rounding point are one decision; apart here)
+    zb, rnd, step = np.float32(23.87), np.float32(10.25), np.float32(38.13)
+    s_abs = torch.tensor([72000])                 # delta of about 0.01
+    delta = 72000 * float(omd.near_margin(32, 32))
+    points = [zb, np.float32(2 * step - rnd), np.float32(5 * step - rnd)]
+    near, far = [], []
+    for p in points:
+        near += [_ulps(p, n) for n in (-3, -1, 0, 1, 3)]
+        near += [np.float32(p + delta / 2), np.float32(p - delta / 2)]
+        far += [np.float32(p + step / 2), np.float32(p + 2 * delta)]
+    for vals, want in ((near, True), (far, False)):
+        ac = torch.tensor(vals, dtype=torch.float32)
+        got = omd.near_mask(ac, s_abs, zb, rnd, step, 32, 32)
+        assert bool((got == want).all()), (want, vals, got.tolist())
+
+
+@pytest.mark.parametrize("where", ["zbin", "rounding"])
+def test_decide_near_boundary_recomputes_in_float64(where):
+    """A coefficient put exactly on a decision point (the quantizer's
+    dead zone, or a rounding point, set to its float32 value) is decided
+    from float32(|float64 value|); every other coefficient keeps its
+    float32 magnitude, and the counters see one recompute."""
+    w = h = 16
+    rng = np.random.default_rng(7)
+    r = torch.from_numpy(rng.integers(-40, 41, (2, h, w)).astype(np.int32))
+    dh = torch.from_numpy(omd._dct_mat(h))
+    dwt = torch.from_numpy(np.ascontiguousarray(omd._dct_mat(w).T))
+    cf = dh @ r.to(torch.float32) @ dwt
+    c64 = (dh.double() @ r[1].double() @ dwt.double()).abs().float()
+    val = cf[1, 2, 3].abs()
+    zbin = torch.full((h, w), 1e9)
+    rnd = torch.full((h, w), 10.0)
+    step = torch.full((h, w), 1e9)
+    if where == "zbin":
+        zbin[2, 3] = val
+    else:                          # (val + rnd) / step == 3 exactly-ish
+        zbin[2, 3] = 1.0
+        step[2, 3] = (val + rnd[2, 3]) / 3
+    before = dict(omd.NEAR_STATS)
+    got = omd.decide_near_boundary(cf, r, dh, dwt, zbin, rnd, step, w, h)
+    assert omd.NEAR_STATS["near"] == before["near"] + 1
+    want = cf.abs().clone()
+    want[1, 2, 3] = c64[2, 3]
+    assert torch.equal(got, want)

@@ -4,8 +4,9 @@
 
 Needs the CUDA toolkit (nvcc, cuobjdump); no card.  Prints:
 
-1. ``-Xptxas -v`` for each named kernel source (default: intra_decision
-   and me_refine): registers, spills and shared memory per entry;
+1. ``-Xptxas -v`` for each named kernel source (default: intra_decision,
+   me_refine, inter_select and cdef_filter): registers, spills and
+   shared memory per entry;
 2. the SASS opcode histogram of each of their entries;
 3. the SASS of five exact forms of "accumulate the sum of the four
    absolute byte differences of two words" (K6's inner operation):
@@ -90,7 +91,8 @@ def opcode(ins: str) -> str:
 
 def main() -> int:
     nvcc = build._nvcc()
-    names = sys.argv[1:] or ["intra_decision", "me_refine"]
+    names = sys.argv[1:] or ["intra_decision", "me_refine", "inter_select",
+                             "cdef_filter"]
     out_dir = build.BUILD_DIR / "sass"
     out_dir.mkdir(parents=True, exist_ok=True)
     for name in names:

@@ -1,5 +1,5 @@
-"""K1 and K6 kernel times and the encode fps of one checkout, on
-chip_smoke.py's 1080p inputs.
+"""K1, K4's search, K6 and K8 kernel times and the encode fps of one
+checkout, on chip_smoke.py's 1080p inputs.
 
     python3 tools/tree_times.py [--root DIR] [--kernels] [--fps]
 
@@ -13,7 +13,12 @@ flag both parts run.
   first frame's 1920x1152 luma plane (one launch where the package has
   ``omd.intra_decision_packed``, else one launch per shape); K6: the
   path's shapes (16x16 and 64x64) on two frames of the moving clip at
-  1920x1152, MCTF's 32x32 at 1920x1088 and TPL's 16x16 at 960x576.
+  1920x1152, MCTF's 32x32 at 1920x1088 and TPL's 16x16 at 960x576;
+  K8: the random-access path's call (two references, past and future,
+  and K9's compound row) on three frames of the moving clip at
+  1920x1152; K4's search: the 5x3 grid over the three planes of the
+  first frame (a noisy recon against its source, 80% of the units
+  non-skip).
 * ``--fps``: the all-intra encode (three noise-like and three smooth
   frames), the low-delay P encode (6 frames of the moving clip) and the
   random-access encode (bench.py's configuration, 33 frames, fps over
@@ -67,7 +72,62 @@ def kernel_times(cs, np, torch):
     half = [torch.from_numpy(cs._half_res(f[0], bw, bh)).to(dev)
             for f in clip[::-1]]
     times["K6 TPL 16x16"] = k6_ms(*half, ((16, 16),))
+    times["K8 compound row"] = cs.cuda_ms(k8_call(cs, np, torch, dev), 20)
+    times["K4 search 5x3"] = cs.cuda_ms(k4_search_call(cs, np, torch, dev),
+                                        20)
     return times
+
+
+def k8_call(cs, np, torch, dev):
+    """K8 as the random-access path calls it: the middle of three frames
+    against the outer two, with the compound row."""
+    from svt_av1_tpu_torch.ops import bme, omd
+    from svt_av1_tpu_torch.pipeline import batched_inter as bi
+
+    W, H = -(-cs.WIDTH // 128) * 128, -(-cs.HEIGHT // 128) * 128
+    clip = cs.synth_clip(cs.WIDTH, cs.HEIGHT, 3)
+    src = omd.upload_plane(clip[1][0], W, H, 8, dev)
+    refs = [omd.upload_plane(clip[k][0], W, H, 8, dev) for k in (0, 2)]
+    ny, nx = H // 64, W // 64
+    parts = []
+    for k, ref in enumerate(refs):
+        m = bme.frame_me(src, ref, bme.coarse_r_for_dist((-1, 1)[k]),
+                         ((16, 16), (64, 64)))
+        a, b, pr = bme.subpel_refine16(
+            src, ref, bi._nested_to_grid(m[(16, 16)][0], ny, nx, 4, 4),
+            bi._nested_to_grid(m[(16, 16)][1], ny, nx, 4, 4))
+        parts.append((pr, a, b, m[(64, 64)][0].reshape(ny, nx),
+                      m[(64, 64)][1].reshape(ny, nx)))
+    preds, mvq_r, mvq_c, sb_r, sb_c = (
+        torch.stack([p[i] for p in parts]).contiguous() for i in range(5))
+    qindex, lam = 160, 2500.0
+    comp = bi.compound_joint(src, torch.stack(refs).contiguous(), preds,
+                             mvq_r, mvq_c, sb_r, sb_c, (False, True),
+                             (-1, 1), qindex)
+    args = (src, preds, mvq_r, mvq_c, sb_r, sb_c, qindex, lam)
+    return lambda: bi.inter_select(*args, comp=comp)
+
+
+def k4_search_call(cs, np, torch, dev):
+    """K4's search over the three planes of the first frame at the fast
+    5x3 grid, as chip_smoke.py's kernels phase calls it."""
+    from svt_av1_tpu_torch.ops import cdef
+
+    W, H = cs.WIDTH, cs.HEIGHT
+    bh = -(-H // 128) * 128
+    frame = cs.synth_clip(W, H, 1)[0]
+    rng = np.random.default_rng(0)
+    rec = [torch.from_numpy(np.ascontiguousarray(np.pad(
+        p, ((0, (bh >> s) - (H >> s)), (0, 0)), mode="edge")).astype(
+            np.int32)).to(dev) for s, p in zip((0, 1, 1), frame)]
+    rec = [(r + torch.from_numpy(rng.integers(-6, 7, tuple(r.shape)).astype(
+        np.int32)).to(dev)).clamp(0, 255) for r in rec]
+    src = [(r + torch.randint(-4, 5, r.shape, device=dev)).clamp(0, 255)
+           .to(torch.uint8) for r in rec]
+    dirs, var = cdef.cdef_direction(rec[0], W, H, 0)
+    ns = torch.from_numpy(rng.random(tuple(dirs.shape)) < 0.8).to(dev)
+    return lambda: cdef.cdef_search(src, rec, dirs, var, ns, W, H, 5, 8,
+                                    cdef.PRI_SET_FAST, cdef.SEC_SET_FAST)
 
 
 def encode_fps(cs, torch):
