@@ -61,9 +61,13 @@ Phases, each of which must pass (the script exits non-zero otherwise):
    every shown frame must equal the encoder's recon; K2, K3 and K4's
    apply must have launched; md5 and ms per frame (host tile walk,
    card filters) printed;
-10. one JSON line listing every kernel (launches on the main paths: the
-    random-access encode, the stripe dryruns and the decodes) and the
-    stripe step (B14), then the device line last; K1's and K6's design
+10. one JSON line listing every kernel (wrapper calls and launches on
+    the main paths: the random-access encode, the stripe dryruns and the
+    decodes; every CUDA wrapper counts its calls on entry and its
+    launches where it launches: K2 once per direction, K4's apply once
+    per plane, K5 twice per call (decimation, search), the others once)
+    and the stripe step (B14), then the
+    device line last; K1's and K6's design
     ceilings are printed beside their bounds, not put in that line.  Phase 6 also prints the K1 and K6 launches of the
     random-access encode alone.
 
@@ -76,8 +80,12 @@ bound counts the DCT work of the coded band (416 multiply-adds per pixel
 over the 10 shapes, against 576 for the whole products) and K4's
 search's the distinct constrains and the combinations of its shared form
 (about 580 operations per filtered pixel at preset 8, against 116 per
-pixel and combination, 1740); both print the bound of the larger count
-beside.
+pixel and combination, 1740); each prints the bound of the larger count
+beside.  K7's and K9's count their SADs and K7 its filter taps as packed
+operations, as K6's does (k7_ops: 12,772 per 16x16 unit of its shared
+form; k9_ops: 12,800), and print the bounds of the scalar counts beside
+(K7 70,356 and, per candidate, 211,712; K9 102,912); the stripe step's
+bound sums its kernels' bounds at the same counts.
 
 The kernels phase also holds K9, K8 with the compound row, K10, and
 K5/K6 at the MCTF (1088x1920, 32x32) and TPL (576x960, 16x16)
@@ -263,6 +271,56 @@ def k6_ceiling(n_sb):
     one instruction each on sm_90a) at 4 x 32 lanes per SM and clock."""
     return (n_sb * 2 * 1089 * 64 * 16 / PEAK_LANE_INSTR_S * 1e3,
             "SAD instructions")
+
+
+def k7_ops(n_units, packed=True):
+    """K7's operations in its shared form: per unit 3 horizontal phases
+    (q4 4, 8, 12) over 49 patch columns and the 22 rows the vertical taps
+    and the x-only rows read, 6 nonzero 8-bit taps each; 49 vertical
+    outputs (q4 8 at 17 window offsets, 12 and 4 at 16) over each of 65
+    columns (the three phases and the copy), 6 taps of 16-bit
+    intermediates each; and 25 SADs of 256 pixels.  ``packed``, as
+    k6_ops counts: 4 byte multiply-adds per dp4a, 2 16-bit ones per
+    dp2a, 4 pixel pairs per packed absolute difference with accumulate
+    (12,772 per unit); else 2 operations per multiply-add and 3 per
+    pixel pair (70,356)."""
+    h_macs, v_macs, pairs = 49 * 22 * 6, 65 * 49 * 6, 25 * 256
+    if packed:
+        return n_units * (h_macs // 4 + v_macs // 2 + pairs // 4)
+    return n_units * (2 * h_macs + 2 * v_macs + 3 * pairs)
+
+
+def k7_ops_per_candidate(n_units):
+    """K7's operations counted per candidate, as the kernel first ran
+    them: 16 candidates filtered both ways (16x23 + 16x16 pixels x 8
+    taps), 4 one way, 25 SADs; 211,712 per unit."""
+    return n_units * (16 * (16 * 23 + 16 * 16) * 8 * 2 + 8 * 256 * 8 * 2
+                      + 25 * 256 * 3)
+
+
+def k9_ops(n_units, packed=True):
+    """K9's operations: per unit 2 arms x 49 offsets of 256 pixels and
+    the plain average's 256, each averaged and compared with the source,
+    and the 2 x 256 pixel pairs of the per-reference SADs.  ``packed``:
+    4 pixels per packed average and per packed absolute difference with
+    accumulate (12,800 per unit); else add, shift, |diff|, accumulate per
+    averaged pixel and 3 operations per pixel pair (102,912)."""
+    averaged, pairs = 2 * 49 * 256 + 256, 2 * 256
+    if packed:
+        return n_units * (2 * averaged // 4 + pairs // 4)
+    return n_units * (4 * averaged + 3 * pairs)
+
+
+def zero_counts(counters):
+    """Set every wrapper's launch and call counts to 0."""
+    for fn in counters.values():
+        fn.launches = fn.calls = 0
+
+
+def read_counts(counters):
+    """({name: launches}, {name: wrapper calls})."""
+    return ({name: fn.launches for name, fn in counters.items()},
+            {name: fn.calls for name, fn in counters.items()})
 
 
 def nbytes(*tensors):
@@ -570,16 +628,16 @@ def inter_kernels_phase(dev, ref_frame, src_frame):
     print(f"K7 subpel_refine16: max |kernel - plain| {err}, fractional "
           f"MVs {frac:.4f} of the units")
     assert err == 0
-    # per unit: 16 candidates filtered both ways (16x23 + 16x16 pixels x
-    # 8 taps, multiply and add), 4 one way, 25 SADs of 256 pixels
-    ops_unit = 16 * (16 * 23 + 16 * 16) * 8 * 2 + 8 * 256 * 8 * 2 \
-        + 25 * 256 * 3
+    k7_bytes = nbytes(src, ref, mv_r16, mv_c16, *sub)
+    units = (H // 16) * (W // 16)
+    scalar = bound_ms(k7_bytes, k7_ops(units, packed=False))
+    old = bound_ms(k7_bytes, k7_ops_per_candidate(units))
     results["subpel_refine16"] = dict(
         ms=cuda_ms(k7, KERNEL_REPS), plain_ms=cuda_ms(k7_plain, PLAIN_REPS),
-        max_abs_err=err,
-        bound=bound_ms(nbytes(src, ref, mv_r16, mv_c16, *sub),
-                       (H // 16) * (W // 16) * ops_unit),
-        per_call="1 launch")
+        max_abs_err=err, bound=bound_ms(k7_bytes, k7_ops(units)),
+        per_call=f"1 launch (the shared form's packed count; its scalar "
+                 f"count bounds it at {scalar[0]:.5f} ms, the count per "
+                 f"candidate at {old[0]:.5f} ms)")
 
     # -- K8 selection + cost maps: one reference (the main path's) timed,
     # three checked
@@ -709,16 +767,15 @@ def ra_kernels_phase(dev, clip):
           f"{refined.float().mean().item():.4f}")
     assert err == 0
     units = nr16 * nc16
-    # per unit: 2 arms x 49 offsets x 256 pixels of (add, shift, |diff|,
-    # accumulate), the plain average's SAD and the per-reference SADs
-    ops = units * (2 * 49 * 256 * 4 + 256 * 4 + 2 * 256 * 3)
+    k9_bytes = nbytes(src, ref_stack, preds, mvq_r, mvq_c, sb_r, sb_c,
+                      *comp.values())
+    old = bound_ms(k9_bytes, k9_ops(units, packed=False))
     results["compound_joint"] = dict(
         ms=cuda_ms(k9, KERNEL_REPS), plain_ms=cuda_ms(k9_plain, PLAIN_REPS),
-        max_abs_err=err,
-        bound=bound_ms(nbytes(src, ref_stack, preds, mvq_r, mvq_c, sb_r, sb_c,
-                              *comp.values()), ops),
+        max_abs_err=err, bound=bound_ms(k9_bytes, k9_ops(units)),
         per_call=f"1 launch, 2 references, {units} units "
-                 f"({ops / 1e9:.2f} G integer operations)")
+                 f"({k9_ops(units) / 1e9:.3f} G packed integer operations; "
+                 f"the scalar count bounds it at {old[0]:.5f} ms)")
 
     # -- K8 with the compound row: the random-access path's call
     args = (src, preds, mvq_r, mvq_c, sb_r, sb_c, qindex, lam)
@@ -851,8 +908,7 @@ def run_encode(counters, frames, cfg, path, on_packet=None):
 
     enc = Encoder(cfg)                      # the default device: CUDA
     assert enc.device.type == "cuda"
-    for fn in counters.values():
-        fn.launches = 0
+    zero_counts(counters)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     with IvfWriter(str(path), cfg.source_width, cfg.source_height,
@@ -867,7 +923,7 @@ def run_encode(counters, frames, cfg, path, on_packet=None):
                     on_packet(enc)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {name: fn.launches for name, fn in counters.items()}
+    launches, _ = read_counts(counters)
 
     n_pkts = sum(1 for _ in IvfReader(str(path)))
     assert n_pkts == len(frames), (n_pkts, len(frames))
@@ -974,7 +1030,7 @@ def stream_headers(path):
 
 def ra_phase(counters, frames, out_dir):
     """bench.py's configuration on RA_FRAMES frames of the moving clip;
-    returns the launches of the run."""
+    returns the launches and the wrapper calls of the run."""
     from svt_av1_tpu_torch.api import Encoder
     from svt_av1_tpu_torch.io import IvfWriter
     from svt_av1_tpu_torch.ops import omd
@@ -997,21 +1053,20 @@ def ra_phase(counters, frames, out_dir):
         return out
 
     enc._run_job = logged
-    # the frame ME's launches by use: MCTF, TPL, and the rest (the plans)
+    # the frame ME's calls by use: MCTF, TPL, and the rest (the plans)
     by_use = {"MCTF": 0, "TPL": 0}
 
     def counting(use, method):
         def run(*a, **k):
-            before = counters["me_coarse"].launches
+            before = counters["me_coarse"].calls
             out = method(*a, **k)
-            by_use[use] += counters["me_coarse"].launches - before
+            by_use[use] += counters["me_coarse"].calls - before
             return out
         return run
 
     enc._tf_source = counting("MCTF", enc._tf_source)
     enc._maybe_tpl = counting("TPL", enc._maybe_tpl)
-    for fn in counters.values():
-        fn.launches = 0
+    zero_counts(counters)
     torch.cuda.synchronize()
     for name in ("intra_decision", "inter_select"):
         omd.near_recomputes(name)                   # reset
@@ -1028,7 +1083,7 @@ def ra_phase(counters, frames, out_dir):
                 pts += 1
     torch.cuda.synchronize()
     t1 = time.perf_counter()
-    launches = {name: fn.launches for name, fn in counters.items()}
+    launches, calls = read_counts(counters)
     near = {name: omd.near_recomputes(name)
             for name in ("intra_decision", "inter_select")}
     n_timed = len(frames) - RA_WARM
@@ -1044,6 +1099,7 @@ def ra_phase(counters, frames, out_dir):
     print("random access stage ms/frame (host wall clock):", json.dumps(
         {k: v.get("ms_per_frame") for k, v in rep.items() if k != "_wall"}))
     print("random access main path launches:", json.dumps(launches))
+    print("random access main path wrapper calls:", json.dumps(calls))
     print(f"random access near-boundary float64 recomputes: K1 "
           f"{near['intra_decision']} over {launches['intra_decision']} "
           f"frames ({near['intra_decision'] / max(launches['intra_decision'], 1):.1f}"
@@ -1054,9 +1110,9 @@ def ra_phase(counters, frames, out_dir):
     print(f"random-access encode alone: K1 intra_decision "
           f"{launches['intra_decision']} launches, K6 me_refine "
           f"{launches['me_refine']} launches")
-    print(f"K5/K6 launches by use: MCTF {by_use['MCTF']}, TPL "
+    print(f"K5/K6 calls by use: MCTF {by_use['MCTF']}, TPL "
           f"{by_use['TPL']}, inter plans "
-          f"{launches['me_coarse'] - by_use['MCTF'] - by_use['TPL']}")
+          f"{calls['me_coarse'] - by_use['MCTF'] - by_use['TPL']}")
     missing = [n for n, c in launches.items() if c == 0]
     assert not missing, f"kernels not launched on the main path: {missing}"
 
@@ -1088,7 +1144,7 @@ def ra_phase(counters, frames, out_dir):
     print(f"random access recon luma PSNR per shown frame (dB): "
           f"{[round(x, 3) for x in scores]}")
     assert min(scores) > PSNR_FLOOR_DB, (min(scores), PSNR_FLOOR_DB)
-    return launches
+    return launches, calls
 
 
 # --------------------------------------------------------------------------
@@ -1284,9 +1340,7 @@ def step_bound(rep):
             * 64 * 3)
         add(px + H * W + n_sb * 8 + n_sb * 17 * 16,
             k6_ops(n_sb))
-        add(px + H * W + units * 16 + px,
-            units * (16 * (16 * 23 + 16 * 16) * 8 * 2 + 8 * 256 * 8 * 2
-                     + 25 * 256 * 3))
+        add(px + H * W + units * 16 + px, k7_ops(units))
         add(2 * px + units * 12 + units * 36 + sum(
             (rows // h) * (W // w) * 4 for (w, h) in omd.INTER_SHAPES),
             2 * k8_dct_macs(omd.INTER_SHAPES) * px
@@ -1314,31 +1368,31 @@ def stripes_phase(counters):
     and at full width (17 stripes, 1920x1088), each on a coded frame of
     the port's encoder with every count set to 0 just before and read
     just after; the plain versions' step on the card at both geometries;
-    the closed-GOP half.  Returns the launches of both paths (the kernels'
-    and the step's own count) and per stripe count the step's
-    measurements."""
+    the closed-GOP half.  Returns the launches and the wrapper calls of
+    both paths (the kernels' and the step's own count) and per stripe
+    count the step's measurements."""
     from svt_av1_tpu_torch.parallel import dryrun, stripes
 
     counters = dict(counters, stripe_step=stripes.stripe_step)
     total = {name: 0 for name in counters}
+    total_calls = dict(total)
     b14 = {}
     for n, width in STRIPE_GEOMETRIES:
-        for fn in counters.values():
-            fn.launches = 0
+        zero_counts(counters)
         torch.cuda.synchronize()
         rep = dryrun.dryrun_stripes(n, width=width)      # CUDA by default
         torch.cuda.synchronize()
-        launches = {name: fn.launches for name, fn in counters.items()}
+        launches, calls = read_counts(counters)
         for k, v in launches.items():
             total[k] += v
+            total_calls[k] += calls[k]
         missing = [k for k in STRIPE_KERNELS + ("stripe_step",)
                    if launches[k] == 0]
         assert not missing, f"kernels not launched on the stripe path: " \
                             f"{missing}"
         frame, parts = rep["frame"], rep["stripes"]
         comm = stripes.LocalStripes(n)
-        for fn in counters.values():
-            fn.launches = 0
+        zero_counts(counters)
         step_ms = _median_ms(lambda: stripes.stripe_step(frame, parts, comm))
         per_step = {k: fn.launches // 3 for k, fn in counters.items()
                     if fn.launches}
@@ -1385,7 +1439,7 @@ def stripes_phase(counters):
               f"plain| {err}); plain step {plain_ms:.3f} ms")
         b14[n] = dict(ms=step_ms, plain_ms=plain_ms, max_abs_err=err,
                       bound=(b_ms, b_by))
-    return total, b14
+    return total, total_calls, b14
 
 
 DECODE_KERNELS = ("deblock", "cdef_direction", "cdef_apply")
@@ -1399,8 +1453,7 @@ def decode_phase(counters, streams):
     from svt_av1_tpu_torch.api import Decoder
     from svt_av1_tpu_torch.io import IvfReader
 
-    for fn in counters.values():
-        fn.launches = 0
+    zero_counts(counters)
     torch.cuda.synchronize()
     for name, path, recon, n_tu in streams:
         dec = Decoder()                         # the default device: CUDA
@@ -1422,11 +1475,11 @@ def decode_phase(counters, streams):
               f"tile walk (host) {rep['tile_walk']['ms_per_frame']} ms, "
               f"filters (card, copies included) "
               f"{rep['filters']['ms_per_frame']} ms")
-    launches = {name: fn.launches for name, fn in counters.items()}
+    launches, calls = read_counts(counters)
     print("decode path launches:", json.dumps(launches))
     missing = [k for k in DECODE_KERNELS if launches[k] == 0]
     assert not missing, f"kernels not launched on the decode path: {missing}"
-    return launches
+    return launches, calls
 
 
 # --------------------------------------------------------------------------
@@ -1572,7 +1625,7 @@ def main() -> int:
     with tempfile.TemporaryDirectory(dir=out_dir) as tmp:
         ai_launches = allintra_phase(counters, frames, tmp)
         ipp_launches, ipp_stream = ipp_phase(counters, ipp_frames, tmp)
-        ra_launches = ra_phase(counters, ra_frames, tmp)
+        ra_launches, ra_calls = ra_phase(counters, ra_frames, tmp)
         ra_card = agreement_phase(tmp)
         # the stripe modes against their plain versions, after the encodes
         # so that those run on the process state they ran on before: the
@@ -1584,8 +1637,8 @@ def main() -> int:
         tall = [np.pad(f[0], ((0, 1088 - HEIGHT), (0, 0)), mode="edge")
                 for f in ra_frames[:2]]
         stripe_kernels_phase(dev, *tall, (512, 1024))
-        stripe_launches, b14 = stripes_phase(counters)
-        dec_launches = decode_phase(counters, [
+        stripe_launches, stripe_calls, b14 = stripes_phase(counters)
+        dec_launches, dec_calls = decode_phase(counters, [
             ("192x128x5 random access (card stream)", *ra_card, 7),
             (f"{WIDTH}x{HEIGHT} low-delay P, first 3 temporal units",
              *ipp_stream, 3)])
@@ -1593,6 +1646,8 @@ def main() -> int:
     # random-access encode, the two stripe dryruns and the decodes
     launches = {k: ra_launches[k] + stripe_launches[k] + dec_launches[k]
                 for k in counters}
+    calls = {k: ra_calls[k] + stripe_calls[k] + dec_calls[k]
+             for k in counters}
     if "--trace" in sys.argv:
         trace_phase(frames, ipp_frames, ra_frames,
                     sys.argv[sys.argv.index("--trace") + 1])
@@ -1623,7 +1678,7 @@ def main() -> int:
         row = dict(
             name=name, route="cuda",
             source=f"svt_av1_tpu_torch/kernels/csrc/{src}",
-            replaces=replaces, launches=launches[name],
+            replaces=replaces, calls=calls[name], launches=launches[name],
             max_abs_err=r["max_abs_err"], ms=r["ms"], plain_ms=r["plain_ms"],
             bound_ms=b_ms, bound_by=b_by, library_ms=None)
         # the design ceilings rest on assumed peaks, not on this run: they
@@ -1636,6 +1691,8 @@ def main() -> int:
         print(f"{name}: {r['per_call']}: kernel {r['ms']:.4f} ms, plain "
               f"{r['plain_ms']:.4f} ms, bound {b_ms:.5f} ms ({b_by})"
               f"{ceiling}; "
+              f"calls: {calls[name]} on the main paths ({ra_calls[name]} "
+              f"on the random-access encode); "
               f"launches: {launches[name]} on the main paths = "
               f"{ra_launches[name]} on the {RA_FRAMES}-frame random-access "
               f"encode + {stripe_launches[name]} on the stripe dryruns + "
@@ -1651,6 +1708,7 @@ def main() -> int:
         composed_of="composite: K1-K8 stripe modes",
         source="svt_av1_tpu_torch/parallel/stripes.py",
         replaces="__graft_entry__.py:74",
+        calls=stripe_calls["stripe_step"],
         launches=stripe_launches["stripe_step"],
         max_abs_err=max(r["max_abs_err"] for r in b14.values()),
         ms=four["ms"], plain_ms=four["plain_ms"], bound_ms=b_ms,

@@ -10,33 +10,49 @@
 // arms x 49 offsets x 256 pixels of (average, difference, accumulate)
 // are about 0.9 G operations against about 10 MB of planes and fields.
 //
-// Design: one thread block per 64x64 superblock, 1024 threads = 32 warps
-// = 16 units x 2 arms.  (1) Per unit and reference: the SAD of the
-// reference's quarter-pel prediction and the MV-bits proxy, in the same
-// float steps as K8 step (1), give the single-reference score; the unit's
-// forward (fi) and backward (bi) references are the first minima over
-// each side.  (2) Each arm's seed is the other arm's MV mirrored through
-// the frame and scaled by the two distances (floor division, as the
-// numpy twin's // of negatives).  (3) Warp (unit, arm) loads the held
-// arm's 16x16 prediction and the 22x22 window of the searched reference
-// into shared memory; the window origin is clipped to an MC_PAD-sample
-// edge pad that clamped reads reproduce.  Lane l scores offsets l and
-// l + 32 of the 7x7 grid by the SAD of (held + window + 1) >> 1; a warp
-// reduction keeps the (SAD, raster index) minimum, i.e. the first
-// minimum.  (4) Per unit, the plain average of the two predictions, the
-// refined backward arm and the refined forward arm compete by SAD (first
-// minimum); the winner's prediction, SAD and MVs are written.
+// Design: one warp per 16x16 unit, four units per 128-thread block (2,160
+// blocks at 1920x1152, many resident per SM), no block barrier.  Lanes
+// 0-15 take arm 0, lanes 16-31 arm 1, lane r & 15 row r of the unit; all
+// pixel work is four pixels per 32-bit word.
+// (1) Per reference, each lane's row SAD of the reference's quarter-pel
+//     prediction (16-byte loads, one VABSDIFF4 with accumulate per word)
+//     is summed over the 16 rows by shuffles; with the MV-bits proxy, in
+//     the same float steps as K8 step (1), it gives the single-reference
+//     score; the unit's forward (fi) and backward (bi) references are the
+//     first minima over each side.
+// (2) Each arm's seed is the other arm's MV mirrored through the frame and
+//     scaled by the two distances (floor division, as the numpy twin's //
+//     of negatives).
+// (3) Each half-warp loads the 22x22 window of its searched reference into
+//     shared memory (aligned words and a funnel shift where the window
+//     lies inside the plane's columns, clamped bytes at the edges); the
+//     window origin is clipped to an MC_PAD-sample edge pad that clamped
+//     reads reproduce.  Lane r keeps its row of the source and of the held
+//     arm's prediction in registers (4 + 4 words) and, for each of the 7
+//     window rows r + dy, builds the 7 column offsets' words with PRMT:
+//     __vavgu4 is the reference's per-byte (held + win + 1) >> 1, and
+//     VABSDIFF4 with accumulate scores it against the source.  The 49 row
+//     partial SADs go to shared memory as 16-bit values; lane l sums
+//     offsets l, l + 16, l + 32 and l + 48 over the 16 rows and a
+//     half-warp reduction keeps the (SAD, raster index) minimum, i.e. the
+//     first minimum.
+// (4) The plain average of the two predictions, the refined backward arm
+//     and the refined forward arm compete by SAD (first minimum); the
+//     winner's prediction, SAD and MVs are written.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int kThreads = 1024;
+constexpr int kWarps = 4;             // units per block
 constexpr int kMaxRefs = 3;
 constexpr int kPad = 80;              // MC_PAD
 constexpr int kR = 3;                 // JOINT_R
+constexpr int kSide = 2 * kR + 1;     // 7
 constexpr int kWin = 16 + 2 * kR;     // 22
-constexpr int kNoff = (2 * kR + 1) * (2 * kR + 1);
+constexpr int kWinStride = 24;        // bytes per window row in shared
+constexpr int kNoff = kSide * kSide;  // 49
+constexpr int kPartStride = 50;       // 16-bit partials per row (25 words)
 constexpr float kMvBitScale = 2.0f;
 
 __device__ __forceinline__ int clampi(int v, int lo, int hi) {
@@ -57,9 +73,34 @@ __device__ __forceinline__ int mirror(int mv, int d_from, int d_to) {
   return clampi(-fl * 2, -512, 512);
 }
 
-__global__ void __launch_bounds__(kThreads) compound_joint_kernel(
+// acc + sum of |a - b| over the four byte pairs: one VABSDIFF4.U8.ACC
+__device__ __forceinline__ uint32_t sad4(uint32_t a, uint32_t b,
+                                         uint32_t acc) {
+  uint32_t d;
+  asm("vabsdiff4.u32.u32.u32.add %0, %1, %2, %3;\n"
+      : "=r"(d)
+      : "r"(a), "r"(b), "r"(acc));
+  return d;
+}
+
+// the 4 bytes starting at byte o of consecutive words w[o >> 2], w[o >> 2
+// + 1] (o static after unrolling)
+__device__ __forceinline__ uint32_t bytes4(const uint32_t (&w)[6], int o) {
+  return (o & 3) ? __byte_perm(w[o >> 2], w[(o >> 2) + 1],
+                               0x3210 + 0x1111 * (o & 3))
+                 : w[o >> 2];
+}
+
+__device__ __forceinline__ int half_sum(int v) {
+#pragma unroll
+  for (int off = 8; off > 0; off >>= 1)
+    v += __shfl_xor_sync(0xffffffffu, v, off);
+  return v;
+}
+
+__global__ void __launch_bounds__(32 * kWarps) compound_joint_kernel(
     const uint8_t* __restrict__ src, const uint8_t* __restrict__ refs,
-    const uint8_t* __restrict__ preds, int K, int H, int W,
+    const uint8_t* __restrict__ preds, int K, int H, int W, int n_units,
     const int* __restrict__ mvq_r, const int* __restrict__ mvq_c,
     const int* __restrict__ sb_r, const int* __restrict__ sb_c,
     const float* __restrict__ tab, int n_tab, float pen_mv, int bwd_mask,
@@ -68,181 +109,173 @@ __global__ void __launch_bounds__(kThreads) compound_joint_kernel(
     int* __restrict__ out_mvc, int* __restrict__ out_mv1r,
     int* __restrict__ out_mv1c, int* __restrict__ out_fi,
     int* __restrict__ out_bi) {
-  __shared__ uint8_t ssb[64 * 64];             // the source SB
-  __shared__ uint8_t held[32][256];             // per warp: the held arm
-  __shared__ uint8_t win[32][kWin * kWin];      // per warp: the window
-  __shared__ int part[kMaxRefs][32];
-  __shared__ float base[kMaxRefs][16];
-  __shared__ int ufi[16], ubi[16];
-  __shared__ int seed[2][16][2];                // arm, unit, (r, c)
-  __shared__ int org[2][16][2];                 // clipped window origins
-  __shared__ int best[2][16][2];                // (SAD, offset index)
-  __shared__ int pick[16];
-
-  const int n_sbx = W / 64;
-  const int sby = blockIdx.x / n_sbx, sbx = blockIdx.x % n_sbx;
-  const int nr16 = H / 16, nc16 = W / 16;
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  __shared__ __align__(16) uint32_t win_s[kWarps][2][kWin * kWinStride / 4];
+  __shared__ __align__(16) uint16_t part_s[kWarps][32 * kPartStride];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int u = blockIdx.x * kWarps + warp;
+  if (u >= n_units) return;
+  const int nc16 = W >> 4, nr16 = H >> 4, n_sbx = W >> 6;
+  const int uy = u / nc16, ux = u - uy * nc16;
+  const int y0 = uy * 16, x0 = ux * 16;
+  const int g = lane >> 4, r = lane & 15;
   const size_t plane = (size_t)H * W;
+  const size_t row_off = (size_t)(y0 + r) * W + x0;
   const int rel[kMaxRefs] = {rel0, rel1, rel2};
 
-  for (int k = tid; k < 64 * 64; k += kThreads)
-    ssb[k] = src[(size_t)(sby * 64 + (k >> 6)) * W + sbx * 64 + (k & 63)];
-
-  // (1) single-reference scores: thread t covers 4 pixels of unit t >> 6
-  const int u = tid >> 6, uy = u >> 2, ux = u & 3;
-  int pix[4], sv[4];
+  // (1) single-reference scores
+  const uint4 sv = *reinterpret_cast<const uint4*>(src + row_off);
+  const uint32_t s[4] = {sv.x, sv.y, sv.z, sv.w};
+  float base[kMaxRefs];
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int q = (tid & 63) * 4 + i;
-    pix[i] = (sby * 64 + uy * 16 + (q >> 4)) * W + sbx * 64 + ux * 16 +
-             (q & 15);
-    sv[i] = src[pix[i]];
-  }
-  for (int k = 0; k < K; ++k) {
-    int d = 0;
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-      d += abs(sv[i] - (int)preds[k * plane + pix[i]]);
-    for (int off = 16; off > 0; off >>= 1)
-      d += __shfl_down_sync(0xffffffffu, d, off);
-    if (lane == 0) part[k][warp] = d;
-  }
-  __syncthreads();
-  if (tid < 16 * K) {
-    const int k = tid / 16, v = tid % 16;
-    const int gy = sby * 4 + (v >> 2), gx = sbx * 4 + (v & 3);
-    const int g = (k * nr16 + gy) * nc16 + gx;
-    const int s = (k * (H / 64) + sby) * n_sbx + sbx;
-    const int dr = abs(mvq_r[g] - sb_r[s] * 8);
-    const int dc = abs(mvq_c[g] - sb_c[s] * 8);
+  for (int k = 0; k < kMaxRefs; ++k) {
+    if (k >= K) break;
+    const uint4 pv =
+        *reinterpret_cast<const uint4*>(preds + k * plane + row_off);
+    const int d = half_sum((int)sad4(
+        s[3], pv.w, sad4(s[2], pv.z, sad4(s[1], pv.y, sad4(s[0], pv.x, 0)))));
+    const int gk = (k * nr16 + uy) * nc16 + ux;
+    const int sk = (k * (H >> 6) + (uy >> 2)) * n_sbx + (ux >> 2);
+    const int dr = abs(mvq_r[gk] - sb_r[sk] * 8);
+    const int dc = abs(mvq_c[gk] - sb_c[sk] * 8);
     const float m = __fmul_rn(
         kMvBitScale,
         __fadd_rn(log2_1p8(tab, n_tab, dr), log2_1p8(tab, n_tab, dc)));
-    base[k][v] = __fadd_rn((float)(part[k][2 * v] + part[k][2 * v + 1]),
-                           __fmul_rn(pen_mv, m));
+    base[k] = __fadd_rn((float)d, __fmul_rn(pen_mv, m));
   }
-  __syncthreads();
 
   // (2) the paired references and the mirrored seeds
-  if (tid < 16) {
-    int fi = -1, bi = -1;
-    for (int k = 0; k < K; ++k) {
-      if ((bwd_mask >> k) & 1) {
-        if (bi < 0 || base[k][tid] < base[bi][tid]) bi = k;
-      } else {
-        if (fi < 0 || base[k][tid] < base[fi][tid]) fi = k;
-      }
-    }
-    ufi[tid] = fi;
-    ubi[tid] = bi;
-    const int gy = sby * 4 + (tid >> 2), gx = sbx * 4 + (tid & 3);
-    const int gf = (fi * nr16 + gy) * nc16 + gx;
-    const int gb = (bi * nr16 + gy) * nc16 + gx;
-    const int df = max(abs(rel[fi]), 1), db = max(abs(rel[bi]), 1);
-    // arm 0 searches the backward reference around the mirrored forward
-    // MV; arm 1 the forward reference around the mirrored backward MV
-    seed[0][tid][0] = mirror(mvq_r[gf], df, db);
-    seed[0][tid][1] = mirror(mvq_c[gf], df, db);
-    seed[1][tid][0] = mirror(mvq_r[gb], db, df);
-    seed[1][tid][1] = mirror(mvq_c[gb], db, df);
-  }
-  __syncthreads();
-
-  // (3) one warp per (unit, arm): the 7x7 joint search
-  {
-    const int wu = warp >> 1, arm = warp & 1;
-    const int wy = sby * 64 + (wu >> 2) * 16, wx = sbx * 64 + (wu & 3) * 16;
-    const int held_k = arm == 0 ? ufi[wu] : ubi[wu];
-    const int arm_k = arm == 0 ? ubi[wu] : ufi[wu];
-    for (int k = lane; k < 256; k += 32)
-      held[warp][k] =
-          preds[held_k * plane + (size_t)(wy + (k >> 4)) * W + wx + (k & 15)];
-    const int oy = clampi(wy + (seed[arm][wu][0] >> 3) - kR + kPad, 0,
-                          H + 2 * kPad - kWin);
-    const int ox = clampi(wx + (seed[arm][wu][1] >> 3) - kR + kPad, 0,
-                          W + 2 * kPad - kWin);
-    const uint8_t* rp = refs + arm_k * plane;
-    for (int k = lane; k < kWin * kWin; k += 32) {
-      const int i = k / kWin, j = k - i * kWin;
-      win[warp][k] = rp[(size_t)clampi(oy - kPad + i, 0, H - 1) * W +
-                        clampi(ox - kPad + j, 0, W - 1)];
-    }
-    __syncwarp();
-    const uint8_t* sblk = ssb + ((wu >> 2) * 16) * 64 + (wu & 3) * 16;
-    int bc = 0x7fffffff, bo = 0x7fffffff;
-    for (int o = lane; o < kNoff; o += 32) {
-      const int dy = o / (2 * kR + 1), dx = o - dy * (2 * kR + 1);
-      int sad = 0;
-      for (int r = 0; r < 16; ++r) {
-        const uint8_t* wr = win[warp] + (dy + r) * kWin + dx;
-        const uint8_t* hr = held[warp] + r * 16;
-        const uint8_t* sr = sblk + r * 64;
+  int fi = -1, bi = -1, df = 1, db = 1;
+  float fb = 0.f, bb = 0.f;
 #pragma unroll
-        for (int c = 0; c < 16; ++c)
-          sad += abs((int)sr[c] - (((int)hr[c] + (int)wr[c] + 1) >> 1));
+  for (int k = 0; k < kMaxRefs; ++k) {
+    if (k >= K) break;
+    if ((bwd_mask >> k) & 1) {
+      if (bi < 0 || base[k] < bb) {
+        bi = k;
+        bb = base[k];
+        db = max(abs(rel[k]), 1);
       }
-      if (sad < bc) {        // o grows: the first minimum of this lane
-        bc = sad;
+    } else if (fi < 0 || base[k] < fb) {
+      fi = k;
+      fb = base[k];
+      df = max(abs(rel[k]), 1);
+    }
+  }
+  const int gf = (fi * nr16 + uy) * nc16 + ux;
+  const int gb = (bi * nr16 + uy) * nc16 + ux;
+  // arm 0 searches the backward reference around the mirrored forward MV,
+  // holding the forward prediction; arm 1 the forward reference around
+  // the mirrored backward MV, holding the backward prediction
+  const int held_k = g == 0 ? fi : bi, arm_k = g == 0 ? bi : fi;
+  const int seed_r =
+      g == 0 ? mirror(mvq_r[gf], df, db) : mirror(mvq_r[gb], db, df);
+  const int seed_c =
+      g == 0 ? mirror(mvq_c[gf], df, db) : mirror(mvq_c[gb], db, df);
+
+  // (3) the window of this half-warp's arm, then the 7x7 joint search
+  const int oy = clampi(y0 + (seed_r >> 3) - kR + kPad, 0,
+                        H + 2 * kPad - kWin);
+  const int ox = clampi(x0 + (seed_c >> 3) - kR + kPad, 0,
+                        W + 2 * kPad - kWin);
+  uint32_t* win = win_s[warp][g];
+  const uint8_t* rp = refs + arm_k * plane;
+  const int wx = ox - kPad, wa = wx & ~3;
+  if (wx >= 0 && wa + 28 <= W) {
+    // inside the plane's columns: 7 aligned words per row, shifted
+    for (int i = r; i < kWin; i += 16) {
+      const uint32_t* gp = reinterpret_cast<const uint32_t*>(
+          rp + (size_t)clampi(oy - kPad + i, 0, H - 1) * W + wa);
+      uint32_t v[7];
+#pragma unroll
+      for (int k = 0; k < 7; ++k) v[k] = gp[k];
+      const int sh = 8 * (wx & 3);
+#pragma unroll
+      for (int k = 0; k < 6; ++k)
+        win[i * (kWinStride / 4) + k] = __funnelshift_r(v[k], v[k + 1], sh);
+    }
+  } else {
+    uint8_t* wb = reinterpret_cast<uint8_t*>(win);
+    for (int k = r; k < kWin * kWin; k += 16) {
+      const int i = k / kWin, j = k - (k / kWin) * kWin;
+      wb[i * kWinStride + j] = rp[(size_t)clampi(oy - kPad + i, 0, H - 1) * W +
+                                  clampi(wx + j, 0, W - 1)];
+    }
+  }
+  const uint4 hv =
+      *reinterpret_cast<const uint4*>(preds + held_k * plane + row_off);
+  const uint32_t h[4] = {hv.x, hv.y, hv.z, hv.w};
+  __syncwarp();
+  uint16_t* part = part_s[warp];
+#pragma unroll
+  for (int dy = 0; dy < kSide; ++dy) {
+    const uint2* wr =
+        reinterpret_cast<const uint2*>(win + (r + dy) * (kWinStride / 4));
+    const uint2 a = wr[0], b = wr[1], c = wr[2];
+    const uint32_t w[6] = {a.x, a.y, b.x, b.y, c.x, c.y};
+#pragma unroll
+    for (int dx = 0; dx < kSide; ++dx) {
+      uint32_t acc = 0;
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        acc = sad4(s[i], __vavgu4(h[i], bytes4(w, dx + 4 * i)), acc);
+      part[lane * kPartStride + dy * kSide + dx] = (uint16_t)acc;
+    }
+  }
+  __syncwarp();
+  int bc = 0x7fffffff, bo = 0x7fffffff;
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    const int o = r + 16 * k;
+    if (o < kNoff) {
+      int sum = 0;
+#pragma unroll
+      for (int rr = 0; rr < 16; ++rr)
+        sum += part[(g * 16 + rr) * kPartStride + o];
+      if (sum < bc) {          // o grows: the first minimum of this lane
+        bc = sum;
         bo = o;
       }
     }
-    for (int off = 16; off > 0; off >>= 1) {
-      const int c2 = __shfl_down_sync(0xffffffffu, bc, off);
-      const int o2 = __shfl_down_sync(0xffffffffu, bo, off);
-      if (c2 < bc || (c2 == bc && o2 < bo)) {
-        bc = c2;
-        bo = o2;
-      }
-    }
-    if (lane == 0) {
-      best[arm][wu][0] = bc;
-      best[arm][wu][1] = bo;
-      org[arm][wu][0] = oy;
-      org[arm][wu][1] = ox;
-    }
   }
-  __syncthreads();
-
-  // (4) the plain average's SAD (threads as in (1)), the 3-way pick
-  {
-    const int pf = ufi[u], pb = ubi[u];
-    int d = 0;
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int a = preds[pf * plane + pix[i]], b = preds[pb * plane + pix[i]];
-      d += abs(sv[i] - ((a + b + 1) >> 1));
+  for (int off = 8; off > 0; off >>= 1) {
+    const int c2 = __shfl_xor_sync(0xffffffffu, bc, off);
+    const int o2 = __shfl_xor_sync(0xffffffffu, bo, off);
+    if (c2 < bc || (c2 == bc && o2 < bo)) {
+      bc = c2;
+      bo = o2;
     }
-    for (int off = 16; off > 0; off >>= 1)
-      d += __shfl_down_sync(0xffffffffu, d, off);
-    if (lane == 0) part[0][warp] = d;
   }
-  __syncthreads();
-  if (tid < 16) {
-    const int sad0 = part[0][2 * tid] + part[0][2 * tid + 1];
-    int p = 0, ps = sad0;
-    if (best[0][tid][0] < ps) {
-      p = 1;
-      ps = best[0][tid][0];
-    }
-    if (best[1][tid][0] < ps) {
-      p = 2;
-      ps = best[1][tid][0];
-    }
-    pick[tid] = p;
-    const int gy = sby * 4 + (tid >> 2), gx = sbx * 4 + (tid & 3);
-    const int o = gy * nc16 + gx;
-    const int gf = (ufi[tid] * nr16 + gy) * nc16 + gx;
-    const int gb = (ubi[tid] * nr16 + gy) * nc16 + gx;
+
+  // (4) the plain average's SAD, the 3-way pick
+  uint32_t avg[4];
+  uint32_t d0 = 0;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    // the other half-warp holds the other arm's prediction of this row
+    avg[i] = __vavgu4(h[i], __shfl_xor_sync(0xffffffffu, h[i], 16));
+    d0 = sad4(s[i], avg[i], d0);
+  }
+  const int sad0 = half_sum((int)d0);
+  const int c0 = __shfl_sync(0xffffffffu, bc, 0);
+  const int c1 = __shfl_sync(0xffffffffu, bc, 16);
+  int p = 0, ps = sad0;
+  if (c0 < ps) {
+    p = 1;
+    ps = c0;
+  }
+  if (c1 < ps) {
+    p = 2;
+    ps = c1;
+  }
+  const int by = bo / kSide, bx = bo - (bo / kSide) * kSide;
+  if (r == 0 && (p == 0 ? g == 0 : g == p - 1)) {
     int mvr = mvq_r[gf], mvc = mvq_c[gf], mv1r = mvq_r[gb], mv1c = mvq_c[gb];
     if (p > 0) {
-      const int a = p - 1;
-      const int bo = best[a][tid][1];
-      const int by = bo / (2 * kR + 1), bx = bo - by * (2 * kR + 1);
       // the realized MV comes from the clipped window origin
-      const int r8 = (org[a][tid][0] - kPad + by - gy * 16) * 8;
-      const int c8 = (org[a][tid][1] - kPad + bx - gx * 16) * 8;
-      if (a == 0) {
+      const int r8 = (oy - kPad + by - y0) * 8;
+      const int c8 = (ox - kPad + bx - x0) * 8;
+      if (p == 1) {
         mv1r = r8;
         mv1c = c8;
       } else {
@@ -250,34 +283,32 @@ __global__ void __launch_bounds__(kThreads) compound_joint_kernel(
         mvc = c8;
       }
     }
-    out_sad[o] = ps;
-    out_mvr[o] = mvr;
-    out_mvc[o] = mvc;
-    out_mv1r[o] = mv1r;
-    out_mv1c[o] = mv1c;
-    out_fi[o] = ufi[tid];
-    out_bi[o] = ubi[tid];
+    out_sad[u] = ps;
+    out_mvr[u] = mvr;
+    out_mvc[u] = mvc;
+    out_mv1r[u] = mv1r;
+    out_mv1c[u] = mv1c;
+    out_fi[u] = fi;
+    out_bi[u] = bi;
   }
-  __syncthreads();
-  // the winner's prediction, 4 pixels per thread
-  {
-    const int p = pick[u];
+  // the winner's prediction: row r from the half-warp of the winning arm
+  // (the first half for the plain average)
+  if (p == 0 ? g == 0 : g == p - 1) {
+    uint4 o4;
+    if (p == 0) {
+      o4 = make_uint4(avg[0], avg[1], avg[2], avg[3]);
+    } else {
+      const uint32_t* wr = win + (r + by) * (kWinStride / 4);
+      uint32_t q[4];
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int q = (tid & 63) * 4 + i, r = q >> 4, c = q & 15;
-      int v;
-      if (p == 0) {
-        v = ((int)preds[ufi[u] * plane + pix[i]] +
-             (int)preds[ubi[u] * plane + pix[i]] + 1) >> 1;
-      } else {
-        const int a = p - 1, wv = 2 * u + a;
-        const int bo = best[a][u][1];
-        const int by = bo / (2 * kR + 1), bx = bo - by * (2 * kR + 1);
-        v = ((int)held[wv][r * 16 + c] +
-             (int)win[wv][(by + r) * kWin + bx + c] + 1) >> 1;
+      for (int i = 0; i < 4; ++i) {
+        const int o = bx + 4 * i;
+        q[i] = __vavgu4(h[i], __byte_perm(wr[o >> 2], wr[(o >> 2) + 1],
+                                          0x3210 + 0x1111 * (o & 3)));
       }
-      out_pred[pix[i]] = (uint8_t)v;
+      o4 = make_uint4(q[0], q[1], q[2], q[3]);
     }
+    *reinterpret_cast<uint4*>(out_pred + row_off) = o4;
   }
 }
 
@@ -290,7 +321,8 @@ __global__ void __launch_bounds__(kThreads) compound_joint_kernel(
 // weight; bwd_mask: bit k marks reference k backward (both sides must be
 // present); rel0..rel2: the signed display distances.  Out: pred uint8
 // [H, W]; sad, mv_r, mv_c (forward arm), mv1_r, mv1_c (backward arm),
-// fwd_i, bwd_i int32 [H/16, W/16].  Returns the CUDA error of the launch.
+// fwd_i, bwd_i int32 [H/16, W/16].  Every plane 16-byte aligned.  Returns
+// the CUDA error of the launch.
 extern "C" int compound_joint_launch(
     const void* src, const void* refs, const void* preds, int K, int H, int W,
     const void* mvq_r, const void* mvq_c, const void* sb_r, const void* sb_c,
@@ -302,10 +334,14 @@ extern "C" int compound_joint_launch(
   if (K < 2 || K > kMaxRefs || H % 64 || W % 64 || (bwd_mask & all) == 0 ||
       (bwd_mask & all) == all)
     return (int)cudaErrorInvalidValue;
-  compound_joint_kernel<<<(H / 64) * (W / 64), kThreads, 0,
+  if (((uintptr_t)src | (uintptr_t)refs | (uintptr_t)preds |
+       (uintptr_t)out_pred) % 16)
+    return (int)cudaErrorMisalignedAddress;
+  const int n_units = (H / 16) * (W / 16);
+  compound_joint_kernel<<<(n_units + kWarps - 1) / kWarps, 32 * kWarps, 0,
                           (cudaStream_t)stream>>>(
       (const uint8_t*)src, (const uint8_t*)refs, (const uint8_t*)preds, K, H,
-      W, (const int*)mvq_r, (const int*)mvq_c, (const int*)sb_r,
+      W, n_units, (const int*)mvq_r, (const int*)mvq_c, (const int*)sb_r,
       (const int*)sb_c, (const float*)tab, n_tab, pen_mv, bwd_mask, rel0,
       rel1, rel2, (uint8_t*)out_pred, (int*)out_sad, (int*)out_mvr,
       (int*)out_mvc, (int*)out_mv1r, (int*)out_mv1c, (int*)out_fi,

@@ -358,6 +358,7 @@ def me_coarse(src: torch.Tensor, ref: torch.Tensor,
     tensors launch kernels/csrc/me_coarse.cu."""
     if src.device.type == "cpu":
         return coarse_sb_search(src, ref, coarse_r, row0)
+    me_coarse.calls += 1
     _check_planes("me_coarse", src, ref, row0)
     if not 1 <= int(coarse_r) <= 32:
         raise ValueError(f"me_coarse: coarse_r {coarse_r} outside 1..32")
@@ -375,11 +376,11 @@ def me_coarse(src: torch.Tensor, ref: torch.Tensor,
     err = fn(ptr(src), ptr(ref), rows, H, W, int(coarse_r), int(row0),
              ptr(s8), ptr(r8), ptr(out), stream(src))
     check_launch("me_coarse", err)
-    me_coarse.launches += 1
+    me_coarse.launches += 2                 # decimation, search
     return out
 
 
-me_coarse.launches = 0
+me_coarse.launches = me_coarse.calls = 0
 
 
 def refine_spec(shapes):
@@ -405,6 +406,7 @@ def me_refine(src: torch.Tensor, ref: torch.Tensor, coarse: torch.Tensor,
     version; CUDA tensors launch kernels/csrc/me_refine.cu."""
     if src.device.type == "cpu":
         return refine_plain(src, ref, coarse, shapes, row0)
+    me_refine.calls += 1
     _check_planes("me_refine", src, ref, row0)
     spec, counts = refine_spec(shapes)
     shapes = tuple(tuple(s) for s in shapes)
@@ -439,7 +441,7 @@ def me_refine(src: torch.Tensor, ref: torch.Tensor, coarse: torch.Tensor,
     return out
 
 
-me_refine.launches = 0
+me_refine.launches = me_refine.calls = 0
 
 
 def frame_me(src, ref, coarse_r: int = COARSE_R, shapes=ME_SHAPES,
@@ -470,6 +472,7 @@ def subpel_refine16(src: torch.Tensor, ref: torch.Tensor,
     CUDA tensors launch kernels/csrc/subpel_refine.cu."""
     if src.device.type == "cpu":
         return subpel_plain(src, ref, mv_r16, mv_c16, bd, row0)
+    subpel_refine16.calls += 1
     _check_planes("subpel_refine16", src, ref, row0)
     if bd != 8:
         raise ValueError("subpel_refine16: 8-bit only")
@@ -496,4 +499,4 @@ def subpel_refine16(src: torch.Tensor, ref: torch.Tensor,
     return mvq_r, mvq_c, pred
 
 
-subpel_refine16.launches = 0
+subpel_refine16.launches = subpel_refine16.calls = 0

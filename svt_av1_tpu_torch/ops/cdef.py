@@ -430,6 +430,7 @@ def cdef_direction(plane, fw: int, fh: int, coeff_shift: int = 0):
     CPU tensors take find_dir_grid; CUDA tensors launch the kernel."""
     if plane.device.type == "cpu":
         return direction_plain(plane, fw, fh, coeff_shift)
+    cdef_direction.calls += 1
     if plane.device.type != "cuda":
         raise ValueError(f"unsupported device {plane.device}")
     _check_plane(plane, "cdef_direction")
@@ -452,7 +453,7 @@ def cdef_direction(plane, fw: int, fh: int, coeff_shift: int = 0):
     return dirs, var
 
 
-cdef_direction.launches = 0
+cdef_direction.launches = cdef_direction.calls = 0
 
 
 def _pack(values, bits: int) -> int:
@@ -504,6 +505,7 @@ def cdef_search(source, recon, dirs, var, nonskip, fw: int, fh: int,
     if recon[0].device.type == "cpu":
         return search_plain(source, recon, dirs, var, nonskip, fw, fh,
                             damping, bit_depth, pri_set, sec_set, halos)
+    cdef_search.calls += 1
     if recon[0].device.type != "cuda":
         raise ValueError(f"unsupported device {recon[0].device}")
     from ..kernels.build import check_launch, ptr, stream
@@ -552,7 +554,7 @@ def cdef_search(source, recon, dirs, var, nonskip, fw: int, fh: int,
     return errs[0], (errs[1] if n > 1 else None)
 
 
-cdef_search.launches = 0
+cdef_search.launches = cdef_search.calls = 0
 
 
 def cdef_apply(planes, nonskip, dirs, var, y_strength: int,
@@ -565,6 +567,7 @@ def cdef_apply(planes, nonskip, dirs, var, y_strength: int,
     if planes[0].device.type == "cpu":
         return cdef_apply_plain(planes, nonskip, dirs, var, y_strength,
                                 uv_strength, damping, fw, fh, bd, halos)
+    cdef_apply.calls += 1
     if planes[0].device.type != "cuda":
         raise ValueError(f"unsupported device {planes[0].device}")
     from ..kernels.build import check_launch, ptr, stream
@@ -595,7 +598,7 @@ def cdef_apply(planes, nonskip, dirs, var, y_strength: int,
     return out
 
 
-cdef_apply.launches = 0
+cdef_apply.launches = cdef_apply.calls = 0
 
 
 # --------------------------------------------------------------------------

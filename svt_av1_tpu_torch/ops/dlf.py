@@ -343,6 +343,7 @@ def deblock(plane, apply_v, fsize_v, apply_h, fsize_h, width: int,
         return loop_filter_plane_full(plane, apply_v, fsize_v, apply_h,
                                       fsize_h, width, height, level_v,
                                       level_h, sharpness, bd)
+    deblock.calls += 1
     if plane.device.type != "cuda":
         raise ValueError(f"unsupported device {plane.device}")
     if plane.dtype != torch.int32 or plane.dim() != 2 \
@@ -378,7 +379,7 @@ def deblock(plane, apply_v, fsize_v, apply_h, fsize_h, width: int,
     return out if out is not plane else plane.clone()
 
 
-deblock.launches = 0
+deblock.launches = deblock.calls = 0
 
 
 # --------------------------------------------------------------------------

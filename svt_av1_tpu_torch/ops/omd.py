@@ -594,6 +594,7 @@ def intra_decision_packed(plane: torch.Tensor, qindex: int, lam: float,
             {s: intra_decision_plain(plane, *s, qindex, lam, mode_bits, bd,
                                      above_row, halo) for s in shapes},
             shapes)
+    intra_decision_packed.calls += 1
     if plane.device.type != "cuda":
         raise ValueError(f"unsupported device {plane.device}")
     if plane.dtype != torch.uint8 or plane.dim() != 2 or bd != 8:
@@ -648,7 +649,7 @@ def intra_decision_packed(plane: torch.Tensor, qindex: int, lam: float,
     return out
 
 
-intra_decision_packed.launches = 0
+intra_decision_packed.launches = intra_decision_packed.calls = 0
 
 
 def near_recomputes(name: str = "intra_decision", reset: bool = True) -> int:

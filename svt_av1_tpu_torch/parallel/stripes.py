@@ -268,7 +268,8 @@ def stripe_step(frame: StripeFrame, stripes, comm, plain: bool = False):
                                    frame.damping, W, rows, frame.bd, h)[0])
     if not plain:
         stripe_step.launches += 1
+        stripe_step.calls += 1
     return out
 
 
-stripe_step.launches = 0
+stripe_step.launches = stripe_step.calls = 0

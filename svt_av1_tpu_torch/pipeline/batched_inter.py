@@ -419,6 +419,7 @@ def inter_select(src, preds, mvq_r, mvq_c, sb_r, sb_c, qindex: int,
     if src.device.type == "cpu":
         return inter_select_plain(src, preds, mvq_r, mvq_c, sb_r, sb_c,
                                   qindex, lam, bd, comp)
+    inter_select.calls += 1
     K, H, W = _check_unit_inputs("inter_select", src, preds, mvq_r, mvq_c,
                                  sb_r, sb_c, bd)
     nr16, nc16 = H // 16, W // 16
@@ -469,7 +470,7 @@ def inter_select(src, preds, mvq_r, mvq_c, sb_r, sb_c, qindex: int,
     return out, mvb, costs
 
 
-inter_select.launches = 0
+inter_select.launches = inter_select.calls = 0
 
 
 def compound_joint(src, refs, preds, mvq_r, mvq_c, sb_r, sb_c, bwd_mask,
@@ -493,12 +494,16 @@ def compound_joint(src, refs, preds, mvq_r, mvq_c, sb_r, sb_c, bwd_mask,
     if src.device.type == "cpu":
         return compound_joint_plain(src, refs, preds, mvq_r, mvq_c, sb_r,
                                     sb_c, bwd_mask, rel_dists, qindex, bd)
+    compound_joint.calls += 1
     _, H, W = _check_unit_inputs("compound_joint", src, preds, mvq_r, mvq_c,
                                  sb_r, sb_c, bd)
     if refs.dtype != torch.uint8 or tuple(refs.shape) != tuple(preds.shape) \
             or not refs.is_contiguous() or refs.device != src.device:
         raise ValueError("compound_joint: refs must be contiguous uint8 "
                          "[K, H, W] beside the predictions")
+    if any(t.data_ptr() % 16 for t in (src, refs, preds)):
+        raise ValueError("compound_joint: the kernel reads rows as 16-byte "
+                         "words; planes must start on 16-byte boundaries")
     from ..kernels.build import check_launch, cuda_lib, ptr, stream
 
     fn = cuda_lib("compound_joint").compound_joint_launch
@@ -523,7 +528,7 @@ def compound_joint(src, refs, preds, mvq_r, mvq_c, sb_r, sb_c, bwd_mask,
     return out
 
 
-compound_joint.launches = 0
+compound_joint.launches = compound_joint.calls = 0
 
 
 # --------------------------------------------------------------------------

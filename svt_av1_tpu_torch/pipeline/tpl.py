@@ -59,6 +59,7 @@ def block_var16(plane: torch.Tensor) -> torch.Tensor:
     tensors launch kernels/csrc/block_var16.cu."""
     if plane.device.type == "cpu":
         return block_var16_plain(plane)
+    block_var16.calls += 1
     if plane.device.type != "cuda":
         raise ValueError(f"block_var16: unsupported device {plane.device}")
     if plane.dtype != torch.uint8 or plane.dim() != 2 \
@@ -81,7 +82,7 @@ def block_var16(plane: torch.Tensor) -> torch.Tensor:
     return out
 
 
-block_var16.launches = 0
+block_var16.launches = block_var16.calls = 0
 
 
 def _pair_stats(src, ref):

@@ -144,10 +144,12 @@ def _moving_pair(h, w, seed):
 def test_me_coarse_matches_plain(dev, r):
     src, ref = (torch.from_numpy(p).to(dev) for p in _moving_pair(192, 256,
                                                                   r))
-    before = bme.me_coarse.launches
+    before = (bme.me_coarse.calls, bme.me_coarse.launches)
     got = bme.me_coarse(src, ref, r)
     assert torch.equal(got, bme.coarse_sb_search(src, ref, r))
-    assert bme.me_coarse.launches == before + 1
+    # one wrapper call, two launches (decimation, search)
+    assert (bme.me_coarse.calls, bme.me_coarse.launches) == (
+        before[0] + 1, before[1] + 2)
 
 
 @pytest.mark.parametrize("shapes", [bme.ME_SHAPES, ((16, 16), (64, 64))],
@@ -395,7 +397,8 @@ def test_me_stripe_modes_match_plain(dev, row0):
     for g, w in zip(sub, bme.subpel_plain(stripe, ref, mv_r, mv_c, 8, row0)):
         assert torch.equal(g, w)
     assert (bme.me_coarse.launches, bme.me_refine.launches,
-            bme.subpel_refine16.launches) == tuple(b + 1 for b in before)
+            bme.subpel_refine16.launches) == (before[0] + 2, before[1] + 1,
+                                              before[2] + 1)
     # the stripe's outputs are the whole frame's rows
     whole = bme.frame_me(src, ref, 8, bme.ME_SHAPES)
     rows = slice(row0 // 64 * 4, row0 // 64 * 4 + 4)
@@ -896,3 +899,200 @@ def test_stripe_step_costs_equal_the_plain_step_on_every_block(dev):
         for s, c in a["inter_cost"].items():
             assert bool(torch.isclose(c, b["inter_cost"][s], rtol=2e-4,
                                       atol=2.0).all()), s
+
+
+# -- the Hopper redesigns of K7 and K9 ----------------------------------------
+
+def _k7_equal(src, ref, mv_r, mv_c, row0=0):
+    """K7 against subpel_plain: MVs and prediction plane exactly; one
+    launch."""
+    before = bme.subpel_refine16.launches
+    got = bme.subpel_refine16(src, ref, mv_r, mv_c, 8, row0)
+    assert bme.subpel_refine16.launches == before + 1
+    want = bme.subpel_plain(src, ref, mv_r, mv_c, 8, row0)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    return got
+
+
+def _edge_mvs(rng, nr, nc, H, W):
+    """Full-pel MVs that put the patch past each edge of an H x W
+    reference (beyond the 24-sample pad, where the origin clips) or
+    anywhere between."""
+    r = rng.integers(-H - 40, H + 41, (nr, nc))
+    c = rng.integers(-W - 40, W + 41, (nr, nc))
+    r[0, :], c[:, 0] = -H - 40, -W - 40
+    r[-1, :], c[:, -1] = H + 40, W + 40
+    return (torch.from_numpy(r.astype(np.int32)).contiguous(),
+            torch.from_numpy(c.astype(np.int32)).contiguous())
+
+
+@pytest.mark.parametrize("size", [(192, 256), (64, 1920)],
+                         ids=["frame", "one_sb_row"])
+@pytest.mark.parametrize("kind", ["flat", "periodic"])
+def test_k7_ties_take_the_first_candidate_as_plain(dev, kind, size):
+    """Flat planes (every candidate ties on SAD; the rate term and the
+    SUBPEL_DELTAS order decide) and period-8 planes, on a frame and on
+    one SB row, with zero, small and edge-reaching MVs."""
+    H, W = size
+    pair = _tie_pair(kind, H, W)
+    src, ref = (torch.from_numpy(np.ascontiguousarray(p)).to(dev)
+                for p in pair)
+    rng = np.random.default_rng(W)
+    nr, nc = H // 16, W // 16
+    mvs = [(torch.zeros((nr, nc), dtype=torch.int32),) * 2,
+           tuple(torch.from_numpy(rng.integers(-3, 4, (nr, nc)).astype(
+               np.int32)) for _ in range(2)),
+           _edge_mvs(rng, nr, nc, H, W)]
+    for r, c in mvs:
+        _k7_equal(src, ref, r.to(dev), c.to(dev))
+
+
+def test_k7_mvs_past_every_edge_match_plain(dev):
+    """Textured planes with patches clamped at the four edges and
+    corners: the 24x24 patch of clamped reads."""
+    src, ref = (torch.from_numpy(p).to(dev) for p in _moving_pair(192, 256,
+                                                                  21))
+    rng = np.random.default_rng(21)
+    for _ in range(3):
+        r, c = _edge_mvs(rng, 12, 16, 192, 256)
+        _k7_equal(src, ref, r.to(dev), c.to(dev))
+
+
+@pytest.mark.parametrize("row0", [64, 512, 1024])
+def test_k7_stripe_of_a_1920_reference_matches_plain(dev, row0):
+    """K7's stripe mode: a 64-row stripe at row0 of a 1920x1088
+    reference, with the ME's MVs and edge-reaching ones; the stripe's
+    rows of the whole frame's run are the same."""
+    src, ref = (torch.from_numpy(p).to(dev)
+                for p in _moving_pair(1088, 1920, row0))
+    stripe = src[row0:row0 + 64].contiguous()
+    me = bme.frame_me(src, ref, 8, ((16, 16),))
+    mv_r = bi._nested_to_grid(me[(16, 16)][0], 17, 30, 4, 4)
+    mv_c = bi._nested_to_grid(me[(16, 16)][1], 17, 30, 4, 4)
+    whole = _k7_equal(src, ref, mv_r, mv_c)
+    k = row0 // 16
+    part = _k7_equal(stripe, ref, mv_r[k:k + 4].contiguous(),
+                     mv_c[k:k + 4].contiguous(), row0)
+    assert torch.equal(part[0], whole[0][k:k + 4])
+    assert torch.equal(part[1], whole[1][k:k + 4])
+    assert torch.equal(part[2], whole[2][row0:row0 + 64])
+    r, c = _edge_mvs(np.random.default_rng(row0), 4, 120, 1088, 1920)
+    _k7_equal(stripe, ref, r.to(dev), c.to(dev), row0)
+
+
+def _k9_inputs(dev, src, refs, mvs=None, seed=0):
+    """(src, refs, preds, mvq_r, mvq_c, sb_r, sb_c) on the card from numpy
+    planes: each reference through the path's K5-K7, or, with ``mvs``,
+    arbitrary quarter-pel MV fields (and SB winners) beside the
+    predictions K7 made."""
+    H, W = src.shape
+    src_t = torch.from_numpy(np.ascontiguousarray(src)).to(dev)
+    ny, nx = H // 64, W // 64
+    rng = np.random.default_rng(seed)
+    parts = []
+    for ref in refs:
+        r = torch.from_numpy(np.ascontiguousarray(ref)).to(dev)
+        me = bme.frame_me(src_t, r, 8, ((16, 16), (64, 64)))
+        a, b, p = bme.subpel_refine16(
+            src_t, r, bi._nested_to_grid(me[(16, 16)][0], ny, nx, 4, 4),
+            bi._nested_to_grid(me[(16, 16)][1], ny, nx, 4, 4))
+        sr, sc = me[(64, 64)][0].reshape(ny, nx), me[(64, 64)][1].reshape(
+            ny, nx)
+        if mvs == "edges":
+            # seeds that mirror past every edge of the plane
+            big = [torch.from_numpy((rng.integers(-lim, lim + 1,
+                                                  (H // 16, W // 16)) & ~1)
+                                    .astype(np.int32)).to(dev)
+                   for lim in (8 * H + 900, 8 * W + 900)]
+            a, b = big
+            sr = torch.from_numpy(rng.integers(-60, 61, (ny, nx)).astype(
+                np.int32)).to(dev)
+            sc = torch.from_numpy(rng.integers(-60, 61, (ny, nx)).astype(
+                np.int32)).to(dev)
+        parts.append((p, a, b, sr, sc))
+    return (src_t, torch.stack([torch.from_numpy(np.ascontiguousarray(r))
+                                for r in refs]).to(dev).contiguous()) + \
+        tuple(torch.stack([q[i] for q in parts]).contiguous()
+              for i in range(5))
+
+
+def _k9_equal(args, bwd, rel, qindex=100):
+    before = bi.compound_joint.launches
+    got = bi.compound_joint(*args, bwd, rel, qindex)
+    assert bi.compound_joint.launches == before + 1
+    want = bi.compound_joint_plain(*args, bwd, rel, qindex)
+    for key in bi.COMP_KEYS:
+        assert torch.equal(got[key], want[key]), key
+    return got
+
+
+@pytest.mark.parametrize("kind", ["flat", "periodic"])
+def test_k9_ties_between_offsets_and_picks_match_plain(dev, kind):
+    """Flat references (every offset ties, and the plain average ties
+    with both refined arms: the first pick must win) and period-8 ones
+    (ties every eighth offset)."""
+    src, ref = _tie_pair(kind, 192, 256)
+    refs = [ref, np.roll(ref, (8, -8), axis=(0, 1))]
+    args = _k9_inputs(dev, src, refs)
+    got = _k9_equal(args, (False, True), (-1, 1))
+    if kind == "flat":
+        # every pair predicts the source exactly: the plain average, the
+        # first of the three, keeps both arms' MVs
+        assert bool((got["sad"] == 0).all())
+        assert torch.equal(got["mv_r"], args[3][0])
+        assert torch.equal(got["mv1_c"], args[4][1])
+
+
+@pytest.mark.parametrize("size", [(192, 256), (64, 1920)],
+                         ids=["frame", "one_sb_row"])
+def test_k9_windows_clipped_at_every_edge_match_plain(dev, size):
+    """MV fields whose mirrored seeds put the 22x22 window past each edge
+    of the plane (the origin clips to the MC_PAD pad, the reads clamp);
+    the realized MVs come from the clipped origins."""
+    H, W = size
+    src, ref = _moving_pair(H, W, 9)
+    refs = [ref, np.roll(ref, (3, 5), axis=(0, 1))]
+    for seed in range(3):
+        args = _k9_inputs(dev, src, refs, "edges", seed)
+        _k9_equal(args, (False, True), (-2, 3))
+        _k9_equal(args, (True, False), (1, -1))
+
+
+@pytest.mark.parametrize("size", [(64, 1920), (128, 1920), (1152, 1920)],
+                         ids=["one_sb_row", "two_sb_rows", "1920x1152"])
+def test_k9_wave_shapes_match_plain(dev, size):
+    """One and two SB rows of a 1920-wide frame, and the random-access
+    path's 1920x1152 (2,160 blocks of four units)."""
+    H, W = size
+    src, ref = _moving_pair(H, W, H)
+    refs = [ref, np.roll(ref, (-6, 5), axis=(0, 1))]
+    args = _k9_inputs(dev, src, refs)
+    got = _k9_equal(args, (False, True), (-1, 1))
+    refined = (got["mv1_r"] != args[4][1]) | (got["mv_r"] != args[4][0])
+    assert bool(refined.any())
+
+
+@pytest.mark.parametrize("mask", [m for m in range(1, 7)],
+                         ids=lambda m: "".join("B" if (m >> k) & 1 else "F"
+                                               for k in range(3)))
+def test_k9_three_references_each_backward_mask_match_plain(dev, mask):
+    """K = 3 with every backward mask that leaves references on both
+    sides: the first minimum over each side and the distance-scaled
+    mirrors."""
+    src, refs, preds, mr, mc, sr, sc = _unit_inputs(
+        dev, 192, 256, ((2, -3), (-6, 5), (9, 11)), mask)
+    bwd = tuple(bool((mask >> k) & 1) for k in range(3))
+    rel = tuple((k + 1) * (1 if b else -1) for k, b in enumerate(bwd))
+    _k9_equal((src, refs, preds, mr, mc, sr, sc), bwd, rel)
+
+
+def test_k9_refuses_planes_off_16_byte_boundaries(dev):
+    src, refs, preds, mr, mc, sr, sc = _unit_inputs(
+        dev, 64, 128, ((1, 2), (-2, 1)), 0)
+    shifted = torch.empty(src.numel() + 16, dtype=torch.uint8, device=dev)[
+        1:1 + src.numel()].view(src.shape)
+    shifted.copy_(src)
+    with pytest.raises(ValueError):
+        bi.compound_joint(shifted, refs, preds, mr, mc, sr, sc,
+                          (False, True), (-1, 1), 100)

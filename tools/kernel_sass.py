@@ -5,9 +5,11 @@
 Needs the CUDA toolkit (nvcc, cuobjdump); no card.  Prints:
 
 1. ``-Xptxas -v`` for each named kernel source (default: intra_decision,
-   me_refine, inter_select and cdef_filter): registers, spills and
-   shared memory per entry;
-2. the SASS opcode histogram of each of their entries;
+   me_refine, inter_select, cdef_filter, subpel_refine and
+   compound_joint): registers, spills and shared memory per entry;
+2. the SASS opcode histogram of each of their entries, and apart the
+   packed-integer opcodes the redesigns rest on (every opcode that
+   starts with VABSDIFF4, IDP (dp4a and dp2a) or PRMT);
 3. the SASS of five exact forms of "accumulate the sum of the four
    absolute byte differences of two words" (K6's inner operation):
    ``__vsadu4``, PTX ``vabsdiff4.u32.u32.u32.add`` with the accumulator
@@ -30,6 +32,7 @@ sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 from svt_av1_tpu_torch.kernels import build  # noqa: E402
 
 ARCH = "-gencode=arch=compute_90a,code=sm_90a"
+PACKED_OPCODES = ("VABSDIFF4", "IDP", "PRMT")
 
 SAD_PROBE = r"""
 #include <stdint.h>
@@ -92,7 +95,8 @@ def opcode(ins: str) -> str:
 def main() -> int:
     nvcc = build._nvcc()
     names = sys.argv[1:] or ["intra_decision", "me_refine", "inter_select",
-                             "cdef_filter"]
+                             "cdef_filter", "subpel_refine",
+                             "compound_joint"]
     out_dir = build.BUILD_DIR / "sass"
     out_dir.mkdir(parents=True, exist_ok=True)
     for name in names:
@@ -105,6 +109,9 @@ def main() -> int:
             hist = collections.Counter(opcode(x) for x in lines)
             print(f"== {name}: {fn}: {len(lines)} instructions")
             print("   " + ", ".join(f"{k} {v}" for k, v in hist.most_common()))
+            packed = {k: v for k, v in hist.items()
+                      if k.startswith(PACKED_OPCODES)}
+            print(f"   packed-integer opcodes: {packed}")
     probe = out_dir / "sad_probe.cu"
     probe.write_text(SAD_PROBE)
     cubin = out_dir / "sad_probe.cubin"

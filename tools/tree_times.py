@@ -1,4 +1,4 @@
-"""K1, K4's search, K6 and K8 kernel times and the encode fps of one
+"""K1, K4's search, K5, K6, K7, K8 and K9 kernel times and the encode fps of one
 checkout, on chip_smoke.py's 1080p inputs.
 
     python3 tools/tree_times.py [--root DIR] [--kernels] [--fps]
@@ -9,14 +9,21 @@ can be run in turns on one card, in separate processes.  With neither
 flag both parts run.
 
 * ``--kernels``: CUDA-event medians of 20 calls after one warm-up
-  (chip_smoke.cuda_ms).  K1: the decisions of all 7 block shapes of the
+  (chip_smoke.cuda_ms; the events also take in the host work of the
+  wrapper where the card waits for it), and beside them (``device_ms``)
+  the device time per call: the kernels' and copies' own time from
+  torch.profiler's CUDA records over 20 calls, without the host path.  K1: the decisions of all 7 block shapes of the
   first frame's 1920x1152 luma plane (one launch where the package has
-  ``omd.intra_decision_packed``, else one launch per shape); K6: the
+  ``omd.intra_decision_packed``, else one launch per shape); K5: the
+  path's call (two launches) on two frames of the moving clip at
+  1920x1152; K6: the
   path's shapes (16x16 and 64x64) on two frames of the moving clip at
   1920x1152, MCTF's 32x32 at 1920x1088 and TPL's 16x16 at 960x576;
-  K8: the random-access path's call (two references, past and future,
-  and K9's compound row) on three frames of the moving clip at
-  1920x1152; K4's search: the 5x3 grid over the three planes of the
+  K7: the path's call (one reference) on two frames of the moving clip
+  at 1920x1152, after the path's K5/K6; K8: the random-access path's
+  call (two references, past and future, and K9's compound row) on
+  three frames of the moving clip at 1920x1152; K9: the random-access
+  path's call on the same inputs (two references); K4's search: the 5x3 grid over the three planes of the
   first frame (a noisy recon against its source, 80% of the units
   non-skip).
 * ``--fps``: the all-intra encode (three noise-like and three smooth
@@ -39,8 +46,27 @@ from pathlib import Path
 HERE = Path(__file__).resolve().parent.parent
 
 
+def device_ms(torch, fn, reps=20):
+    """Device time per call of ``fn``: the CUDA records (kernels, copies)
+    of torch.profiler over ``reps`` calls after one warm-up, in ms."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(e.self_device_time_total for e in prof.key_averages()
+             if e.device_type == DeviceType.CUDA)
+    return us / reps / 1e3
+
+
 def kernel_times(cs, np, torch):
     from svt_av1_tpu_torch.ops import bme, omd
+    from svt_av1_tpu_torch.pipeline import batched_inter as bi
 
     dev = torch.device("cuda")
     W, H = cs.WIDTH, cs.HEIGHT
@@ -56,31 +82,36 @@ def kernel_times(cs, np, torch):
         def k1():
             return [omd.intra_decision(plane, w, h, qindex, lam, mb)
                     for (w, h) in omd.ALL_SHAPES]
-    times = {"K1 7 shapes": cs.cuda_ms(k1, 20)}
+    calls = {"K1 7 shapes": k1}
 
-    def k6_ms(src, ref, shapes):
+    def k6(src, ref, shapes):
         coarse = bme.me_coarse(src, ref, bme.COARSE_R)
-        return cs.cuda_ms(lambda: bme.me_refine(src, ref, coarse, shapes), 20)
+        return lambda: bme.me_refine(src, ref, coarse, shapes)
 
     src, ref = (omd.upload_plane(f[0], bw, bh, 8, dev) for f in clip[::-1])
-    times["K6 path 16x16+64x64"] = k6_ms(src, ref, ((16, 16), (64, 64)))
+    calls["K5 path"] = lambda: bme.me_coarse(src, ref, bme.COARSE_R)
+    calls["K6 path 16x16+64x64"] = k6(src, ref, ((16, 16), (64, 64)))
     hm = -(-H // 64) * 64
     mctf = [torch.from_numpy(np.ascontiguousarray(np.pad(
         f[0], ((0, hm - H), (0, 0)), mode="edge"))).to(dev)
         for f in clip[::-1]]
-    times["K6 MCTF 32x32"] = k6_ms(*mctf, ((32, 32),))
+    calls["K6 MCTF 32x32"] = k6(*mctf, ((32, 32),))
     half = [torch.from_numpy(cs._half_res(f[0], bw, bh)).to(dev)
             for f in clip[::-1]]
-    times["K6 TPL 16x16"] = k6_ms(*half, ((16, 16),))
-    times["K8 compound row"] = cs.cuda_ms(k8_call(cs, np, torch, dev), 20)
-    times["K4 search 5x3"] = cs.cuda_ms(k4_search_call(cs, np, torch, dev),
-                                        20)
-    return times
+    calls["K6 TPL 16x16"] = k6(*half, ((16, 16),))
+    me = bme.frame_me(src, ref, bme.COARSE_R, ((16, 16), (64, 64)))
+    ny, nx = bh // 64, bw // 64
+    mv = [bi._nested_to_grid(me[(16, 16)][i], ny, nx, 4, 4) for i in (0, 1)]
+    calls["K7 path 1 ref"] = lambda: bme.subpel_refine16(src, ref, *mv)
+    calls["K8 compound row"], calls["K9 2 refs"] = ra_calls(cs, torch, dev)
+    calls["K4 search 5x3"] = k4_search_call(cs, np, torch, dev)
+    return ({k: cs.cuda_ms(f, 20) for k, f in calls.items()},
+            {k: device_ms(torch, f) for k, f in calls.items()})
 
 
-def k8_call(cs, np, torch, dev):
-    """K8 as the random-access path calls it: the middle of three frames
-    against the outer two, with the compound row."""
+def ra_calls(cs, torch, dev):
+    """K8 and K9 as the random-access path calls them: the middle of three
+    frames against the outer two (K8 with the compound row)."""
     from svt_av1_tpu_torch.ops import bme, omd
     from svt_av1_tpu_torch.pipeline import batched_inter as bi
 
@@ -101,11 +132,12 @@ def k8_call(cs, np, torch, dev):
     preds, mvq_r, mvq_c, sb_r, sb_c = (
         torch.stack([p[i] for p in parts]).contiguous() for i in range(5))
     qindex, lam = 160, 2500.0
-    comp = bi.compound_joint(src, torch.stack(refs).contiguous(), preds,
-                             mvq_r, mvq_c, sb_r, sb_c, (False, True),
-                             (-1, 1), qindex)
+    k9_args = (src, torch.stack(refs).contiguous(), preds, mvq_r, mvq_c,
+               sb_r, sb_c, (False, True), (-1, 1), qindex)
+    comp = bi.compound_joint(*k9_args)
     args = (src, preds, mvq_r, mvq_c, sb_r, sb_c, qindex, lam)
-    return lambda: bi.inter_select(*args, comp=comp)
+    return (lambda: bi.inter_select(*args, comp=comp),
+            lambda: bi.compound_joint(*k9_args))
 
 
 def k4_search_call(cs, np, torch, dev):
@@ -183,7 +215,7 @@ def main() -> int:
         "the package must come from --root"
     out = {}
     if want_k:
-        out["ms"] = kernel_times(cs, np, torch)
+        out["ms"], out["device_ms"] = kernel_times(cs, np, torch)
     if want_f:
         out["fps"] = encode_fps(cs, torch)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
