@@ -16,7 +16,12 @@ Phases, each of which must pass (the script exits non-zero otherwise):
    launches), K6 at the path's shapes (the 16x16 table) and at all 8
    shapes (the 8x8 table), each set held against the plain version, and
    both print their design ceilings (k1_ceiling, k6_ceiling) beside
-   their bounds;
+   their bounds; K2 (one launch for both directions) and K5 (one launch)
+   also print their profiler device times (device_ms), K2 on the luma
+   and both chroma planes, K5 at each reach of the random-access path
+   (K5_PATH_RADII at 1920x1152, 8 at the MCTF and TPL geometries) with
+   its bound per reach; the build prints ptxas's registers, spills and
+   shared memory of both (nvcc's -Xptxas -v lines);
 4. all-intra encode: the port's Encoder on N_FRAMES synthetic 1920x1080
    frames, preset 8 (LOW_DELAY_P, qp 40, intra_period_length 0), with
    every launch counter set to 0 just before and read just after; K1-K4
@@ -35,14 +40,16 @@ Phases, each of which must pass (the script exits non-zero otherwise):
    moving clip, a key frame and two 16-frame mini-GOPs, counters as in
    4; every kernel K1-K10 must have launched; it prints the fps of the
    last 16 frames after a 17-frame warm-up (bench.py's window) and of
-   the whole run, the stage times, per frame the type, layer, qindex
+   the whole run, the stage times, K5's calls by reach and plane and
+   K2's by plane and level, per frame the type, layer, qindex
    and show_existing flag from the stream, and the share of 16x16 units
    whose plan chose compound; the plans must have chosen compound and
    the stream must hold show_existing frames; every shown frame's PSNR
    must exceed the floor;
 7. agreement: small clips (all-intra, low-delay P and random access)
    coded on the card and with the plain versions on the CPU give
-   byte-identical streams;
+   byte-identical streams (every encode prints the md5 of its packets,
+   as tools/tree_times.py --fps does for a tree);
 8. stripes (B14, ``parallel/``): ``dryrun_stripes`` at the JAX dryrun's
    geometry (4 stripes, 1280x256) and at full width (17 stripes,
    1920x1088), each on a P frame coded by the port's encoder, with every
@@ -64,8 +71,8 @@ Phases, each of which must pass (the script exits non-zero otherwise):
 10. one JSON line listing every kernel (wrapper calls and launches on
     the main paths: the random-access encode, the stripe dryruns and the
     decodes; every CUDA wrapper counts its calls on entry and its
-    launches where it launches: K2 once per direction, K4's apply once
-    per plane, K5 twice per call (decimation, search), the others once)
+    launches where it launches: K4's apply once per plane, the others
+    once per call)
     and the stripe step (B14), then the
     device line last; K1's and K6's design
     ceilings are printed beside their bounds, not put in that line.  Phase 6 also prints the K1 and K6 launches of the
@@ -107,6 +114,7 @@ result.
 """
 from __future__ import annotations
 
+import collections
 import gzip
 import json
 import os
@@ -114,6 +122,7 @@ import statistics
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 from pathlib import Path
 
@@ -134,6 +143,8 @@ PSNR_FLOOR_DB = 25.0
 KERNEL_REPS = 20
 # the ME shapes of the inter plans and the stripe step (K6's 16x16 table)
 PATH_ME_SHAPES = ((16, 16), (64, 64))
+# K5's reaches on the random-access path (bme.coarse_r_for_dist)
+K5_PATH_RADII = (8, 12, 16, 24)
 PLAIN_REPS = 5
 TRACE_FRAMES = 3
 # random access: a key frame and two 16-frame mini-GOPs; bench.py times
@@ -184,6 +195,25 @@ def cuda_ms(fn, reps):
         b.synchronize()
         times.append(a.elapsed_time(b))
     return statistics.median(times)
+
+
+def device_ms(fn, reps=KERNEL_REPS):
+    """Device time per call of ``fn``: the CUDA records (kernels, copies)
+    of torch.profiler over ``reps`` calls after one warm-up, in ms; the
+    wrapper's host path is not in it."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(e.self_device_time_total for e in prof.key_averages()
+             if e.device_type == DeviceType.CUDA)
+    return us / reps / 1e3
 
 
 def bound_ms(n_bytes, n_ops):
@@ -263,6 +293,16 @@ def k6_ops(n_sb):
     3 scalar operations per pixel pair give a bound that the kernel
     beats)."""
     return n_sb * 2 * 1089 * 64 * 64 // 4
+
+
+def k5_ops(n_sb, r, n_px, packed=True):
+    """K5's operations: the decimation's adds over the ``n_px`` bytes of
+    both planes and, per SB and offset of the (2r+1)^2, the 64 absolute
+    differences of the decimated tile and their sum.  ``packed``, as
+    k6_ops counts: 4 bytes per dp4a, 4 pixel pairs per packed absolute
+    difference with accumulate; else 1 per byte and 3 per pixel pair."""
+    n_off = n_sb * (2 * r + 1) ** 2
+    return n_px // 4 + n_off * 16 if packed else n_px + n_off * 64 * 3
 
 
 def k6_ceiling(n_sb):
@@ -357,6 +397,42 @@ def ra_config(w, h, **kw):
                          intra_period_length=RA_FRAMES, **kw)
 
 
+def deblock_inputs(dev, frame, rng, buf_w, buf_h):
+    """K2's inputs at the 1080p buffer: a noisy int32 recon of the luma
+    plane and of both chroma planes, each with random edge masks (a 4x4
+    transform grid of 4..32-sample blocks; chroma masks filter at most 6
+    taps).  Returns (luma, masks, [chroma 1, chroma 2], chroma masks)."""
+    from svt_av1_tpu_torch.ops import dlf
+
+    src_y = torch.from_numpy(np.ascontiguousarray(
+        np.pad(frame[0], ((0, buf_h - HEIGHT), (0, 0)), mode="edge")))
+    rec_y = (src_y.to(torch.int32)
+             + torch.from_numpy(rng.integers(-6, 7, (buf_h, buf_w))
+                                .astype(np.int32))).clamp(0, 255)
+    y4, x4 = buf_h // 4, buf_w // 4
+    tx = rng.choice([4, 8, 16, 32], size=(y4, x4)).astype(np.int32)
+    skip = rng.random((y4, x4)) < 0.3
+    bex = rng.random((y4, x4)) < 0.5
+    bey = rng.random((y4, x4)) < 0.5
+    prm = [torch.from_numpy(np.ascontiguousarray(a, np.uint8)).to(dev)
+           for a in dlf.edge_params(tx, tx, skip, bex, bey, WIDTH, HEIGHT,
+                                    False)]
+    cw, ch = WIDTH // 2, HEIGHT // 2
+    c4y, c4x = buf_h // 8, buf_w // 8
+    ctx = rng.choice([4, 8, 16, 32], size=(c4y, c4x)).astype(np.int32)
+    cprm = [torch.from_numpy(np.ascontiguousarray(a, np.uint8)).to(dev)
+            for a in dlf.edge_params(ctx, ctx, rng.random((c4y, c4x)) < 0.3,
+                                     rng.random((c4y, c4x)) < 0.5,
+                                     rng.random((c4y, c4x)) < 0.5, cw, ch,
+                                     True)]
+    chroma = [(torch.from_numpy(np.ascontiguousarray(
+        np.pad(p, ((0, buf_h // 2 - ch), (0, 0)), mode="edge"))
+        .astype(np.int32)) + torch.from_numpy(
+            rng.integers(-6, 7, (buf_h // 2, buf_w // 2))
+            .astype(np.int32))).clamp(0, 255).to(dev) for p in frame[1:]]
+    return rec_y.to(dev), prm, chroma, cprm
+
+
 def kernels_phase(dev, frame):
     from svt_av1_tpu_torch.entropy.tables import FrameCdfs
     from svt_av1_tpu_torch.ops import cdef, dlf, omd
@@ -411,21 +487,11 @@ def kernels_phase(dev, frame):
     print(f"K1 intra_decision as 7 one-shape launches (the same kernel): "
           f"{cuda_ms(k1_by_shape, KERNEL_REPS):.4f} ms")
 
-    # -- K2 deblocking: one luma plane at one level, both directions
-    src_y = torch.from_numpy(np.ascontiguousarray(
-        np.pad(frame[0], ((0, buf_h - HEIGHT), (0, 0)), mode="edge")))
-    rec_y = (src_y.to(torch.int32)
-             + torch.from_numpy(rng.integers(-6, 7, (buf_h, buf_w))
-                                .astype(np.int32))).clamp(0, 255)
-    y4, x4 = buf_h // 4, buf_w // 4
-    tx = rng.choice([4, 8, 16, 32], size=(y4, x4)).astype(np.int32)
-    skip = rng.random((y4, x4)) < 0.3
-    bex = rng.random((y4, x4)) < 0.5
-    bey = rng.random((y4, x4)) < 0.5
-    prm = [torch.from_numpy(np.ascontiguousarray(a, np.uint8)).to(dev)
-           for a in dlf.edge_params(tx, tx, skip, bex, bey, WIDTH, HEIGHT,
-                                    False)]
-    ry = rec_y.to(dev)
+    # -- K2 deblocking: the luma plane at the path's level and both chroma
+    # planes (chroma masks: filters of at most 6 taps), both directions
+    # in one launch per plane
+    ry, prm, chroma_rec, cprm = deblock_inputs(dev, frame, rng, buf_w,
+                                               buf_h)
     lvl = dlf.filter_levels_from_qindex(qindex)
     k2 = lambda: dlf.deblock(ry, *prm, WIDTH, HEIGHT, lvl, lvl, 0)  # noqa
     k2_plain = lambda: dlf.loop_filter_plane_full(  # noqa: E731
@@ -436,22 +502,8 @@ def kernels_phase(dev, frame):
     print(f"K2 deblock level {lvl}: max |kernel - plain| {err}, "
           f"{(a != ry).sum().item()} samples changed")
     assert err == 0
-    # ... and both chroma planes at the main path's chroma shape, with
-    # chroma edge masks (filters of at most 6 taps)
     cw, ch = WIDTH // 2, HEIGHT // 2
-    c4y, c4x = buf_h // 8, buf_w // 8
-    ctx = rng.choice([4, 8, 16, 32], size=(c4y, c4x)).astype(np.int32)
-    cprm = [torch.from_numpy(np.ascontiguousarray(a, np.uint8)).to(dev)
-            for a in dlf.edge_params(ctx, ctx, rng.random((c4y, c4x)) < 0.3,
-                                     rng.random((c4y, c4x)) < 0.5,
-                                     rng.random((c4y, c4x)) < 0.5, cw, ch,
-                                     True)]
-    for pli, p in ((1, frame[1]), (2, frame[2])):
-        rc = (torch.from_numpy(np.ascontiguousarray(
-            np.pad(p, ((0, buf_h // 2 - ch), (0, 0)), mode="edge"))
-            .astype(np.int32)) + torch.from_numpy(
-                rng.integers(-6, 7, (buf_h // 2, buf_w // 2))
-                .astype(np.int32))).clamp(0, 255).to(dev)
+    for pli, rc in zip((1, 2), chroma_rec):
         k2c = lambda: dlf.deblock(rc, *cprm, cw, ch, lvl, lvl, 0)  # noqa
         a_c = k2c()
         b_c = dlf.loop_filter_plane_full(rc, *cprm, cw, ch, lvl, lvl, 0)
@@ -460,13 +512,16 @@ def kernels_phase(dev, frame):
         print(f"K2 deblock chroma plane {pli} ({rc.shape[1]}x{rc.shape[0]}) "
               f"level {lvl}: max |kernel - plain| {err_c}, "
               f"{(a_c != rc).sum().item()} samples changed, kernel "
-              f"{cuda_ms(k2c, KERNEL_REPS):.4f} ms")
+              f"{cuda_ms(k2c, KERNEL_REPS):.4f} ms, device "
+              f"{device_ms(k2c):.5f} ms, bound "
+              f"{bound_ms(nbytes(rc, a_c, *cprm), 0)[0]:.5f} ms (bytes)")
         assert err_c == 0 and bool((a_c != rc).any())
         err = max(err, err_c)
     results["deblock"] = dict(
         ms=cuda_ms(k2, KERNEL_REPS), plain_ms=cuda_ms(k2_plain, PLAIN_REPS),
-        max_abs_err=err, bound=bound_ms(nbytes(ry, a, *prm), 0),
-        per_call="2 launches (vertical, horizontal) on the luma plane")
+        device_ms=device_ms(k2), max_abs_err=err,
+        bound=bound_ms(nbytes(ry, a, *prm), 0),
+        per_call="1 launch, both directions, on the luma plane")
 
     # -- K3 CDEF directions of the luma plane
     k3 = lambda: cdef.cdef_direction(ry, WIDTH, HEIGHT, 0)  # noqa: E731
@@ -559,23 +614,36 @@ def inter_kernels_phase(dev, ref_frame, src_frame):
     ref = omd.upload_plane(ref_frame[0], W, H, 8, dev)
     results = {}
 
-    # -- K5 coarse search (the main path's reach: distance 0 -> r 8)
+    # -- K5 coarse search at each reach of the random-access path
+    # (bme.coarse_r_for_dist), one launch per call.  The kernels line
+    # keeps r 8, the reach of distances 1-2
+    k5 = {}
+    for r in K5_PATH_RADII:
+        call = lambda: bme.me_coarse(src, ref, r)  # noqa: E731
+        got, want = call(), bme.coarse_sb_search(src, ref, r)
+        torch.cuda.synchronize()
+        err = (got - want).abs().max().item()
+        assert err == 0, (r, err)
+        n_px = 2 * H * W
+        row = dict(ms=cuda_ms(call, KERNEL_REPS), device_ms=device_ms(call),
+                   max_abs_err=err,
+                   bound=bound_ms(nbytes(src, ref, got),
+                                  k5_ops(n_sb, r, n_px)),
+                   scalar=bound_ms(nbytes(src, ref, got),
+                                   k5_ops(n_sb, r, n_px, packed=False)))
+        print(f"K5 me_coarse r {r} ({(2 * r + 1) ** 2} offsets): max "
+              f"|kernel - plain| {err}; kernel {row['ms']:.4f} ms, device "
+              f"{row['device_ms']:.5f} ms, bound {row['bound'][0]:.5f} ms "
+              f"({row['bound'][1]}; the scalar count's "
+              f"{row['scalar'][0]:.5f} ms, {row['scalar'][1]})")
+        k5[r] = row
     r = bme.coarse_r_for_dist(0)
-    k5 = lambda: bme.me_coarse(src, ref, r)  # noqa: E731
     k5_plain = lambda: bme.coarse_sb_search(src, ref, r)  # noqa: E731
-    coarse, want = k5(), k5_plain()
-    torch.cuda.synchronize()
-    err = (coarse - want).abs().max().item()
-    print(f"K5 me_coarse r {r}: max |kernel - plain| {err}")
-    assert err == 0
-    # decimation adds, then per SB and offset 64 |a - b| accumulations
-    # (3 operations each)
+    coarse = bme.me_coarse(src, ref, r)
     results["me_coarse"] = dict(
-        ms=cuda_ms(k5, KERNEL_REPS), plain_ms=cuda_ms(k5_plain, PLAIN_REPS),
-        max_abs_err=err,
-        bound=bound_ms(nbytes(src, ref, coarse),
-                       2 * H * W + n_sb * (2 * r + 1) ** 2 * 64 * 3),
-        per_call="2 launches (decimation, search)")
+        k5[r], plain_ms=cuda_ms(k5_plain, PLAIN_REPS),
+        max_abs_err=max(v["max_abs_err"] for v in k5.values()),
+        per_call="1 launch, r 8")
 
     # -- K6 refinement: every ME shape once, the path's two shapes timed
     got = bme.me_refine(src, ref, coarse, bme.ME_SHAPES)
@@ -848,6 +916,7 @@ def ra_kernels_phase(dev, clip):
         torch.cuda.synchronize()
         err = max((g - w).abs().max().item()
                   for g, w in zip(got[shape], want[shape]))
+        err = max(err, (bme.me_coarse(c, n) - coarse).abs().max().item())
         assert err == 0
         hh, ww = c.shape
         n_sb = (hh // 64) * (ww // 64)
@@ -856,15 +925,16 @@ def ra_kernels_phase(dev, clip):
             (lambda: bme.coarse_sb_search(c, n), PLAIN_REPS),
             (lambda: bme.me_refine(c, n, coarse, (shape,)), KERNEL_REPS),
             (lambda: bme.refine_plain(c, n, coarse, (shape,)), PLAIN_REPS))]
+        k5_dev = device_ms(lambda: bme.me_coarse(c, n))
         # the bounds count as the K5 and K6 rows do
-        b5 = bound_ms(nbytes(c, n, coarse),
-                      2 * hh * ww + n_sb * (2 * r + 1) ** 2 * 64 * 3)
+        b5 = bound_ms(nbytes(c, n, coarse), k5_ops(n_sb, r, 2 * hh * ww))
         b6 = bound_ms(nbytes(c, n, coarse, *got[shape]),
                       k6_ops(n_sb))
         c6 = k6_ceiling(n_sb)
         print(f"K5/K6 at the {what} geometry {ww}x{hh}, shape "
               f"{shape[0]}x{shape[1]} alone: max |kernel - plain| {err}; "
-              f"K5 {times[0]:.4f} ms (plain {times[1]:.4f} ms, bound "
+              f"K5 {times[0]:.4f} ms (device {k5_dev:.5f} ms, plain "
+              f"{times[1]:.4f} ms, bound "
               f"{b5[0]:.5f} ms, {b5[1]}), K6 {times[2]:.4f} ms (plain "
               f"{times[3]:.4f} ms, bound {b6[0]:.5f} ms, {b6[1]}; design "
               f"ceiling {c6[0]:.5f} ms, {c6[1]})")
@@ -896,6 +966,20 @@ def stream_frame_params(path):
                 out.append((int(fh.frame_type), max(fh.filter_level),
                             fh.cdef_y_strengths[0], fh.cdef_uv_strengths[0]))
     return out
+
+
+def stream_md5(path):
+    """md5 of the packets of the IVF at ``path``, in order (the stream's
+    bytes without the IVF framing; tools/tree_times.py hashes the
+    encoder's packets the same way)."""
+    import hashlib
+
+    from svt_av1_tpu_torch.io import IvfReader
+
+    h = hashlib.md5()
+    for pkt, _ in IvfReader(str(path)):
+        h.update(pkt)
+    return h.hexdigest()
 
 
 def run_encode(counters, frames, cfg, path, on_packet=None):
@@ -942,7 +1026,8 @@ def run_encode(counters, frames, cfg, path, on_packet=None):
     per_frame = {k: v.get("ms_per_frame") for k, v in rep.items()
                  if k != "_wall"}
     print(f"encode: {len(frames)} frames {WIDTH}x{HEIGHT} in {wall:.3f} s, "
-          f"{len(frames) / wall:.4f} fps, {path.stat().st_size} bytes")
+          f"{len(frames) / wall:.4f} fps, {path.stat().st_size} bytes, "
+          f"packets md5 {stream_md5(path)}")
     print("stage ms/frame (host wall clock):", json.dumps(per_frame))
     return launches, wall, enc, scores
 
@@ -1028,12 +1113,35 @@ def stream_headers(path):
     return out
 
 
+class _Tally:
+    """A kernel wrapper's stand-in in its module that counts its calls by
+    ``key(*args)`` (under a lock: the plan prefetch calls from its own
+    thread) and forwards its ``calls`` and ``launches``, which the wrapper
+    updates through its module's name, to the wrapper ``fn``."""
+
+    def __init__(self, fn, key):
+        self.fn, self.key, self.by = fn, key, collections.Counter()
+        self.lock = threading.Lock()
+
+    def __call__(self, *args, **kw):
+        with self.lock:
+            self.by[self.key(*args, **kw)] += 1
+        return self.fn(*args, **kw)
+
+    def _forward(name):
+        return property(lambda self: getattr(self.fn, name),
+                        lambda self, v: setattr(self.fn, name, v))
+
+    calls, launches = _forward("calls"), _forward("launches")
+    del _forward
+
+
 def ra_phase(counters, frames, out_dir):
     """bench.py's configuration on RA_FRAMES frames of the moving clip;
     returns the launches and the wrapper calls of the run."""
     from svt_av1_tpu_torch.api import Encoder
     from svt_av1_tpu_torch.io import IvfWriter
-    from svt_av1_tpu_torch.ops import omd
+    from svt_av1_tpu_torch.ops import bme, dlf, omd
 
     path = Path(out_dir) / "smoke_1080p_ra.ivf"
     cfg = ra_config(WIDTH, HEIGHT)
@@ -1066,6 +1174,13 @@ def ra_phase(counters, frames, out_dir):
 
     enc._tf_source = counting("MCTF", enc._tf_source)
     enc._maybe_tpl = counting("TPL", enc._maybe_tpl)
+    # K5's calls by reach and plane, K2's by plane and level (the level
+    # search's luma candidates, then the chroma planes at the winner)
+    k5 = _Tally(bme.me_coarse, lambda src, ref, coarse_r=bme.COARSE_R, *a,
+                **kw: f"r {coarse_r}, {src.shape[1]}x{src.shape[0]}")
+    k2 = _Tally(dlf.deblock, lambda plane, *a, **kw:
+                f"{plane.shape[1]}x{plane.shape[0]}, levels {a[6]}/{a[7]}")
+    bme.me_coarse, dlf.deblock = k5, k2
     zero_counts(counters)
     torch.cuda.synchronize()
     for name in ("intra_decision", "inter_select"):
@@ -1083,6 +1198,7 @@ def ra_phase(counters, frames, out_dir):
                 pts += 1
     torch.cuda.synchronize()
     t1 = time.perf_counter()
+    bme.me_coarse, dlf.deblock = k5.fn, k2.fn
     launches, calls = read_counts(counters)
     near = {name: omd.near_recomputes(name)
             for name in ("intra_decision", "inter_select")}
@@ -1094,7 +1210,8 @@ def ra_phase(counters, frames, out_dir):
           f"{WIDTH}x{HEIGHT}; last {n_timed} frames after a {RA_WARM}-frame "
           f"warm-up in {t1 - t_warm:.3f} s, {n_timed / (t1 - t_warm):.4f} "
           f"fps; whole run {t1 - t0:.3f} s, {len(frames) / (t1 - t0):.4f} "
-          f"fps; {path.stat().st_size} bytes")
+          f"fps; {path.stat().st_size} bytes, packets md5 "
+          f"{stream_md5(path)}")
     rep = enc.perf_report()
     print("random access stage ms/frame (host wall clock):", json.dumps(
         {k: v.get("ms_per_frame") for k, v in rep.items() if k != "_wall"}))
@@ -1113,6 +1230,12 @@ def ra_phase(counters, frames, out_dir):
     print(f"K5/K6 calls by use: MCTF {by_use['MCTF']}, TPL "
           f"{by_use['TPL']}, inter plans "
           f"{calls['me_coarse'] - by_use['MCTF'] - by_use['TPL']}")
+    print("K5 calls by reach and source plane:",
+          json.dumps(dict(sorted(k5.by.items()))))
+    print("K2 calls by plane and level (vertical/horizontal):",
+          json.dumps(dict(sorted(k2.by.items()))))
+    assert sum(k5.by.values()) == calls["me_coarse"]
+    assert sum(k2.by.values()) == calls["deblock"]
     missing = [n for n, c in launches.items() if c == 0]
     assert not missing, f"kernels not launched on the main path: {missing}"
 
@@ -1151,10 +1274,11 @@ def ra_phase(counters, frames, out_dir):
 # phase 6: small clips, kernels on the card vs plain versions on the CPU
 # --------------------------------------------------------------------------
 
-def agreement_phase(out_dir):
-    """Returns the random-access card stream (path, recon)."""
-    from svt_av1_tpu_torch.api import encode_ivf
-
+def agreement_clips():
+    """The small clips coded on the card and on the CPU: (name, frames,
+    config) of 64x64 and 176x144 all-intra, 192x128x6 low-delay P and
+    192x128x5 random access (a key frame, then one 4-frame mini-GOP:
+    MCTF on its base, compound, show_existing)."""
     clips = {0: synth_clip(176, 144, 2, seed=13),
              -1: synth_clip(192, 128, 6, seed=13)}
     kinds = {0: "all-intra", -1: "low-delay P", "ra": "random access"}
@@ -1163,23 +1287,28 @@ def agreement_phase(out_dir):
         frames = [tuple(np.ascontiguousarray(p[:h >> (i > 0), :w >> (i > 0)])
                         for i, p in enumerate(f))
                   for f in clips[-1 if kind == "ra" else kind][:n]]
-        # random access: a key frame, then one 4-frame mini-GOP (MCTF on
-        # its base, compound, show_existing)
         cfg = ra_config(w, h, hierarchical_levels=2) if kind == "ra" \
             else slice_config(w, h, kind)
-        streams = {}
+        yield f"{w}x{h}x{n} {kinds[kind]}", frames, cfg
+
+
+def agreement_phase(out_dir):
+    """Returns the random-access card stream (path, recon)."""
+    from svt_av1_tpu_torch.api import encode_ivf
+
+    for k, (name, frames, cfg) in enumerate(agreement_clips()):
+        streams, paths = {}, {}
         for dev in ("cuda", "cpu"):
-            p = Path(out_dir) / f"agree_{w}x{h}_{kind}_{dev}.ivf"
+            p = paths[dev] = Path(out_dir) / f"agree_{k}_{dev}.ivf"
             recon = encode_ivf(frames, cfg, str(p), device=dev)
             streams[dev] = p.read_bytes()
-            if kind == "ra" and dev == "cuda":
+            if name.endswith("random access") and dev == "cuda":
                 ra_card = (p, recon)
         same = streams["cuda"] == streams["cpu"]
-        kind = kinds[kind]
-        print(f"{w}x{h}x{n} {kind}: card stream {len(streams['cuda'])} "
-              f"bytes, CPU stream {len(streams['cpu'])} bytes, identical "
-              f"{same}")
-        assert same, (w, h)
+        print(f"{name}: card stream {len(streams['cuda'])} bytes (packets "
+              f"md5 {stream_md5(paths['cuda'])}), CPU stream "
+              f"{len(streams['cpu'])} bytes, identical {same}")
+        assert same, name
     return ra_card
 
 
@@ -1318,7 +1447,7 @@ def _median_ms(fn):
 def step_bound(rep):
     """Sum of the least times of the stripe step's kernel calls (the
     kernels phase's counts at each stripe's shapes): per stripe K5, K6,
-    K7, K8 once, K1 once per shape, K2 twice (both directions) per
+    K7, K8 once, K1 once per shape, K2 once (both directions) per
     candidate level, K3 once, K4's search and apply once each.
     Returns (ms, the kind that bounds most of it)."""
     from svt_av1_tpu_torch.ops import bme, omd
@@ -1336,8 +1465,7 @@ def step_bound(rep):
         n_sb, units = (rows // 64) * (W // 64), (rows // 16) * (W // 16)
         px = rows * W
         r = frame.coarse_r
-        add(px + H * W + n_sb * 8, (px + H * W) + n_sb * (2 * r + 1) ** 2
-            * 64 * 3)
+        add(px + H * W + n_sb * 8, k5_ops(n_sb, r, px + H * W))
         add(px + H * W + n_sb * 8 + n_sb * 17 * 16,
             k6_ops(n_sb))
         add(px + H * W + units * 16 + px, k7_ops(units))
@@ -1598,6 +1726,11 @@ def main() -> int:
         build.load_c_extension(name)
     print(f"build: CUDA kernels {json.dumps(took)} s; all builds "
           f"{time.perf_counter() - t0:.3f} s")
+    # registers, spills (bytes per thread) and shared memory (bytes per
+    # block) of the kernels redesigned last
+    for name in ("me_coarse", "deblock"):
+        for line in build.ptxas_report(name):
+            print(f"ptxas {name}: {line}")
 
     half = N_FRAMES // 2
     frames = synth_clip(WIDTH, HEIGHT, half) + synth_clip(
@@ -1687,6 +1820,8 @@ def main() -> int:
         if "ceiling" in r:
             ceiling = (f", design ceiling {r['ceiling'][0]:.5f} ms "
                        f"({r['ceiling'][1]})")
+        if "device_ms" in r:
+            ceiling += f", device {r['device_ms']:.5f} ms"
         rows.append(row)
         print(f"{name}: {r['per_call']}: kernel {r['ms']:.4f} ms, plain "
               f"{r['plain_ms']:.4f} ms, bound {b_ms:.5f} ms ({b_by})"

@@ -1,56 +1,70 @@
-// K5 me_coarse: SB-level coarse motion search on /8 decimated planes.
+// K5 me_coarse: SB-level coarse motion search on /8 decimated planes, in
+// one launch per call.
 //
 // Replaces the JAX package's coarse_sb_search (svt_av1_tpu/ops/bme.py:42,
 // with _decimate8 :34), traced inside _jitted_inter
 // (svt_av1_tpu/pipeline/batched_inter.py:398) as a lax.scan over the
 // (2r+1)^2 offsets of full-plane shifted absolute differences.
 //
-// What bounds it on the H100: almost nothing.  At 1080p the decimated
-// planes are 144x240 int32 (138 KB each); 540 superblocks x 289..2401
-// offsets x 64 absolute differences is 10-83 M integer operations, a few
-// microseconds of the card's integer rate, and the bytes are smaller
-// still.  The two launches and their latency set its time.
+// What bounds it on the H100: almost nothing.  At 1080p the planes are
+// 2.2 MB of bytes each and 540 superblocks x 289..2401 offsets x 64
+// absolute differences is 10-83 M byte pairs, a few microseconds of the
+// card's integer rate; the launch and its latency set the time.
 //
-// Design: launch 1 decimates both planes (one thread per 8x8 box, sum
-// >> 6), each by its own height: the source may be a stripe of the frame
-// (rows starting at global row row0) searched against the whole
-// reference.  Launch 2 runs one thread block per 64x64 superblock of the
-// source: the SB's 8x8 decimated source tile and the (8+2r)^2 decimated
-// reference region around its global position (row0 / 8 rows further
-// down) go to shared memory, read with indices clamped to the
-// reference (the JAX form's edge pad), and the block's threads loop over
-// the offsets, each keeping its own first minimum of SAD + |dy| + |dx|.
-// The block then reduces (cost, raster index) pairs lexicographically,
-// which is the scan's strict-< first-minimum rule.  No state carries
-// between blocks.
+// Design.  A decimated sample is the sum of an 8x8 box >> 6, at most 255,
+// so the decimated planes are bytes: four to a 32-bit word.  The 8x8
+// decimated source tile of an SB is 16 words in registers, and an
+// offset's SAD is 16 VABSDIFF4 with accumulate (two chains); a reference
+// row at a column offset that is not a multiple of 4 is built from
+// aligned words with __byte_perm.  The (2r+1)^2 offsets are split over
+// the block: thread t takes the column offset t % (2r+1) and a run of
+// consecutive row offsets from t / (2r+1), sliding a window of 8 shifted
+// rows in registers (one new row, two __byte_perm, per offset), and keeps
+// its own first minimum of SAD + |dy| + |dx|; a lexicographic (cost,
+// raster index) reduction over the block then gives the scan's strict-<
+// first minimum.  The reference is read with its
+// decimated indices clamped to the plane (the JAX form's edge pad).
+//
+// Each block decimates its own source tile and its (8+2r)^2-sample
+// reference region straight from the uint8 planes into shared memory
+// (8-byte loads where the planes are 8-byte aligned, dp4a sums), so the
+// call is one launch.  Neighbouring blocks decimate the same reference
+// boxes again: (8+2r)^2 / 64 times over, 9x at r = 8 and 49x at r = 24,
+// read through L2.  (A cooperative launch that decimated the reference
+// once, passed a grid barrier and then searched measured 1.3 us slower at
+// r 8 and 1.2-3.8 us faster at r 16-24 on an H100; PERF.md §6.)
+// The source may be a stripe of the frame (rows starting at global row
+// row0) searched against the whole reference: its SBs then sit row0 / 8
+// decimated rows further down.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
 constexpr int kMaxR = 32;
-constexpr int kMaxReg = 8 + 2 * kMaxR;
+constexpr int kMaxL = 8 + 2 * kMaxR;
+// words per region row: kMaxL bytes and the word __byte_perm reads past
+// the last column; odd, so that rows fall on different banks
+constexpr int kRowWords = kMaxL / 4 + 3;
 constexpr int kThreads = 256;
+constexpr int kWarps = kThreads / 32;
+// blocks per SM: at most 48 registers a thread, so that the 540 SBs of a
+// 1920x1152 plane fit the card's 132 SMs at once
+constexpr int kBlocksPerSm = 5;
 
-// boxes [0, hs8 * w8) decimate the source, the rest the reference
-__global__ void decimate8_kernel(const uint8_t* __restrict__ src,
-                                 const uint8_t* __restrict__ ref, int W,
-                                 int hs8, int hr8, int w8,
-                                 int* __restrict__ s8,
-                                 int* __restrict__ r8) {
-  int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= (hs8 + hr8) * w8) return;
-  const bool is_src = i < hs8 * w8;
-  if (!is_src) i -= hs8 * w8;
-  const uint8_t* plane = is_src ? src : ref;
-  const int y = i / w8, x = i - (i / w8) * w8;
-  int sum = 0;
-  for (int r = 0; r < 8; ++r) {
-    const int o = (y * 8 + r) * W + x * 8;
-    for (int c = 0; c < 8; ++c) sum += plane[o + c];
-  }
-  (is_src ? s8 : r8)[i] = sum >> 6;
-}
+struct Shared {
+  uint32_t reg[kMaxL * kRowWords];  // decimated reference region, bytes
+  uint32_t tile[16];                // decimated source tile, 8 rows x 8
+  int red_c[kWarps], red_i[kWarps];
+};
+
+struct Args {
+  const uint8_t* src;  // [rows, W]
+  const uint8_t* ref;  // [H, W]
+  int rows, H, W, R, row0_8;
+  int aligned;         // both planes at 8-byte boundaries
+  int* out;            // [rows/64, W/64, 2]
+};
 
 __device__ __forceinline__ int clampi(int v, int lo, int hi) {
   return v < lo ? lo : (v > hi ? hi : v);
@@ -64,77 +78,163 @@ __device__ __forceinline__ void keep_min(int& c, int& i, int c2, int i2) {
   }
 }
 
-// r8: the whole reference [hr8, w8]; row0_8: the source's first row in
-// the decimated reference
-__global__ void coarse_search_kernel(const int* __restrict__ s8,
-                                     const int* __restrict__ r8, int hr8,
-                                     int w8, int row0_8, int R,
-                                     int* __restrict__ out) {
-  __shared__ int tile[64];
-  __shared__ int reg[kMaxReg * kMaxReg];
-  __shared__ int red_c[kThreads / 32];
-  __shared__ int red_i[kThreads / 32];
-  const int sby = blockIdx.y, sbx = blockIdx.x;
-  const int tid = threadIdx.x;
-  const int L = 8 + 2 * R;
-  if (tid < 64) tile[tid] = s8[(sby * 8 + tid / 8) * w8 + sbx * 8 + tid % 8];
-  for (int k = tid; k < L * L; k += kThreads) {
-    const int a = k / L, b = k - (k / L) * L;
-    reg[k] = r8[clampi(row0_8 + sby * 8 - R + a, 0, hr8 - 1) * w8 +
-                clampi(sbx * 8 - R + b, 0, w8 - 1)];
-  }
-  __syncthreads();
-  const int npos = 2 * R + 1;
-  int best_c = 0x7fffffff, best_i = 0x7fffffff;
-  for (int o = tid; o < npos * npos; o += kThreads) {
-    const int ay = o / npos, ax = o - (o / npos) * npos;  // dy + R, dx + R
-    int cost = 0;
+// acc + sum of |a - b| over the four byte pairs: one VABSDIFF4.U8.ACC
+__device__ __forceinline__ uint32_t sad4(uint32_t a, uint32_t b,
+                                         uint32_t acc) {
+  uint32_t d;
+  asm("vabsdiff4.u32.u32.u32.add %0, %1, %2, %3;\n"
+      : "=r"(d)
+      : "r"(a), "r"(b), "r"(acc));
+  return d;
+}
+
+// (sum of the 8x8 box at p) >> 6: eight 8-byte loads and sixteen dp4a on
+// planes at 8-byte boundaries (``aligned``), 64 byte loads otherwise
+__device__ __forceinline__ uint32_t box8(const uint8_t* p, int W,
+                                         bool aligned) {
+  uint32_t s = 0;
+  if (aligned) {
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const uint2 v =
+          __ldg(reinterpret_cast<const uint2*>(p + (size_t)i * W));
+      s = __dp4a(v.x, 0x01010101u, s);
+      s = __dp4a(v.y, 0x01010101u, s);
+    }
+  } else {
     for (int i = 0; i < 8; ++i)
-      for (int j = 0; j < 8; ++j)
-        cost += abs(tile[i * 8 + j] - reg[(i + ay) * L + j + ax]);
-    cost += abs(ay - R) + abs(ax - R);
-    keep_min(best_c, best_i, cost, o);
+#pragma unroll
+      for (int j = 0; j < 8; ++j) s += __ldg(p + (size_t)i * W + j);
+  }
+  return s >> 6;
+}
+
+__device__ __forceinline__ void set_byte(uint32_t* words, int i, uint32_t v) {
+  reinterpret_cast<uint8_t*>(words)[i] = (uint8_t)v;
+}
+
+// the source tile of SB (sby, sbx), decimated straight from the plane
+__device__ __forceinline__ void load_tile(Shared& sm, const Args& a, int sby,
+                                          int sbx) {
+  const int t = threadIdx.x;
+  if (t < 64)
+    set_byte(sm.tile, t,
+             box8(a.src + (size_t)(sby * 64 + (t >> 3) * 8) * a.W + sbx * 64 +
+                      (t & 7) * 8,
+                  a.W, a.aligned));
+}
+
+// the shifted reference words of region row ``row`` at the thread's column
+// offset: bytes ax .. ax + 3 and ax + 4 .. ax + 7 of the row
+__device__ __forceinline__ void row_words(const Shared& sm, int row, int q,
+                                          uint32_t sel, uint32_t& lo,
+                                          uint32_t& hi) {
+  const uint32_t* w = sm.reg + row * kRowWords + q;
+  const uint32_t w0 = w[0], w1 = w[1], w2 = w[2];
+  lo = __byte_perm(w0, w1, sel);
+  hi = __byte_perm(w1, w2, sel);
+}
+
+// the search of one SB over the region and tile in shared memory (both
+// loaded, a barrier passed); thread 0 writes the MV.  Thread t takes the
+// column offset ax = t % npos and a run of row offsets from t / npos;
+// the 8 shifted rows of its window stay in registers, one new row per
+// offset
+__device__ void search(Shared& sm, const Args& a, int sb) {
+  const int R = a.R, npos = 2 * R + 1;
+  const int t = threadIdx.x;
+  const int groups = kThreads / npos;  // >= 3 for R <= 32
+  const int run = (npos + groups - 1) / groups;
+  const int ax = t % npos, g = t / npos;
+  const int ay0 = g * run, ay1 = min(ay0 + run, npos);
+  int best_c = 0x7fffffff, best_i = 0x7fffffff;
+  if (g < groups && ay0 < ay1) {
+    uint32_t s[16];
+#pragma unroll
+    for (int k = 0; k < 16; ++k) s[k] = sm.tile[k];
+    const int q = ax >> 2;
+    const uint32_t sel = 0x3210u + 0x1111u * (uint32_t)(ax & 3);
+    const int bias_x = abs(ax - R);
+    // slot (row - ay0) & 7 holds region row ``row``
+    uint32_t lo[8], hi[8];
+#pragma unroll
+    for (int i = 0; i < 7; ++i) row_words(sm, ay0 + i, q, sel, lo[i], hi[i]);
+    for (int base = ay0; base < ay1; base += 8) {
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int ay = base + j;
+        if (ay < ay1) {
+          row_words(sm, ay + 7, q, sel, lo[(j + 7) & 7], hi[(j + 7) & 7]);
+          uint32_t acc0 = 0, acc1 = 0;
+#pragma unroll
+          for (int i = 0; i < 8; ++i) {
+            acc0 = sad4(s[2 * i], lo[(j + i) & 7], acc0);
+            acc1 = sad4(s[2 * i + 1], hi[(j + i) & 7], acc1);
+          }
+          // this thread's offsets come in raster order: strict < keeps
+          // the first of its own minima
+          const int cost = (int)(acc0 + acc1) + abs(ay - R) + bias_x;
+          if (cost < best_c) {
+            best_c = cost;
+            best_i = ay * npos + ax;
+          }
+        }
+      }
+    }
   }
   for (int off = 16; off > 0; off >>= 1) {
     const int c2 = __shfl_down_sync(0xffffffffu, best_c, off);
     const int i2 = __shfl_down_sync(0xffffffffu, best_i, off);
     keep_min(best_c, best_i, c2, i2);
   }
-  if ((tid & 31) == 0) {
-    red_c[tid >> 5] = best_c;
-    red_i[tid >> 5] = best_i;
+  if ((t & 31) == 0) {
+    sm.red_c[t >> 5] = best_c;
+    sm.red_i[t >> 5] = best_i;
   }
   __syncthreads();
-  if (tid == 0) {
-    for (int w = 1; w < kThreads / 32; ++w)
-      keep_min(best_c, best_i, red_c[w], red_i[w]);
-    const int o = (sby * gridDim.x + sbx) * 2;
-    out[o] = (best_i / npos - R) * 8;
-    out[o + 1] = (best_i % npos - R) * 8;
+  if (t == 0) {
+    for (int w = 1; w < kWarps; ++w)
+      keep_min(best_c, best_i, sm.red_c[w], sm.red_i[w]);
+    a.out[sb * 2] = (best_i / npos - R) * 8;
+    a.out[sb * 2 + 1] = (best_i % npos - R) * 8;
   }
+}
+
+// one block per SB, decimating its own tile and region
+__global__ void __launch_bounds__(kThreads, kBlocksPerSm)
+    me_coarse_kernel(const Args a) {
+  __shared__ Shared sm;
+  const int sby = blockIdx.y, sbx = blockIdx.x;
+  const int L = 8 + 2 * a.R;
+  const int hr8 = a.H >> 3, w8 = a.W >> 3;
+  load_tile(sm, a, sby, sbx);
+#pragma unroll 2
+  for (int k = threadIdx.x; k < L * L; k += kThreads) {
+    const int i = k / L, j = k - (k / L) * L;
+    const int y = clampi(a.row0_8 + sby * 8 - a.R + i, 0, hr8 - 1);
+    const int x = clampi(sbx * 8 - a.R + j, 0, w8 - 1);
+    set_byte(sm.reg, i * kRowWords * 4 + j,
+             box8(a.ref + (size_t)y * 8 * a.W + x * 8, a.W, a.aligned));
+  }
+  __syncthreads();
+  search(sm, a, sby * gridDim.x + sbx);
 }
 
 }  // namespace
 
-// src: uint8 [rows, W], the frame or a stripe starting at global row
-// row0; ref: uint8 [H, W], the whole reference (rows, H, W, row0
-// multiples of 64, row0 + rows <= H); s8: int32 scratch [rows/8, W/8];
-// r8: int32 scratch [H/8, W/8]; out: int32 [rows/64, W/64, 2] full-pel
-// (row, col) MVs.  Returns the CUDA error of the launches.
+// src: uint8 [rows, W], the frame or a stripe starting at global row row0;
+// ref: uint8 [H, W], the whole reference (rows, H, W, row0 multiples of
+// 64, row0 + rows <= H); out: int32 [rows/64, W/64, 2] full-pel (row,
+// col) MVs.  Returns the CUDA error of the launch.
 extern "C" int me_coarse_launch(const void* src, const void* ref, int rows,
-                                int H, int W, int R, int row0, void* s8,
-                                void* r8, void* out, void* stream) {
+                                int H, int W, int R, int row0, void* out,
+                                void* stream) {
   if (R < 1 || R > kMaxR || rows < 64 || rows % 64 || H % 64 || W % 64 ||
       row0 < 0 || row0 % 64 || row0 + rows > H)
     return (int)cudaErrorInvalidValue;
-  cudaStream_t st = (cudaStream_t)stream;
-  const int hs8 = rows / 8, hr8 = H / 8, w8 = W / 8;
-  decimate8_kernel<<<((hs8 + hr8) * w8 + 255) / 256, 256, 0, st>>>(
-      (const uint8_t*)src, (const uint8_t*)ref, W, hs8, hr8, w8, (int*)s8,
-      (int*)r8);
-  cudaError_t e = cudaGetLastError();
-  if (e != cudaSuccess) return (int)e;
-  coarse_search_kernel<<<dim3(W / 64, rows / 64), kThreads, 0, st>>>(
-      (const int*)s8, (const int*)r8, hr8, w8, row0 / 8, R, (int*)out);
+  Args a{(const uint8_t*)src, (const uint8_t*)ref, rows, H, W, R, row0 / 8,
+         ((uintptr_t)src | (uintptr_t)ref) % 8 == 0, (int*)out};
+  me_coarse_kernel<<<dim3(W / 64, rows / 64), kThreads, 0,
+                        (cudaStream_t)stream>>>(a);
   return (int)cudaGetLastError();
 }

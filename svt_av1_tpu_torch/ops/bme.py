@@ -338,7 +338,9 @@ def _check_planes(name: str, src: torch.Tensor, ref: torch.Tensor,
         raise ValueError(f"{name}: planes must be whole 64x64 superblocks")
 
 
-def _fn(lib_name: str, entry: str, argtypes):
+@functools.cache
+def _fn(lib_name: str, entry: str, argtypes: tuple):
+    """A kernel library's C entry with its ctypes types, bound once."""
     from ..kernels.build import cuda_lib
 
     fn = getattr(cuda_lib(lib_name), entry)
@@ -355,28 +357,25 @@ def me_coarse(src: torch.Tensor, ref: torch.Tensor,
     """K5: the SB-level coarse search, mv [n_sby, n_sbx, 2] int32, of
     ``src`` (the frame, or a stripe at global row ``row0``) against the
     whole reference ``ref``.  CPU tensors take the plain version; CUDA
-    tensors launch kernels/csrc/me_coarse.cu."""
+    tensors launch kernels/csrc/me_coarse.cu once."""
     if src.device.type == "cpu":
         return coarse_sb_search(src, ref, coarse_r, row0)
     me_coarse.calls += 1
     _check_planes("me_coarse", src, ref, row0)
-    if not 1 <= int(coarse_r) <= 32:
+    if not 1 <= coarse_r <= 32:
         raise ValueError(f"me_coarse: coarse_r {coarse_r} outside 1..32")
-    from ..kernels.build import check_launch, ptr, stream
+    from ..kernels.build import check_launch, ptr, raw_stream
 
     rows = src.shape[0]
     H, W = ref.shape
-    s8 = torch.empty((rows // 8, W // 8), dtype=torch.int32,
-                     device=src.device)
-    r8 = torch.empty((H // 8, W // 8), dtype=torch.int32, device=src.device)
     out = torch.empty((rows // SB, W // SB, 2), dtype=torch.int32,
                       device=src.device)
-    fn = _fn("me_coarse", "me_coarse_launch",
-             [_P, _P, _I, _I, _I, _I, _I] + [_P] * 4)
+    fn = _fn("me_coarse", "me_coarse_launch", (_P, _P) + (_I,) * 5
+             + (_P,) * 2)
     err = fn(ptr(src), ptr(ref), rows, H, W, int(coarse_r), int(row0),
-             ptr(s8), ptr(r8), ptr(out), stream(src))
+             ptr(out), raw_stream(src))
     check_launch("me_coarse", err)
-    me_coarse.launches += 2                 # decimation, search
+    me_coarse.launches += 1
     return out
 
 
@@ -425,7 +424,7 @@ def me_refine(src: torch.Tensor, ref: torch.Tensor, coarse: torch.Tensor,
     spec = (ctypes.c_int * len(spec))(*spec)
     res = torch.empty((n, n_out, 4), dtype=torch.int32, device=src.device)
     fn = _fn("me_refine", "me_refine_launch",
-             [_P, _P, _I, _I, _I, _I, _P, _P, _I, _P, _P])
+             (_P, _P, _I, _I, _I, _I, _P, _P, _I, _P, _P))
     err = fn(ptr(src), ptr(ref), rows, H, W, int(row0), ptr(coarse), spec,
              len(shapes), ptr(res), stream(src))
     check_launch("me_refine", err)
@@ -490,7 +489,7 @@ def subpel_refine16(src: torch.Tensor, ref: torch.Tensor,
     pred = torch.empty((rows, W), dtype=torch.uint8, device=src.device)
     taps = _regular_taps(src.device)
     fn = _fn("subpel_refine", "subpel_refine_launch",
-             [_P, _P, _I, _I, _I, _I] + [_P] * 7)
+             (_P, _P, _I, _I, _I, _I) + (_P,) * 7)
     err = fn(ptr(src), ptr(ref), rows, H, W, int(row0), ptr(mv_r16),
              ptr(mv_c16), ptr(taps), ptr(mvq_r), ptr(mvq_c), ptr(pred),
              stream(src))

@@ -4,7 +4,8 @@ The host parts (level fit, thresholds and the edge-mask derivation
 ``edge_params``) are copies.  The whole-plane deblocking the JAX package
 ran as a jitted program has two forms here: the plain PyTorch
 ``loop_filter_plane_full`` and K2, the CUDA kernel
-``kernels/csrc/deblock.cu`` (``deblock``).  The reference's per-edge-line
+``kernels/csrc/deblock.cu`` (``deblock``, both directions in one
+launch).  The reference's per-edge-line
 host filter ``loop_filter_plane`` belongs to its decoder and host paths,
 which are not ported.
 
@@ -23,6 +24,7 @@ update_sharpness:587), edge walk EbDecLF.c.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import numpy as np
 import torch
@@ -223,6 +225,7 @@ def _edge_filter_batch(p, q, apply_m, fsize, blimit, limit, thresh,
     return out_p, out_q
 
 
+@functools.cache
 def thresholds(level: int, sharpness: int, shift: int):
     """(blimit, limit, thresh) of one level, bd-scaled."""
     bl, lim, hev = _thresholds(level, sharpness)
@@ -313,32 +316,29 @@ def loop_filter_plane_full(plane, apply_v, fsize_v, apply_h, fsize_h,
 # K2: the CUDA deblocking kernel and its wrapper
 # --------------------------------------------------------------------------
 
-def _deblock_pass(src, dst, apply_m, fsize, vertical: bool, x4max: int,
-                  y4max: int, level: int, sharpness: int, bd: int):
-    """One direction of one plane: ``dst`` (a copy of ``src``) receives
-    every sample the edges of this pass change."""
-    from ..kernels.build import check_launch, cuda_lib, ptr, stream
+@functools.cache
+def _deblock_fn():
+    from ..kernels.build import cuda_lib
 
-    lib = cuda_lib("deblock")
-    fn = lib.deblock_pass_launch
+    fn = cuda_lib("deblock").deblock_launch
     fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 9 \
+    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 13 \
         + [ctypes.c_void_p]
-    bl, lim, hev = thresholds(level, sharpness, bd - 8)
-    H, W = src.shape
-    err = fn(ptr(src), ptr(dst), ptr(apply_m), ptr(fsize), H, W,
-             int(vertical), x4max, y4max, bl, lim, hev, bd - 8,
-             stream(src))
-    check_launch("deblock", err)
-    deblock.launches += 1
+    return fn
 
 
 def deblock(plane, apply_v, fsize_v, apply_h, fsize_h, width: int,
             height: int, level_v: int, level_h: int, sharpness: int,
             bd: int = 8):
-    """K2: whole-plane deblocking (vertical edges, then horizontal),
-    out of place.  CPU tensors take loop_filter_plane_full; CUDA tensors
-    launch the kernel once per direction."""
+    """K2: whole-plane deblocking (vertical edges, then horizontal), out of
+    place.  CPU tensors take loop_filter_plane_full; CUDA tensors launch
+    the kernel once for both directions.
+
+    The plane must hold samples in [0, 2^bd), as every reconstruction
+    does (bd 8..12).  The kernel keeps samples as 16-bit values and does
+    not look at their range: a plane with samples outside [0, 32767]
+    gives a wrong result on the card, where the plain version takes any
+    int32 values."""
     if plane.device.type == "cpu":
         return loop_filter_plane_full(plane, apply_v, fsize_v, apply_h,
                                       fsize_h, width, height, level_v,
@@ -359,24 +359,28 @@ def deblock(plane, apply_v, fsize_v, apply_h, fsize_h, width: int,
                      (fsize_v, (y4max, x4max - 1)),
                      (apply_h, (y4max - 1, x4max)),
                      (fsize_h, (y4max - 1, x4max))):
-        t = torch.as_tensor(np.asarray(a, np.uint8)) \
-            if not isinstance(a, torch.Tensor) else a
-        t = t.to(device=plane.device, dtype=torch.uint8).contiguous()
-        if tuple(t.shape) != shape:
-            raise ValueError(f"edge mask shape {tuple(t.shape)} != {shape}")
-        masks.append(t)
-    out = plane
-    if level_v > 0 and x4max > 1:
-        nxt = out.clone()
-        _deblock_pass(out, nxt, masks[0], masks[1], True, x4max, y4max,
-                      level_v, sharpness, bd)
-        out = nxt
-    if level_h > 0 and y4max > 1:
-        nxt = out.clone()
-        _deblock_pass(out, nxt, masks[2], masks[3], False, x4max, y4max,
-                      level_h, sharpness, bd)
-        out = nxt
-    return out if out is not plane else plane.clone()
+        # the encoder's masks are already uint8 on the card (plane_params)
+        if not (isinstance(a, torch.Tensor) and a.dtype == torch.uint8
+                and a.is_cuda and a.is_contiguous()):
+            a = torch.as_tensor(np.asarray(a, np.uint8)) \
+                if not isinstance(a, torch.Tensor) else a
+            a = a.to(device=plane.device, dtype=torch.uint8).contiguous()
+        if a.shape != shape or a.get_device() != plane.get_device():
+            raise ValueError(f"edge mask shape {tuple(a.shape)} != {shape} "
+                             f"or on another device than the plane")
+        masks.append(a)
+    from ..kernels.build import check_launch, ptr, stream
+
+    shift = bd - 8
+    tv = thresholds(level_v, sharpness, shift) if level_v > 0 else (0,) * 3
+    th = thresholds(level_h, sharpness, shift) if level_h > 0 else (0,) * 3
+    out = torch.empty_like(plane)
+    err = _deblock_fn()(ptr(plane), ptr(out), *(ptr(m) for m in masks), H, W,
+                        x4max, y4max, int(level_v > 0), *tv,
+                        int(level_h > 0), *th, shift, stream(plane))
+    check_launch("deblock", err)
+    deblock.launches += 1
+    return out
 
 
 deblock.launches = deblock.calls = 0

@@ -147,9 +147,9 @@ def test_me_coarse_matches_plain(dev, r):
     before = (bme.me_coarse.calls, bme.me_coarse.launches)
     got = bme.me_coarse(src, ref, r)
     assert torch.equal(got, bme.coarse_sb_search(src, ref, r))
-    # one wrapper call, two launches (decimation, search)
+    # one wrapper call, one launch (decimation and search together)
     assert (bme.me_coarse.calls, bme.me_coarse.launches) == (
-        before[0] + 1, before[1] + 2)
+        before[0] + 1, before[1] + 1)
 
 
 @pytest.mark.parametrize("shapes", [bme.ME_SHAPES, ((16, 16), (64, 64))],
@@ -397,7 +397,7 @@ def test_me_stripe_modes_match_plain(dev, row0):
     for g, w in zip(sub, bme.subpel_plain(stripe, ref, mv_r, mv_c, 8, row0)):
         assert torch.equal(g, w)
     assert (bme.me_coarse.launches, bme.me_refine.launches,
-            bme.subpel_refine16.launches) == (before[0] + 2, before[1] + 1,
+            bme.subpel_refine16.launches) == (before[0] + 1, before[1] + 1,
                                               before[2] + 1)
     # the stripe's outputs are the whole frame's rows
     whole = bme.frame_me(src, ref, 8, bme.ME_SHAPES)
@@ -1096,3 +1096,193 @@ def test_k9_refuses_planes_off_16_byte_boundaries(dev):
     with pytest.raises(ValueError):
         bi.compound_joint(shifted, refs, preds, mr, mc, sr, sc,
                           (False, True), (-1, 1), 100)
+
+
+# -- PR 8: K5 and K2 in one launch per call --------------------------------
+
+K5_RADII = (8, 12, 16, 24, 32)
+
+
+def _k5_equal(src, ref, r, row0=0):
+    """K5 against the plain version, one launch per call."""
+    want = bme.coarse_sb_search(src, ref, r, row0)
+    before = (bme.me_coarse.calls, bme.me_coarse.launches)
+    got = bme.me_coarse(src, ref, r, row0)
+    assert (bme.me_coarse.calls, bme.me_coarse.launches) == (
+        before[0] + 1, before[1] + 1)
+    assert torch.equal(got, want), (r, row0)
+    return want
+
+
+@pytest.mark.parametrize("r", K5_RADII)
+def test_k5_1080p_matches_plain_at_every_radius(dev, r):
+    src, ref = (torch.from_numpy(p).to(dev) for p in _moving_pair(1152, 1920,
+                                                                  r))
+    # a large motion as well, which the wide reaches find
+    far = torch.roll(ref, (7 * r, -5 * r), (0, 1)).contiguous()
+    for rk in (ref, far):
+        _k5_equal(src, rk, r)
+
+
+@pytest.mark.parametrize("shape", [(64, 1920), (1152, 64)],
+                         ids=["one_sb_row", "one_sb_column"])
+@pytest.mark.parametrize("r", K5_RADII)
+def test_k5_one_sb_row_and_column_match_plain(dev, shape, r):
+    src, ref = (torch.from_numpy(p).to(dev) for p in _moving_pair(*shape, r))
+    _k5_equal(src, ref, r)
+
+
+@pytest.mark.parametrize("row0", [0, 64, 512, 1024])
+@pytest.mark.parametrize("r", [8, 24])
+def test_k5_stripes_of_a_1088_reference_match_plain(dev, row0, r):
+    src, ref = (torch.from_numpy(p).to(dev) for p in _moving_pair(1088, 1920,
+                                                                  row0))
+    stripe = src[row0:row0 + 64].contiguous()
+    got = _k5_equal(stripe, ref, r, row0)
+    whole = bme.coarse_sb_search(src, ref, r)
+    assert torch.equal(got, whole[row0 // 64:row0 // 64 + 1])
+
+
+@pytest.mark.parametrize("kind", ["flat", "period8"])
+@pytest.mark.parametrize("r", [8, 24])
+def test_k5_ties_take_the_first_offset_as_plain(dev, kind, r):
+    if kind == "flat":
+        p = np.full((256, 320), 90, np.uint8)
+    else:
+        xx = np.mgrid[0:256, 0:320][1]
+        p = (100 + 40 * ((xx // 8) % 2)).astype(np.uint8)
+    src = torch.from_numpy(p).to(dev)
+    _k5_equal(src, src, r)
+    _k5_equal(src, torch.roll(src, (0, 16), (0, 1)).contiguous(), r)
+
+
+@pytest.mark.parametrize("r", [8, 24])
+def test_k5_planes_off_8_byte_boundaries_match_plain(dev, r):
+    src, ref = _moving_pair(192, 256, r)
+    planes = []
+    for k, p in enumerate((src, ref)):
+        buf = torch.empty(p.size + 16, dtype=torch.uint8, device=dev)
+        planes.append(buf[1 + k:1 + k + p.size].view(p.shape).copy_(
+            torch.from_numpy(p).to(dev)))
+    _k5_equal(*planes, r)
+    with pytest.raises(ValueError):
+        bme.me_coarse(*planes, 33)
+
+
+def _smooth_plane(h, w, seed, bd=8, block=8):
+    """Flat blocks with steps of a few levels and 0/1 noise: every filter
+    size passes its flatness tests on many lines."""
+    rng = np.random.default_rng(seed)
+    rows = np.cumsum(rng.integers(-2, 3, h // block + 1))
+    cols = np.cumsum(rng.integers(-2, 3, w // block + 1))
+    base = 120 + rows[:, None] + cols[None, :]
+    p = np.repeat(np.repeat(base, block, 0), block, 1)[:h, :w]
+    p = p + rng.integers(0, 2, (h, w))
+    return (p.clip(0, 255) << (bd - 8)).astype(np.int32)
+
+
+def _k2_check(dev, plane, prm, vw, vh, lv, lh, sharpness=0, bd=8):
+    """K2 against the plain version: one launch, the input untouched."""
+    p = torch.from_numpy(plane).to(dev)
+    keep = p.clone()
+    prm = [torch.from_numpy(np.ascontiguousarray(a, np.uint8)).to(dev)
+           for a in prm]
+    before = (dlf.deblock.calls, dlf.deblock.launches)
+    got = dlf.deblock(p, *prm, vw, vh, lv, lh, sharpness, bd)
+    assert (dlf.deblock.calls, dlf.deblock.launches) == (before[0] + 1,
+                                                        before[1] + 1)
+    want = dlf.loop_filter_plane_full(p, *prm, vw, vh, lv, lh, sharpness, bd)
+    assert torch.equal(got, want)
+    assert torch.equal(p, keep)
+    return got, p
+
+
+@pytest.mark.parametrize("kind", ["noisy", "smooth"])
+@pytest.mark.parametrize("chroma", [False, True], ids=["luma", "chroma"])
+def test_k2_1080p_matches_plain_with_every_size(dev, kind, chroma):
+    h, w, vw, vh = (576, 960, 960, 540) if chroma else (1152, 1920, 1920,
+                                                        1080)
+    plane = _smooth_plane(h, w, 5 + chroma) if kind == "smooth" \
+        else _plane(h, w, 5 + chroma).astype(np.int32)
+    prm = _edge_inputs(h, w, vw, vh, chroma, 9 + chroma)
+    for lv in (8, 32, 63):
+        got, p = _k2_check(dev, plane, prm, vw, vh, lv, lv)
+        assert not torch.equal(got, p)
+    if kind == "smooth":
+        # each filter size changes samples on its own
+        for s in ((4, 6) if chroma else (4, 8, 14)):
+            only = (prm[0] & (prm[1] == s), prm[1], prm[2] & (prm[3] == s),
+                    prm[3])
+            got, p = _k2_check(dev, plane, only, vw, vh, 32, 32)
+            assert not torch.equal(got, p), s
+
+
+@pytest.mark.parametrize("d", [-12, -8, -4, 4, 8, 12])
+def test_k2_14_tap_edges_near_tile_boundaries_match_plain(dev, d):
+    h, w = 320, 384
+    plane = np.full((h, w), 100, np.int32)
+    x4, y4 = w // 4, h // 4
+    apply_v = np.zeros((y4, x4 - 1), bool)
+    apply_h = np.zeros((y4 - 1, x4), bool)
+    for b in (64, 128, 256):                # tile boundaries
+        at = b + d
+        plane[:, at:] += 16
+        plane[at:, :] += 12
+        apply_v[:, at // 4 - 1] = True
+        apply_h[at // 4 - 1, :] = True
+    prm = (apply_v, np.full(apply_v.shape, 14, np.uint8), apply_h,
+           np.full(apply_h.shape, 14, np.uint8))
+    got, p = _k2_check(dev, plane.clip(0, 255), prm, w, h, 30, 30)
+    assert not torch.equal(got, p)
+
+
+@pytest.mark.parametrize("vis", [(1917, 1077), (1900, 1070), (130, 70)])
+def test_k2_odd_visible_sizes_match_plain(dev, vis):
+    vw, vh = vis
+    h, w = -(-vh // 64) * 64, -(-vw // 64) * 64
+    for chroma in (False, True):
+        prm = _edge_inputs(h, w, vw, vh, chroma, vw)
+        _k2_check(dev, _smooth_plane(h, w, vh), prm, vw, vh, 40, 40)
+    # a plane that is no multiple of the tile either
+    h2, w2 = 4 * ((vh + 3) // 4) + 2, 4 * ((vw + 3) // 4) + 6
+    prm = _edge_inputs(h2 - h2 % 4, w2 - w2 % 4, vw, vh, False, vh)
+    _k2_check(dev, _smooth_plane(h2, w2, vw), prm, vw, vh, 40, 40)
+
+
+@pytest.mark.parametrize("case", ["decoder_levels", "level_v_0",
+                                  "level_h_0", "bd10", "bd10_chroma"])
+def test_k2_two_levels_and_bd10_match_plain(dev, case):
+    chroma = "chroma" in case
+    bd = 10 if "bd10" in case else 8
+    lv, lh = {"decoder_levels": (14, 37), "level_v_0": (0, 25),
+              "level_h_0": (25, 0), "bd10": (30, 18),
+              "bd10_chroma": (22, 63)}[case]
+    h, w, vw, vh = 576, 960, 950, 540
+    plane = _smooth_plane(h, w, lv + lh, bd)
+    prm = _edge_inputs(h, w, vw, vh, chroma, lv)
+    for sharpness in (0, 5):
+        got, p = _k2_check(dev, plane, prm, vw, vh, lv, lh, sharpness, bd)
+        assert not torch.equal(got, p)
+
+
+@pytest.mark.parametrize("bd", [8, 10, 12])
+def test_k2_samples_at_both_ends_of_the_range_match_plain(dev, bd):
+    """K2's domain is [0, 2^bd): planes that reach 0 and 2^bd - 1 over
+    flat areas, where every filter size changes samples, equal the plain
+    version."""
+    h, w = 256, 320
+    low = np.clip(_smooth_plane(h, w, bd, bd) - (118 << (bd - 8)), 0, None)
+    prm = _edge_inputs(h, w, w, h, False, bd)
+    for plane in (low, (1 << bd) - 1 - low):
+        assert plane.min() == 0 or plane.max() == (1 << bd) - 1
+        for lv in (20, 63):
+            got, p = _k2_check(dev, plane.astype(np.int32), prm, w, h, lv,
+                               lv, 0, bd)
+            assert not torch.equal(got, p)
+
+
+def test_k2_both_levels_0_copy_the_plane_in_one_launch(dev):
+    plane = _smooth_plane(128, 192, 1)
+    got, p = _k2_check(dev, plane, _edge_inputs(128, 192, 192, 128, False,
+                                                  1), 192, 128, 0, 0)
+    assert torch.equal(got, p) and got.data_ptr() != p.data_ptr()

@@ -5,11 +5,13 @@
 Needs the CUDA toolkit (nvcc, cuobjdump); no card.  Prints:
 
 1. ``-Xptxas -v`` for each named kernel source (default: intra_decision,
-   me_refine, inter_select, cdef_filter, subpel_refine and
-   compound_joint): registers, spills and shared memory per entry;
+   me_refine, inter_select, cdef_filter, subpel_refine, compound_joint,
+   me_coarse and deblock): registers, spills and shared memory per
+   entry;
 2. the SASS opcode histogram of each of their entries, and apart the
    packed-integer opcodes the redesigns rest on (every opcode that
-   starts with VABSDIFF4, IDP (dp4a and dp2a) or PRMT);
+   starts with VABSDIFF4, IDP (dp4a and dp2a) or PRMT) and the branches
+   and shared-memory atomics (BRA, BSSY, BSYNC, WARPSYNC, ATOMS);
 3. the SASS of five exact forms of "accumulate the sum of the four
    absolute byte differences of two words" (K6's inner operation):
    ``__vsadu4``, PTX ``vabsdiff4.u32.u32.u32.add`` with the accumulator
@@ -33,6 +35,7 @@ from svt_av1_tpu_torch.kernels import build  # noqa: E402
 
 ARCH = "-gencode=arch=compute_90a,code=sm_90a"
 PACKED_OPCODES = ("VABSDIFF4", "IDP", "PRMT")
+CONTROL_OPCODES = ("BRA", "BSSY", "BSYNC", "WARPSYNC", "ATOMS")
 
 SAD_PROBE = r"""
 #include <stdint.h>
@@ -96,7 +99,7 @@ def main() -> int:
     nvcc = build._nvcc()
     names = sys.argv[1:] or ["intra_decision", "me_refine", "inter_select",
                              "cdef_filter", "subpel_refine",
-                             "compound_joint"]
+                             "compound_joint", "me_coarse", "deblock"]
     out_dir = build.BUILD_DIR / "sass"
     out_dir.mkdir(parents=True, exist_ok=True)
     for name in names:
@@ -112,6 +115,9 @@ def main() -> int:
             packed = {k: v for k, v in hist.items()
                       if k.startswith(PACKED_OPCODES)}
             print(f"   packed-integer opcodes: {packed}")
+            control = {k: v for k, v in hist.items()
+                       if k.startswith(CONTROL_OPCODES)}
+            print(f"   branches and shared atomics: {control}")
     probe = out_dir / "sad_probe.cu"
     probe.write_text(SAD_PROBE)
     cubin = out_dir / "sad_probe.cubin"

@@ -1,42 +1,51 @@
-"""K1, K4's search, K5, K6, K7, K8 and K9 kernel times and the encode fps of one
-checkout, on chip_smoke.py's 1080p inputs.
+"""K1-K10 kernel times and the encode fps and stream md5s of one checkout,
+on chip_smoke.py's 1080p inputs.
 
     python3 tools/tree_times.py [--root DIR] [--kernels] [--fps]
 
 Imports ``svt_av1_tpu_torch`` from DIR (default: this checkout), so that
 two trees (a parent commit unpacked with ``git archive`` and the change)
-can be run in turns on one card, in separate processes.  With neither
-flag both parts run.
+can be run in turns on one card, in separate processes; the inputs and
+timers are always this checkout's chip_smoke.py.  With neither flag both
+parts run.
 
 * ``--kernels``: CUDA-event medians of 20 calls after one warm-up
   (chip_smoke.cuda_ms; the events also take in the host work of the
   wrapper where the card waits for it), and beside them (``device_ms``)
   the device time per call: the kernels' and copies' own time from
-  torch.profiler's CUDA records over 20 calls, without the host path.  K1: the decisions of all 7 block shapes of the
-  first frame's 1920x1152 luma plane (one launch where the package has
-  ``omd.intra_decision_packed``, else one launch per shape); K5: the
-  path's call (two launches) on two frames of the moving clip at
-  1920x1152; K6: the
-  path's shapes (16x16 and 64x64) on two frames of the moving clip at
-  1920x1152, MCTF's 32x32 at 1920x1088 and TPL's 16x16 at 960x576;
-  K7: the path's call (one reference) on two frames of the moving clip
-  at 1920x1152, after the path's K5/K6; K8: the random-access path's
-  call (two references, past and future, and K9's compound row) on
-  three frames of the moving clip at 1920x1152; K9: the random-access
-  path's call on the same inputs (two references); K4's search: the 5x3 grid over the three planes of the
-  first frame (a noisy recon against its source, 80% of the units
-  non-skip).
+  torch.profiler's CUDA records over 20 calls, without the host path
+  (chip_smoke.device_ms).  K1: the decisions of all 7 block shapes of
+  the first frame's 1920x1152 luma plane (one launch where the package
+  has ``omd.intra_decision_packed``, else one launch per shape); K5: at
+  each reach of the random-access path (chip_smoke.K5_PATH_RADII) on two
+  frames of the moving clip at 1920x1152, and at reach 8 on TPL's
+  960x576 half-resolution planes; K6: the path's shapes (16x16
+  and 64x64) on two frames of the moving clip at 1920x1152, MCTF's 32x32
+  at 1920x1088 and TPL's 16x16 at 960x576; K7: the path's call (one
+  reference) on two frames of the moving clip at 1920x1152, after the
+  path's K5/K6; K8: the random-access path's call (two references, past
+  and future, and K9's compound row) on three frames of the moving clip
+  at 1920x1152; K9: the random-access path's call on the same inputs
+  (two references); K2 on the kernels phase's luma plane at the path's
+  level and on its first chroma plane, K3 on that luma plane, K4's
+  search (the 5x3 grid) and apply over the three planes of the first
+  frame; K10 on TPL's half-resolution plane.
 * ``--fps``: the all-intra encode (three noise-like and three smooth
   frames), the low-delay P encode (6 frames of the moving clip) and the
   random-access encode (bench.py's configuration, 33 frames, fps over
   the last 16 after a 17-frame warm-up), chip_smoke.py's clips and
-  configurations.
+  configurations, with the md5 of each stream's packets, the stage
+  times of each 1080p encode (host wall clock, ms per coded frame, the
+  Encoder's StageTimer), and the md5s of chip_smoke.py's four small
+  card streams (agreement_clips).
 
 Prints one JSON line: the card's name and power limit, the root, and
 what was measured.  Needs a CUDA card.
 """
 from __future__ import annotations
 
+import functools
+import importlib.util
 import json
 import subprocess
 import sys
@@ -46,27 +55,10 @@ from pathlib import Path
 HERE = Path(__file__).resolve().parent.parent
 
 
-def device_ms(torch, fn, reps=20):
-    """Device time per call of ``fn``: the CUDA records (kernels, copies)
-    of torch.profiler over ``reps`` calls after one warm-up, in ms."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    us = sum(e.self_device_time_total for e in prof.key_averages()
-             if e.device_type == DeviceType.CUDA)
-    return us / reps / 1e3
-
-
 def kernel_times(cs, np, torch):
     from svt_av1_tpu_torch.ops import bme, omd
     from svt_av1_tpu_torch.pipeline import batched_inter as bi
+    from svt_av1_tpu_torch.pipeline import tpl
 
     dev = torch.device("cuda")
     W, H = cs.WIDTH, cs.HEIGHT
@@ -89,7 +81,9 @@ def kernel_times(cs, np, torch):
         return lambda: bme.me_refine(src, ref, coarse, shapes)
 
     src, ref = (omd.upload_plane(f[0], bw, bh, 8, dev) for f in clip[::-1])
-    calls["K5 path"] = lambda: bme.me_coarse(src, ref, bme.COARSE_R)
+    for r in cs.K5_PATH_RADII:
+        calls[f"K5 r{r} 1920x1152"] = functools.partial(bme.me_coarse, src,
+                                                         ref, r)
     calls["K6 path 16x16+64x64"] = k6(src, ref, ((16, 16), (64, 64)))
     hm = -(-H // 64) * 64
     mctf = [torch.from_numpy(np.ascontiguousarray(np.pad(
@@ -99,14 +93,48 @@ def kernel_times(cs, np, torch):
     half = [torch.from_numpy(cs._half_res(f[0], bw, bh)).to(dev)
             for f in clip[::-1]]
     calls["K6 TPL 16x16"] = k6(*half, ((16, 16),))
+    calls["K5 TPL r8 960x576"] = lambda: bme.me_coarse(*half, 8)
+    calls["K10 TPL 960x576"] = lambda: tpl.block_var16(half[1])
     me = bme.frame_me(src, ref, bme.COARSE_R, ((16, 16), (64, 64)))
     ny, nx = bh // 64, bw // 64
     mv = [bi._nested_to_grid(me[(16, 16)][i], ny, nx, 4, 4) for i in (0, 1)]
     calls["K7 path 1 ref"] = lambda: bme.subpel_refine16(src, ref, *mv)
     calls["K8 compound row"], calls["K9 2 refs"] = ra_calls(cs, torch, dev)
     calls["K4 search 5x3"] = k4_search_call(cs, np, torch, dev)
+    calls.update(filter_calls(cs, np, torch, dev))
     return ({k: cs.cuda_ms(f, 20) for k, f in calls.items()},
-            {k: device_ms(torch, f) for k, f in calls.items()})
+            {k: cs.device_ms(f) for k, f in calls.items()})
+
+
+def filter_calls(cs, np, torch, dev):
+    """K2, K3 and K4's apply on chip_smoke.py's kernels-phase inputs: K2
+    on the noisy luma recon at the path's level (all-intra qindex) and on
+    the first chroma plane, K3 on the luma recon, K4's apply over it and
+    the two padded chroma sources with 80% of the units non-skip."""
+    from svt_av1_tpu_torch.ops import cdef, dlf
+    from svt_av1_tpu_torch.pipeline.rate_control import RateControl
+
+    W, H = cs.WIDTH, cs.HEIGHT
+    bw, bh = -(-W // 128) * 128, -(-H // 128) * 128
+    frame = cs.synth_clip(W, H, 1)[0]
+    rng = np.random.default_rng(0)
+    ry, prm, chroma, cprm = cs.deblock_inputs(dev, frame, rng, bw, bh)
+    cfg = cs.slice_config(W, H)
+    qindex = RateControl(cfg, float(cfg.frame_rate),
+                         all_intra=True).peek_qindex(True, 0, 0)
+    lvl = dlf.filter_levels_from_qindex(qindex)
+    dirs, var = cdef.cdef_direction(ry, W, H, 0)
+    ns = torch.from_numpy(rng.random(tuple(dirs.shape)) < 0.8).to(dev)
+    rec = [ry] + [torch.from_numpy(np.ascontiguousarray(np.pad(
+        p, ((0, bh // 2 - H // 2), (0, 0)), mode="edge")).astype(
+            np.int32)).to(dev) for p in frame[1:]]
+    return {f"K2 luma level {lvl}": lambda: dlf.deblock(
+                ry, *prm, W, H, lvl, lvl, 0),
+            "K2 chroma 960x576": lambda: dlf.deblock(
+                chroma[0], *cprm, W // 2, H // 2, lvl, lvl, 0),
+            "K3 1080p luma": lambda: cdef.cdef_direction(ry, W, H, 0),
+            "K4 apply 3 planes": lambda: cdef.cdef_apply(
+                rec, ns, dirs, var, 8 * 4 + 1, 4 * 4 + 2, 5, W, H, 8)}
 
 
 def ra_calls(cs, torch, dev):
@@ -163,34 +191,51 @@ def k4_search_call(cs, np, torch, dev):
 
 
 def encode_fps(cs, torch):
-    from svt_av1_tpu_torch.api import Encoder
+    """fps, the md5 of the packets and the stage ms per frame of each
+    1080p encode, and the md5s of the small card streams."""
+    import hashlib
+    import tempfile
+
+    from svt_av1_tpu_torch.api import Encoder, encode_ivf
 
     W, H = cs.WIDTH, cs.HEIGHT
     half = cs.N_FRAMES // 2
     ai = cs.synth_clip(W, H, half) + cs.synth_clip(
         W, H, cs.N_FRAMES - half, tex_sigma=cs.SMOOTH_SIGMA)
     moving = cs.synth_clip(W, H, cs.RA_FRAMES)
+    md5, stages = {}, {}
 
-    def run(frames, cfg, warm=0):
+    def run(name, frames, cfg, warm=0):
         enc = Encoder(cfg)
+        h = hashlib.md5()
         torch.cuda.synchronize()
         t0 = t_warm = time.perf_counter()
         for i, planes in enumerate(list(frames) + [None]):
             if i == warm:
                 torch.cuda.synchronize()
                 t_warm = time.perf_counter()
-            enc.flush() if planes is None else enc.send_picture(planes)
+            for pkt in (enc.flush() if planes is None
+                        else enc.send_picture(planes)):
+                h.update(pkt)
         torch.cuda.synchronize()
         t1 = time.perf_counter()
+        md5[name] = h.hexdigest()
+        stages[name] = {k: v.get("ms_per_frame")
+                        for k, v in enc.perf_report().items() if k != "_wall"}
         return (len(frames) - warm) / (t1 - t_warm), len(frames) / (t1 - t0)
 
     fps = {}
-    fps["all_intra"] = run(ai, cs.slice_config(W, H))[1]
-    fps["low_delay_p"] = run(moving[:cs.N_FRAMES],
+    fps["all_intra"] = run("all_intra", ai, cs.slice_config(W, H))[1]
+    fps["low_delay_p"] = run("low_delay_p", moving[:cs.N_FRAMES],
                              cs.slice_config(W, H, -1))[1]
     fps["random_access_window"], fps["random_access"] = run(
-        moving, cs.ra_config(W, H), cs.RA_WARM)
-    return fps
+        "random_access", moving, cs.ra_config(W, H), cs.RA_WARM)
+    with tempfile.TemporaryDirectory() as tmp:
+        for k, (name, frames, cfg) in enumerate(cs.agreement_clips()):
+            path = Path(tmp) / f"{k}.ivf"
+            encode_ivf(frames, cfg, str(path), device="cuda")
+            md5[name] = cs.stream_md5(path)
+    return fps, md5, stages
 
 
 def main() -> int:
@@ -200,7 +245,6 @@ def main() -> int:
     want_k, want_f = "--kernels" in args, "--fps" in args
     if not (want_k or want_f):
         want_k = want_f = True
-    sys.path.insert(0, str(HERE))
     sys.path.insert(0, str(root))
     import numpy as np
     import torch
@@ -208,7 +252,11 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("tree_times: no CUDA device", file=sys.stderr)
         return 2
-    import chip_smoke as cs
+    # this checkout's inputs and timers, whatever the root holds
+    spec = importlib.util.spec_from_file_location("chip_smoke",
+                                                  HERE / "chip_smoke.py")
+    cs = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(cs)
     import svt_av1_tpu_torch
 
     assert Path(svt_av1_tpu_torch.__file__).resolve().is_relative_to(root), \
@@ -217,7 +265,7 @@ def main() -> int:
     if want_k:
         out["ms"], out["device_ms"] = kernel_times(cs, np, torch)
     if want_f:
-        out["fps"] = encode_fps(cs, torch)
+        out["fps"], out["md5"], out["stage_ms"] = encode_fps(cs, torch)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True).stdout.strip()
