@@ -16,12 +16,14 @@ Phases, each of which must pass (the script exits non-zero otherwise):
    launches), K6 at the path's shapes (the 16x16 table) and at all 8
    shapes (the 8x8 table), each set held against the plain version, and
    both print their design ceilings (k1_ceiling, k6_ceiling) beside
-   their bounds; K2 (one launch for both directions) and K5 (one launch)
-   also print their profiler device times (device_ms), K2 on the luma
-   and both chroma planes, K5 at each reach of the random-access path
-   (K5_PATH_RADII at 1920x1152, 8 at the MCTF and TPL geometries) with
-   its bound per reach; the build prints ptxas's registers, spills and
-   shared memory of both (nvcc's -Xptxas -v lines);
+   their bounds; K2 (one launch for both directions), K3, K4's apply
+   (one launch for the three planes) and K5 (one launch) also print their
+   profiler device times (device_ms), K2 on the luma and both chroma
+   planes, K5 at each reach of the random-access path (K5_PATH_RADII at
+   1920x1152, 8 at the MCTF and TPL geometries) with its bound per reach;
+   ptxas's registers, spills and shared memory (nvcc's -Xptxas -v
+   lines) are printed for K5 and K2 after the build, for K3 and K4
+   beside their checks;
 4. all-intra encode: the port's Encoder on N_FRAMES synthetic 1920x1080
    frames, preset 8 (LOW_DELAY_P, qp 40, intra_period_length 0), with
    every launch counter set to 0 just before and read just after; K1-K4
@@ -71,8 +73,7 @@ Phases, each of which must pass (the script exits non-zero otherwise):
 10. one JSON line listing every kernel (wrapper calls and launches on
     the main paths: the random-access encode, the stripe dryruns and the
     decodes; every CUDA wrapper counts its calls on entry and its
-    launches where it launches: K4's apply once per plane, the others
-    once per call)
+    launches where it launches, once per call)
     and the stripe step (B14), then the
     device line last; K1's and K6's design
     ceilings are printed beside their bounds, not put in that line.  Phase 6 also prints the K1 and K6 launches of the
@@ -435,6 +436,7 @@ def deblock_inputs(dev, frame, rng, buf_w, buf_h):
 
 def kernels_phase(dev, frame):
     from svt_av1_tpu_torch.entropy.tables import FrameCdfs
+    from svt_av1_tpu_torch.kernels import build
     from svt_av1_tpu_torch.ops import cdef, dlf, omd
     from svt_av1_tpu_torch.pipeline.batched_md import default_mode_bits
     from svt_av1_tpu_torch.pipeline.rate_control import RateControl
@@ -532,12 +534,14 @@ def kernels_phase(dev, frame):
     err = max((d1 - d2).abs().max().item(), (v1 - v2).abs().max().item())
     print(f"K3 cdef_direction: max |kernel - plain| {err}")
     assert err == 0
+    for line in build.ptxas_report("cdef_direction"):
+        print(f"ptxas cdef_direction: {line}")
     n_units = d1.numel()
     # per unit: 8 direction sums of 64 samples, 15 squares and
     # multiply-adds each, argmax and the variance
     results["cdef_direction"] = dict(
         ms=cuda_ms(k3, KERNEL_REPS), plain_ms=cuda_ms(k3_plain, PLAIN_REPS),
-        max_abs_err=err,
+        device_ms=device_ms(k3), max_abs_err=err,
         bound=bound_ms(WIDTH * HEIGHT * 4 + nbytes(d1, v1),
                        n_units * (8 * 64 + 8 * 15 * 3 + 16)),
         per_call="1 launch")
@@ -590,12 +594,14 @@ def kernels_phase(dev, frame):
     print(f"K4 cdef_apply (y {ystr}, uv {uvstr}): max |kernel - plain| "
           f"{err}")
     assert err == 0
+    for line in build.ptxas_report("cdef_filter"):
+        print(f"ptxas cdef_filter: {line}")
     results["cdef_apply"] = dict(
         ms=cuda_ms(k4a, KERNEL_REPS), plain_ms=cuda_ms(k4a_plain, PLAIN_REPS),
-        max_abs_err=err,
+        device_ms=device_ms(k4a), max_abs_err=err,
         bound=bound_ms(2 * nbytes(*rec) + nbytes(d1, v1, ns),
                        vis_px * frac * (ops_px - 3)),
-        per_call="3 launches, one per plane")
+        per_call="1 launch, three planes")
     return results
 
 

@@ -19,6 +19,7 @@ from __future__ import annotations
 
 import ctypes
 import fcntl
+import functools
 import hashlib
 import importlib.machinery
 import importlib.util
@@ -195,6 +196,15 @@ def cuda_lib(name: str) -> ctypes.CDLL:
         lib = ctypes.CDLL(str(out))
         _loaded[key] = lib
         return lib
+
+
+@functools.cache
+def cuda_fn(name: str, entry: str, argtypes: tuple):
+    """A kernel library's C entry with its ctypes types, bound once."""
+    fn = getattr(cuda_lib(name), entry)
+    fn.restype = ctypes.c_int
+    fn.argtypes = argtypes
+    return fn
 
 
 def check_launch(name: str, err: int) -> None:

@@ -338,17 +338,6 @@ def _check_planes(name: str, src: torch.Tensor, ref: torch.Tensor,
         raise ValueError(f"{name}: planes must be whole 64x64 superblocks")
 
 
-@functools.cache
-def _fn(lib_name: str, entry: str, argtypes: tuple):
-    """A kernel library's C entry with its ctypes types, bound once."""
-    from ..kernels.build import cuda_lib
-
-    fn = getattr(cuda_lib(lib_name), entry)
-    fn.restype = ctypes.c_int
-    fn.argtypes = argtypes
-    return fn
-
-
 _P, _I = ctypes.c_void_p, ctypes.c_int
 
 
@@ -364,13 +353,13 @@ def me_coarse(src: torch.Tensor, ref: torch.Tensor,
     _check_planes("me_coarse", src, ref, row0)
     if not 1 <= coarse_r <= 32:
         raise ValueError(f"me_coarse: coarse_r {coarse_r} outside 1..32")
-    from ..kernels.build import check_launch, ptr, raw_stream
+    from ..kernels.build import check_launch, cuda_fn, ptr, raw_stream
 
     rows = src.shape[0]
     H, W = ref.shape
     out = torch.empty((rows // SB, W // SB, 2), dtype=torch.int32,
                       device=src.device)
-    fn = _fn("me_coarse", "me_coarse_launch", (_P, _P) + (_I,) * 5
+    fn = cuda_fn("me_coarse", "me_coarse_launch", (_P, _P) + (_I,) * 5
              + (_P,) * 2)
     err = fn(ptr(src), ptr(ref), rows, H, W, int(coarse_r), int(row0),
              ptr(out), raw_stream(src))
@@ -418,12 +407,12 @@ def me_refine(src: torch.Tensor, ref: torch.Tensor, coarse: torch.Tensor,
             or coarse.device != src.device:
         raise ValueError("me_refine: coarse must be the contiguous int32 "
                          "[n_sby, n_sbx, 2] output of me_coarse")
-    from ..kernels.build import check_launch, ptr, stream
+    from ..kernels.build import check_launch, cuda_fn, ptr, stream
 
     n_out = sum(counts)
     spec = (ctypes.c_int * len(spec))(*spec)
     res = torch.empty((n, n_out, 4), dtype=torch.int32, device=src.device)
-    fn = _fn("me_refine", "me_refine_launch",
+    fn = cuda_fn("me_refine", "me_refine_launch",
              (_P, _P, _I, _I, _I, _I, _P, _P, _I, _P, _P))
     err = fn(ptr(src), ptr(ref), rows, H, W, int(row0), ptr(coarse), spec,
              len(shapes), ptr(res), stream(src))
@@ -482,13 +471,13 @@ def subpel_refine16(src: torch.Tensor, ref: torch.Tensor,
                 or not t.is_contiguous() or t.device != src.device:
             raise ValueError("subpel_refine16: MVs must be contiguous int32 "
                              "[rows/16, W/16] on the planes' device")
-    from ..kernels.build import check_launch, ptr, stream
+    from ..kernels.build import check_launch, cuda_fn, ptr, stream
 
     mvq_r = torch.empty_like(mv_r16)
     mvq_c = torch.empty_like(mv_c16)
     pred = torch.empty((rows, W), dtype=torch.uint8, device=src.device)
     taps = _regular_taps(src.device)
-    fn = _fn("subpel_refine", "subpel_refine_launch",
+    fn = cuda_fn("subpel_refine", "subpel_refine_launch",
              (_P, _P, _I, _I, _I, _I) + (_P,) * 7)
     err = fn(ptr(src), ptr(ref), rows, H, W, int(row0), ptr(mv_r16),
              ptr(mv_c16), ptr(taps), ptr(mvq_r), ptr(mvq_c), ptr(pred),

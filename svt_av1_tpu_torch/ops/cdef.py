@@ -423,11 +423,23 @@ def _check_units(dirs, var, nonskip, fw: int, fh: int):
                          f"{tuple(nonskip.shape)}")
 
 
+_P, _I = ctypes.c_void_p, ctypes.c_int
+
+
+def _nonskip_bytes(nonskip):
+    """The nonskip map as the kernels read it, one byte per unit (a
+    contiguous bool map is viewed, not copied)."""
+    if nonskip.dtype == torch.bool and nonskip.is_contiguous():
+        return nonskip.view(torch.uint8)
+    return nonskip.to(torch.uint8).contiguous()
+
+
 def cdef_direction(plane, fw: int, fh: int, coeff_shift: int = 0):
     """K3: CDEF direction and variance per 8x8 luma unit of the
     (deblocked) luma plane; samples outside [0, fh) x [0, fw) read as
     CDEF_VERY_LARGE.  Returns (dirs, var) int32 [ceil(fh/8), ceil(fw/8)].
-    CPU tensors take find_dir_grid; CUDA tensors launch the kernel."""
+    CPU tensors take find_dir_grid; CUDA tensors launch the kernel once
+    (both maps are views of one allocation)."""
     if plane.device.type == "cpu":
         return direction_plain(plane, fw, fh, coeff_shift)
     cdef_direction.calls += 1
@@ -437,17 +449,15 @@ def cdef_direction(plane, fw: int, fh: int, coeff_shift: int = 0):
     H, W = plane.shape
     if fh > H or fw > W:
         raise ValueError("frame exceeds the plane")
-    from ..kernels.build import check_launch, cuda_lib, ptr, stream
+    from ..kernels.build import check_launch, cuda_fn, ptr, raw_stream
 
-    fn = cuda_lib("cdef_direction").cdef_direction_launch
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] + [ctypes.c_int] * 5 \
-        + [ctypes.c_void_p] * 3
+    fn = cuda_fn("cdef_direction", "cdef_direction_launch",
+             (_P,) + (_I,) * 5 + (_P,) * 3)
     uh, uw = _ceil_to(fh, 8) // 8, _ceil_to(fw, 8) // 8
-    dirs = torch.empty((uh, uw), dtype=torch.int32, device=plane.device)
-    var = torch.empty((uh, uw), dtype=torch.int32, device=plane.device)
+    dirs, var = torch.empty((2, uh, uw), dtype=torch.int32,
+                            device=plane.device)
     err = fn(ptr(plane), H, W, fh, fw, coeff_shift, ptr(dirs), ptr(var),
-             stream(plane))
+             raw_stream(plane))
     check_launch("cdef_direction", err)
     cdef_direction.launches += 1
     return dirs, var
@@ -462,14 +472,6 @@ def _pack(values, bits: int) -> int:
         assert 0 <= v < (1 << bits)
         out |= int(v) << (bits * i)
     return out
-
-
-def _filter_fn(name: str):
-    from ..kernels.build import cuda_lib
-
-    fn = getattr(cuda_lib("cdef_filter"), name)
-    fn.restype = ctypes.c_int
-    return fn
 
 
 def _halo_ptrs(halos, pli, plane):
@@ -492,6 +494,11 @@ def _halo_ptrs(halos, pli, plane):
     return out
 
 
+def _arr(ctype, values):
+    """A C array of the values."""
+    return (ctype * len(values))(*values)
+
+
 def cdef_search(source, recon, dirs, var, nonskip, fw: int, fh: int,
                 damping: int, bit_depth: int = 8, pri_set=PRI_SET,
                 sec_set=SEC_SET, halos=None):
@@ -508,7 +515,7 @@ def cdef_search(source, recon, dirs, var, nonskip, fw: int, fh: int,
     cdef_search.calls += 1
     if recon[0].device.type != "cuda":
         raise ValueError(f"unsupported device {recon[0].device}")
-    from ..kernels.build import check_launch, ptr, stream
+    from ..kernels.build import check_launch, cuda_fn, ptr, raw_stream
 
     _check_units(dirs, var, nonskip, fw, fh)
     n = len(recon)
@@ -516,13 +523,11 @@ def cdef_search(source, recon, dirs, var, nonskip, fw: int, fh: int,
         raise ValueError("cdef_search takes 1 to 3 planes and their sources")
     if len(pri_set) > 8 or len(sec_set) > 4:
         raise ValueError("cdef_search takes at most 8 x 4 strengths")
-    fn = _filter_fn("cdef_search_launch")
-    P = ctypes.c_void_p
-    fn.argtypes = [ctypes.c_int] + [P] * 8 + [P] * 3 + [ctypes.c_int] \
-        + [ctypes.c_uint, ctypes.c_int, ctypes.c_uint, ctypes.c_int] \
-        + [ctypes.c_int] * 2 + [P] * 2
+    fn = cuda_fn("cdef_filter", "cdef_search_launch",
+             (_I,) + (_P,) * 8 + (_P,) * 3 + (_I,)
+             + (ctypes.c_uint, _I, ctypes.c_uint, _I) + (_I,) * 2 + (_P,) * 2)
     cs = max(bit_depth - 8, 0)
-    ns = nonskip.to(torch.uint8).contiguous()
+    ns = _nonskip_bytes(nonskip)
     dims, halo = [], []
     for pli in range(n):
         rec, src = recon[pli], source[pli]
@@ -538,16 +543,13 @@ def cdef_search(source, recon, dirs, var, nonskip, fw: int, fh: int,
     combos = len(pri_set) * len(sec_set)
     acc = torch.zeros(2 * combos, dtype=torch.int64, device=recon[0].device)
 
-    def arr(ctype, values):
-        return (ctype * n)(*values)
-
-    err = fn(n, arr(P, [ptr(r) for r in recon[:n]]),
-             arr(P, [ptr(s) for s in source[:n]]),
-             arr(P, [t for t, _ in halo]), arr(P, [b for _, b in halo]),
-             *(arr(ctypes.c_int, [d[i] for d in dims]) for i in range(4)),
+    err = fn(n, _arr(_P, [ptr(r) for r in recon[:n]]),
+             _arr(_P, [ptr(s) for s in source[:n]]),
+             _arr(_P, [t for t, _ in halo]), _arr(_P, [b for _, b in halo]),
+             *(_arr(_I, [d[i] for d in dims]) for i in range(4)),
              ptr(dirs), ptr(var), ptr(ns), ns.shape[1], _pack(pri_set, 4),
              len(pri_set), _pack(sec_set, 2), len(sec_set), damping + cs,
-             cs, ptr(acc), stream(recon[0]))
+             cs, ptr(acc), raw_stream(recon[0]))
     check_launch("cdef_search", err)
     cdef_search.launches += 1
     errs = acc.reshape(2, len(pri_set), len(sec_set))
@@ -562,39 +564,47 @@ def cdef_apply(planes, nonskip, dirs, var, y_strength: int,
                halos=None):
     """K4 apply: normative CDEF of the int32 planes at the coded
     strengths (pri*4+sec), given the (dirs, var) unit maps; ``halos`` as
-    for ``cdef_search``.  Returns full-size planes.  CPU tensors take
-    cdef_apply_plain; CUDA tensors launch the kernel once per plane."""
+    for ``cdef_search``.  Returns new full-size planes, the input left as
+    it is.  CPU tensors take cdef_apply_plain; CUDA tensors launch the
+    kernel once for all the planes.
+
+    The kernel keeps the taps as 16-bit values: the planes must hold
+    samples in [0, 2^bd), bd <= 12, as every reconstruction does."""
     if planes[0].device.type == "cpu":
         return cdef_apply_plain(planes, nonskip, dirs, var, y_strength,
                                 uv_strength, damping, fw, fh, bd, halos)
     cdef_apply.calls += 1
     if planes[0].device.type != "cuda":
         raise ValueError(f"unsupported device {planes[0].device}")
-    from ..kernels.build import check_launch, ptr, stream
+    from ..kernels.build import check_launch, cuda_fn, ptr, raw_stream
 
     _check_units(dirs, var, nonskip, fw, fh)
-    fn = _filter_fn("cdef_apply_launch")
-    fn.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_int] * 5 \
-        + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 6 \
-        + [ctypes.c_void_p] * 3
+    n = len(planes)
+    if not 1 <= n <= 3:
+        raise ValueError("cdef_apply takes 1 to 3 planes")
+    fn = cuda_fn("cdef_filter", "cdef_apply_launch",
+             (_I, _P, _P) + (_P,) * 3 + (_I,) * 3 + (_P,))
     cs = max(bd - 8, 0)
-    ns = nonskip.to(torch.uint8).contiguous()
-    out = []
+    ns = _nonskip_bytes(nonskip)
+    # per plane: (in, out, top, bottom) and (H, W, ph, pw, pri, sec)
+    ptrs, dims, out = [], [], []
     for pli, plane in enumerate(planes):
-        sub = 0 if pli == 0 else 1
         _check_plane(plane, "cdef_apply")
-        pri, sec = _strength_parts(y_strength if pli == 0 else uv_strength,
-                                   cs)
-        H, W = plane.shape
-        top, bottom = _halo_ptrs(halos, pli, plane)
+        if plane.device != planes[0].device:
+            raise ValueError("cdef_apply planes lie on different devices")
         o = torch.empty_like(plane)
-        err = fn(ptr(plane), ptr(o), H, W, fh >> sub, fw >> sub, 3 - sub,
-                 ptr(dirs), ptr(var), ptr(ns), ns.shape[1], int(pli == 0),
-                 pri, sec, damping + cs - sub, cs, top, bottom,
-                 stream(plane))
-        check_launch("cdef_apply", err)
-        cdef_apply.launches += 1
+        sub = int(pli > 0)
+        ptrs += [plane.data_ptr(), o.data_ptr(),
+                 *(_halo_ptrs(halos, pli, plane) if halos is not None
+                   else (None, None))]
+        dims += [*plane.shape, fh >> sub, fw >> sub,
+                 *_strength_parts(y_strength if sub == 0 else uv_strength,
+                                  cs)]
         out.append(o)
+    err = fn(n, _arr(_P, ptrs), _arr(_I, dims), ptr(dirs), ptr(var),
+             ptr(ns), ns.shape[1], damping + cs, cs, raw_stream(planes[0]))
+    check_launch("cdef_apply", err)
+    cdef_apply.launches += 1
     return out
 
 

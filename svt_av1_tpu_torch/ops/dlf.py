@@ -316,17 +316,6 @@ def loop_filter_plane_full(plane, apply_v, fsize_v, apply_h, fsize_h,
 # K2: the CUDA deblocking kernel and its wrapper
 # --------------------------------------------------------------------------
 
-@functools.cache
-def _deblock_fn():
-    from ..kernels.build import cuda_lib
-
-    fn = cuda_lib("deblock").deblock_launch
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 13 \
-        + [ctypes.c_void_p]
-    return fn
-
-
 def deblock(plane, apply_v, fsize_v, apply_h, fsize_h, width: int,
             height: int, level_v: int, level_h: int, sharpness: int,
             bd: int = 8):
@@ -369,15 +358,18 @@ def deblock(plane, apply_v, fsize_v, apply_h, fsize_h, width: int,
             raise ValueError(f"edge mask shape {tuple(a.shape)} != {shape} "
                              f"or on another device than the plane")
         masks.append(a)
-    from ..kernels.build import check_launch, ptr, stream
+    from ..kernels.build import check_launch, cuda_fn, ptr, stream
 
     shift = bd - 8
     tv = thresholds(level_v, sharpness, shift) if level_v > 0 else (0,) * 3
     th = thresholds(level_h, sharpness, shift) if level_h > 0 else (0,) * 3
     out = torch.empty_like(plane)
-    err = _deblock_fn()(ptr(plane), ptr(out), *(ptr(m) for m in masks), H, W,
-                        x4max, y4max, int(level_v > 0), *tv,
-                        int(level_h > 0), *th, shift, stream(plane))
+    fn = cuda_fn("deblock", "deblock_launch",
+                 (ctypes.c_void_p,) * 6 + (ctypes.c_int,) * 13
+                 + (ctypes.c_void_p,))
+    err = fn(ptr(plane), ptr(out), *(ptr(m) for m in masks), H, W, x4max,
+             y4max, int(level_v > 0), *tv, int(level_h > 0), *th, shift,
+             stream(plane))
     check_launch("deblock", err)
     deblock.launches += 1
     return out

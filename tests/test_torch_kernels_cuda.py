@@ -1286,3 +1286,175 @@ def test_k2_both_levels_0_copy_the_plane_in_one_launch(dev):
     got, p = _k2_check(dev, plane, _edge_inputs(128, 192, 192, 128, False,
                                                   1), 192, 128, 0, 0)
     assert torch.equal(got, p) and got.data_ptr() != p.data_ptr()
+
+
+# -- K4's apply and K3, one launch each (kernels/csrc/cdef_filter.cu,
+# cdef_direction.cu)
+
+def _k4_apply_check(planes, ns, fw, fh, ys, us, damping=5, bd=8,
+                    halos=None):
+    """K4's apply against the plain version: one launch for all the planes,
+    new outputs, the input untouched."""
+    dirs, var = cdef.direction_plain(planes[0], fw, fh, max(bd - 8, 0))
+    keep = [p.clone() for p in planes]
+    before = (cdef.cdef_apply.calls, cdef.cdef_apply.launches)
+    got = cdef.cdef_apply(planes, ns, dirs, var, ys, us, damping, fw, fh, bd,
+                          halos)
+    assert (cdef.cdef_apply.calls, cdef.cdef_apply.launches) == (
+        before[0] + 1, before[1] + 1)
+    want = cdef.cdef_apply_plain(planes, ns, dirs, var, ys, us, damping, fw,
+                                 fh, bd, halos)
+    for pli, (g, w, p, k) in enumerate(zip(got, want, planes, keep)):
+        assert torch.equal(g, w), (pli, ys, us)
+        assert torch.equal(p, k) and g.data_ptr() != p.data_ptr()
+        assert g.is_contiguous() and g.shape == p.shape
+    return got
+
+
+def _k4_planes(dev, shapes, seed, smooth=False, bd=8):
+    out = []
+    for i, (h, w) in enumerate(shapes):
+        p = _smooth_plane(h, w, seed + i) if smooth \
+            else _plane(h, w, seed + i).astype(np.int32)
+        out.append(torch.from_numpy(p.astype(np.int32) << (bd - 8)).to(dev))
+    return out
+
+
+def _k4_ns(dev, fw, fh, seed, frac=0.8):
+    rng = np.random.default_rng(seed)
+    return torch.from_numpy(rng.random((-(-fh // 8), -(-fw // 8))) < frac) \
+        .to(dev)
+
+
+@pytest.mark.parametrize("kind", ["noisy", "smooth"])
+@pytest.mark.parametrize("n", [1, 3], ids=["luma", "three_planes"])
+def test_k4_apply_1080p_matches_plain(dev, kind, n):
+    planes = _k4_planes(dev, [(1152, 1920), (576, 960), (576, 960)][:n], 3,
+                        kind == "smooth")
+    ns = _k4_ns(dev, 1920, 1080, n)
+    for ys, us in ((33, 18), (63, 61), (4 * 1 + 2, 3), (14, 0)):
+        got = _k4_apply_check(planes, ns, 1920, 1080, ys, us)
+        assert not torch.equal(got[0], planes[0])
+
+
+@pytest.mark.parametrize("top,bottom", [(False, False), (True, False),
+                                        (False, True), (True, True)],
+                         ids=["none", "top", "bottom", "both"])
+def test_k4_apply_halo_modes_at_1920x64_match_plain(dev, top, bottom):
+    full = _k4_planes(dev, [(68, 1920), (36, 960), (36, 960)], 5)
+    planes = [f[2:-2].contiguous() for f in full]
+    halos = [(f[:2].contiguous() if top else None,
+              f[-2:].contiguous() if bottom else None) for f in full]
+    ns = _k4_ns(dev, 1920, 64, top + 2 * bottom)
+    for ys, us in ((61, 22), (33, 7)):
+        _k4_apply_check(planes, ns, 1920, 64, ys, us, 4, 8, halos)
+
+
+@pytest.mark.parametrize("frame", [(1920, 1080), (1917, 1077), (130, 98)],
+                         ids=["1080p", "1917x1077", "130x98"])
+def test_k4_apply_decoder_buffers_larger_than_the_frame(dev, frame):
+    fw, fh = frame
+    bh, bw = -(-fh // 64) * 64 + 32, -(-fw // 64) * 64 + 64
+    planes = _k4_planes(dev, [(bh, bw), (bh // 2, bw // 2),
+                              (bh // 2, bw // 2)], fw)
+    got = _k4_apply_check(planes, _k4_ns(dev, fw, fh, 1), fw, fh, 45, 29)
+    for pli, (g, p) in enumerate(zip(got, planes)):
+        s = int(pli > 0)
+        assert torch.equal(g[fh >> s:], p[fh >> s:])
+        assert torch.equal(g[:, fw >> s:], p[:, fw >> s:])
+
+
+@pytest.mark.parametrize("case", ["widths_off_4", "off_16_bytes"])
+def test_k4_apply_unaligned_planes_match_plain(dev, case):
+    """Rows that are no multiple of 4 samples, and planes and halo rows
+    that start off 16-byte boundaries (views at an offset of one sample):
+    the kernel's scalar path."""
+    if case == "widths_off_4":
+        fw, fh = 1918, 1078
+        shapes = [(1080, 1918), (540, 959), (540, 959)]
+    else:
+        fw, fh = 1920, 1080
+        shapes = [(1080, 1920), (540, 960), (540, 960)]
+    src = _k4_planes(dev, [(h + 4, w) for h, w in shapes], 8)
+    planes, halos = [], []
+    for s in src:
+        if case == "off_16_bytes":
+            buf = torch.empty(s.numel() + 1, dtype=torch.int32, device=dev)
+            s = buf[1:].view(s.shape).copy_(s)
+        h = s.shape[0] - 4
+        rows = s.view(-1)
+        w = s.shape[1]
+        planes.append(rows[2 * w:(2 + h) * w].view(h, w))
+        halos.append((rows[:2 * w].view(2, w),
+                      rows[(2 + h) * w:].view(2, w)))
+    ns = _k4_ns(dev, fw, fh, 7)
+    _k4_apply_check(planes, ns, fw, fh, 37, 26)
+    _k4_apply_check(planes, ns, fw, fh, 37, 26, halos=halos)
+
+
+def test_k4_apply_every_unit_skip_and_zero_strengths_copy(dev):
+    planes = _k4_planes(dev, [(1152, 1920), (576, 960), (576, 960)], 4)
+    for ns, ys, us in ((_k4_ns(dev, 1920, 1080, 0, 0.0), 33, 18),
+                       (_k4_ns(dev, 1920, 1080, 0), 0, 0)):
+        got = _k4_apply_check(planes, ns, 1920, 1080, ys, us)
+        for g, p in zip(got, planes):
+            assert torch.equal(g, p)
+    # one plane's strengths 0: that plane is copied, the others filtered
+    got = _k4_apply_check(planes, _k4_ns(dev, 1920, 1080, 1), 1920, 1080, 0,
+                          18)
+    assert torch.equal(got[0], planes[0])
+    assert not torch.equal(got[1], planes[1])
+
+
+@pytest.mark.parametrize("n", [1, 3])
+def test_k4_apply_bd10_matches_plain(dev, n):
+    planes = _k4_planes(dev, [(576, 960), (288, 480), (288, 480)][:n], 2,
+                        bd=10)
+    ns = _k4_ns(dev, 950, 540, 10)
+    for ys, us in ((33, 18), (63, 7), (3, 61)):
+        _k4_apply_check(planes, ns, 950, 540, ys, us, 5, 10)
+
+
+def _k3_check(plane, fw, fh, cs=0):
+    before = (cdef.cdef_direction.calls, cdef.cdef_direction.launches)
+    d, v = cdef.cdef_direction(plane, fw, fh, cs)
+    assert (cdef.cdef_direction.calls, cdef.cdef_direction.launches) == (
+        before[0] + 1, before[1] + 1)
+    d2, v2 = cdef.direction_plain(plane, fw, fh, cs)
+    assert torch.equal(d, d2) and torch.equal(v, v2)
+    assert d.is_contiguous() and v.is_contiguous()
+    return d, v
+
+
+@pytest.mark.parametrize("cs", [0, 2])
+def test_k3_1080p_matches_plain(dev, cs):
+    plane = torch.from_numpy(_plane(1152, 1920, 4).astype(np.int32) << cs) \
+        .to(dev)
+    d, _ = _k3_check(plane, 1920, 1080, cs)
+    assert len(torch.unique(d)) == 8
+
+
+def test_k3_tie_units_match_plain(dev):
+    """Flat units (all 8 directions tie) and periodic ones (some tie)."""
+    units = []
+    for a in range(4):
+        for b in range(4):
+            for p in (2, 3, 4):
+                for lo, hi in ((0, 255), (100, 140), (7, 7)):
+                    i, j = np.mgrid[0:8, 0:8]
+                    units.append(np.where((a * i + b * j) % p == 0, hi, lo))
+    units = np.array(units)                              # 144 units
+    tiled = np.resize(units, (135 * 240, 8, 8)).reshape(135, 240, 8, 8) \
+        .transpose(0, 2, 1, 3).reshape(1080, 1920).astype(np.int32)
+    d, v = _k3_check(torch.from_numpy(tiled).to(dev), 1920, 1080)
+    assert (d == 0).any() and (d > 0).any()
+
+
+@pytest.mark.parametrize("frame", [(1917, 1077), (530, 77)])
+def test_k3_odd_frame_sizes_match_plain(dev, frame):
+    fw, fh = frame
+    src = torch.from_numpy(_plane(fh + 3, fw, 5).astype(np.int32)).to(dev)
+    _k3_check(src, fw, fh)
+    # a plane off 16-byte boundaries
+    buf = torch.empty(src.numel() + 1, dtype=torch.int32, device=dev)
+    _k3_check(buf[1:].view(src.shape).copy_(src), fw, fh)

@@ -6,8 +6,8 @@ Needs the CUDA toolkit (nvcc, cuobjdump); no card.  Prints:
 
 1. ``-Xptxas -v`` for each named kernel source (default: intra_decision,
    me_refine, inter_select, cdef_filter, subpel_refine, compound_joint,
-   me_coarse and deblock): registers, spills and shared memory per
-   entry;
+   me_coarse, deblock and cdef_direction): registers, spills and shared
+   memory per entry;
 2. the SASS opcode histogram of each of their entries, and apart the
    packed-integer opcodes the redesigns rest on (every opcode that
    starts with VABSDIFF4, IDP (dp4a and dp2a) or PRMT) and the branches
@@ -99,7 +99,8 @@ def main() -> int:
     nvcc = build._nvcc()
     names = sys.argv[1:] or ["intra_decision", "me_refine", "inter_select",
                              "cdef_filter", "subpel_refine",
-                             "compound_joint", "me_coarse", "deblock"]
+                             "compound_joint", "me_coarse", "deblock",
+                             "cdef_direction"]
     out_dir = build.BUILD_DIR / "sass"
     out_dir.mkdir(parents=True, exist_ok=True)
     for name in names:

@@ -29,7 +29,11 @@ parts run.
   (two references); K2 on the kernels phase's luma plane at the path's
   level and on its first chroma plane, K3 on that luma plane, K4's
   search (the 5x3 grid) and apply over the three planes of the first
-  frame; K10 on TPL's half-resolution plane.
+  frame; K10 on TPL's half-resolution plane.  K3 and K4's apply also
+  have a device time with the L2 cache flushed before each call
+  (``device_ms_cold``: a 128 MB write between the calls, the kernels'
+  own time alone): their 1080p inputs fit in the 50 MB L2, which the
+  timing loop otherwise reuses.
 * ``--fps``: the all-intra encode (three noise-like and three smooth
   frames), the low-delay P encode (6 frames of the moving clip) and the
   random-access encode (bench.py's configuration, 33 frames, fps over
@@ -102,8 +106,33 @@ def kernel_times(cs, np, torch):
     calls["K8 compound row"], calls["K9 2 refs"] = ra_calls(cs, torch, dev)
     calls["K4 search 5x3"] = k4_search_call(cs, np, torch, dev)
     calls.update(filter_calls(cs, np, torch, dev))
+    cold = {k: device_ms_cold(torch, calls[k], name) for k, name in (
+        ("K3 1080p luma", "cdef_direction_kernel"),
+        ("K4 apply 3 planes", "cdef_apply_kernel"))}
     return ({k: cs.cuda_ms(f, 20) for k, f in calls.items()},
-            {k: cs.device_ms(f) for k, f in calls.items()})
+            {k: cs.device_ms(f) for k, f in calls.items()}, cold)
+
+
+def device_ms_cold(torch, fn, kernel, reps=20):
+    """Device time per call of the CUDA kernels whose name holds
+    ``kernel``, with the L2 cache flushed before each call (a 128 MB
+    write, more than the H100's 50 MB L2), from torch.profiler's records
+    over ``reps`` calls after one warm-up."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    flush = torch.empty(128 << 20, dtype=torch.uint8, device="cuda")
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            flush.fill_(1)
+            fn()
+        torch.cuda.synchronize()
+    us = sum(e.self_device_time_total for e in prof.key_averages()
+             if e.device_type == DeviceType.CUDA and kernel in e.key)
+    return us / reps / 1e3
 
 
 def filter_calls(cs, np, torch, dev):
@@ -263,7 +292,8 @@ def main() -> int:
         "the package must come from --root"
     out = {}
     if want_k:
-        out["ms"], out["device_ms"] = kernel_times(cs, np, torch)
+        out["ms"], out["device_ms"], out["device_ms_cold"] = kernel_times(
+            cs, np, torch)
     if want_f:
         out["fps"], out["md5"], out["stage_ms"] = encode_fps(cs, torch)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
