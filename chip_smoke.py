@@ -159,9 +159,11 @@ PEAK_BYTES_S = 3.35e12
 PEAK_OPS_S = 67e12
 
 
-def synth_clip(w, h, n, seed=3, tex_sigma=TEXTURE_SIGMA):
+def synth_clip(w, h, n, seed=3, tex_sigma=TEXTURE_SIGMA, bd=8):
     """Natural-ish synthetic content: moving textured fore/background,
-    gradients, sharp edges, mild sensor noise."""
+    gradients, sharp edges, mild sensor noise.  At ``bd`` > 8 every
+    8-bit plane is scaled to ``bd`` bits (uint16) with its low bits drawn
+    from the same generator."""
     rng = np.random.default_rng(seed)
     yy, xx = np.mgrid[0:h, 0:w]
     tex = rng.normal(0, tex_sigma, (h * 2, w * 2))
@@ -178,6 +180,10 @@ def synth_clip(w, h, n, seed=3, tex_sigma=TEXTURE_SIGMA):
              ).clip(0, 255).astype(np.uint8)
         v = (130 - 30 * np.cos((xx[:h // 2, :w // 2] + 2 * i) / 31)
              ).clip(0, 255).astype(np.uint8)
+        if bd > 8:
+            y, u, v = ((p.astype(np.uint16) << (bd - 8))
+                       | rng.integers(0, 1 << (bd - 8), p.shape,
+                                      dtype=np.uint16) for p in (y, u, v))
         frames.append((y, u, v))
     return frames
 
@@ -368,9 +374,9 @@ def nbytes(*tensors):
     return sum(t.numel() * t.element_size() for t in tensors)
 
 
-def psnr(a, b):
+def psnr(a, b, peak=255.0):
     mse = np.mean((a.astype(np.float64) - b.astype(np.float64)) ** 2)
-    return float("inf") if mse == 0 else float(10 * np.log10(255.0 ** 2
+    return float("inf") if mse == 0 else float(10 * np.log10(peak ** 2
                                                              / mse))
 
 
@@ -378,14 +384,15 @@ def psnr(a, b):
 # phase 3: each kernel against its plain version at the slice's shapes
 # --------------------------------------------------------------------------
 
-def slice_config(w, h, intra_period=0):
+def slice_config(w, h, intra_period=0, bd=8):
     """Preset 8, qp 40, LOW_DELAY_P: all-intra with intra_period 0, one
-    key frame then P frames with -1."""
+    key frame then P frames with -1; ``bd`` bits."""
     from svt_av1_tpu_torch.config import EncoderConfig, PredStructure
 
     return EncoderConfig(source_width=w, source_height=h, qp=QP,
                          enc_mode=8, intra_period_length=intra_period,
-                         pred_structure=PredStructure.LOW_DELAY_P)
+                         pred_structure=PredStructure.LOW_DELAY_P,
+                         encoder_bit_depth=bd)
 
 
 def ra_config(w, h, **kw):
@@ -398,18 +405,20 @@ def ra_config(w, h, **kw):
                          intra_period_length=RA_FRAMES, **kw)
 
 
-def deblock_inputs(dev, frame, rng, buf_w, buf_h):
+def deblock_inputs(dev, frame, rng, buf_w, buf_h, bd=8):
     """K2's inputs at the 1080p buffer: a noisy int32 recon of the luma
-    plane and of both chroma planes, each with random edge masks (a 4x4
-    transform grid of 4..32-sample blocks; chroma masks filter at most 6
-    taps).  Returns (luma, masks, [chroma 1, chroma 2], chroma masks)."""
+    plane and of both chroma planes of a ``bd``-bit frame, each with
+    random edge masks (a 4x4 transform grid of 4..32-sample blocks;
+    chroma masks filter at most 6 taps).  Returns (luma, masks, [chroma
+    1, chroma 2], chroma masks)."""
     from svt_av1_tpu_torch.ops import dlf
 
+    top, scale = (1 << bd) - 1, 1 << (bd - 8)
     src_y = torch.from_numpy(np.ascontiguousarray(
         np.pad(frame[0], ((0, buf_h - HEIGHT), (0, 0)), mode="edge")))
     rec_y = (src_y.to(torch.int32)
              + torch.from_numpy(rng.integers(-6, 7, (buf_h, buf_w))
-                                .astype(np.int32))).clamp(0, 255)
+                                .astype(np.int32) * scale)).clamp(0, top)
     y4, x4 = buf_h // 4, buf_w // 4
     tx = rng.choice([4, 8, 16, 32], size=(y4, x4)).astype(np.int32)
     skip = rng.random((y4, x4)) < 0.3
@@ -430,8 +439,29 @@ def deblock_inputs(dev, frame, rng, buf_w, buf_h):
         np.pad(p, ((0, buf_h // 2 - ch), (0, 0)), mode="edge"))
         .astype(np.int32)) + torch.from_numpy(
             rng.integers(-6, 7, (buf_h // 2, buf_w // 2))
-            .astype(np.int32))).clamp(0, 255).to(dev) for p in frame[1:]]
+            .astype(np.int32) * scale)).clamp(0, top).to(dev)
+        for p in frame[1:]]
     return rec_y.to(dev), prm, chroma, cprm
+
+
+def k1_agreement(packed, want, shapes, buf_w, buf_h, what):
+    """Hold K1's packed output against the plain version's per-shape maps
+    ``want``: modes equal and costs within rtol 1e-5 on >= 99% of each
+    shape's blocks, printed per shape.  Returns the largest cost
+    difference."""
+    from svt_av1_tpu_torch.ops import omd
+
+    got = omd.unpack_decisions(packed, shapes, buf_w, buf_h)
+    err = 0.0
+    for (w, h), (m2, c2) in zip(shapes, want):
+        m, c = got[(w, h)]
+        same = (m == m2).float().mean().item()
+        close = torch.isclose(c, c2, rtol=1e-5).float().mean().item()
+        err = max(err, (c - c2).abs().max().item())
+        print(f"{what} intra_decision {w}x{h}: modes equal {same:.6f}, "
+              f"costs within rtol 1e-5 {close:.6f}")
+        assert same >= 0.99 and close >= 0.99, (w, h, same, close)
+    return err
 
 
 def kernels_phase(dev, frame):
@@ -469,21 +499,12 @@ def kernels_phase(dev, frame):
 
     packed, want, counts = near_counts("intra_decision", k1, k1_plain)
     print_near("K1 intra_decision on the 1080p key frame", counts)
-    got = omd.unpack_decisions(packed, shapes, buf_w, buf_h)
-    err = 0.0
-    for (w, h), (m2, c2) in zip(shapes, want):
-        m, c = got[(w, h)]
-        same = (m == m2).float().mean().item()
-        close = torch.isclose(c, c2, rtol=1e-5).float().mean().item()
-        err = max(err, (c - c2).abs().max().item())
-        print(f"K1 intra_decision {w}x{h}: modes equal {same:.6f}, "
-              f"costs within rtol 1e-5 {close:.6f}")
-        assert same >= 0.99 and close >= 0.99, (w, h, same, close)
+    err = k1_agreement(packed, want, shapes, buf_w, buf_h, "K1")
     px = buf_w * buf_h
     flops = sum(13 * 2 * px * (w + h) for (w, h) in shapes)
     results["intra_decision"] = dict(
         ms=cuda_ms(k1, KERNEL_REPS), plain_ms=cuda_ms(k1_plain, PLAIN_REPS),
-        max_abs_err=err, bound=bound_ms(nbytes(plane, packed), flops),
+        device_ms=device_ms(k1), max_abs_err=err, bound=bound_ms(nbytes(plane, packed), flops),
         ceiling=k1_ceiling(px, shapes),
         per_call=f"1 launch, 7 shapes ({flops / 1e9:.2f} GFLOP)")
     print(f"K1 intra_decision as 7 one-shape launches (the same kernel): "
@@ -577,7 +598,7 @@ def kernels_phase(dev, frame):
     old = bound_ms(in_bytes, vis_px * frac * combos * ops_px)
     results["cdef_search"] = dict(
         ms=cuda_ms(k4s, KERNEL_REPS), plain_ms=cuda_ms(k4s_plain, PLAIN_REPS),
-        max_abs_err=err,
+        device_ms=device_ms(k4s), max_abs_err=err,
         bound=bound_ms(in_bytes,
                        vis_px * frac * k4_search_ops(pri_set, sec_set)),
         per_call=f"1 launch, three planes ({k4_search_ops(pri_set, sec_set)}"
@@ -603,6 +624,132 @@ def kernels_phase(dev, frame):
                        vis_px * frac * (ops_px - 3)),
         per_call="1 launch, three planes")
     return results
+
+
+def tenbit_kernels_phase(dev, frame, results):
+    """The 16-bit forms of K1 and of K4's search at the 1080p 10-bit
+    shapes (``frame``: a 10-bit frame of synth_clip), each against its
+    plain version on the same card tensors (K1 at the 8-bit gates, K4's
+    search exactly), with CUDA-event, device and plain times and the
+    bound (2-byte samples), printed beside the 8-bit forms' of
+    ``results``; ptxas's lines of both instantiations; K2, K3 and K4's
+    apply at bd 10 on the same frame, exactly equal to their plain
+    versions.  Returns the 16-bit forms' results."""
+    from svt_av1_tpu_torch.entropy.tables import FrameCdfs
+    from svt_av1_tpu_torch.kernels import build
+    from svt_av1_tpu_torch.ops import cdef, dlf, omd
+    from svt_av1_tpu_torch.pipeline.batched_md import default_mode_bits
+    from svt_av1_tpu_torch.pipeline.rate_control import RateControl
+    from svt_av1_tpu_torch.pipeline.rdo import rd_lambda
+
+    bd, cs = 10, 2
+    rng = np.random.default_rng(10)
+    buf_w, buf_h = -(-WIDTH // 128) * 128, -(-HEIGHT // 128) * 128
+    out = {}
+
+    # -- K1: the 7 shape grids of the buf-aligned int16 luma plane
+    cfg = slice_config(WIDTH, HEIGHT, bd=bd)
+    qindex = RateControl(cfg, float(cfg.frame_rate),
+                         all_intra=True).peek_qindex(True, 0, 0)
+    lam = rd_lambda(qindex, bd)
+    mb = default_mode_bits(FrameCdfs(qindex))
+    plane = omd.upload_plane(frame[0], buf_w, buf_h, bd, dev)
+    assert plane.dtype == torch.int16
+    shapes = omd.ALL_SHAPES
+
+    def k1():
+        return omd.intra_decision_packed(plane, qindex, lam, mb, bd)
+
+    def k1_plain():
+        return [omd.intra_decision_plain(plane, w, h, qindex, lam, mb, bd)
+                for (w, h) in shapes]
+
+    packed, want, counts = near_counts("intra_decision", k1, k1_plain)
+    print_near("K1 intra_decision, 16-bit form, on the 1080p 10-bit key "
+               "frame", counts)
+    err = k1_agreement(packed, want, shapes, buf_w, buf_h, "K1 16-bit")
+    px = buf_w * buf_h
+    flops = sum(13 * 2 * px * (w + h) for (w, h) in shapes)
+    out["intra_decision_16bit"] = dict(
+        ms=cuda_ms(k1, KERNEL_REPS), plain_ms=cuda_ms(k1_plain, PLAIN_REPS),
+        device_ms=device_ms(k1), max_abs_err=err,
+        bound=bound_ms(nbytes(plane, packed), flops),
+        ceiling=k1_ceiling(px, shapes),
+        per_call=f"1 launch, 7 shapes of a 10-bit plane ({flops / 1e9:.2f} "
+                 f"GFLOP, 2-byte samples)")
+
+    # -- K2 and K3 at bd 10 on a noisy recon of the frame
+    ry, prm, chroma_rec, cprm = deblock_inputs(dev, frame, rng, buf_w,
+                                               buf_h, bd)
+    lvl = dlf.filter_levels_from_qindex(qindex)
+    for name, p, m, vw, vh in (("luma", ry, prm, WIDTH, HEIGHT),
+                               ("chroma", chroma_rec[0], cprm, WIDTH // 2,
+                                HEIGHT // 2)):
+        a = dlf.deblock(p, *m, vw, vh, lvl, lvl, 0, bd)
+        b = dlf.loop_filter_plane_full(p, *m, vw, vh, lvl, lvl, 0, bd)
+        torch.cuda.synchronize()
+        e = (a - b).abs().max().item()
+        print(f"K2 deblock bd 10 {name} level {lvl}: max |kernel - plain| "
+              f"{e}, {(a != p).sum().item()} samples changed")
+        assert e == 0 and bool((a != p).any())
+    d1, v1 = cdef.cdef_direction(ry, WIDTH, HEIGHT, cs)
+    d2, v2 = cdef.direction_plain(ry, WIDTH, HEIGHT, cs)
+    torch.cuda.synchronize()
+    e = max((d1 - d2).abs().max().item(), (v1 - v2).abs().max().item())
+    print(f"K3 cdef_direction cs 2 on the 10-bit luma: max |kernel - plain| "
+          f"{e}")
+    assert e == 0
+
+    # -- K4's search (16-bit sources) and apply (bd 10) on three planes
+    ns = torch.from_numpy(rng.random(d1.shape) < 0.8).to(dev)
+    rec = [ry] + chroma_rec
+    src = [(r + torch.randint(-16, 17, r.shape, device=dev))
+           .clamp(0, (1 << bd) - 1).to(torch.int16) for r in rec]
+    pri_set, sec_set = cdef.PRI_SET_FAST, cdef.SEC_SET_FAST
+    damping = 5
+    k4s = lambda: cdef.cdef_search(  # noqa: E731
+        src, rec, d1, v1, ns, WIDTH, HEIGHT, damping, bd, pri_set, sec_set)
+    k4s_plain = lambda: cdef.search_plain(  # noqa: E731
+        src, rec, d1, v1, ns, WIDTH, HEIGHT, damping, bd, pri_set, sec_set)
+    got, want = k4s(), k4s_plain()
+    torch.cuda.synchronize()
+    err = max((g - w).abs().max().item() for g, w in zip(got, want))
+    print(f"K4 cdef_search 16-bit ({len(pri_set)}x{len(sec_set)} grid): "
+          f"max |kernel - plain| {err}")
+    assert err == 0
+    vis_px = WIDTH * HEIGHT + 2 * (WIDTH // 2) * (HEIGHT // 2)
+    frac = ns.float().mean().item()
+    in_bytes = vis_px * (4 + 2) + nbytes(d1, v1, ns)
+    out["cdef_search_16bit"] = dict(
+        ms=cuda_ms(k4s, KERNEL_REPS), plain_ms=cuda_ms(k4s_plain, PLAIN_REPS),
+        device_ms=device_ms(k4s), max_abs_err=err,
+        bound=bound_ms(in_bytes,
+                       vis_px * frac * k4_search_ops(pri_set, sec_set)),
+        per_call="1 launch, three planes of 10-bit sources (2-byte "
+                 "samples)")
+    ystr, uvstr = 8 * 4 + 1, 4 * 4 + 2
+    a = cdef.cdef_apply(rec, ns, d1, v1, ystr, uvstr, damping, WIDTH, HEIGHT,
+                        bd)
+    b = cdef.cdef_apply_plain(rec, ns, d1, v1, ystr, uvstr, damping, WIDTH,
+                              HEIGHT, bd)
+    torch.cuda.synchronize()
+    e = max((g - w).abs().max().item() for g, w in zip(a, b))
+    print(f"K4 cdef_apply bd 10 (y {ystr}, uv {uvstr}): max |kernel - "
+          f"plain| {e}")
+    assert e == 0
+
+    for name in ("intra_decision", "cdef_filter"):
+        for line in build.ptxas_report(name):
+            print(f"ptxas {name}: {line}")
+    for k8, k16 in (("intra_decision", "intra_decision_16bit"),
+                    ("cdef_search", "cdef_search_16bit")):
+        r8, r16 = results[k8], out[k16]
+        print(f"{k16} vs the 8-bit form: events {r16['ms']:.4f} ms "
+              f"({r8['ms']:.4f}), device {r16['device_ms']:.5f} ms "
+              f"({r8['device_ms']:.5f}), bound {r16['bound'][0]:.5f} ms, "
+              f"{r16['bound'][1]} ({r8['bound'][0]:.5f}), plain "
+              f"{r16['plain_ms']:.4f} ms ({r8['plain_ms']:.4f})")
+    return out
 
 
 def inter_kernels_phase(dev, ref_frame, src_frame):
@@ -1024,7 +1171,7 @@ def run_encode(counters, frames, cfg, path, on_packet=None):
         for p in range(3):
             assert rec[p].shape == src[p].shape, (rec[p].shape, src[p].shape)
             assert np.isfinite(rec[p]).all()
-        scores.append(psnr(src[0], rec[0]))
+        scores.append(psnr(src[0], rec[0], (1 << cfg.encoder_bit_depth) - 1))
     print(f"recon luma PSNR per frame (dB): "
           f"{[round(s, 3) for s in scores]}")
     assert min(scores) > PSNR_FLOOR_DB, (min(scores), PSNR_FLOOR_DB)
@@ -1053,6 +1200,48 @@ def allintra_phase(counters, frames, out_dir):
     assert any(lv > 0 for _, lv, _, _ in params), \
         "the level search chose no deblocking on any frame"
     return launches
+
+
+def stream_bit_depth(path):
+    """The bit depth the sequence header of the IVF at ``path`` declares
+    (high_bitdepth set: 10, or 12 with twelve_bit)."""
+    from svt_av1_tpu_torch.bitstream.headers import (iter_obus,
+                                                     parse_sequence_header)
+    from svt_av1_tpu_torch.constants import ObuType
+    from svt_av1_tpu_torch.io import IvfReader
+
+    for pkt, _ in IvfReader(str(path)):
+        for obu_type, payload in iter_obus(pkt):
+            if obu_type == ObuType.OBU_SEQUENCE_HEADER:
+                return parse_sequence_header(payload).bit_depth
+    raise AssertionError(f"no sequence header in {path}")
+
+
+def tenbit_phase(counters, frames, out_dir):
+    """10-bit all-intra at 1080p: the port's Encoder on ``frames`` (10-bit
+    synth_clip), counts set to 0 just before and read just after; K1-K4
+    must have launched, the sequence header must declare 10 bits and
+    every frame's PSNR (peak 1023) clear the floor.  Returns (IVF path,
+    recon per display, launches, wrapper calls)."""
+    path = Path(out_dir) / "smoke_1080p_10bit.ivf"
+    launches, _, enc, _ = run_encode(counters, frames,
+                                     slice_config(WIDTH, HEIGHT, bd=10), path)
+    _, calls = read_counts(counters)
+    print("10-bit all-intra main path launches:", json.dumps(launches))
+    print("10-bit all-intra main path wrapper calls:", json.dumps(calls))
+    missing = [n for n in ALLINTRA_KERNELS if launches[n] == 0]
+    assert not missing, f"kernels not launched on the 10-bit path: {missing}"
+    bd = stream_bit_depth(path)
+    print(f"10-bit all-intra: the sequence header declares {bd} bits "
+          f"(high_bitdepth {int(bd > 8)})")
+    assert bd == 10
+    params = stream_frame_params(path)
+    print("10-bit per frame (frame type, deblocking level, CDEF y, CDEF uv) "
+          "from the stream:", json.dumps(params))
+    assert len(params) == len(frames) and all(t == 0 for t, *_ in params)
+    recon = [enc.recon_by_display[d] for d in sorted(enc.recon_by_display)]
+    assert all(p.dtype == np.uint16 for r in recon for p in r)
+    return path, recon, launches, calls
 
 
 def ipp_phase(counters, frames, out_dir):
@@ -1298,11 +1487,23 @@ def agreement_clips():
         yield f"{w}x{h}x{n} {kinds[kind]}", frames, cfg
 
 
+def tenbit_agreement_clip():
+    """(name, frames, config) of the 64x64 10-bit all-intra clip: the
+    corner of a 176x144 10-bit synth_clip, as agreement_clips cuts the
+    8-bit one."""
+    frames = [tuple(np.ascontiguousarray(p[:64 >> (i > 0), :64 >> (i > 0)])
+                    for i, p in enumerate(f))
+              for f in synth_clip(176, 144, 2, seed=13, bd=10)]
+    return "64x64x2 10-bit all-intra", frames, slice_config(64, 64, bd=10)
+
+
 def agreement_phase(out_dir):
-    """Returns the random-access card stream (path, recon)."""
+    """Returns the random-access and the 10-bit card streams (path,
+    recon)."""
     from svt_av1_tpu_torch.api import encode_ivf
 
-    for k, (name, frames, cfg) in enumerate(agreement_clips()):
+    clips = list(agreement_clips()) + [tenbit_agreement_clip()]
+    for k, (name, frames, cfg) in enumerate(clips):
         streams, paths = {}, {}
         for dev in ("cuda", "cpu"):
             p = paths[dev] = Path(out_dir) / f"agree_{k}_{dev}.ivf"
@@ -1310,12 +1511,14 @@ def agreement_phase(out_dir):
             streams[dev] = p.read_bytes()
             if name.endswith("random access") and dev == "cuda":
                 ra_card = (p, recon)
+            if "10-bit" in name and dev == "cuda":
+                tenbit_card = (p, recon)
         same = streams["cuda"] == streams["cpu"]
         print(f"{name}: card stream {len(streams['cuda'])} bytes (packets "
               f"md5 {stream_md5(paths['cuda'])}), CPU stream "
               f"{len(streams['cpu'])} bytes, identical {same}")
         assert same, name
-    return ra_card
+    return ra_card, tenbit_card
 
 
 # --------------------------------------------------------------------------
@@ -1746,6 +1949,10 @@ def main() -> int:
     ra_frames = synth_clip(WIDTH, HEIGHT, RA_FRAMES)
     ipp_frames = ra_frames[:N_FRAMES]
     kres = kernels_phase(dev, frames[0])
+    # the 10-bit all-intra clip: synth_clip scaled to 10 bits
+    frames10 = synth_clip(WIDTH, HEIGHT, half, bd=10) + synth_clip(
+        WIDTH, HEIGHT, N_FRAMES - half, tex_sigma=SMOOTH_SIGMA, bd=10)
+    kres.update(tenbit_kernels_phase(dev, frames10[0], kres))
     kres.update(inter_kernels_phase(dev, ipp_frames[0], ipp_frames[1]))
     kres.update(ra_kernels_phase(dev, ra_frames[:3]))
 
@@ -1765,7 +1972,9 @@ def main() -> int:
         ai_launches = allintra_phase(counters, frames, tmp)
         ipp_launches, ipp_stream = ipp_phase(counters, ipp_frames, tmp)
         ra_launches, ra_calls = ra_phase(counters, ra_frames, tmp)
-        ra_card = agreement_phase(tmp)
+        tb_path, tb_recon, tb_launches, tb_calls = tenbit_phase(
+            counters, frames10, tmp)
+        ra_card, tenbit_card = agreement_phase(tmp)
         # the stripe modes against their plain versions, after the encodes
         # so that those run on the process state they ran on before: the
         # JAX geometry (1280x256, stripes at rows 64 and 192) and the full
@@ -1781,6 +1990,18 @@ def main() -> int:
             ("192x128x5 random access (card stream)", *ra_card, 7),
             (f"{WIDTH}x{HEIGHT} low-delay P, first 3 temporal units",
              *ipp_stream, 3)])
+        # the 10-bit streams: the 64x64 card stream of the agreement phase
+        # and the first frame of the 1080p one
+        tb_dec_launches, tb_dec_calls = decode_phase(counters, [
+            ("64x64x2 10-bit all-intra (card stream)", *tenbit_card, 2),
+            (f"{WIDTH}x{HEIGHT} 10-bit all-intra, first temporal unit",
+             tb_path, tb_recon, 1)])
+    print("10-bit path launches (the 1080p encode + the 10-bit decodes):",
+          json.dumps({k: tb_launches[k] + tb_dec_launches[k]
+                      for k in counters}))
+    print("10-bit path wrapper calls (the 1080p encode + the 10-bit "
+          "decodes):", json.dumps({k: tb_calls[k] + tb_dec_calls[k]
+                                   for k in counters}))
     # the kernels line counts the launches of every main path: the
     # random-access encode, the two stripe dryruns and the decodes
     launches = {k: ra_launches[k] + stripe_launches[k] + dec_launches[k]
@@ -1840,6 +2061,28 @@ def main() -> int:
               f"{dec_launches[name]} on the decodes; {ipp_launches[name]} on "
               f"the {N_FRAMES}-frame low-delay P encode, {ai_launches[name]} "
               f"on the all-intra encode")
+    # the 16-bit forms: their launches on the 10-bit all-intra encode, the
+    # only path that runs them
+    for name, base in (("intra_decision_16bit", "intra_decision"),
+                       ("cdef_search_16bit", "cdef_search")):
+        r = kres[name]
+        src, replaces = sources[base]
+        b_ms, b_by = r["bound"]
+        rows.append(dict(
+            name=name, route="cuda",
+            source=f"svt_av1_tpu_torch/kernels/csrc/{src}",
+            replaces=replaces, calls=tb_calls[base],
+            launches=tb_launches[base], max_abs_err=r["max_abs_err"],
+            ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=b_ms, bound_by=b_by,
+            library_ms=None))
+        ceiling = (f", design ceiling {r['ceiling'][0]:.5f} ms "
+                   f"({r['ceiling'][1]})") if "ceiling" in r else ""
+        print(f"{name}: {r['per_call']}: kernel {r['ms']:.4f} ms, plain "
+              f"{r['plain_ms']:.4f} ms, bound {b_ms:.5f} ms ({b_by})"
+              f"{ceiling}, device {r['device_ms']:.5f} ms; calls / "
+              f"launches on the {N_FRAMES}-frame 10-bit all-intra encode: "
+              f"{tb_calls[base]} / {tb_launches[base]}")
+        assert tb_launches[base] > 0, name
     # the row's times are the JAX geometry's (4 stripes of 1280x64); its
     # error is the larger of both geometries' kernel - plain differences
     four = b14[4]

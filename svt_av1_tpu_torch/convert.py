@@ -9,7 +9,8 @@ against the copies this package loads, the way a strict state-dict load
 refuses a mismatch.  ``constants_from_reference`` does the same for the
 constants the inter kernels bake in (motion-search geometry, selection
 penalties, the REGULAR interpolation taps, the compound joint search)
-and for those of the temporal filter and the TPL model.
+and for those of the temporal filter and the TPL model, and for the
+quantizer tables that K1's cost model reads at 8 and 10 bits.
 """
 from __future__ import annotations
 
@@ -91,11 +92,29 @@ def tables_from_reference(npz_arrays: dict) -> dict:
     return out
 
 
+# the bit depths whose quantizer tables are checked (the luma tables of
+# quant.build_quantizer, whose DC/AC scalars K1's cost model reads)
+QUANT_BIT_DEPTHS = (8, 10)
+
+
+def quantizer_constants(build_quantizer) -> dict:
+    """{"<field>_<bd>bit": int16 [256, 2]} of the luma PlaneQuant that
+    ``build_quantizer`` (this package's or the JAX package's
+    ``ops.quant.build_quantizer``) makes at each of QUANT_BIT_DEPTHS."""
+    out = {}
+    for bd in QUANT_BIT_DEPTHS:
+        pq = build_quantizer(bd)[0]
+        for f in dataclasses.fields(pq):
+            out[f"{f.name}_{bd}bit"] = getattr(pq, f.name)
+    return out
+
+
 def own_constants() -> dict:
     """{group: {name: value}} of the constants the inter kernels (K5-K9)
-    bake in and of the MCTF and TPL models, from this package's
-    modules."""
+    bake in, of the MCTF and TPL models and of the quantizer tables, from
+    this package's modules."""
     from .ops import bme, inter
+    from .ops import quant as qz
     from .pipeline import batched_inter as bi
     from .pipeline import mctf, tpl
 
@@ -115,6 +134,7 @@ def own_constants() -> dict:
             "EDGE_THRESHOLD", "SQRT_PI_BY_2")},
         "tpl": {n: getattr(tpl, n) for n in ("QSTEP_PER_OCTAVE",
                                              "MAX_BOOST")},
+        "quantizer": quantizer_constants(qz.build_quantizer),
     }
 
 

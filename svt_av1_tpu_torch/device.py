@@ -13,6 +13,10 @@ import torch
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
 
+# the type of a source plane on the device, by bit depth: 8-bit samples as
+# uint8, 10-bit ones as int16; K1 and K4's search have a form for each
+SAMPLE_DTYPES = {8: torch.uint8, 10: torch.int16}
+
 
 def resolve_device(device=None) -> torch.device:
     if device is None:

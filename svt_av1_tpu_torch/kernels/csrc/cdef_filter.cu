@@ -46,6 +46,10 @@
 // * The squared errors accumulate per thread and combination in uint32
 //   registers, then one warp reduction and one int64 atomic per CTA and
 //   combination (exact, order-free: the totals are deterministic).
+// * Two sample types of the source: uint8 (8-bit video) and 16-bit words
+//   (10-bit video, cdef_search_kernel's TS); the recon is int32 and the
+//   tile int16 in both, so only the source read differs.  At 10 bits a
+//   warp's 256 squared errors stay below 2^32 (256 * 1023^2).
 // Apply (the winners only):
 // * The tiles cover each plane's whole buffer [H, W].  Outside the frame
 //   [ph, pw), in skip units and on a plane whose strengths are both 0 the
@@ -179,7 +183,7 @@ constexpr int kSearchThreads = kTileThreads;
 
 struct SearchPlane {
   const int* rec;
-  const uint8_t* src;
+  const void* src;                // uint8 or 16-bit samples (TS)
   const int* top;                 // [2, W] above a stripe, or null
   const int* bottom;              // [2, W] below it, or null
   int W, ph, pw, bsl, is_luma, damping, grp, tiles_x, cta0, vec;
@@ -262,8 +266,11 @@ __device__ __forceinline__ int combine(int v, int sum, int mn, int mx) {
 // Every plane's tiles in one launch; err: int64 [2, n_pri * n_sec] (luma,
 // chroma) to add to.  NPRI x NSEC is the grid (EXACT: with a zero
 // primary first and a zero secondary first, as both of the codec's
-// grids) or bounds it.
-template <int NPRI, int NSEC, bool EXACT>
+// grids) or bounds it.  TS: the source samples' type, uint8_t for 8-bit
+// video, uint16_t for 10-bit (int16 planes holding [0, 1024)): a
+// thread's 8 squared errors and the warp's sum of 256 stay below 2^32
+// (256 * 1023^2 < 2.7e8; the wrapper refuses deeper samples).
+template <typename TS, int NPRI, int NSEC, bool EXACT>
 __global__ void __launch_bounds__(kSearchThreads) cdef_search_kernel(
     SearchArgs a, const int* __restrict__ dirs, const int* __restrict__ var,
     const uint8_t* __restrict__ nonskip, int uw,
@@ -332,7 +339,7 @@ __global__ void __launch_bounds__(kSearchThreads) cdef_search_kernel(
     if (!(i < 4 ? nsu[0] : nsu[1])) continue;
     const int at = ly * kSearchStride + x - x0 + 2;
     const int v = tile[at];
-    const int s = P.src[y * P.W + x];
+    const int s = static_cast<const TS*>(P.src)[y * P.W + x];
     int add[12], wsd[12], ad0[12], ws0[12], mxd, mnd, mx0, mn0;
     tile_taps(tile, at, toff[i < 4 ? du[0] : du[1]], v, add, wsd, mxd, mnd);
     tile_taps(tile, at, toff[0], v, ad0, ws0, mx0, mn0);
@@ -571,10 +578,30 @@ __global__ void __launch_bounds__(kTileThreads) cdef_apply_kernel(
   if (y < P.H) store_run(P.out + y * P.W, xs, P.W, P.vec, v);
 }
 
+// The search's launch for source samples of type TS: the fast grid of the
+// high presets (5 x 3) and the full grid (8 x 4) with their counts known
+// at compile time; any other set bounded by 8 x 4.
+template <typename TS>
+void search_grid(int n_pri, int n_sec, bool zero_first, dim3 grid,
+                 dim3 block, cudaStream_t st, const SearchArgs& a,
+                 const int* d, const int* vr, const uint8_t* ns, int uw,
+                 unsigned long long* e) {
+  if (n_pri == 5 && n_sec == 3 && zero_first)
+    cdef_search_kernel<TS, 5, 3, true><<<grid, block, 0, st>>>(a, d, vr, ns,
+                                                               uw, e);
+  else if (n_pri == kMaxPri && n_sec == kMaxSec && zero_first)
+    cdef_search_kernel<TS, kMaxPri, kMaxSec, true><<<grid, block, 0, st>>>(
+        a, d, vr, ns, uw, e);
+  else
+    cdef_search_kernel<TS, kMaxPri, kMaxSec, false><<<grid, block, 0, st>>>(
+        a, d, vr, ns, uw, e);
+}
+
 }  // namespace
 
 // One launch for the search of n_planes planes (luma, then chroma):
-// rec[i]: int32 [H[i], W[i]]; src[i]: uint8 of the same shape; frame [0,
+// rec[i]: int32 [H[i], W[i]]; src[i]: the source of the same shape,
+// src_bytes 1 (uint8) or 2 (16-bit samples of 10-bit video); frame [0,
 // ph[i]) x [0, pw[i]); top[i], bottom[i]: int32 [2, W[i]] rows above and
 // below a stripe of the frame, or null at the frame's edges; dirs, var:
 // int32 luma unit maps and nonskip uint8 [uh, uw] (8x8 luma units, 4x4 in
@@ -582,7 +609,7 @@ __global__ void __launch_bounds__(kTileThreads) cdef_apply_kernel(
 // secondaries; damping: the luma damping (chroma takes one less); err:
 // int64 [2, n_pri * n_sec] totals (luma, chroma) to add to.
 extern "C" int cdef_search_launch(int n_planes, const void* const* rec,
-                                  const void* const* src,
+                                  const void* const* src, int src_bytes,
                                   const void* const* top,
                                   const void* const* bottom, const int* H,
                                   const int* W, const int* ph, const int* pw,
@@ -592,7 +619,7 @@ extern "C" int cdef_search_launch(int n_planes, const void* const* rec,
                                   unsigned sec_pack, int n_sec, int damping,
                                   int cs, void* err, void* stream) {
   if (n_planes < 1 || n_planes > 3 || n_pri < 1 || n_pri > kMaxPri ||
-      n_sec < 1 || n_sec > kMaxSec)
+      n_sec < 1 || n_sec > kMaxSec || (src_bytes != 1 && src_bytes != 2))
     return (int)cudaErrorInvalidValue;
   SearchArgs a{};
   a.n_planes = n_planes;
@@ -610,7 +637,7 @@ extern "C" int cdef_search_launch(int n_planes, const void* const* rec,
       return (int)cudaErrorInvalidValue;
     SearchPlane& p = a.pl[i];
     p.rec = (const int*)rec[i];
-    p.src = (const uint8_t*)src[i];
+    p.src = src[i];
     p.top = (const int*)top[i];
     p.bottom = (const int*)bottom[i];
     p.W = W[i];
@@ -633,20 +660,16 @@ extern "C" int cdef_search_launch(int n_planes, const void* const* rec,
   const int* vr = (const int*)var;
   const uint8_t* ns = (const uint8_t*)nonskip;
   unsigned long long* e = (unsigned long long*)err;
-  // the fast grid of the high presets (5 x 3) and the full grid (8 x 4)
-  // with their counts known at compile time; any other set bounded by 8
-  // x 4
+  // a grid whose zero primary and zero secondary come first, each once
   bool zero_first = a.pri[0] == 0 && a.sec[0] == 0;
   for (int i = 1; i < n_pri; ++i) zero_first &= a.pri[i] > 0;
   for (int i = 1; i < n_sec; ++i) zero_first &= a.sec[i] > 0;
-  if (n_pri == 5 && n_sec == 3 && zero_first)
-    cdef_search_kernel<5, 3, true><<<grid, block, 0, st>>>(a, d, vr, ns, uw, e);
-  else if (n_pri == kMaxPri && n_sec == kMaxSec && zero_first)
-    cdef_search_kernel<kMaxPri, kMaxSec, true><<<grid, block, 0, st>>>(
-        a, d, vr, ns, uw, e);
+  if (src_bytes == 1)
+    search_grid<uint8_t>(n_pri, n_sec, zero_first, grid, block, st, a, d, vr,
+                         ns, uw, e);
   else
-    cdef_search_kernel<kMaxPri, kMaxSec, false><<<grid, block, 0, st>>>(
-        a, d, vr, ns, uw, e);
+    search_grid<uint16_t>(n_pri, n_sec, zero_first, grid, block, st, a, d, vr,
+                          ns, uw, e);
   return (int)cudaGetLastError();
 }
 

@@ -75,6 +75,15 @@
 //   function for every shape, out of line, so that neither the hot
 //   path's registers nor its code size carry it.  delta comes from the
 //   block's sum |R| (one warp reduction per mode).
+// * Two instantiations on the sample type: uint8_t for 8-bit planes and
+//   uint16_t for 10-bit ones (int16 tensors holding [0, 1024)).  The
+//   arithmetic is the same: a 10-bit residual, |R| <= 1023, is still an
+//   integer exact in TF32's 11-bit significand, so product 1 keeps its
+//   two passes; the DC sum, the smooth weights and Paeth stay far inside
+//   int32.  What differs is storage: the edges in shared memory take the
+//   sample type (2 * kEdge bytes more per warp at 16 bits), and a lane
+//   keeps its source pixels packed SrcPack<T>::kPer to a register (three
+//   10-bit samples at 16 bits: the wrapper takes bd 10 only).
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -95,11 +104,36 @@ constexpr int kTFloats = 32 * kTStride;
 // the queue's positions (int16) live in the transform rows that product
 // 2 has read: an m-tile's entries fill at most its own 16 rows
 constexpr int kQPos = 1024;             // G*h*w <= 1024
-// per warp: residuals, transform rows, then the above / left edges
-constexpr int kWarpBytes = (4 * (kRFloats + kTFloats) + 2 * kEdge + 15) /
-                           16 * 16;
-constexpr size_t kSmemBytes =
-    sizeof(int) * (kSmw + cost_model::kLog2Table) + kWarps * kWarpBytes;
+// per warp: residuals, transform rows, then the above / left edges of
+// samples of type T
+template <typename T>
+__host__ __device__ constexpr int warp_bytes() {
+  return (4 * (kRFloats + kTFloats) + 2 * kEdge * (int)sizeof(T) + 15) / 16 *
+         16;
+}
+template <typename T>
+__host__ __device__ constexpr size_t smem_bytes() {
+  return sizeof(int) * (kSmw + cost_model::kLog2Table) +
+         kWarps * warp_bytes<T>();
+}
+
+// A lane's source pixels, kPer to a 32-bit register at kBits each: four
+// 8-bit samples, or three 10-bit ones from 16-bit words (the 16-bit form
+// takes 10-bit video only, samples in [0, 1024)).  Two 16-bit samples per
+// register would keep 16 registers live in the 32x32 shape against 8 at
+// 8 bits, and ptxas spills 192 bytes more per thread for them; three
+// 10-bit ones keep 11, and the 16-bit form spills about what the 8-bit
+// form does (PERF.md).
+template <typename T>
+struct SrcPack;
+template <>
+struct SrcPack<uint8_t> {
+  static constexpr int kPer = 4, kBits = 8;
+};
+template <>
+struct SrcPack<uint16_t> {
+  static constexpr int kPer = 3, kBits = 10;
+};
 
 // Per-launch shape set, passed by value.
 struct Shapes {
@@ -115,10 +149,11 @@ struct Shapes {
   float step_dc[kMaxShapes], step_ac[kMaxShapes];
 };
 
+template <typename T>
 struct Plane {
-  const uint8_t* px;
-  const uint8_t* above;               // row above a stripe (or null)
-  const uint8_t* halo;                // rows below a stripe (or null)
+  const T* px;
+  const T* above;                     // row above a stripe (or null)
+  const T* halo;                      // rows below a stripe (or null)
   int buf_h, buf_w, n_halo;
 };
 
@@ -130,7 +165,8 @@ __device__ __forceinline__ int clampi(int v, int lo, int hi) {
 // clamped to [0, buf_w); row -1 from the row above the stripe when one
 // is given (above), rows [buf_h, buf_h + n_halo) from the halo rows below
 // it; every other row outside the plane repeats its nearest edge row.
-__device__ __forceinline__ int sample(const Plane& p, int r, int c) {
+template <typename T>
+__device__ __forceinline__ int sample(const Plane<T>& p, int r, int c) {
   c = clampi(c, 0, p.buf_w - 1);
   if (r < 0) return (r == -1 && p.above) ? p.above[c] : p.px[c];
   if (r < p.buf_h) return p.px[r * p.buf_w + c];
@@ -192,9 +228,9 @@ __device__ __forceinline__ int paeth(int av, int lv, int tl) {
 // _dir_taps: sel | i0 << 1 | i1 << 8 | w0 << 15 | w1 << 21): at most two
 // samples of one edge (sel 1 = left), weights summing to 32, exactly
 // the float32 matmul of _dir_matrices that the TPU ran.
-__device__ __forceinline__ int dir_tap(int t, const uint8_t* above,
-                                       const uint8_t* left) {
-  const uint8_t* e = (t & 1) ? left : above;
+template <typename T>
+__device__ __forceinline__ int dir_tap(int t, const T* above, const T* left) {
+  const T* e = (t & 1) ? left : above;
   const int i0 = (t >> 1) & 127, i1 = (t >> 8) & 127;
   const int w0 = (t >> 15) & 63, w1 = (t >> 21) & 63;
   return (w0 * e[i0] + w1 * e[i1] + 16) >> 5;
@@ -204,18 +240,20 @@ __device__ __forceinline__ int dir_tap(int t, const uint8_t* above,
 // pixels p = i * 32 + lane, into Rg[r][c]; one pixel loop per mode.
 // taps: this shape's tap tables, [6, H*W] int32.
 // Returns this lane's sum of |residual|.
-template <int W, int H>
+template <int W, int H, typename T>
 __device__ __forceinline__ int residuals(int m, float* Rg,
                                          const uint32_t* spk, int lane,
-                                         int dc, const uint8_t* above,
-                                         const uint8_t* left, const int* smw,
+                                         int dc, const T* above, const T* left,
+                                         const int* smw,
                                          const int* __restrict__ taps) {
   constexpr int NP = W * H / 32;
+  constexpr int PER = SrcPack<T>::kPer, BITS = SrcPack<T>::kBits;
+  constexpr uint32_t MASK = (1u << BITS) - 1u;
   int sabs = 0;
 #define K1_PIXELS(PRED)                                                    \
   _Pragma("unroll") for (int i = 0; i < NP; ++i) {                         \
     const int p = i * 32 + lane, r = p / W, c = p % W;                     \
-    const int src = (spk[i >> 2] >> ((i & 3) * 8)) & 255;                  \
+    const int src = (int)((spk[i / PER] >> ((i % PER) * BITS)) & MASK);    \
     const int rv = src - (PRED);                                           \
     Rg[r * kRStride + c] = (float)rv;                                      \
     sabs += abs(rv);                                                       \
@@ -286,9 +324,10 @@ struct NearSums {
 
 // The prediction of pixel (r, c) of a w x h block by mode m < kModes, as
 // residuals() computes it (one pixel; taps: the shape's tap tables).
+template <typename T>
 __device__ __forceinline__ int pred_pixel(int m, int r, int c, int w, int h,
-                                          int dc, const uint8_t* above,
-                                          const uint8_t* left, const int* smw,
+                                          int dc, const T* above, const T* left,
+                                          const int* smw,
                                           const int* __restrict__ taps) {
   switch (m) {
     case 0:
@@ -321,10 +360,11 @@ __device__ __forceinline__ int pred_pixel(int m, int r, int c, int w, int h,
 // pixel (integer, so exact), and the float32 DCT entries, and decided
 // from that value rounded to float32.  Cold code: one copy, out of line,
 // with the block size at run time.
+template <typename T>
 __device__ __noinline__ NearSums near_pass(
-    int w, int h, int g, int grp, int nn, const int* nlist, Plane pl,
-    int y0, int x0, int lane, int dc, const uint8_t* above,
-    const uint8_t* left, const int* smw, const int* __restrict__ taps,
+    int w, int h, int g, int grp, int nn, const int* nlist, Plane<T> pl,
+    int y0, int x0, int lane, int dc, const T* above, const T* left,
+    const int* smw, const int* __restrict__ taps,
     const float4* __restrict__ fh, const float4* __restrict__ fw,
     QuantDA q, const float* log2_1p) {
   NearSums out = {{0.f, 0.f}, {0.f, 0.f}, {0, 0}};
@@ -362,18 +402,19 @@ __device__ __noinline__ NearSums near_pass(
 }
 
 // One warp's blocks of one shape.
-template <int W, int H>
+template <int W, int H, typename S>
 __device__ __forceinline__ void run_shape(
-    const Plane& pl, const Shapes& sh, int s, int wi,
+    const Plane<S>& pl, const Shapes& sh, int s, int wi,
     const float* __restrict__ mode_bits,
     float lam, int* __restrict__ out, const float4* __restrict__ frag,
     const int* __restrict__ taps, const int* smw, const float* log2_1p,
-    float* R, float* T, uint8_t* above, uint8_t* left) {
+    float* R, float* T, S* above, S* left) {
   constexpr int G = (W == 8 || H == 8) ? 2 : 1;  // modes per group
   constexpr int NG = (kModes + G - 1) / G;
   constexpr int NP = W * H / 32;                  // pixels per lane
   constexpr int BPW = 1024 / (W * H);             // blocks per warp
   constexpr int L = W + H + 1;
+  constexpr int PER = SrcPack<S>::kPer, BITS = SrcPack<S>::kBits;
   // product 1: M1 = G*W, K1 = N1 = H; product 2: M2 = G*H, K2 = N2 = W
   constexpr int MT1 = G * W / 16, KS1 = H / 8, NT1 = H / 8;
   constexpr int MT2 = G * H / 16, KS2 = W / 8, NT2 = W / 8;
@@ -401,15 +442,15 @@ __device__ __forceinline__ void run_shape(
       above[k] = sample(pl, y0 - 1, x0 - 1 + k);
       left[k] = sample(pl, y0 - 1 + k, x0 - 1);
     }
-    // this lane's source pixels p = i * 32 + lane, four per register
-    uint32_t spk[(NP + 3) / 4];
+    // this lane's source pixels p = i * 32 + lane, PER per register
+    uint32_t spk[(NP + PER - 1) / PER];
 #pragma unroll
-    for (int i = 0; i < (NP + 3) / 4; ++i) spk[i] = 0;
+    for (int i = 0; i < (NP + PER - 1) / PER; ++i) spk[i] = 0;
 #pragma unroll
     for (int i = 0; i < NP; ++i) {
       const int p = i * 32 + lane, r = p / W, c = p % W;
-      spk[i >> 2] |= (uint32_t)pl.px[(y0 + r) * pl.buf_w + x0 + c]
-                     << ((i & 3) * 8);
+      spk[i / PER] |= (uint32_t)pl.px[(y0 + r) * pl.buf_w + x0 + c]
+                      << ((i % PER) * BITS);
     }
     __syncwarp();
     int sum = (lane < W ? above[1 + lane] : 0) + (lane < H ? left[1 + lane]
@@ -431,8 +472,9 @@ __device__ __forceinline__ void run_shape(
       // near-boundary margin from its sum |R|
 #pragma unroll
       for (int gm = 0; gm < G; ++gm) {
-        const int sa = residuals<W, H>(grp * G + gm, R + gm * H * kRStride,
-                                       spk, lane, dc, above, left, smw, tps);
+        const int sa =
+            residuals<W, H, S>(grp * G + gm, R + gm * H * kRStride, spk,
+                               lane, dc, above, left, smw, tps);
         dlt[gm] = __fmul_rn(
             (float)__reduce_add_sync(0xffffffffu, (unsigned)sa), cdl);
       }
@@ -629,8 +671,9 @@ __device__ __forceinline__ void run_shape(
   }
 }
 
+template <typename S>
 __global__ void __launch_bounds__(kThreads, 4) intra_decision_kernel(
-    Plane pl, Shapes sh, const int* __restrict__ taps,
+    Plane<S> pl, Shapes sh, const int* __restrict__ taps,
     const int* __restrict__ sm_weights,
     const float4* __restrict__ frags, const float* __restrict__ mode_bits,
     float lam, int* __restrict__ out) {
@@ -640,11 +683,11 @@ __global__ void __launch_bounds__(kThreads, 4) intra_decision_kernel(
   const int warp = threadIdx.x >> 5;
   float* wbase = reinterpret_cast<float*>(
       smem + sizeof(int) * (kSmw + cost_model::kLog2Table) +
-      warp * kWarpBytes);
+      warp * warp_bytes<S>());
   float* R = wbase;
   float* T = wbase + kRFloats;
-  uint8_t* above = reinterpret_cast<uint8_t*>(wbase + kRFloats + kTFloats);
-  uint8_t* left = above + kEdge;
+  S* above = reinterpret_cast<S*>(wbase + kRFloats + kTFloats);
+  S* left = above + kEdge;
 
   for (int k = threadIdx.x; k < kSmw; k += kThreads) smw[k] = sm_weights[k];
   for (int k = threadIdx.x; k < cost_model::kLog2Table; k += kThreads)
@@ -675,6 +718,25 @@ __global__ void __launch_bounds__(kThreads, 4) intra_decision_kernel(
 #undef K1_SHAPE
 }
 
+// One launch of the instantiation for samples of type S.
+template <typename S>
+int launch(const void* plane, const void* above_row, const void* halo,
+           int buf_h, int buf_w, int n_halo, const Shapes& sh, int ctas,
+           const void* taps, const void* sm_weights, const void* frags,
+           const void* mode_bits, float lam, void* out, void* stream) {
+  constexpr size_t kSmem = smem_bytes<S>();
+  cudaError_t e = cudaFuncSetAttribute(
+      intra_decision_kernel<S>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)kSmem);
+  if (e != cudaSuccess) return (int)e;
+  Plane<S> pl{(const S*)plane, (const S*)above_row, (const S*)halo, buf_h,
+              buf_w, halo ? n_halo : 0};
+  intra_decision_kernel<S><<<ctas, kThreads, kSmem, (cudaStream_t)stream>>>(
+      pl, sh, (const int*)taps, (const int*)sm_weights,
+      (const float4*)frags, (const float*)mode_bits, lam, (int*)out);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // The near-boundary recomputes since the last reset into *out (reset:
@@ -684,27 +746,29 @@ extern "C" int intra_decision_near_count(int reset,
   return cost_model::read_near_count(reset, out);
 }
 
-// plane: uint8 [buf_h, buf_w]; above_row: uint8 [buf_w] and halo: uint8
-// [n_halo, buf_w], the true neighbour rows of a stripe (both null for a
-// whole plane); n_shapes shapes (w[i], h[i]), each tiling the plane;
-// quant: float32 [n_shapes, 6] = (zbin, round, step) as (dc, ac) pairs;
-// tap0: int32 [n_shapes] (host), the offset of each shape's [6, h*w]
-// directional tap table in taps (ops/omd.py _k1_taps); sm_weights: int32
-// [128]; frags: float32 [2688], the split DCT fragments of sizes 8, 16,
-// 32 (ops/omd.py _k1_fragments);
+// plane: [buf_h, buf_w] samples of sample_bytes bytes each (1: uint8, 8-bit
+// video; 2: 16-bit words holding 10-bit samples); above_row: [buf_w] and
+// halo: [n_halo, buf_w] of the same type, the true neighbour rows of a
+// stripe (both null for a whole plane); n_shapes shapes (w[i], h[i]),
+// each tiling the plane; quant: float32 [n_shapes, 6] = (zbin, round,
+// step) as (dc, ac) pairs; tap0: int32 [n_shapes] (host), the offset of
+// each shape's [6, h*w] directional tap table in taps (ops/omd.py
+// _k1_taps); sm_weights: int32 [128]; frags: float32 [2688], the split
+// DCT fragments of sizes 8, 16, 32 (ops/omd.py _k1_fragments);
 // mode_bits: float32 [13]; out: int32 [2, n_total] (modes; costs'
 // float32 bits), shapes in order, blocks raster within a shape.  Returns
 // the CUDA error of the launch.
 extern "C" int intra_decision_launch(
-    const void* plane, const void* above_row, const void* halo, int buf_h,
-    int buf_w, int n_halo, int n_shapes, const int* w, const int* h,
+    const void* plane, const void* above_row, const void* halo,
+    int sample_bytes, int buf_h, int buf_w, int n_halo, int n_shapes,
+    const int* w, const int* h,
     const float* quant, const int* tap0, const void* taps,
     const void* sm_weights,
     const void* frags, const void* mode_bits, float lam, void* out,
     void* stream) {
   if (n_shapes < 1 || n_shapes > kMaxShapes ||
       (above_row == nullptr) != (halo == nullptr) || n_halo < 0 ||
-      buf_h < 1 || buf_w < 1)
+      buf_h < 1 || buf_w < 1 || (sample_bytes != 1 && sample_bytes != 2))
     return (int)cudaErrorInvalidValue;
   Shapes sh{};
   sh.n = n_shapes;
@@ -736,14 +800,11 @@ extern "C" int intra_decision_launch(
   }
   sh.cta0[n_shapes] = ctas;
   sh.n_total = outs;
-  cudaError_t e = cudaFuncSetAttribute(
-      intra_decision_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)kSmemBytes);
-  if (e != cudaSuccess) return (int)e;
-  Plane pl{(const uint8_t*)plane, (const uint8_t*)above_row,
-           (const uint8_t*)halo, buf_h, buf_w, halo ? n_halo : 0};
-  intra_decision_kernel<<<ctas, kThreads, kSmemBytes, (cudaStream_t)stream>>>(
-      pl, sh, (const int*)taps, (const int*)sm_weights,
-      (const float4*)frags, (const float*)mode_bits, lam, (int*)out);
-  return (int)cudaGetLastError();
+  return sample_bytes == 1
+             ? launch<uint8_t>(plane, above_row, halo, buf_h, buf_w, n_halo,
+                               sh, ctas, taps, sm_weights, frags, mode_bits,
+                               lam, out, stream)
+             : launch<uint16_t>(plane, above_row, halo, buf_h, buf_w, n_halo,
+                                sh, ctas, taps, sm_weights, frags, mode_bits,
+                                lam, out, stream);
 }

@@ -31,6 +31,8 @@ import functools
 import numpy as np
 import torch
 
+from ..device import SAMPLE_DTYPES
+
 CDEF_VERY_LARGE = 16384
 CDEF_SEC_STRENGTHS = 4
 
@@ -504,9 +506,12 @@ def cdef_search(source, recon, dirs, var, nonskip, fw: int, fh: int,
                 sec_set=SEC_SET, halos=None):
     """K4 search: exact int64 SSE of every (pri, sec) combo of the grid
     for luma and for the two chroma planes together (source: narrow
-    planes, recon: int32 planes, both full size; luma alone gives err_uv
-    None).  ``halos``: per plane the (top, bottom) [2, W] int32 rows
-    around a stripe of the frame, read where the frame continues (None:
+    planes, uint8 at ``bit_depth`` 8 and int16 at 10
+    (``device.SAMPLE_DTYPES``);
+    recon: int32 planes, both full size; luma alone gives err_uv None).
+    Samples lie in [0, 2^bit_depth).  ``halos``: per plane the (top,
+    bottom) [2, W] int32 rows around a stripe of the frame, read where the
+    frame continues (None:
     the frame's edge, CDEF_VERY_LARGE).  CPU tensors take search_plain;
     CUDA tensors launch the kernel once for all the planes."""
     if recon[0].device.type == "cpu":
@@ -523,8 +528,13 @@ def cdef_search(source, recon, dirs, var, nonskip, fw: int, fh: int,
         raise ValueError("cdef_search takes 1 to 3 planes and their sources")
     if len(pri_set) > 8 or len(sec_set) > 4:
         raise ValueError("cdef_search takes at most 8 x 4 strengths")
+    src_dtype = SAMPLE_DTYPES.get(bit_depth)
+    if src_dtype is None:
+        # a warp's sum of 256 squared errors must stay below 2^32
+        raise ValueError(f"cdef_search takes bit depths 8 and 10, not "
+                         f"{bit_depth}")
     fn = cuda_fn("cdef_filter", "cdef_search_launch",
-             (_I,) + (_P,) * 8 + (_P,) * 3 + (_I,)
+             (_I, _P, _P, _I) + (_P,) * 6 + (_P,) * 3 + (_I,)
              + (ctypes.c_uint, _I, ctypes.c_uint, _I) + (_I,) * 2 + (_P,) * 2)
     cs = max(bit_depth - 8, 0)
     ns = _nonskip_bytes(nonskip)
@@ -532,7 +542,7 @@ def cdef_search(source, recon, dirs, var, nonskip, fw: int, fh: int,
     for pli in range(n):
         rec, src = recon[pli], source[pli]
         _check_plane(rec, "cdef_search recon")
-        _check_plane(src, "cdef_search source", (torch.uint8,))
+        _check_plane(src, "cdef_search source", (src_dtype,))
         if rec.shape != src.shape or rec.device != recon[0].device \
                 or src.device != rec.device:
             raise ValueError("source and recon planes differ in shape or "
@@ -545,6 +555,7 @@ def cdef_search(source, recon, dirs, var, nonskip, fw: int, fh: int,
 
     err = fn(n, _arr(_P, [ptr(r) for r in recon[:n]]),
              _arr(_P, [ptr(s) for s in source[:n]]),
+             source[0].element_size(),
              _arr(_P, [t for t, _ in halo]), _arr(_P, [b for _, b in halo]),
              *(_arr(_I, [d[i] for d in dims]) for i in range(4)),
              ptr(dirs), ptr(var), ptr(ns), ns.shape[1], _pack(pri_set, 4),

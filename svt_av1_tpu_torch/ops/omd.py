@@ -26,7 +26,7 @@ import numpy as np
 import torch
 
 from ..constants import PredictionMode, TxSize, TxType, TX_WIDTH, TX_HEIGHT
-from ..device import resolve_device
+from ..device import SAMPLE_DTYPES, resolve_device
 from . import intra as intra_ops
 from . import quant as qz
 from . import transforms as tf
@@ -577,14 +577,18 @@ def unpack_decisions(packed, shapes, buf_w: int, buf_h: int) -> dict:
     return out
 
 
+_P, _I = ctypes.c_void_p, ctypes.c_int
+
+
 def intra_decision_packed(plane: torch.Tensor, qindex: int, lam: float,
                           mode_bits, bd: int = 8, above_row=None, halo=None,
                           shapes=ALL_SHAPES) -> torch.Tensor:
     """K1: best intra mode and its cost for every block of every shape
-    in ``shapes`` of a buf-aligned 8-bit plane, packed
-    (``pack_decisions``; ``unpack_decisions`` gives the maps).  Stripe
-    mode: ``plane`` is a stripe of the frame, ``above_row`` [W] the row
-    above it and ``halo`` [n, W] the rows below it (uint8), read where
+    in ``shapes`` of a buf-aligned plane, packed (``pack_decisions``;
+    ``unpack_decisions`` gives the maps): uint8 at ``bd`` 8, int16 at
+    ``bd`` 10 (``device.SAMPLE_DTYPES``; samples in [0, 2^bd)).  Stripe mode:
+    ``plane`` is a stripe of the frame, ``above_row`` [W] the row above it
+    and ``halo`` [n, W] the rows below it (the plane's dtype), read where
     the whole frame's plane would be (``pad_stripe``).  CPU tensors take
     the plain PyTorch version per shape; CUDA tensors launch the kernel
     once for all shapes."""
@@ -597,8 +601,10 @@ def intra_decision_packed(plane: torch.Tensor, qindex: int, lam: float,
     intra_decision_packed.calls += 1
     if plane.device.type != "cuda":
         raise ValueError(f"unsupported device {plane.device}")
-    if plane.dtype != torch.uint8 or plane.dim() != 2 or bd != 8:
-        raise ValueError("intra_decision takes an 8-bit [H, W] uint8 plane")
+    if SAMPLE_DTYPES.get(bd) != plane.dtype or plane.dim() != 2:
+        raise ValueError(f"intra_decision takes an [H, W] plane of uint8 at "
+                         f"bd 8 or int16 at bd 10, not {plane.dtype} at bd "
+                         f"{bd}")
     if not plane.is_contiguous():
         raise ValueError("intra_decision needs a contiguous plane")
     if not shapes or len(set(shapes)) != len(shapes) \
@@ -615,17 +621,16 @@ def intra_decision_packed(plane: torch.Tensor, qindex: int, lam: float,
     if halo is not None:
         n_halo = halo.shape[0]
         for t, shape in ((above_row, (buf_w,)), (halo, (n_halo, buf_w))):
-            if t.dtype != torch.uint8 or tuple(t.shape) != shape \
+            if t.dtype != plane.dtype or tuple(t.shape) != shape \
                     or not t.is_contiguous() or t.device != plane.device:
                 raise ValueError(f"intra_decision: stripe rows must be "
-                                 f"contiguous uint8 {shape} on the plane's "
-                                 "device")
-    from ..kernels.build import check_launch, cuda_lib, ptr, stream
+                                 f"contiguous {plane.dtype} {shape} on the "
+                                 "plane's device")
+    from ..kernels.build import check_launch, cuda_fn, ptr, raw_stream
 
-    fn = cuda_lib("intra_decision").intra_decision_launch
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 \
-        + [ctypes.c_void_p] * 8 + [ctypes.c_float] + [ctypes.c_void_p] * 2
+    fn = cuda_fn("intra_decision", "intra_decision_launch",
+                 (_P,) * 3 + (_I,) * 5 + (_P,) * 8 + (ctypes.c_float,)
+                 + (_P,) * 2)
     taps, sw, frags = _k1_consts(plane.device)
     tap0 = _k1_taps()[1]
     pq = qz.build_quantizer(bd)[0]
@@ -638,12 +643,13 @@ def intra_decision_packed(plane: torch.Tensor, qindex: int, lam: float,
     n_total = sum((buf_h // h) * (buf_w // w) for (w, h) in shapes)
     out = torch.empty((2, n_total), dtype=torch.int32, device=plane.device)
     err = fn(ptr(plane), None if halo is None else ptr(above_row),
-             None if halo is None else ptr(halo), buf_h, buf_w, n_halo, n,
+             None if halo is None else ptr(halo), plane.element_size(),
+             buf_h, buf_w, n_halo, n,
              (ctypes.c_int * n)(*[w for (w, _) in shapes]),
              (ctypes.c_int * n)(*[h for (_, h) in shapes]), quant,
              (ctypes.c_int * n)(*[tap0[s] for s in shapes]), ptr(taps),
              ptr(sw), ptr(frags), ptr(mb),
-             float(np.float32(lam)), ptr(out), stream(plane))
+             float(np.float32(lam)), ptr(out), raw_stream(plane))
     check_launch("intra_decision", err)
     intra_decision_packed.launches += 1
     return out
@@ -703,9 +709,8 @@ def upload_plane(source_plane, buf_w: int, buf_h: int, bd: int,
         a[:h0, w0:] = src[:, w0 - 1:w0]
         a[h0:, :] = a[h0 - 1:h0, :]
         src = a
-    dt = torch.uint8 if bd == 8 else torch.int16
-    return torch.from_numpy(np.ascontiguousarray(src)).to(device=device,
-                                                          dtype=dt)
+    return torch.from_numpy(np.ascontiguousarray(src)).to(
+        device=device, dtype=SAMPLE_DTYPES[bd])
 
 
 def intra_decision_frame(source_plane, buf_w: int, buf_h: int, qindex: int,

@@ -2331,7 +2331,9 @@ class FrameCodec:
         if self.dev_source is None:
             import torch
 
-            dt = torch.uint8 if self.seq.bit_depth == 8 else torch.int16
+            from ..device import SAMPLE_DTYPES
+
+            dt = SAMPLE_DTYPES[self.seq.bit_depth]
             self.dev_source = tuple(
                 torch.from_numpy(np.ascontiguousarray(p)).to(
                     device=self.device, dtype=dt)

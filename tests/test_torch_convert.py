@@ -12,6 +12,7 @@ import svt_av1_tpu
 from svt_av1_tpu import config as ref_config
 from svt_av1_tpu.ops import bme as ref_bme
 from svt_av1_tpu.ops import inter as ref_inter
+from svt_av1_tpu.ops import quant as ref_qz
 from svt_av1_tpu.pipeline import batched_inter as ref_bi
 from svt_av1_tpu.pipeline import mctf as ref_mctf
 from svt_av1_tpu.pipeline import tpl as ref_tpl
@@ -103,6 +104,7 @@ def _ref_constants():
             "EDGE_THRESHOLD", "SQRT_PI_BY_2")},
         "tpl": {n: getattr(ref_tpl, n) for n in ("QSTEP_PER_OCTAVE",
                                                  "MAX_BOOST")},
+        "quantizer": convert.quantizer_constants(ref_qz.build_quantizer),
     }
 
 
@@ -138,3 +140,23 @@ def test_constants_from_reference_loads_and_refuses_a_mismatch(bad):
         ref["bme"]["ME_SHAPES"] = ref["bme"]["ME_SHAPES"][:-1]
     with pytest.raises(ValueError):
         convert.constants_from_reference(ref)
+
+
+@pytest.mark.parametrize("bd", convert.QUANT_BIT_DEPTHS)
+def test_quantizer_tables_equal_the_reference(bd):
+    """The quantizer tables K1's cost model reads (every field of the luma
+    PlaneQuant, 256 qindex x (DC, AC)), array by array against the JAX
+    package's, at 8 and 10 bits; a changed entry is refused."""
+    ref = _ref_constants()
+    got = convert.constants_from_reference(ref)["quantizer"]
+    names = [k for k in ref["quantizer"] if k.endswith(f"_{bd}bit")]
+    assert len(names) == 7
+    for k in names:
+        assert got[k].dtype == np.int16 and got[k].shape == (256, 2), k
+        np.testing.assert_array_equal(got[k], ref["quantizer"][k], err_msg=k)
+    bad = {g: dict(v) for g, v in ref.items()}
+    bad["quantizer"][f"dequant_{bd}bit"] = \
+        bad["quantizer"][f"dequant_{bd}bit"].copy()
+    bad["quantizer"][f"dequant_{bd}bit"][160, 1] += 1
+    with pytest.raises(ValueError):
+        convert.constants_from_reference(bad)

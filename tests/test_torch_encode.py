@@ -14,7 +14,8 @@ from svt_av1_tpu import api as ref_api
 from svt_av1_tpu.config import EncoderConfig as RefConfig
 from svt_av1_tpu.config import PredStructure as RefPred
 from svt_av1_tpu_torch import api
-from svt_av1_tpu_torch.config import EncoderConfig, PredStructure
+from svt_av1_tpu_torch.config import ConfigError, EncoderConfig, \
+    PredStructure
 from svt_av1_tpu_torch.pipeline.batched_md import TorchDecider
 
 from test_e2e import synthetic_clip
@@ -181,17 +182,34 @@ def test_closed_loop_plan_decodes(tmp_path, monkeypatch):
     # all-intra key frames under the random-access structure: MCTF of key
     # frames with the one-picture pipeline is not ported
     dict(pred_structure=PredStructure.RANDOM_ACCESS),
-    dict(encoder_bit_depth=10),
+    # 10 bits are ported for all-intra only: low-delay P and random access
+    # need the 16-bit forms of K5-K10
+    dict(encoder_bit_depth=10, intra_period_length=-1),
     dict(enable_restoration=1),
     dict(superres_mode=1),
     dict(intra_period_length=-1, pred_structure=PredStructure.RANDOM_ACCESS,
          compound_level=2),
+    dict(encoder_bit_depth=10, intra_period_length=-1,
+         pred_structure=PredStructure.RANDOM_ACCESS),
 ], ids=["preset6", "film_grain", "random_access", "10bit", "restoration",
-        "superres", "masked_compound"])
+        "superres", "masked_compound", "10bit_random_access"])
 def test_unported_configuration_raises(kw):
     cfg = EncoderConfig(**{**dict(source_width=64, source_height=64,
                                   pred_structure=PredStructure.LOW_DELAY_P,
                                   **SLICE), **kw})
+    with pytest.raises(NotImplementedError):
+        api.Encoder(cfg, device="cpu")
+
+
+def test_twelve_bit_raises():
+    """12 bits: the configuration refuses them, and so does the encoder's
+    slice check for a configuration that got past that."""
+    kw = dict(source_width=64, source_height=64,
+              pred_structure=PredStructure.LOW_DELAY_P, **SLICE)
+    with pytest.raises(ConfigError):
+        EncoderConfig(encoder_bit_depth=12, **kw)
+    cfg = EncoderConfig(**kw)
+    object.__setattr__(cfg, "encoder_bit_depth", 12)
     with pytest.raises(NotImplementedError):
         api.Encoder(cfg, device="cpu")
 

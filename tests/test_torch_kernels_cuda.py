@@ -1458,3 +1458,181 @@ def test_k3_odd_frame_sizes_match_plain(dev, frame):
     # a plane off 16-byte boundaries
     buf = torch.empty(src.numel() + 1, dtype=torch.int32, device=dev)
     _k3_check(buf[1:].view(src.shape).copy_(src), fw, fh)
+
+
+# -- 10-bit all-intra: the 16-bit forms of K1 and of K4's search, and K2-K4
+# at bd 10 (kernels/csrc/intra_decision.cu, cdef_filter.cu)
+
+def _plane10(h, w, seed):
+    """A textured 10-bit plane over most of [0, 1024), as int16."""
+    rng = np.random.default_rng(seed)
+    yy, xx = np.mgrid[0:h, 0:w]
+    return (480 + 320 * np.sin(xx / 11) + 160 * np.cos(yy / 7)
+            + rng.integers(-48, 49, (h, w))).clip(0, 1023).astype(np.int16)
+
+
+def _tie_plane10(h, w):
+    return (_tie_plane(h, w).astype(np.int16) << 2) + 3
+
+
+def _extreme_plane10(h, w, seed):
+    """8x8 blocks at 0 or 1023 with a few samples at the other end: the
+    ends of the 10-bit range packed side by side (K1 keeps three 10-bit
+    samples to a register)."""
+    rng = np.random.default_rng(seed)
+    blocks = rng.random((h // 8, w // 8)) < 0.5
+    p = np.repeat(np.repeat(blocks, 8, 0), 8, 1) ^ (rng.random((h, w)) < 0.1)
+    return np.where(p, 1023, 0).astype(np.int16)
+
+
+@pytest.mark.parametrize("kind", ["textured", "ties", "extremes"])
+@pytest.mark.parametrize("qindex", [60, 160])
+def test_k1_16bit_1080p_matches_plain(dev, kind, qindex):
+    """K1's 16-bit form on a 1920x1088 10-bit plane, all 7 shapes in one
+    launch: modes equal to the plain version's on every block, costs
+    within rtol 1e-5 on >= 99% of each shape's blocks (the 8-bit gate)."""
+    h, w = 1088, 1920
+    plane = {"textured": lambda: _plane10(h, w, qindex),
+             "ties": lambda: _tie_plane10(h, w),
+             "extremes": lambda: _extreme_plane10(h, w, qindex)}[kind]()
+    plane = torch.from_numpy(plane).to(dev)
+    lam = 250.0 * 16                    # rd_lambda scales by 4^(bd - 8)
+    mb = tuple(np.linspace(1.0, 6.0, 13).tolist())
+    before = omd.intra_decision_packed.launches
+    packed = omd.intra_decision_packed(plane, qindex, lam, mb, 10)
+    assert omd.intra_decision_packed.launches == before + 1
+    got = omd.unpack_decisions(packed, omd.ALL_SHAPES, w, h)
+    for s in omd.ALL_SHAPES:
+        m, c = got[s]
+        m2, c2 = omd.intra_decision_plain(plane, *s, qindex, lam, mb, 10)
+        assert torch.equal(m, m2), (s, (m == m2).float().mean().item())
+        assert torch.isclose(c, c2, rtol=1e-5).float().mean().item() >= 0.99
+
+
+def test_k1_16bit_stripe_mode_matches_plain(dev):
+    """K1's 16-bit form on 1920x64 stripes with their int16 neighbour rows:
+    equal to the plain version, and to the whole plane's rows."""
+    plane = torch.from_numpy(_plane10(256, 1920, 3)).to(dev)
+    mb = tuple(np.linspace(1.0, 6.0, 13).tolist())
+    whole = omd.unpack_decisions(
+        omd.intra_decision_packed(plane, 140, 4000.0, mb, 10),
+        omd.ALL_SHAPES, 1920, 256)
+    row0s = (64, 192)
+    for r0, (stripe, above, halo) in zip(row0s, _stripes_of(plane, row0s)):
+        for (bw, bh) in omd.ALL_SHAPES:
+            m, c = omd.intra_decision(stripe, bw, bh, 140, 4000.0, mb, 10,
+                                      above, halo)
+            m2, c2 = omd.intra_decision_plain(stripe, bw, bh, 140, 4000.0,
+                                              mb, 10, above, halo)
+            assert torch.equal(m, m2), (bw, bh)
+            assert bool(torch.isclose(c, c2, rtol=1e-5).all()), (bw, bh)
+            if r0 + 64 < 256:
+                assert torch.equal(m, whole[(bw, bh)][0][
+                    r0 // bh:(r0 + 64) // bh]), (bw, bh)
+
+
+def _k4_search_inputs10(dev, fw, fh, seed, halos=False):
+    """10-bit int32 recon planes (luma, two chroma) of a [ceil8(fh), fw]
+    buffer, int16 sources near them, the recon's directions (cs 2), a
+    nonskip map and, for a stripe, every plane's neighbour rows."""
+    H = -(-fh // 8) * 8
+    full = [torch.from_numpy(_plane10((H >> s) + 4, fw >> s, seed + s)
+                             .astype(np.int32)).to(dev) for s in (0, 1, 1)]
+    rec = [f[2:-2].contiguous() for f in full]
+    src = [(r + torch.randint(-24, 25, r.shape, device=dev)).clamp(0, 1023)
+           .to(torch.int16) for r in rec]
+    dirs, var = cdef.cdef_direction(rec[0], fw, fh, 2)
+    rng = np.random.default_rng(seed)
+    ns = torch.from_numpy(rng.random(dirs.shape) < 0.7).to(dev)
+    hal = [(f[:2].contiguous(), f[-2:].contiguous()) for f in full] \
+        if halos else None
+    return src, rec, dirs, var, ns, hal
+
+
+@pytest.mark.parametrize("grid", ["fast", "full"])
+@pytest.mark.parametrize("n", [1, 3], ids=["luma", "three_planes"])
+@pytest.mark.parametrize("halos", [False, True], ids=["frame", "stripe"])
+def test_k4_search_16bit_matches_plain(dev, grid, n, halos):
+    """K4's search on int16 sources at bit depth 10, one launch: both
+    totals exactly the plain version's, at 1080p (a 1920x64 stripe with
+    its neighbours' rows)."""
+    ps, ss = (cdef.PRI_SET_FAST, cdef.SEC_SET_FAST) if grid == "fast" \
+        else (cdef.PRI_SET, cdef.SEC_SET)
+    fw, fh = (1920, 64) if halos else (1920, 1080)
+    src, rec, dirs, var, ns, hal = _k4_search_inputs10(dev, fw, fh, 5,
+                                                       halos)
+    hal = hal[:n] if hal else None
+    before = cdef.cdef_search.launches
+    got = cdef.cdef_search(src[:n], rec[:n], dirs, var, ns, fw, fh, 5, 10,
+                           ps, ss, halos=hal)
+    assert cdef.cdef_search.launches == before + 1
+    want = cdef.search_plain(src[:n], rec[:n], dirs, var, ns, fw, fh, 5, 10,
+                             ps, ss, halos=hal)
+    assert torch.equal(got[0], want[0])
+    assert (got[1] is None) if n == 1 else torch.equal(got[1], want[1])
+    assert bool((got[0] > 0).all())
+
+
+def test_16bit_wrappers_refuse_other_pairings(dev):
+    """A 10-bit plane reaches a 16-bit form or raises: K1 and K4's search
+    take uint8 at 8 bits and int16 at 10, nothing else."""
+    mb = (0.0,) * 13
+    for dtype, bd in ((torch.uint8, 10), (torch.int16, 8),
+                      (torch.int16, 12), (torch.int32, 10)):
+        with pytest.raises(ValueError):
+            omd.intra_decision(torch.zeros((64, 64), dtype=dtype,
+                                           device=dev), 8, 8, 100, 1.0, mb,
+                               bd)
+    p16 = torch.zeros((64, 64), dtype=torch.int16, device=dev)
+    with pytest.raises(ValueError):         # stripe rows of another type
+        omd.intra_decision(p16, 8, 8, 100, 1.0, mb, 10,
+                           torch.zeros(64, dtype=torch.uint8, device=dev),
+                           torch.zeros((8, 64), dtype=torch.uint8,
+                                       device=dev))
+    src, rec, dirs, var, ns, _ = _k4_search_inputs10(dev, 64, 64, 1)
+    for s, bd in ((src, 8), ([t.to(torch.uint8) for t in src], 10),
+                  (src, 12)):
+        with pytest.raises(ValueError):
+            cdef.cdef_search(s, rec, dirs, var, ns, 64, 64, 5, bd)
+
+
+@pytest.mark.parametrize("chroma", [False, True], ids=["luma", "chroma"])
+def test_k2_bd10_1080p_matches_plain(dev, chroma):
+    h, w, vw, vh = (576, 960, 960, 540) if chroma else (1152, 1920, 1920,
+                                                        1080)
+    prm = _edge_inputs(h, w, vw, vh, chroma, 13 + chroma)
+    for plane in (_plane10(h, w, 7).astype(np.int32),
+                  _smooth_plane(h, w, 8, 10)):
+        for lv in (8, 32, 63):
+            got, p = _k2_check(dev, plane, prm, vw, vh, lv, lv, 0, 10)
+            assert not torch.equal(got, p)
+
+
+def test_k3_bd10_1080p_matches_plain(dev):
+    plane = torch.from_numpy(_plane10(1152, 1920, 9).astype(np.int32)) \
+        .to(dev)
+    d, _ = _k3_check(plane, 1920, 1080, 2)
+    assert len(torch.unique(d)) == 8
+
+
+def test_tenbit_stream_on_the_card_equals_the_plain_stream(dev, tmp_path):
+    """The 10-bit all-intra 64x64 clip coded on the card (K1's and K4's
+    search's 16-bit forms, K2-K4 at bd 10) equals the CPU stream."""
+    frames = []
+    for i in range(2):
+        y = _plane10(64, 64, i).astype(np.uint16)
+        frames.append((y, (y[::2, ::2] // 2 + 200).astype(np.uint16),
+                       (700 - y[1::2, 1::2] // 3).astype(np.uint16)))
+    cfg = EncoderConfig(source_width=64, source_height=64, qp=40,
+                        enc_mode=8, intra_period_length=0,
+                        encoder_bit_depth=10,
+                        pred_structure=PredStructure.LOW_DELAY_P)
+    out = {}
+    before = (omd.intra_decision_packed.launches, cdef.cdef_search.launches)
+    for d in ("cuda", "cpu"):
+        p = tmp_path / f"{d}.ivf"
+        encode_ivf(frames, cfg, str(p), device=d)
+        out[d] = p.read_bytes()
+    assert omd.intra_decision_packed.launches > before[0]
+    assert cdef.cdef_search.launches > before[1]
+    assert out["cuda"] == out["cpu"]

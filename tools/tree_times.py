@@ -29,7 +29,9 @@ parts run.
   (two references); K2 on the kernels phase's luma plane at the path's
   level and on its first chroma plane, K3 on that luma plane, K4's
   search (the 5x3 grid) and apply over the three planes of the first
-  frame; K10 on TPL's half-resolution plane.  K3 and K4's apply also
+  frame; K10 on TPL's half-resolution plane; where the tree has the
+  16-bit forms (device.py SAMPLE_DTYPES), K1 and K4's search also on the
+  10-bit frame (synth_clip at bd 10, int16 planes).  K3 and K4's apply also
   have a device time with the L2 cache flushed before each call
   (``device_ms_cold``: a 128 MB write between the calls, the kernels'
   own time alone): their 1080p inputs fit in the 50 MB L2, which the
@@ -105,6 +107,15 @@ def kernel_times(cs, np, torch):
     calls["K7 path 1 ref"] = lambda: bme.subpel_refine16(src, ref, *mv)
     calls["K8 compound row"], calls["K9 2 refs"] = ra_calls(cs, torch, dev)
     calls["K4 search 5x3"] = k4_search_call(cs, np, torch, dev)
+    from svt_av1_tpu_torch import device
+
+    if hasattr(device, "SAMPLE_DTYPES"):    # the tree has the 16-bit forms
+        p10 = omd.upload_plane(cs.synth_clip(W, H, 1, bd=10)[0][0], bw, bh,
+                               10, dev)
+        calls["K1 7 shapes 10-bit"] = lambda: omd.intra_decision_packed(
+            p10, qindex, lam * 16, mb, 10)
+        calls["K4 search 5x3 10-bit"] = k4_search_call(cs, np, torch, dev,
+                                                       bd=10)
     calls.update(filter_calls(cs, np, torch, dev))
     cold = {k: device_ms_cold(torch, calls[k], name) for k, name in (
         ("K3 1080p luma", "cdef_direction_kernel"),
@@ -197,25 +208,28 @@ def ra_calls(cs, torch, dev):
             lambda: bi.compound_joint(*k9_args))
 
 
-def k4_search_call(cs, np, torch, dev):
+def k4_search_call(cs, np, torch, dev, bd=8):
     """K4's search over the three planes of the first frame at the fast
-    5x3 grid, as chip_smoke.py's kernels phase calls it."""
+    5x3 grid, as chip_smoke.py's kernels phase calls it (at ``bd`` 10: the
+    10-bit frame, int16 sources)."""
     from svt_av1_tpu_torch.ops import cdef
 
     W, H = cs.WIDTH, cs.HEIGHT
     bh = -(-H // 128) * 128
-    frame = cs.synth_clip(W, H, 1)[0]
+    frame = cs.synth_clip(W, H, 1, bd=bd)[0]
     rng = np.random.default_rng(0)
+    top, scale = (1 << bd) - 1, 1 << (bd - 8)
     rec = [torch.from_numpy(np.ascontiguousarray(np.pad(
         p, ((0, (bh >> s) - (H >> s)), (0, 0)), mode="edge")).astype(
             np.int32)).to(dev) for s, p in zip((0, 1, 1), frame)]
     rec = [(r + torch.from_numpy(rng.integers(-6, 7, tuple(r.shape)).astype(
-        np.int32)).to(dev)).clamp(0, 255) for r in rec]
-    src = [(r + torch.randint(-4, 5, r.shape, device=dev)).clamp(0, 255)
-           .to(torch.uint8) for r in rec]
-    dirs, var = cdef.cdef_direction(rec[0], W, H, 0)
+        np.int32) * scale).to(dev)).clamp(0, top) for r in rec]
+    src = [(r + torch.randint(-4, 5, r.shape, device=dev) * scale)
+           .clamp(0, top).to(torch.uint8 if bd == 8 else torch.int16)
+           for r in rec]
+    dirs, var = cdef.cdef_direction(rec[0], W, H, bd - 8)
     ns = torch.from_numpy(rng.random(tuple(dirs.shape)) < 0.8).to(dev)
-    return lambda: cdef.cdef_search(src, rec, dirs, var, ns, W, H, 5, 8,
+    return lambda: cdef.cdef_search(src, rec, dirs, var, ns, W, H, 5, bd,
                                     cdef.PRI_SET_FAST, cdef.SEC_SET_FAST)
 
 
