@@ -95,6 +95,18 @@ form; k9_ops: 12,800), and print the bounds of the scalar counts beside
 (K7 70,356 and, per candidate, 211,712; K9 102,912); the stripe step's
 bound sums its kernels' bounds at the same counts.
 
+The 10-bit phases: the kernels phase holds the 16-bit forms of K1 and
+K4's search on a 1080p 10-bit key frame and those of K5-K8 on two frames
+of the moving clip at 10 bits (K5 at every reach of the path, K6 at the
+path's shapes and at all 8, K7, K8 with 1-3 references and with a
+16-bit compound row), each printed beside its 8-bit form with ptxas's
+lines of both instantiations; a 10-bit all-intra and a 10-bit low-delay
+P encode at 1080p (N_FRAMES frames each, counts as in 4; the low-delay P
+one must launch K1-K8 and neither K9 nor K10, and its stream must
+declare 10 bits); the agreement phase adds 64x64x2 10-bit all-intra and
+192x128x6 10-bit low-delay P clips, whose card streams the Decoder on
+the card must turn into their recon.
+
 The kernels phase also holds K9, K8 with the compound row, K10, and
 K5/K6 at the MCTF (1088x1920, 32x32) and TPL (576x960, 16x16)
 geometries against their plain versions, and the stripe modes: K5/K6/K7
@@ -293,34 +305,38 @@ def k1_ceiling(px, shapes):
                                                          "float32 pipes")
 
 
-def k6_ops(n_sb):
+def k6_ops(n_sb, per_op=4):
     """K6's operations for ``n_sb`` SBs: per SB, window and offset the
-    4096 absolute differences and their sum, as packed-byte operations (4
-    pixel pairs and their sum each: the card's widest form of the work;
-    3 scalar operations per pixel pair give a bound that the kernel
-    beats)."""
-    return n_sb * 2 * 1089 * 64 * 64 // 4
+    4096 absolute differences and their sum, as packed operations of
+    ``per_op`` pixel pairs and their sum each (4 bytes at 8 bits, 2
+    16-bit halves at 10: the card's widest form of the work; 3 scalar
+    operations per pixel pair give a bound that the kernel beats)."""
+    return n_sb * 2 * 1089 * 64 * 64 // per_op
 
 
-def k5_ops(n_sb, r, n_px, packed=True):
-    """K5's operations: the decimation's adds over the ``n_px`` bytes of
+def k5_ops(n_sb, r, n_px, packed=True, per_op=4):
+    """K5's operations: the decimation's adds over the ``n_px`` samples of
     both planes and, per SB and offset of the (2r+1)^2, the 64 absolute
     differences of the decimated tile and their sum.  ``packed``, as
-    k6_ops counts: 4 bytes per dp4a, 4 pixel pairs per packed absolute
-    difference with accumulate; else 1 per byte and 3 per pixel pair."""
+    k6_ops counts: ``per_op`` samples per dp4a (4) or dp2a (2, 16-bit
+    samples) and pixel pairs per packed absolute difference; else 1 per
+    sample and 3 per pixel pair."""
     n_off = n_sb * (2 * r + 1) ** 2
-    return n_px // 4 + n_off * 16 if packed else n_px + n_off * 64 * 3
+    return n_px // per_op + n_off * 64 // per_op if packed \
+        else n_px + n_off * 64 * 3
 
 
-def k6_ceiling(n_sb):
-    """K6 (ms, what): the packed-byte SAD instructions it issues (per SB,
-    window and offset 64 8x8 blocks of 16 VABSDIFF4 with accumulate,
-    one instruction each on sm_90a) at 4 x 32 lanes per SM and clock."""
-    return (n_sb * 2 * 1089 * 64 * 16 / PEAK_LANE_INSTR_S * 1e3,
+def k6_ceiling(n_sb, per_8x8=16):
+    """K6 (ms, what): the SAD instructions it issues (per SB, window and
+    offset 64 8x8 blocks of ``per_8x8``: 16 VABSDIFF4 with accumulate in
+    the 8-bit form, one instruction each on sm_90a; 32 words of two
+    VIMNMX.U16x2 and an IADD3, 96, in the 16-bit form) at 4 x 32 lanes per
+    SM and clock."""
+    return (n_sb * 2 * 1089 * 64 * per_8x8 / PEAK_LANE_INSTR_S * 1e3,
             "SAD instructions")
 
 
-def k7_ops(n_units, packed=True):
+def k7_ops(n_units, packed=True, bd=8):
     """K7's operations in its shared form: per unit 3 horizontal phases
     (q4 4, 8, 12) over 49 patch columns and the 22 rows the vertical taps
     and the x-only rows read, 6 nonzero 8-bit taps each; 49 vertical
@@ -329,11 +345,14 @@ def k7_ops(n_units, packed=True):
     intermediates each; and 25 SADs of 256 pixels.  ``packed``, as
     k6_ops counts: 4 byte multiply-adds per dp4a, 2 16-bit ones per
     dp2a, 4 pixel pairs per packed absolute difference with accumulate
-    (12,772 per unit); else 2 operations per multiply-add and 3 per
-    pixel pair (70,356)."""
+    (12,772 per unit); at ``bd`` 10 the horizontal taps of 16-bit samples
+    take dp2a (2 per operation) and the SADs 2 pairs per operation
+    (15,989); else 2 operations per multiply-add and 3 per pixel pair
+    (70,356)."""
     h_macs, v_macs, pairs = 49 * 22 * 6, 65 * 49 * 6, 25 * 256
+    per = 4 if bd == 8 else 2
     if packed:
-        return n_units * (h_macs // 4 + v_macs // 2 + pairs // 4)
+        return n_units * (h_macs // per + v_macs // 2 + pairs // per)
     return n_units * (2 * h_macs + 2 * v_macs + 3 * pairs)
 
 
@@ -752,9 +771,15 @@ def tenbit_kernels_phase(dev, frame, results):
     return out
 
 
-def inter_kernels_phase(dev, ref_frame, src_frame):
+def inter_kernels_phase(dev, ref_frame, src_frame, bd=8):
     """K5-K8 on the luma planes of two consecutive frames of the moving
-    clip at the 1080p buffer shape, against their plain versions."""
+    clip at the 1080p buffer shape, against their plain versions.  At
+    ``bd`` 10 (frames of the 10-bit clip, int16 planes) the 16-bit forms,
+    whose results take the suffix "_16bit"; K8 there also with two
+    references and with a 16-bit compound row (the plain compound
+    search's: K9 is 8-bit only).  K8's one-reference call is also kept as
+    "inter_select_1ref" (8 bits), which the 16-bit row is printed
+    beside."""
     from svt_av1_tpu_torch.ops import bme, omd
     from svt_av1_tpu_torch.pipeline import batched_inter as bi
     from svt_av1_tpu_torch.pipeline.rate_control import RateControl
@@ -763,8 +788,11 @@ def inter_kernels_phase(dev, ref_frame, src_frame):
     buf_w, buf_h = -(-WIDTH // 128) * 128, -(-HEIGHT // 128) * 128
     H, W = buf_h, buf_w
     n_sb = (H // 64) * (W // 64)
-    src = omd.upload_plane(src_frame[0], W, H, 8, dev)
-    ref = omd.upload_plane(ref_frame[0], W, H, 8, dev)
+    src = omd.upload_plane(src_frame[0], W, H, bd, dev)
+    ref = omd.upload_plane(ref_frame[0], W, H, bd, dev)
+    sfx, form = ("", "") if bd == 8 else ("_16bit", " 16-bit")
+    # samples (and pixel pairs) per packed integer operation
+    per_op = 4 if bd == 8 else 2
     results = {}
 
     # -- K5 coarse search at each reach of the random-access path
@@ -781,10 +809,10 @@ def inter_kernels_phase(dev, ref_frame, src_frame):
         row = dict(ms=cuda_ms(call, KERNEL_REPS), device_ms=device_ms(call),
                    max_abs_err=err,
                    bound=bound_ms(nbytes(src, ref, got),
-                                  k5_ops(n_sb, r, n_px)),
+                                  k5_ops(n_sb, r, n_px, per_op=per_op)),
                    scalar=bound_ms(nbytes(src, ref, got),
                                    k5_ops(n_sb, r, n_px, packed=False)))
-        print(f"K5 me_coarse r {r} ({(2 * r + 1) ** 2} offsets): max "
+        print(f"K5 me_coarse{form} r {r} ({(2 * r + 1) ** 2} offsets): max "
               f"|kernel - plain| {err}; kernel {row['ms']:.4f} ms, device "
               f"{row['device_ms']:.5f} ms, bound {row['bound'][0]:.5f} ms "
               f"({row['bound'][1]}; the scalar count's "
@@ -793,10 +821,10 @@ def inter_kernels_phase(dev, ref_frame, src_frame):
     r = bme.coarse_r_for_dist(0)
     k5_plain = lambda: bme.coarse_sb_search(src, ref, r)  # noqa: E731
     coarse = bme.me_coarse(src, ref, r)
-    results["me_coarse"] = dict(
+    results["me_coarse" + sfx] = dict(
         k5[r], plain_ms=cuda_ms(k5_plain, PLAIN_REPS),
         max_abs_err=max(v["max_abs_err"] for v in k5.values()),
-        per_call="1 launch, r 8")
+        per_call="1 launch, r 8", by_r=k5)
 
     # -- K6 refinement: every ME shape once, the path's two shapes timed
     got = bme.me_refine(src, ref, coarse, bme.ME_SHAPES)
@@ -805,13 +833,13 @@ def inter_kernels_phase(dev, ref_frame, src_frame):
     err = max((g - w).abs().max().item() for s in bme.ME_SHAPES
               for g, w in zip(got[s], want[s]))
     err = max(err, (got["win16"] - want["win16"]).abs().max().item())
-    print(f"K6 me_refine, all {len(bme.ME_SHAPES)} ME shapes: max |kernel "
-          f"- plain| {err}")
+    print(f"K6 me_refine{form}, all {len(bme.ME_SHAPES)} ME shapes: max "
+          f"|kernel - plain| {err}")
     assert err == 0
-    all_ms = cuda_ms(lambda: bme.me_refine(src, ref, coarse, bme.ME_SHAPES),
-                     KERNEL_REPS)
-    print(f"K6 me_refine, all {len(bme.ME_SHAPES)} ME shapes (the 8x8 "
-          f"table): {all_ms:.4f} ms")
+    k6_all = lambda: bme.me_refine(src, ref, coarse, bme.ME_SHAPES)  # noqa
+    all_ms, all_dev = cuda_ms(k6_all, KERNEL_REPS), device_ms(k6_all)
+    print(f"K6 me_refine{form}, all {len(bme.ME_SHAPES)} ME shapes (the 8x8 "
+          f"table): {all_ms:.4f} ms, device {all_dev:.5f} ms")
     # the path's shapes (the 16x16 table, both windows at once): held
     # against the plain version on their own, since they run another
     # instantiation of the kernel than the 8x8 table above
@@ -823,57 +851,61 @@ def inter_kernels_phase(dev, ref_frame, src_frame):
     err = max((g - w).abs().max().item() for s in path
               for g, w in zip(me[s], want[s]))
     err = max(err, (me["win16"] - want["win16"]).abs().max().item())
-    print(f"K6 me_refine, the path's shapes 16x16 and 64x64 (the 16x16 "
-          f"table): max |kernel - plain| {err}")
+    print(f"K6 me_refine{form}, the path's shapes 16x16 and 64x64 (the "
+          f"16x16 table): max |kernel - plain| {err}")
     assert err == 0
     out_b = sum(nbytes(*me[s]) for s in path)
-    results["me_refine"] = dict(
+    results["me_refine" + sfx] = dict(
         ms=cuda_ms(k6, KERNEL_REPS), plain_ms=cuda_ms(k6_plain, PLAIN_REPS),
+        device_ms=device_ms(k6), all_shapes=(all_ms, all_dev),
         max_abs_err=err,
         bound=bound_ms(nbytes(src, ref, coarse) + out_b,
-                       k6_ops(n_sb)),
-        ceiling=k6_ceiling(n_sb),
+                       k6_ops(n_sb, per_op)),
+        ceiling=k6_ceiling(n_sb, 16 if bd == 8 else 96),
         per_call="1 launch, shapes 16x16 and 64x64")
 
     # -- K7 quarter-pel refinement of the 16x16 MVs
     ny, nx = H // 64, W // 64
     mv_r16 = bi._nested_to_grid(me[(16, 16)][0], ny, nx, 4, 4)
     mv_c16 = bi._nested_to_grid(me[(16, 16)][1], ny, nx, 4, 4)
-    k7 = lambda: bme.subpel_refine16(src, ref, mv_r16, mv_c16)  # noqa
-    k7_plain = lambda: bme.subpel_plain(src, ref, mv_r16, mv_c16)  # noqa
+    k7 = lambda: bme.subpel_refine16(src, ref, mv_r16, mv_c16, bd)  # noqa
+    k7_plain = lambda: bme.subpel_plain(src, ref, mv_r16, mv_c16, bd)  # noqa
     sub, want = k7(), k7_plain()
     torch.cuda.synchronize()
+    assert sub[2].dtype == want[2].dtype == src.dtype
     err = max((g.to(torch.int32) - w.to(torch.int32)).abs().max().item()
               for g, w in zip(sub, want))
     frac = ((sub[0] % 8 != 0) | (sub[1] % 8 != 0)).float().mean().item()
-    print(f"K7 subpel_refine16: max |kernel - plain| {err}, fractional "
-          f"MVs {frac:.4f} of the units")
+    print(f"K7 subpel_refine16{form}: max |kernel - plain| {err}, "
+          f"fractional MVs {frac:.4f} of the units, prediction "
+          f"{sub[2].dtype} up to {sub[2].max().item()}")
     assert err == 0
     k7_bytes = nbytes(src, ref, mv_r16, mv_c16, *sub)
     units = (H // 16) * (W // 16)
     scalar = bound_ms(k7_bytes, k7_ops(units, packed=False))
     old = bound_ms(k7_bytes, k7_ops_per_candidate(units))
-    results["subpel_refine16"] = dict(
+    results["subpel_refine16" + sfx] = dict(
         ms=cuda_ms(k7, KERNEL_REPS), plain_ms=cuda_ms(k7_plain, PLAIN_REPS),
-        max_abs_err=err, bound=bound_ms(k7_bytes, k7_ops(units)),
+        device_ms=device_ms(k7), max_abs_err=err,
+        bound=bound_ms(k7_bytes, k7_ops(units, bd=bd)),
         per_call=f"1 launch (the shared form's packed count; its scalar "
                  f"count bounds it at {scalar[0]:.5f} ms, the count per "
                  f"candidate at {old[0]:.5f} ms)")
 
     # -- K8 selection + cost maps: one reference (the main path's) timed,
     # three checked
-    cfg = slice_config(WIDTH, HEIGHT, -1)
+    cfg = slice_config(WIDTH, HEIGHT, -1, bd)
     rc = RateControl(cfg, float(cfg.frame_rate))
     rc.hierarchical_levels = 1              # as the encoder sets it
     qindex = rc.pick_qindex(False, 0, 1, (0, 0), 1)
-    lam = rd_lambda(qindex, 8)
+    lam = rd_lambda(qindex, bd)
 
     def sb(a):
         return a.reshape(1, ny, nx).contiguous()
 
     one = (src, sub[2][None].contiguous(), sub[0][None].contiguous(),
            sub[1][None].contiguous(), sb(me[(64, 64)][0]),
-           sb(me[(64, 64)][1]), qindex, lam)
+           sb(me[(64, 64)][1]), qindex, lam, bd)
     refs3 = [ref, torch.roll(ref, (2, -2), (0, 1)).contiguous(),
              torch.roll(ref, (-3, 1), (0, 1)).contiguous()]
     parts = []
@@ -881,17 +913,33 @@ def inter_kernels_phase(dev, ref_frame, src_frame):
         m = bme.frame_me(src, rk, r, path)
         a, b, pr = bme.subpel_refine16(
             src, rk, bi._nested_to_grid(m[(16, 16)][0], ny, nx, 4, 4),
-            bi._nested_to_grid(m[(16, 16)][1], ny, nx, 4, 4))
+            bi._nested_to_grid(m[(16, 16)][1], ny, nx, 4, 4), bd)
         parts.append((pr, a, b, m[(64, 64)][0].reshape(ny, nx),
                       m[(64, 64)][1].reshape(ny, nx)))
-    three = (src,) + tuple(torch.stack([p[i] for p in parts]).contiguous()
-                           for i in range(5)) + (qindex, lam)
+
+    def first(k):
+        return (src,) + tuple(torch.stack([p[i] for p in parts[:k]])
+                              .contiguous() for i in range(5)) + (
+            qindex, lam, bd)
+
+    cases = [("1 reference", one, None), ("3 references", first(3), None)]
+    if bd != 8:
+        # two references, then the second as a backward one with the plain
+        # compound search's 16-bit row
+        two = first(2)
+        comp = bi.compound_joint_plain(
+            src, torch.stack(refs3[:2]).contiguous(), *two[1:6],
+            (False, True), (-1, 1), qindex, bd)
+        assert comp["pred"].dtype == src.dtype
+        cases[1:1] = [("2 references", two, None),
+                      ("2 references and the compound row", two, comp)]
     err = 0.0
-    for name, args in (("1 reference", one), ("3 references", three)):
+    for name, args, comp in cases:
         (f1, m1, c1), (f2, m2, c2), counts = near_counts(
-            "inter_select", lambda: bi.inter_select(*args),
-            lambda: bi.inter_select_plain(*args))
-        print_near(f"K8 inter_select on the 1080p P frame, {name}", counts)
+            "inter_select", lambda: bi.inter_select(*args, comp=comp),
+            lambda: bi.inter_select_plain(*args, comp=comp))
+        print_near(f"K8 inter_select{form} on the 1080p P frame, {name}",
+                   counts)
         bad = (f1["sel"] != f2["sel"]).sum().item()
         for key in bi.SEL_KEYS:
             assert torch.equal(f1[key], f2[key]), (name, key)
@@ -902,8 +950,8 @@ def inter_kernels_phase(dev, ref_frame, src_frame):
             close = torch.isclose(c1[s], c2[s], rtol=2e-4, atol=2.0)
             worst = min(worst, close.float().mean().item())
             err = max(err, (c1[s] - c2[s]).abs().max().item())
-        hist = torch.bincount(f1["sel"].flatten(), minlength=3).tolist()
-        print(f"K8 inter_select, {name}: selection disagreements {bad}, "
+        hist = torch.bincount(f1["sel"].flatten(), minlength=4).tolist()
+        print(f"K8 inter_select{form}, {name}: selection disagreements {bad}, "
               f"units per reference {hist}, max |mvbits| diff {mv_err}, "
               f"costs within rtol 2e-4 / atol 2: worst shape {worst:.6f}")
         assert worst >= 0.99, (name, worst)
@@ -917,14 +965,49 @@ def inter_kernels_phase(dev, ref_frame, src_frame):
         (H // h) * (W // w) * 4 for (w, h) in omd.INTER_SHAPES)
     old = bound_ms(nbytes(*one[:6]) + out_b, flops + 2 * (
         576 - k8_dct_macs(omd.INTER_SHAPES)) * H * W)
-    results["inter_select"] = dict(
+    results["inter_select" + sfx] = dict(
         ms=cuda_ms(k8, KERNEL_REPS), plain_ms=cuda_ms(k8_plain, PLAIN_REPS),
-        max_abs_err=err,
+        device_ms=device_ms(k8), max_abs_err=err,
         bound=bound_ms(nbytes(*one[:6]) + out_b, flops),
         per_call=f"1 launch, 1 reference ({dct_flops / 1e9:.2f} GFLOP of "
                  f"DCT; the whole products' count bounds it at "
                  f"{old[0]:.5f} ms)")
+    if bd == 8:
+        results["inter_select_1ref"] = results["inter_select"]
     return results
+
+
+def tenbit_inter_report(results):
+    """ptxas's lines for both instantiations of K5-K8, and each 16-bit
+    form's times and bound beside its 8-bit form's (K5 at every reach of
+    the path, K8's one-reference call)."""
+    from svt_av1_tpu_torch.kernels import build
+
+    for name in ("me_coarse", "me_refine", "subpel_refine", "inter_select"):
+        for line in build.ptxas_report(name):
+            print(f"ptxas {name}: {line}")
+    for r, r16 in results["me_coarse_16bit"]["by_r"].items():
+        r8 = results["me_coarse"]["by_r"][r]
+        print(f"me_coarse_16bit r {r} vs the 8-bit form: events "
+              f"{r16['ms']:.4f} ms ({r8['ms']:.4f}), device "
+              f"{r16['device_ms']:.5f} ms ({r8['device_ms']:.5f}), bound "
+              f"{r16['bound'][0]:.5f} ms, {r16['bound'][1]} "
+              f"({r8['bound'][0]:.5f})")
+    a16, a8 = (results[k]["all_shapes"] for k in ("me_refine_16bit",
+                                                   "me_refine"))
+    print(f"me_refine_16bit, all 8 ME shapes vs the 8-bit form: events "
+          f"{a16[0]:.4f} ms ({a8[0]:.4f}), device {a16[1]:.5f} ms "
+          f"({a8[1]:.5f})")
+    for k8, k16 in (("me_coarse", "me_coarse_16bit"),
+                    ("me_refine", "me_refine_16bit"),
+                    ("subpel_refine16", "subpel_refine16_16bit"),
+                    ("inter_select_1ref", "inter_select_16bit")):
+        r8, r16 = results[k8], results[k16]
+        print(f"{k16} vs the 8-bit form: events {r16['ms']:.4f} ms "
+              f"({r8['ms']:.4f}), device {r16['device_ms']:.5f} ms "
+              f"({r8['device_ms']:.5f}), bound {r16['bound'][0]:.5f} ms, "
+              f"{r16['bound'][1]} ({r8['bound'][0]:.5f}), plain "
+              f"{r16['plain_ms']:.4f} ms ({r8['plain_ms']:.4f})")
 
 
 def _half_res(y, W, H):
@@ -1244,8 +1327,17 @@ def tenbit_phase(counters, frames, out_dir):
     return path, recon, launches, calls
 
 
-def ipp_phase(counters, frames, out_dir):
-    path = Path(out_dir) / "smoke_1080p_ipp.ivf"
+def ipp_phase(counters, frames, out_dir, bd=8):
+    """Low-delay P at 1080p: the port's Encoder on ``frames``, counts set
+    to 0 just before and read just after; K1-K8 must have launched, the
+    stream must hold one key frame then P frames, and every P frame's plan
+    must have chosen inter blocks with non-zero MVs.  At ``bd`` 10 K9 and
+    K10 must not have launched and the sequence header must declare 10
+    bits.  Returns (launches, wrapper calls, (IVF path, recon per
+    display))."""
+    what = "low-delay P" if bd == 8 else f"{bd}-bit low-delay P"
+    path = Path(out_dir) / ("smoke_1080p_ipp.ivf" if bd == 8
+                            else f"smoke_1080p_ipp_{bd}bit.ivf")
     plans = []
 
     def on_packet(enc):
@@ -1258,11 +1350,19 @@ def ipp_phase(counters, frames, out_dir):
         plans.append((inter, nz, len(dec._names), int(sel.max())))
 
     launches, _, enc, _ = run_encode(counters, frames,
-                                     slice_config(WIDTH, HEIGHT, -1), path,
-                                     on_packet)
-    print("low-delay P main path launches:", json.dumps(launches))
+                                     slice_config(WIDTH, HEIGHT, -1, bd),
+                                     path, on_packet)
+    _, calls = read_counts(counters)
+    print(f"{what} main path launches:", json.dumps(launches))
+    if bd != 8:
+        print(f"{what} main path wrapper calls:", json.dumps(calls))
     missing = [n for n in IPP_KERNELS if launches[n] == 0]
-    assert not missing, f"kernels not launched on the main path: {missing}"
+    assert not missing, f"kernels not launched on the {what} path: {missing}"
+    if bd != 8:
+        assert launches["compound_joint"] == launches["block_var16"] == 0
+        got_bd = stream_bit_depth(path)
+        print(f"{what}: the sequence header declares {got_bd} bits")
+        assert got_bd == bd
     params = stream_frame_params(path)
     print("per frame (frame type, deblocking level, CDEF y, CDEF uv) from "
           "the stream:", json.dumps(params))
@@ -1274,8 +1374,10 @@ def ipp_phase(counters, frames, out_dir):
               f"{inter[(16, 16)]:.4f} / {inter[(64, 64)]:.4f}, units with "
               f"a non-zero MV {nz:.4f}, plan references {n_refs}")
         assert max(inter.values()) > 0 and nz > 0, (i, inter, nz)
-    return launches, (path, [enc.recon_by_display[d]
-                             for d in sorted(enc.recon_by_display)])
+    recon = [enc.recon_by_display[d] for d in sorted(enc.recon_by_display)]
+    if bd != 8:
+        assert all(p.dtype == np.uint16 for r in recon for p in r)
+    return launches, calls, (path, recon)
 
 
 def stream_headers(path):
@@ -1487,22 +1589,26 @@ def agreement_clips():
         yield f"{w}x{h}x{n} {kinds[kind]}", frames, cfg
 
 
-def tenbit_agreement_clip():
-    """(name, frames, config) of the 64x64 10-bit all-intra clip: the
+def tenbit_agreement_clips():
+    """(name, frames, config) of the 64x64x2 10-bit all-intra clip (the
     corner of a 176x144 10-bit synth_clip, as agreement_clips cuts the
-    8-bit one."""
+    8-bit one) and of the 192x128x6 10-bit low-delay P clip (the moving
+    synth_clip at 10 bits)."""
     frames = [tuple(np.ascontiguousarray(p[:64 >> (i > 0), :64 >> (i > 0)])
                     for i, p in enumerate(f))
               for f in synth_clip(176, 144, 2, seed=13, bd=10)]
-    return "64x64x2 10-bit all-intra", frames, slice_config(64, 64, bd=10)
+    yield "64x64x2 10-bit all-intra", frames, slice_config(64, 64, bd=10)
+    yield ("192x128x6 10-bit low-delay P",
+           synth_clip(192, 128, 6, seed=13, bd=10),
+           slice_config(192, 128, -1, bd=10))
 
 
 def agreement_phase(out_dir):
-    """Returns the random-access and the 10-bit card streams (path,
-    recon)."""
+    """Returns the random-access card stream and the 10-bit all-intra and
+    low-delay P card streams, each (path, recon)."""
     from svt_av1_tpu_torch.api import encode_ivf
 
-    clips = list(agreement_clips()) + [tenbit_agreement_clip()]
+    clips = list(agreement_clips()) + list(tenbit_agreement_clips())
     for k, (name, frames, cfg) in enumerate(clips):
         streams, paths = {}, {}
         for dev in ("cuda", "cpu"):
@@ -1511,14 +1617,16 @@ def agreement_phase(out_dir):
             streams[dev] = p.read_bytes()
             if name.endswith("random access") and dev == "cuda":
                 ra_card = (p, recon)
-            if "10-bit" in name and dev == "cuda":
+            if "10-bit all-intra" in name and dev == "cuda":
                 tenbit_card = (p, recon)
+            if "10-bit low-delay P" in name and dev == "cuda":
+                tenbit_ipp_card = (p, recon)
         same = streams["cuda"] == streams["cpu"]
         print(f"{name}: card stream {len(streams['cuda'])} bytes (packets "
               f"md5 {stream_md5(paths['cuda'])}), CPU stream "
               f"{len(streams['cpu'])} bytes, identical {same}")
         assert same, name
-    return ra_card, tenbit_card
+    return ra_card, tenbit_card, tenbit_ipp_card
 
 
 # --------------------------------------------------------------------------
@@ -1954,6 +2062,11 @@ def main() -> int:
         WIDTH, HEIGHT, N_FRAMES - half, tex_sigma=SMOOTH_SIGMA, bd=10)
     kres.update(tenbit_kernels_phase(dev, frames10[0], kres))
     kres.update(inter_kernels_phase(dev, ipp_frames[0], ipp_frames[1]))
+    # the 10-bit low-delay P clip: the moving clip at 10 bits
+    ipp_frames10 = synth_clip(WIDTH, HEIGHT, N_FRAMES, bd=10)
+    kres.update(inter_kernels_phase(dev, ipp_frames10[0], ipp_frames10[1],
+                                    bd=10))
+    tenbit_inter_report(kres)
     kres.update(ra_kernels_phase(dev, ra_frames[:3]))
 
     counters = {"intra_decision": omd.intra_decision_packed,
@@ -1970,11 +2083,13 @@ def main() -> int:
     out_dir = Path(os.environ.get("TMPDIR") or tempfile.gettempdir())
     with tempfile.TemporaryDirectory(dir=out_dir) as tmp:
         ai_launches = allintra_phase(counters, frames, tmp)
-        ipp_launches, ipp_stream = ipp_phase(counters, ipp_frames, tmp)
+        ipp_launches, _, ipp_stream = ipp_phase(counters, ipp_frames, tmp)
         ra_launches, ra_calls = ra_phase(counters, ra_frames, tmp)
         tb_path, tb_recon, tb_launches, tb_calls = tenbit_phase(
             counters, frames10, tmp)
-        ra_card, tenbit_card = agreement_phase(tmp)
+        tbp_launches, tbp_calls, _ = ipp_phase(counters, ipp_frames10, tmp,
+                                               bd=10)
+        ra_card, tenbit_card, tenbit_ipp_card = agreement_phase(tmp)
         # the stripe modes against their plain versions, after the encodes
         # so that those run on the process state they ran on before: the
         # JAX geometry (1280x256, stripes at rows 64 and 192) and the full
@@ -1990,10 +2105,14 @@ def main() -> int:
             ("192x128x5 random access (card stream)", *ra_card, 7),
             (f"{WIDTH}x{HEIGHT} low-delay P, first 3 temporal units",
              *ipp_stream, 3)])
-        # the 10-bit streams: the 64x64 card stream of the agreement phase
-        # and the first frame of the 1080p one
+        # the 10-bit streams: the small card streams of the agreement phase
+        # and the first frame of the 1080p all-intra one (the 1080p
+        # low-delay P stream is not decoded: the host walk takes about 20
+        # s a frame)
         tb_dec_launches, tb_dec_calls = decode_phase(counters, [
             ("64x64x2 10-bit all-intra (card stream)", *tenbit_card, 2),
+            ("192x128x6 10-bit low-delay P (card stream)", *tenbit_ipp_card,
+             6),
             (f"{WIDTH}x{HEIGHT} 10-bit all-intra, first temporal unit",
              tb_path, tb_recon, 1)])
     print("10-bit path launches (the 1080p encode + the 10-bit decodes):",
@@ -2061,18 +2180,26 @@ def main() -> int:
               f"{dec_launches[name]} on the decodes; {ipp_launches[name]} on "
               f"the {N_FRAMES}-frame low-delay P encode, {ai_launches[name]} "
               f"on the all-intra encode")
-    # the 16-bit forms: their launches on the 10-bit all-intra encode, the
-    # only path that runs them
-    for name, base in (("intra_decision_16bit", "intra_decision"),
-                       ("cdef_search_16bit", "cdef_search")):
-        r = kres[name]
+    # the 16-bit forms: their launches on the 10-bit encode that runs
+    # them, K1's and K4's search's on the all-intra one, K5-K8's on the
+    # low-delay P one
+    ai10 = (tb_calls, tb_launches, "10-bit all-intra")
+    ipp10 = (tbp_calls, tbp_launches, "10-bit low-delay P")
+    for name, base, (calls16, launches16, where) in (
+            ("intra_decision_16bit", "intra_decision", ai10),
+            ("cdef_search_16bit", "cdef_search", ai10),
+            ("me_coarse_16bit", "me_coarse", ipp10),
+            ("me_refine_16bit", "me_refine", ipp10),
+            ("subpel_refine_16bit", "subpel_refine16", ipp10),
+            ("inter_select_16bit", "inter_select", ipp10)):
+        r = kres[base + "_16bit"]
         src, replaces = sources[base]
         b_ms, b_by = r["bound"]
         rows.append(dict(
             name=name, route="cuda",
             source=f"svt_av1_tpu_torch/kernels/csrc/{src}",
-            replaces=replaces, calls=tb_calls[base],
-            launches=tb_launches[base], max_abs_err=r["max_abs_err"],
+            replaces=replaces, calls=calls16[base],
+            launches=launches16[base], max_abs_err=r["max_abs_err"],
             ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=b_ms, bound_by=b_by,
             library_ms=None))
         ceiling = (f", design ceiling {r['ceiling'][0]:.5f} ms "
@@ -2080,9 +2207,9 @@ def main() -> int:
         print(f"{name}: {r['per_call']}: kernel {r['ms']:.4f} ms, plain "
               f"{r['plain_ms']:.4f} ms, bound {b_ms:.5f} ms ({b_by})"
               f"{ceiling}, device {r['device_ms']:.5f} ms; calls / "
-              f"launches on the {N_FRAMES}-frame 10-bit all-intra encode: "
-              f"{tb_calls[base]} / {tb_launches[base]}")
-        assert tb_launches[base] > 0, name
+              f"launches on the {N_FRAMES}-frame {where} encode: "
+              f"{calls16[base]} / {launches16[base]}")
+        assert launches16[base] > 0, name
     # the row's times are the JAX geometry's (4 stripes of 1280x64); its
     # error is the larger of both geometries' kernel - plain differences
     four = b14[4]

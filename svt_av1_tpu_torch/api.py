@@ -237,11 +237,13 @@ def check_slice(cfg: EncoderConfig, sig, pd: PictureDecision) -> None:
         why = f"enc_mode {cfg.enc_mode} (only preset 8 is ported)"
     elif cfg.encoder_bit_depth not in (8, 10):
         why = f"bit depth {cfg.encoder_bit_depth} (8 and 10 are ported)"
-    elif cfg.encoder_bit_depth == 10 and pd.key_interval != 1:
-        why = ("10-bit inter frames (all-intra, intra_period_length 0 or "
-               "-2, is ported at 10 bits; inter frames need the 16-bit "
-               "forms of K5-K10: motion search, inter selection, compound "
-               "search, TPL variance)")
+    elif cfg.encoder_bit_depth == 10 and pd.key_interval != 1 \
+            and cfg.pred_structure != PredStructure.LOW_DELAY_P:
+        why = ("10-bit inter frames outside low-delay P, such as random "
+               "access (all-intra and low-delay P are ported at 10 bits; "
+               "the rest needs the 16-bit forms of K9, the compound "
+               "search, and K10, TPL's variance, and TPL on uint16 "
+               "planes)")
     elif cfg.encoder_color_format != ColorFormat.YUV420:
         why = "chroma formats other than 4:2:0"
     elif sig.tf_level > 0 and pd.gop > 1 and pd.key_interval == 1:

@@ -61,10 +61,22 @@
 //   order (deterministic), then the cost.  Every float step rounds as the
 //   plain version does (no fast-math, IEEE intrinsics); only the orders
 //   of the DCT and block sums differ, hence the cost maps' tolerance.
+//
+// The 16-bit form (uint16_t: int16 planes of 10-bit samples) changes only
+// how the samples are read.  A thread's two unit rows are 16 words of two
+// samples, twice the 8-bit form's 8 words, so it does not keep the source
+// words in registers for step (3), as the 8-bit form does, but reads them
+// again (L1) with the prediction's words: the form keeps the 8-bit form's
+// registers.  The SADs take two 16-bit absolute differences per word as
+// packed halves (sad16.cuh), at most 16 x 1023 per half, summed once.  The
+// arithmetic is the 8-bit form's: a residual of +-1023 is exact in TF32's
+// 11-bit significand, so the first product's two passes stay exact, and
+// the near-boundary margin scales with the block's sum |R|.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include "cost_model.cuh"
+#include "sad16.cuh"
 
 namespace {
 
@@ -400,15 +412,17 @@ __device__ __forceinline__ void run_shape(
   }
 }
 
+// TS: uint8_t (8-bit video) or uint16_t (10-bit samples)
+template <typename TS>
 __global__ void __launch_bounds__(kThreads, 3) inter_select_kernel(
-    const uint8_t* __restrict__ src, const uint8_t* __restrict__ preds,
+    const TS* __restrict__ src, const TS* __restrict__ preds,
     int K, int H, int W, const int* __restrict__ mvq_r,
     const int* __restrict__ mvq_c, const int* __restrict__ sb_r,
     const int* __restrict__ sb_c, const float* __restrict__ tab, int n_tab,
     float pen_ref, float pen_comp, float pen_dev, float pen_mv,
     const int* __restrict__ shapes, const float* __restrict__ qpar,
     const float4* __restrict__ frag, float lam,
-    const uint8_t* __restrict__ cpred, const int* __restrict__ csad,
+    const TS* __restrict__ cpred, const int* __restrict__ csad,
     const int* __restrict__ cfi, const int* __restrict__ cbi,
     const int* __restrict__ cmvr, const int* __restrict__ cmvc,
     const int* __restrict__ cmv1r, const int* __restrict__ cmv1c,
@@ -442,25 +456,49 @@ __global__ void __launch_bounds__(kThreads, 3) inter_select_kernel(
     log2_1p[k] = log2f(__fadd_rn(1.f, (float)k));
 
   // (1) unit SADs: thread t covers rows 2*(t&7), +1 of unit t >> 3, four
-  // words of 4 pixels each row
+  // words of 4 pixels each row (16-bit: eight words of 2)
   const int u = tid >> 3, sub = tid & 7, uy = u >> 2, ux = u & 3;
   uint32_t wrd[8], sv[8];            // word index (< 2^32) and source
+  // the 16-bit form's first word of the thread's rows, and its row step
+  const uint32_t base16 =
+      ((uint32_t)(sby * 64 + uy * 16 + 2 * sub) * W + sbx * 64 + ux * 16) /
+      2;
+  const uint32_t* sw = reinterpret_cast<const uint32_t*>(src);
+  if constexpr (sizeof(TS) == 1) {
 #pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    const int row = sby * 64 + uy * 16 + 2 * sub + (i >> 2);
-    wrd[i] = ((uint32_t)row * W + sbx * 64 + ux * 16 + 4 * (i & 3)) / 4;
-    sv[i] = __ldg(reinterpret_cast<const uint32_t*>(src) + wrd[i]);
-  }
-  for (int k = 0; k < K; ++k) {
-    const uint32_t* pw =
-        reinterpret_cast<const uint32_t*>(preds + k * plane);
-    uint32_t d = 0;
+    for (int i = 0; i < 8; ++i) {
+      const int row = sby * 64 + uy * 16 + 2 * sub + (i >> 2);
+      wrd[i] = ((uint32_t)row * W + sbx * 64 + ux * 16 + 4 * (i & 3)) / 4;
+      sv[i] = __ldg(reinterpret_cast<const uint32_t*>(src) + wrd[i]);
+    }
+    for (int k = 0; k < K; ++k) {
+      const uint32_t* pw =
+          reinterpret_cast<const uint32_t*>(preds + k * plane);
+      uint32_t d = 0;
 #pragma unroll
-    for (int i = 0; i < 8; ++i) d = vabsdiff4_add(sv[i], __ldg(pw + wrd[i]), d);
+      for (int i = 0; i < 8; ++i)
+        d = vabsdiff4_add(sv[i], __ldg(pw + wrd[i]), d);
 #pragma unroll
-    for (int off = 4; off > 0; off >>= 1)
-      d += __shfl_xor_sync(0xffffffffu, d, off);
-    if (sub == 0) sad[k][u] = (int)d;
+      for (int off = 4; off > 0; off >>= 1)
+        d += __shfl_xor_sync(0xffffffffu, d, off);
+      if (sub == 0) sad[k][u] = (int)d;
+    }
+  } else {
+    for (int k = 0; k < K; ++k) {
+      const uint32_t* pw =
+          reinterpret_cast<const uint32_t*>(preds + k * plane);
+      uint32_t d = 0;                  // two packed 16-bit sums
+#pragma unroll
+      for (int i = 0; i < 16; ++i) {
+        const uint32_t o = base16 + (i >> 3) * (uint32_t)(W / 2) + (i & 7);
+        d = sad16x2(__ldg(sw + o), __ldg(pw + o), d);
+      }
+      d = halves16(d);
+#pragma unroll
+      for (int off = 4; off > 0; off >>= 1)
+        d += __shfl_xor_sync(0xffffffffu, d, off);
+      if (sub == 0) sad[k][u] = (int)d;
+    }
   }
   __syncthreads();
   if (tid < 16 * K) {
@@ -545,17 +583,34 @@ __global__ void __launch_bounds__(kThreads, 3) inter_select_kernel(
                              : reinterpret_cast<const uint32_t*>(
                                    preds + k * plane);
     int sa[2] = {0, 0};                  // left and right 8 columns
+    if constexpr (sizeof(TS) == 1) {
 #pragma unroll
-    for (int i = 0; i < 8; ++i) {
-      const uint32_t p = __ldg(pw + wrd[i]);
-      float* row = R + (uy * 16 + 2 * sub + (i >> 2)) * kRS + ux * 16 +
-                   4 * (i & 3);
+      for (int i = 0; i < 8; ++i) {
+        const uint32_t p = __ldg(pw + wrd[i]);
+        float* row = R + (uy * 16 + 2 * sub + (i >> 2)) * kRS + ux * 16 +
+                     4 * (i & 3);
 #pragma unroll
-      for (int b = 0; b < 4; ++b) {
-        const int rv = (int)((sv[i] >> (8 * b)) & 255u) -
-                       (int)((p >> (8 * b)) & 255u);
-        row[b] = (float)rv;
-        sa[(i & 3) >> 1] += abs(rv);
+        for (int b = 0; b < 4; ++b) {
+          const int rv = (int)((sv[i] >> (8 * b)) & 255u) -
+                         (int)((p >> (8 * b)) & 255u);
+          row[b] = (float)rv;
+          sa[(i & 3) >> 1] += abs(rv);
+        }
+      }
+    } else {
+#pragma unroll
+      for (int i = 0; i < 16; ++i) {
+        const uint32_t o = base16 + (i >> 3) * (uint32_t)(W / 2) + (i & 7);
+        const uint32_t sq = __ldg(sw + o), p = __ldg(pw + o);
+        float* row = R + (uy * 16 + 2 * sub + (i >> 3)) * kRS + ux * 16 +
+                     2 * (i & 7);
+#pragma unroll
+        for (int b = 0; b < 2; ++b) {
+          const int rv = (int)((sq >> (16 * b)) & 0xffffu) -
+                         (int)((p >> (16 * b)) & 0xffffu);
+          row[b] = (float)rv;
+          sa[(i & 7) >> 2] += abs(rv);
+        }
       }
     }
     // rows 0-7 of the unit are threads sub 0-3, rows 8-15 sub 4-7
@@ -609,6 +664,35 @@ __global__ void __launch_bounds__(kThreads, 3) inter_select_kernel(
   }
 }
 
+template <typename TS>
+int launch(const void* src, const void* preds, int K, int H, int W,
+           const void* mvq_r, const void* mvq_c, const void* sb_r,
+           const void* sb_c, const void* tab, int n_tab, float pen_ref,
+           float pen_comp, float pen_dev, float pen_mv, const void* shapes,
+           const void* qpar, const void* dct, float lam, const void* cpred,
+           const void* csad, const void* cfi, const void* cbi,
+           const void* cmvr, const void* cmvc, const void* cmv1r,
+           const void* cmv1c, void* out_sel, void* out_mvr, void* out_mvc,
+           void* out_mv1r, void* out_mv1c, void* out_fwd, void* out_bwd,
+           void* out_mvb, void* out_cost, void* stream) {
+  cudaError_t e = cudaFuncSetAttribute(
+      inter_select_kernel<TS>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)kSmemBytes);
+  if (e != cudaSuccess) return (int)e;
+  inter_select_kernel<TS><<<(H / 64) * (W / 64), kThreads, kSmemBytes,
+                           (cudaStream_t)stream>>>(
+      (const TS*)src, (const TS*)preds, K, H, W,
+      (const int*)mvq_r, (const int*)mvq_c, (const int*)sb_r,
+      (const int*)sb_c, (const float*)tab, n_tab, pen_ref, pen_comp, pen_dev,
+      pen_mv, (const int*)shapes, (const float*)qpar, (const float4*)dct,
+      lam, (const TS*)cpred, (const int*)csad, (const int*)cfi,
+      (const int*)cbi, (const int*)cmvr, (const int*)cmvc, (const int*)cmv1r,
+      (const int*)cmv1c, (int*)out_sel, (int*)out_mvr, (int*)out_mvc,
+      (int*)out_mv1r, (int*)out_mv1c, (int*)out_fwd, (int*)out_bwd,
+      (float*)out_mvb, (float*)out_cost);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // The near-boundary recomputes since the last reset into *out (reset:
@@ -617,21 +701,24 @@ extern "C" int inter_select_near_count(int reset, unsigned long long* out) {
   return cost_model::read_near_count(reset, out);
 }
 
-// src: uint8 [H, W]; preds: uint8 [K, H, W] (K <= 3); mvq_r, mvq_c: int32
+// src: [H, W] and preds: [K, H, W] (K <= 3), samples of sample_bytes bytes
+// (1: uint8, 8-bit video; 2: 16-bit words of 10-bit samples, int16 planes
+// holding [0, 1023]); mvq_r, mvq_c: int32
 // [K, H/16, W/16] eighth-pel; sb_r, sb_c: int32 [K, H/64, W/64] full-pel
 // 64x64 winners; tab: float32 [n_tab] log2(1 + d/8); pens: the ref,
 // compound, unit deviation and MV-weight penalties; shapes: int32 [10, 2]
 // (w, h), each of INTER_SHAPES once; qpar: float32 [10, 6] (zbin, round,
 // step) x (dc, ac) per shape; dct: the split DCT fragments of sizes 8,
 // 16, 32 and 64 (ops/omd.py _dct_fragments, float32 [10880]).  The
-// compound candidate (K9's outputs: prediction uint8 [H, W]; SAD, fwd_i,
+// compound candidate (K9's outputs: prediction [H, W] of the planes'
+// sample type; SAD, fwd_i,
 // bwd_i and the four MV fields int32 [H/16, W/16]) is optional: null
 // pointers select among the K references only.  Out: sel, mv_r, mv_c,
 // mv1_r, mv1_c, fwd_i, bwd_i int32 and mvb float32 [H/16, W/16]; cost
 // float32, the shapes' [H/h, W/w] grids concatenated.  Returns the CUDA
 // error.
 extern "C" int inter_select_launch(
-    const void* src, const void* preds, int K, int H, int W,
+    const void* src, const void* preds, int sample_bytes, int K, int H, int W,
     const void* mvq_r, const void* mvq_c, const void* sb_r, const void* sb_c,
     const void* tab, int n_tab, float pen_ref, float pen_comp, float pen_dev,
     float pen_mv, const void* shapes, const void* qpar, const void* dct,
@@ -642,22 +729,20 @@ extern "C" int inter_select_launch(
     void* out_mvb, void* out_cost, void* stream) {
   const bool comp = cpred != nullptr;
   if (K < 1 || K > kMaxRefs || H % 64 || W % 64 || H < 64 || W < 64 ||
-      (comp && !(csad && cfi && cbi && cmvr && cmvc && cmv1r && cmv1c)))
+      (comp && !(csad && cfi && cbi && cmvr && cmvc && cmv1r && cmv1c)) ||
+      (sample_bytes != 1 && sample_bytes != 2))
     return (int)cudaErrorInvalidValue;
-  cudaError_t e = cudaFuncSetAttribute(
-      inter_select_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)kSmemBytes);
-  if (e != cudaSuccess) return (int)e;
-  inter_select_kernel<<<(H / 64) * (W / 64), kThreads, kSmemBytes,
-                        (cudaStream_t)stream>>>(
-      (const uint8_t*)src, (const uint8_t*)preds, K, H, W,
-      (const int*)mvq_r, (const int*)mvq_c, (const int*)sb_r,
-      (const int*)sb_c, (const float*)tab, n_tab, pen_ref, pen_comp, pen_dev,
-      pen_mv, (const int*)shapes, (const float*)qpar, (const float4*)dct,
-      lam, (const uint8_t*)cpred, (const int*)csad, (const int*)cfi,
-      (const int*)cbi, (const int*)cmvr, (const int*)cmvc, (const int*)cmv1r,
-      (const int*)cmv1c, (int*)out_sel, (int*)out_mvr, (int*)out_mvc,
-      (int*)out_mv1r, (int*)out_mv1c, (int*)out_fwd, (int*)out_bwd,
-      (float*)out_mvb, (float*)out_cost);
-  return (int)cudaGetLastError();
+  return sample_bytes == 1
+             ? launch<uint8_t>(src, preds, K, H, W, mvq_r, mvq_c, sb_r, sb_c,
+                               tab, n_tab, pen_ref, pen_comp, pen_dev, pen_mv,
+                               shapes, qpar, dct, lam, cpred, csad, cfi, cbi,
+                               cmvr, cmvc, cmv1r, cmv1c, out_sel, out_mvr,
+                               out_mvc, out_mv1r, out_mv1c, out_fwd, out_bwd,
+                               out_mvb, out_cost, stream)
+             : launch<uint16_t>(src, preds, K, H, W, mvq_r, mvq_c, sb_r, sb_c,
+                                tab, n_tab, pen_ref, pen_comp, pen_dev,
+                                pen_mv, shapes, qpar, dct, lam, cpred, csad,
+                                cfi, cbi, cmvr, cmvc, cmv1r, cmv1c, out_sel,
+                                out_mvr, out_mvc, out_mv1r, out_mv1c, out_fwd,
+                                out_bwd, out_mvb, out_cost, stream);
 }

@@ -49,8 +49,31 @@
 //   flattened 33x33 grid.  The raw SAD is restored from the biased
 //   minimum; the second window replaces the first only where its raw
 //   SAD is strictly smaller.
+//
+// The 16-bit form (uint16_t: int16 planes of 10-bit samples, [0, 1023]):
+// * Windows are rows of 2-byte samples, 224 bytes from the 8-sample
+//   (16-byte) floor of the first column, loaded by the same 16-byte
+//   cp.async path or clamped reads.
+// * A thread's column unit is 4 samples (two words), not 8, so that its
+//   registers are the 8-bit form's: two source words per source row and
+//   three window words and two funnel shifts (by 0 or 16 bits) per window
+//   row.  The tasks double (16 units per band row), and the two (fine) or
+//   four (coarse) lanes of an 8x8 or 16x16 block are summed by shuffles.
+// * The SADs take two 16-bit absolute differences per word as packed
+//   halves (sad16.cuh): 16 rows of 2 words add at most 16 x 2 x 1023 =
+//   32,736 to a half, so no half carries; the halves are summed before
+//   the shuffles.
+// * An 8x8 SAD is at most 64 x 1023 = 65,472: the fine table stays
+//   uint16.  A 16x16 SAD reaches 256 x 1023 = 261,888, so the coarse
+//   table holds uint32 entries and takes one window at a time (about
+//   105 KB: two CTAs still share an SM, where both windows at once would
+//   need about 200 KB and one CTA per SM).
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
+
+#include "sad16.cuh"
 
 namespace {
 
@@ -59,33 +82,44 @@ constexpr int kR = 16;
 constexpr int kWin = kSB + 2 * kR;      // 96
 constexpr int kNpos = 2 * kR + 1;       // 33
 constexpr int kNoff = kNpos * kNpos;    // 1089
-constexpr int kRowBytes = 112;          // window row from its 16-byte floor
-constexpr int kRowWords = kRowBytes / 4;
-constexpr int kChunks = kRowBytes / 16;
-constexpr int kTabStride = 1090;        // halfwords per table entry
+constexpr int kTabStride = 1090;        // entries per table row
 constexpr int kMaxShapes = 8;
-constexpr int kBandTasks = 8 * kNpos;   // (dx, bx) pairs of a band
 
-template <bool kFine>
+// T: the sample type (uint8_t, or uint16_t for 10-bit samples)
+template <typename T, bool kFine>
 struct Cfg {
+  static constexpr int kWide = sizeof(T) == 2;
+  // a window row from its 16-byte floor: 112 samples
+  static constexpr int kRowBytes = 112 * (int)sizeof(T);
+  static constexpr int kRowWords = kRowBytes / 4;
+  static constexpr int kChunks = kRowBytes / 16;
+  static constexpr int kAlign = 16 / (int)sizeof(T);  // samples per 16 B
+  static constexpr int kUnitPx = 8 / (int)sizeof(T);  // a thread's columns
+  static constexpr int kUnits = 64 / kUnitPx;         // units per row
+  static constexpr int kUnitsLog2 = kWide ? 4 : 3;
+  static constexpr int kBandTasks = kUnits * kNpos;   // (dx, unit) pairs
   static constexpr int F = kFine ? 1 : 2;            // block rows per band
   static constexpr int kBands = 8 / F;
   static constexpr int kEntries = kFine ? 64 : 16;   // table entries
-  static constexpr int kWins = kFine ? 1 : 2;        // windows at once
+  static constexpr int kWins = kFine || kWide ? 1 : 2;  // windows at once
   static constexpr int kTasks = kWins * kBands * kBandTasks;
   static constexpr int kThreads = kFine ? 704 : 352;
   static constexpr int kMinBlocks = kFine ? 1 : 2;
   static constexpr int kMaxOut = kFine ? 165 : 37;   // blocks of all shapes
-  static constexpr size_t kSrcBytes = (size_t)kSB * kSB;
+  static constexpr size_t kSrcBytes = (size_t)kSB * kSB * sizeof(T);
   static constexpr size_t kWinBytes = (size_t)kWins * kWin * kRowBytes;
+  // the coarse 16x16 SADs of 10-bit samples need 32-bit entries
+  using Tab = typename std::conditional<!kFine && kWide, uint32_t,
+                                        uint16_t>::type;
   static constexpr size_t kTabBytes =
-      (size_t)kWins * kEntries * kTabStride * 2;
+      (size_t)kWins * kEntries * kTabStride * sizeof(Tab);
   static constexpr size_t kS64Bytes = (size_t)kWins * kNoff * 4;
   static constexpr size_t kResBytes = (size_t)2 * kMaxOut * 3 * 4;
   static constexpr size_t kSmemBytes =
       kSrcBytes + kWinBytes + kTabBytes + kS64Bytes + kResBytes;
   static_assert(kTasks % kThreads == 0, "every lane takes whole tasks");
   static_assert(kThreads % 32 == 0, "whole warps");
+  static_assert(kSmemBytes <= 232448, "one CTA's shared memory");
 };
 
 struct Spec {
@@ -124,6 +158,17 @@ __device__ __forceinline__ uint32_t sad4(uint32_t a, uint32_t b,
   return d;
 }
 
+// the word pair's SAD into acc: four byte pairs into a 32-bit sum (8-bit
+// form), or two 16-bit pairs into packed 16-bit halves (16-bit form)
+template <typename T>
+__device__ __forceinline__ uint32_t sad_word(uint32_t a, uint32_t b,
+                                             uint32_t acc) {
+  if constexpr (sizeof(T) == 1)
+    return sad4(a, b, acc);
+  else
+    return sad16x2(a, b, acc);
+}
+
 __device__ __forceinline__ void cp_async16(void* dst, const void* src) {
   const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
@@ -135,20 +180,28 @@ __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_group 0;\n" ::: "memory");
 }
 
-template <bool kFine>
-__global__ void __launch_bounds__(Cfg<kFine>::kThreads, Cfg<kFine>::kMinBlocks)
-me_refine_kernel(const uint8_t* __restrict__ src,
-                 const uint8_t* __restrict__ ref, int H, int W, int row0,
-                 const int* __restrict__ coarse, Spec spec,
+template <typename T, bool kFine>
+__global__ void __launch_bounds__(Cfg<T, kFine>::kThreads,
+                                  Cfg<T, kFine>::kMinBlocks)
+me_refine_kernel(const T* __restrict__ src, const T* __restrict__ ref, int H,
+                 int W, int row0, const int* __restrict__ coarse, Spec spec,
                  int* __restrict__ out) {
-  using C = Cfg<kFine>;
+  using C = Cfg<T, kFine>;
+  using Tab = typename C::Tab;
   constexpr int F = C::F;
   constexpr int kT = C::kThreads;
   constexpr int kNWarps = kT / 32;
+  constexpr int kRowBytes = C::kRowBytes, kRowWords = C::kRowWords;
+  constexpr int kChunks = C::kChunks, kBandTasks = C::kBandTasks;
+  constexpr int kUnits = C::kUnits;
+  constexpr int kSrcWords = kSB * (int)sizeof(T) / 4;   // per source row
+  constexpr int kSrcLog2 = sizeof(T) == 1 ? 4 : 5;
+  constexpr int kPerWord = 4 / (int)sizeof(T);          // samples a word
+  constexpr int kPerWordLog2 = sizeof(T) == 1 ? 2 : 1;
   extern __shared__ __align__(16) uint8_t smem[];
   uint32_t* sbw = reinterpret_cast<uint32_t*>(smem);
   uint8_t* winb = smem + C::kSrcBytes;
-  uint16_t* tab = reinterpret_cast<uint16_t*>(winb + C::kWinBytes);
+  Tab* tab = reinterpret_cast<Tab*>(winb + C::kWinBytes);
   uint32_t* s64 = reinterpret_cast<uint32_t*>(smem + C::kSrcBytes +
                                               C::kWinBytes + C::kTabBytes);
   int* res = reinterpret_cast<int*>(s64 + C::kWins * kNoff);
@@ -164,9 +217,10 @@ me_refine_kernel(const uint8_t* __restrict__ src,
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const bool ref_aligned = ((uintptr_t)ref & 15) == 0;
 
-  for (int k = tid; k < kSB * 16; k += kT)     // 64 rows x 16 words
+  for (int k = tid; k < kSB * kSrcWords; k += kT)     // 64 rows
     sbw[k] = *reinterpret_cast<const uint32_t*>(
-        src + (size_t)(src_y + (k >> 4)) * W + pos_x + (k & 15) * 4);
+        src + (size_t)(src_y + (k >> kSrcLog2)) * W + pos_x +
+        (k & (kSrcWords - 1)) * kPerWord);
 
   for (int pass = 0; pass < 2 / C::kWins; ++pass) {
     // window origins of this pass: candidate 0 at the coarse winner,
@@ -182,20 +236,22 @@ me_refine_kernel(const uint8_t* __restrict__ src,
 #pragma unroll
     for (int wi = 0; wi < C::kWins; ++wi) {
       const int2 o = origin(wi);
-      const int oxa = o.y - (o.y & 15);
+      const int oxa = o.y - (o.y & (C::kAlign - 1));
       uint8_t* wb = winb + (size_t)wi * kWin * kRowBytes;
+      constexpr int kRowPx = kRowBytes / (int)sizeof(T);
       const bool inside = ref_aligned && o.x >= 0 && o.x + kWin <= H &&
-                          oxa >= 0 && oxa + kRowBytes <= W;
+                          oxa >= 0 && oxa + kRowPx <= W;
       if (inside) {
         for (int k = tid; k < kWin * kChunks; k += kT) {
           const int i = k / kChunks, ch = k - i * kChunks;
           cp_async16(wb + i * kRowBytes + ch * 16,
-                     ref + (size_t)(o.x + i) * W + oxa + ch * 16);
+                     ref + (size_t)(o.x + i) * W + oxa + ch * C::kAlign);
         }
       } else {
-        for (int k = tid; k < kWin * kRowBytes; k += kT) {
-          const int i = k / kRowBytes, j = k - i * kRowBytes;
-          wb[k] = ref[(size_t)clampi(o.x + i, 0, H - 1) * W +
+        T* wt = reinterpret_cast<T*>(wb);
+        for (int k = tid; k < kWin * kRowPx; k += kT) {
+          const int i = k / kRowPx, j = k - i * kRowPx;
+          wt[k] = ref[(size_t)clampi(o.x + i, 0, H - 1) * W +
                       clampi(oxa + j, 0, W - 1)];
         }
       }
@@ -203,25 +259,27 @@ me_refine_kernel(const uint8_t* __restrict__ src,
     cp_async_wait_all();
     __syncthreads();
 
-    // SADs: task = (window, band, dx, bx), bx fastest
+    // SADs: task = (window, band, dx, unit), the unit (bx at 8 bits, the
+    // 4-sample half of bx at 16) fastest
     for (int task = tid; task < C::kTasks; task += kT) {
       const int wi = task / (C::kBands * kBandTasks);
       const int rem = task - wi * (C::kBands * kBandTasks);
       const int band = rem / kBandTasks;
       const int q = rem - band * kBandTasks;
-      const int dx = q >> 3, bx = q & 7;
+      const int dx = q >> C::kUnitsLog2, bx = q & (kUnits - 1);
       uint32_t s_lo[8 * F], s_hi[8 * F];
 #pragma unroll
       for (int i = 0; i < 8 * F; ++i) {
-        s_lo[i] = sbw[(band * 8 * F + i) * 16 + bx * 2];
-        s_hi[i] = sbw[(band * 8 * F + i) * 16 + bx * 2 + 1];
+        s_lo[i] = sbw[(band * 8 * F + i) * kSrcWords + bx * 2];
+        s_hi[i] = sbw[(band * 8 * F + i) * kSrcWords + bx * 2 + 1];
       }
-      const int x = (origin(wi).y & 15) + bx * 8 + dx;
-      const int sh = (x & 3) * 8;
+      // the unit's first window sample, its word and the shift within it
+      const int x = (origin(wi).y & (C::kAlign - 1)) + bx * C::kUnitPx + dx;
+      const int sh = (x & (kPerWord - 1)) * 8 * (int)sizeof(T);
       const uint32_t* wrow =
           reinterpret_cast<const uint32_t*>(winb + (size_t)wi * kWin *
                                                        kRowBytes) +
-          band * 8 * F * kRowWords + (x >> 2);
+          band * 8 * F * kRowWords + (x >> kPerWordLog2);
       uint32_t acc[kNpos];
 #pragma unroll
       for (int d = 0; d < kNpos; ++d) acc[d] = 0;
@@ -236,20 +294,43 @@ me_refine_kernel(const uint8_t* __restrict__ src,
         for (int i = 0; i < 8 * F; ++i) {
           const int dy = yy - i;
           if (dy >= 0 && dy < kNpos)
-            acc[dy] = sad4(hi, s_hi[i], sad4(lo, s_lo[i], acc[dy]));
+            acc[dy] = sad_word<T>(hi, s_hi[i],
+                                  sad_word<T>(lo, s_lo[i], acc[dy]));
         }
       }
-      if (kFine) {
-        uint16_t* t = tab + (size_t)(band * 8 + bx) * kTabStride + dx;
+      if constexpr (sizeof(T) == 2) {
 #pragma unroll
-        for (int d = 0; d < kNpos; ++d) t[d * kNpos] = (uint16_t)acc[d];
+        for (int d = 0; d < kNpos; ++d)
+          acc[d] = halves16(acc[d]);
+      }
+      if constexpr (sizeof(T) == 1) {
+        if (kFine) {
+          uint16_t* t = tab + (size_t)(band * 8 + bx) * kTabStride + dx;
+#pragma unroll
+          for (int d = 0; d < kNpos; ++d) t[d * kNpos] = (uint16_t)acc[d];
+        } else {
+          uint16_t* t = tab + (size_t)(wi * C::kEntries + band * 4 +
+                                       (bx >> 1)) * kTabStride + dx;
+#pragma unroll
+          for (int d = 0; d < kNpos; ++d) {
+            const uint32_t v =
+                acc[d] + __shfl_xor_sync(0xffffffffu, acc[d], 1);
+            if (!(bx & 1)) t[d * kNpos] = (uint16_t)v;
+          }
+        }
       } else {
-        uint16_t* t = tab + (size_t)(wi * C::kEntries + band * 4 + (bx >> 1)) *
-                                kTabStride + dx;
+        // the 8x8 (fine: two units) or 16x16 (coarse: four) block's SAD
+        // on the lane of its first unit
+        constexpr int kLanes = kFine ? 2 : 4;
+        Tab* t = tab + (size_t)(wi * C::kEntries +
+                                (kFine ? band * 8 + (bx >> 1)
+                                       : band * 4 + (bx >> 2))) *
+                           kTabStride + dx;
 #pragma unroll
         for (int d = 0; d < kNpos; ++d) {
-          const uint32_t v = acc[d] + __shfl_xor_sync(0xffffffffu, acc[d], 1);
-          if (!(bx & 1)) t[d * kNpos] = (uint16_t)v;
+          uint32_t v = acc[d] + __shfl_xor_sync(0xffffffffu, acc[d], 1);
+          if (!kFine) v += __shfl_xor_sync(0xffffffffu, v, 2);
+          if (!(bx & (kLanes - 1))) t[d * kNpos] = (Tab)v;
         }
       }
     }
@@ -266,7 +347,7 @@ me_refine_kernel(const uint8_t* __restrict__ src,
       for (int o = tid; o < kNoff; o += kT) {
 #pragma unroll
         for (int wi = 0; wi < C::kWins; ++wi) {
-          const uint16_t* t = tab + (size_t)wi * C::kEntries * kTabStride + o;
+          const Tab* t = tab + (size_t)wi * C::kEntries * kTabStride + o;
           int s = 0;
 #pragma unroll 16
           for (int e = 0; e < C::kEntries; ++e) s += t[e * kTabStride];
@@ -311,7 +392,7 @@ me_refine_kernel(const uint8_t* __restrict__ src,
       // table entries of the block: 8x8 units (fine) or 16x16 (coarse)
       const int u = kFine ? 1 : 2, tw = 8 / u;
       const int ey0 = oby / u, ex0 = obx / u, ny = fy / u, nx = fx / u;
-      const uint16_t* t = tab + (size_t)wi * C::kEntries * kTabStride;
+      const Tab* t = tab + (size_t)wi * C::kEntries * kTabStride;
       const uint32_t* t64 = s64 + wi * kNoff;
       const bool whole = fy == 8 && fx == 8;
       int bc = 0x7fffffff, bi = 0x7fffffff;
@@ -354,42 +435,44 @@ me_refine_kernel(const uint8_t* __restrict__ src,
   }
 }
 
-template <bool kFine>
+template <typename T, bool kFine>
 int launch(const void* src, const void* ref, int rows, int H, int W,
            int row0, const void* coarse, const Spec& spec, void* out,
            void* stream) {
-  using C = Cfg<kFine>;
+  using C = Cfg<T, kFine>;
   if (spec.n_out > C::kMaxOut) return (int)cudaErrorInvalidValue;
   cudaError_t e = cudaFuncSetAttribute(
-      me_refine_kernel<kFine>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)C::kSmemBytes);
+      me_refine_kernel<T, kFine>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)C::kSmemBytes);
   if (e != cudaSuccess) return (int)e;
   const int n = (rows / kSB) * (W / kSB);
-  me_refine_kernel<kFine><<<n, C::kThreads, C::kSmemBytes,
-                            (cudaStream_t)stream>>>(
-      (const uint8_t*)src, (const uint8_t*)ref, H, W, row0,
-      (const int*)coarse, spec, (int*)out);
+  me_refine_kernel<T, kFine><<<n, C::kThreads, C::kSmemBytes,
+                               (cudaStream_t)stream>>>(
+      (const T*)src, (const T*)ref, H, W, row0, (const int*)coarse, spec,
+      (int*)out);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// src: uint8 [rows, W], the frame or a stripe starting at global row
-// row0; ref: uint8 [H, W], the whole reference (whole 64x64 SBs, row0 +
-// rows <= H; below 96 samples a window's origin clamps to -16, where
-// both clip bounds meet at 64); coarse: int32 [N, 2] full-pel coarse MVs
-// per SB of the source (raster order); spec: host int32 [n_shapes, 2]
-// (h/8, w/8) per shape, each of the 8 ME shapes at most once; out: int32
-// [N, n_out, 4] = (mv_r, mv_c, raw SAD, winning window) per output
-// block, shapes in spec order, blocks raster within each shape.  Returns
-// the CUDA error of the launch.
-extern "C" int me_refine_launch(const void* src, const void* ref, int rows,
-                                int H, int W, int row0, const void* coarse,
+// src: [rows, W], the frame or a stripe starting at global row row0; ref:
+// [H, W], the whole reference (whole 64x64 SBs, row0 + rows <= H; below
+// 96 samples a window's origin clamps to -16, where both clip bounds meet
+// at 64); samples of sample_bytes bytes (1: uint8; 2: 16-bit words of
+// 10-bit samples, int16 planes holding [0, 1023]); coarse: int32 [N, 2]
+// full-pel coarse MVs per SB of the source (raster order); spec: host
+// int32 [n_shapes, 2] (h/8, w/8) per shape, each of the 8 ME shapes at
+// most once; out: int32 [N, n_out, 4] = (mv_r, mv_c, raw SAD, winning
+// window) per output block, shapes in spec order, blocks raster within
+// each shape.  Returns the CUDA error of the launch.
+extern "C" int me_refine_launch(const void* src, const void* ref,
+                                int sample_bytes, int rows, int H, int W,
+                                int row0, const void* coarse,
                                 const int* spec, int n_shapes, void* out,
                                 void* stream) {
   if (rows < kSB || rows % kSB || H % kSB || W < kSB || W % kSB ||
       row0 < 0 || row0 % kSB || row0 + rows > H || n_shapes < 1 ||
-      n_shapes > kMaxShapes)
+      n_shapes > kMaxShapes || (sample_bytes != 1 && sample_bytes != 2))
     return (int)cudaErrorInvalidValue;
   Spec sp{};
   sp.n_shapes = n_shapes;
@@ -406,8 +489,13 @@ extern "C" int me_refine_launch(const void* src, const void* ref, int rows,
     sp.n_out += (8 / fy) * (8 / fx);
     fine |= fy == 1 || fx == 1;
   }
-  return fine ? launch<true>(src, ref, rows, H, W, row0, coarse, sp, out,
-                             stream)
-              : launch<false>(src, ref, rows, H, W, row0, coarse, sp, out,
-                              stream);
+  if (sample_bytes == 2)
+    return fine ? launch<uint16_t, true>(src, ref, rows, H, W, row0, coarse,
+                                         sp, out, stream)
+                : launch<uint16_t, false>(src, ref, rows, H, W, row0, coarse,
+                                          sp, out, stream);
+  return fine ? launch<uint8_t, true>(src, ref, rows, H, W, row0, coarse, sp,
+                                      out, stream)
+              : launch<uint8_t, false>(src, ref, rows, H, W, row0, coarse, sp,
+                                       out, stream);
 }

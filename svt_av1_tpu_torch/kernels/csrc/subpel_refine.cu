@@ -45,6 +45,19 @@
 // further down the whole reference, whose height bounds the patch origin.
 // Signs: dy8 >> 3 is an arithmetic shift (floor), (dx8 & 7) * 2 the q4
 // filter phase.
+//
+// The 16-bit form (uint16_t: int16 planes of 10-bit samples, bd 10).  The
+// patch holds 2-byte samples, and a horizontal output is four dp2a (two
+// 16-bit samples by two signed 8-bit taps each) over sample pairs built
+// with funnel shifts, where the 8-bit form takes two dp4a.  The offsets
+// follow bd as convolve_2d_sr's do: the "both" intermediate is
+// im = (h + 2^(bd+6) + 4) >> 3, which lies in [4612, 28141] at 10 bits
+// (the REGULAR phases' negative taps sum to at most 28, their positive
+// ones to at most 156) and so still fits the 16-bit column tables and the
+// vertical dp2a; the x-only rounding is (im - 2^(bd+3) + 8) >> 4, the
+// "both" one ((v + 2^(bd+11) + 1024) >> 11) - 2^bd - 2^(bd-1), and every
+// prediction is clamped to [0, 2^bd).  tests/test_torch_tenbit_inter.py
+// holds these ranges over every reachable sum.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -91,20 +104,30 @@ __device__ __forceinline__ int tap_of(uint32_t t0, uint32_t t1, int t) {
   return (int)(int8_t)(((t < 4 ? t0 : t1) >> (8 * (t & 3))) & 255);
 }
 
+// the pair of 16-bit samples o, o + 1 of the 24-sample row w (o static)
+__device__ __forceinline__ uint32_t pair16(const uint32_t (&w)[12], int o) {
+  return (o & 1) ? __funnelshift_r(w[o >> 1], w[(o >> 1) + 1], 16)
+                 : w[o >> 1];
+}
+
+// T: uint8_t (8-bit video) or uint16_t (10-bit samples)
+template <typename T>
 __global__ void __launch_bounds__(32 * kWarps) subpel_refine_kernel(
-    const uint8_t* __restrict__ src, const uint8_t* __restrict__ ref, int H,
-    int W, int row0, int n_units, const int* __restrict__ mv_r16,
+    const T* __restrict__ src, const T* __restrict__ ref, int H, int W,
+    int row0, int n_units, const int* __restrict__ mv_r16,
     const int* __restrict__ mv_c16, const int* __restrict__ taps,
-    int* __restrict__ out_r, int* __restrict__ out_c,
-    uint8_t* __restrict__ pred) {
-  __shared__ __align__(16) uint32_t patch_w[kWarps][kRows * kRows / 4];
+    int* __restrict__ out_r, int* __restrict__ out_c, T* __restrict__ pred) {
+  constexpr int kBd = sizeof(T) == 1 ? 8 : 10;
+  constexpr int kMax = (1 << kBd) - 1;
+  constexpr int kRowW = kRows * (int)sizeof(T) / 4;   // patch row words
+  __shared__ __align__(16) uint32_t patch_w[kWarps][kRows * kRowW];
   __shared__ __align__(16) int16_t tab_s[kWarps][kCols * kRows];
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int u = blockIdx.x * kWarps + warp;
   if (u >= n_units) return;
   const int nc16 = W >> 4;
   const int uy = u / nc16, ux = u - uy * nc16;
-  uint8_t* patch = reinterpret_cast<uint8_t*>(patch_w[warp]);
+  T* patch = reinterpret_cast<T*>(patch_w[warp]);
   int16_t* tab = tab_s[warp];
 
   // the taps of q4 = 4, 8, 12 as signed bytes: word 2k + half holds taps
@@ -141,25 +164,54 @@ __global__ void __launch_bounds__(32 * kWarps) subpel_refine_kernel(
   __syncwarp();
 
   // (2) the column tables, one patch row per lane
-  if (lane < kRows) {
-    uint32_t w[6];
+  if constexpr (sizeof(T) == 1) {
+    if (lane < kRows) {
+      uint32_t w[6];
 #pragma unroll
-    for (int k = 0; k < 6; ++k) w[k] = patch_w[warp][lane * 6 + k];
-    int16_t* row = tab + lane;
+      for (int k = 0; k < 6; ++k) w[k] = patch_w[warp][lane * 6 + k];
+      int16_t* row = tab + lane;
 #pragma unroll
-    for (int j = 3; j <= 19; ++j) {
-      const uint32_t lo = bytes4(w, j - 3), hi = bytes4(w, j + 1);
-      const int h8 = dp4a_su(t8a, lo, dp4a_su(t8b, hi, 0));
-      row[(kT8 + j - 3) * kRows] = (int16_t)((h8 + (1 << 14) + 4) >> 3);
-      if (j <= 18) {
-        const int h12 = dp4a_su(t12a, lo, dp4a_su(t12b, hi, 0));
-        row[(kT12 + j - 3) * kRows] = (int16_t)((h12 + (1 << 14) + 4) >> 3);
+      for (int j = 3; j <= 19; ++j) {
+        const uint32_t lo = bytes4(w, j - 3), hi = bytes4(w, j + 1);
+        const int h8 = dp4a_su(t8a, lo, dp4a_su(t8b, hi, 0));
+        row[(kT8 + j - 3) * kRows] = (int16_t)((h8 + (1 << 14) + 4) >> 3);
+        if (j <= 18) {
+          const int h12 = dp4a_su(t12a, lo, dp4a_su(t12b, hi, 0));
+          row[(kT12 + j - 3) * kRows] =
+              (int16_t)((h12 + (1 << 14) + 4) >> 3);
+        }
+        if (j >= 4) {
+          const int h4 = dp4a_su(t4a, lo, dp4a_su(t4b, hi, 0));
+          row[(kT4 + j - 4) * kRows] = (int16_t)((h4 + (1 << 14) + 4) >> 3);
+          row[(kCopy + j - 4) * kRows] =
+              (int16_t)((w[j >> 2] >> (8 * (j & 3))) & 255);
+        }
       }
-      if (j >= 4) {
-        const int h4 = dp4a_su(t4a, lo, dp4a_su(t4b, hi, 0));
-        row[(kT4 + j - 4) * kRows] = (int16_t)((h4 + (1 << 14) + 4) >> 3);
-        row[(kCopy + j - 4) * kRows] =
-            (int16_t)((w[j >> 2] >> (8 * (j & 3))) & 255);
+    }
+  } else {
+    // four dp2a per output over the pairs (j-3, j-2) .. (j+3, j+4)
+    constexpr int kOff = 1 << (kBd + 6);
+    if (lane < kRows) {
+      uint32_t w[12];
+#pragma unroll
+      for (int k = 0; k < 12; ++k) w[k] = patch_w[warp][lane * 12 + k];
+      int16_t* row = tab + lane;
+#pragma unroll
+      for (int j = 3; j <= 19; ++j) {
+        const uint32_t p0 = pair16(w, j - 3), p1 = pair16(w, j - 1);
+        const uint32_t p2 = pair16(w, j + 1), p3 = pair16(w, j + 3);
+        const int h8 = vfilt(p0, p1, p2, p3, t8a, t8b, 0);
+        row[(kT8 + j - 3) * kRows] = (int16_t)((h8 + kOff + 4) >> 3);
+        if (j <= 18) {
+          const int h12 = vfilt(p0, p1, p2, p3, t12a, t12b, 0);
+          row[(kT12 + j - 3) * kRows] = (int16_t)((h12 + kOff + 4) >> 3);
+        }
+        if (j >= 4) {
+          const int h4 = vfilt(p0, p1, p2, p3, t4a, t4b, 0);
+          row[(kT4 + j - 4) * kRows] = (int16_t)((h4 + kOff + 4) >> 3);
+          row[(kCopy + j - 4) * kRows] =
+              (int16_t)((w[j >> 1] >> (16 * (j & 1))) & 0xffff);
+        }
       }
     }
   }
@@ -187,8 +239,9 @@ __global__ void __launch_bounds__(32 * kWarps) subpel_refine_kernel(
     O[7] = P[7] >> 16;
     const bool copy = ix == 2;
     // y-only (copy column) and both: the vertical sums' start values
-    const int v0 = copy ? 64 : (1 << 19) + 1024;
-    const int sh = copy ? 7 : 11, sub = copy ? 0 : 384;
+    const int v0 = copy ? 64 : (1 << (kBd + 11)) + 1024;
+    const int sh = copy ? 7 : 11;
+    const int sub = copy ? 0 : (1 << kBd) + (1 << (kBd - 1));
     // window offset o (rows r0 + o .. r0 + o + 7) of a vertical phase
 #define VF(o, ta, tb)                                                    \
   ((o) & 1 ? vfilt(O[(o) >> 1], O[((o) >> 1) + 1], O[((o) >> 1) + 2],    \
@@ -204,13 +257,13 @@ __global__ void __launch_bounds__(32 * kWarps) subpel_refine_kernel(
       // m + 1), 4 (8, m + 1)
       const int mid = (int)(((m + 4) & 1 ? P[(m + 4) >> 1] >> 16
                                          : P[(m + 4) >> 1] & 0xffff));
-      const int p0 = copy ? mid : (mid - 2040) >> 4;
+      const int p0 = copy ? mid : (mid - ((1 << (kBd + 3)) - 8)) >> 4;
       const int p[5] = {(v8[m] >> sh) - sub, (VF(m, t12a, t12b) >> sh) - sub,
                         p0, (VF(m + 1, t4a, t4b) >> sh) - sub,
                         (v8[m + 1] >> sh) - sub};
 #pragma unroll
       for (int iy = 0; iy < 5; ++iy)
-        sad[iy * 5 + ix] = (int)__sad(s[m], clampi(p[iy], 0, 255),
+        sad[iy * 5 + ix] = (int)__sad(s[m], clampi(p[iy], 0, kMax),
                                       (unsigned)sad[iy * 5 + ix]);
     }
 #undef VF
@@ -237,20 +290,22 @@ __global__ void __launch_bounds__(32 * kWarps) subpel_refine_kernel(
   const uint32_t ta = iy == 1 ? t12a : iy == 3 ? t4a : t8a;
   const uint32_t tb = iy == 1 ? t12b : iy == 3 ? t4b : t8b;
   const int off = iy >= 3 ? 1 : 0;
-  uint8_t* prow = pred + (size_t)(uy * 16 + r0) * W + ux * 16 + c;
+  T* prow = pred + (size_t)(uy * 16 + r0) * W + ux * 16 + c;
 #pragma unroll
   for (int m = 0; m < 8; ++m) {
     int p;
     if (iy == 2) {
       p = cv[m + 4];
-      if (ix != 2) p = (p - 2040) >> 4;
+      if (ix != 2) p = (p - ((1 << (kBd + 3)) - 8)) >> 4;
     } else {
       int acc = 0;
 #pragma unroll
       for (int t = 0; t < 8; ++t) acc += tap_of(ta, tb, t) * cv[m + off + t];
-      p = ix == 2 ? (acc + 64) >> 7 : ((acc + (1 << 19) + 1024) >> 11) - 384;
+      p = ix == 2 ? (acc + 64) >> 7
+                  : ((acc + (1 << (kBd + 11)) + 1024) >> 11) -
+                        ((1 << kBd) + (1 << (kBd - 1)));
     }
-    prow[(size_t)m * W] = (uint8_t)clampi(p, 0, 255);
+    prow[(size_t)m * W] = (T)clampi(p, 0, kMax);
   }
   if (lane == 0) {
     out_r[u] = mr * 8 + (iy - 2) * 2;
@@ -258,28 +313,43 @@ __global__ void __launch_bounds__(32 * kWarps) subpel_refine_kernel(
   }
 }
 
+template <typename T>
+int launch(const void* src, const void* ref, int rows, int H, int W,
+           int row0, const void* mv_r16, const void* mv_c16,
+           const void* taps, void* out_r, void* out_c, void* pred,
+           void* stream) {
+  const int n_units = (rows / 16) * (W / 16);
+  subpel_refine_kernel<T><<<(n_units + kWarps - 1) / kWarps, 32 * kWarps, 0,
+                            (cudaStream_t)stream>>>(
+      (const T*)src, (const T*)ref, H, W, row0, n_units, (const int*)mv_r16,
+      (const int*)mv_c16, (const int*)taps, (int*)out_r, (int*)out_c,
+      (T*)pred);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
-// src: uint8 [rows, W], the frame or a stripe starting at global row
-// row0; ref: uint8 [H, W], the whole reference (rows, H, W multiples of
-// 16, row0 + rows <= H); mv_r16, mv_c16: int32 [rows/16, W/16] full-pel;
-// taps: int32 [16, 8] REGULAR 8-tap kernels by q4 phase (phases 4, 8 and
-// 12 are read, each tap in [-128, 127]); out_r, out_c: int32 [rows/16,
-// W/16] eighth-pel MVs; pred: uint8 [rows, W] winning predictions.
+// src: [rows, W], the frame or a stripe starting at global row row0; ref:
+// [H, W], the whole reference (rows, H, W multiples of 16, row0 + rows <=
+// H); samples of sample_bytes bytes (1: uint8, 8-bit video; 2: 16-bit
+// words of 10-bit samples, int16 planes holding [0, 1023], filtered at bd
+// 10); mv_r16, mv_c16: int32 [rows/16, W/16] full-pel; taps: int32 [16,
+// 8] REGULAR 8-tap kernels by q4 phase (phases 4, 8 and 12 are read, each
+// tap in [-128, 127]); out_r, out_c: int32 [rows/16, W/16] eighth-pel
+// MVs; pred: [rows, W] winning predictions in the planes' sample type.
 // Returns the CUDA error of the launch.
 extern "C" int subpel_refine_launch(const void* src, const void* ref,
-                                    int rows, int H, int W, int row0,
-                                    const void* mv_r16, const void* mv_c16,
-                                    const void* taps, void* out_r,
-                                    void* out_c, void* pred, void* stream) {
+                                    int sample_bytes, int rows, int H, int W,
+                                    int row0, const void* mv_r16,
+                                    const void* mv_c16, const void* taps,
+                                    void* out_r, void* out_c, void* pred,
+                                    void* stream) {
   if (rows < 16 || rows % 16 || H % 16 || W % 16 || H < kP || W < kP ||
-      row0 < 0 || row0 + rows > H)
+      row0 < 0 || row0 + rows > H || (sample_bytes != 1 && sample_bytes != 2))
     return (int)cudaErrorInvalidValue;
-  const int n_units = (rows / 16) * (W / 16);
-  subpel_refine_kernel<<<(n_units + kWarps - 1) / kWarps, 32 * kWarps, 0,
-                         (cudaStream_t)stream>>>(
-      (const uint8_t*)src, (const uint8_t*)ref, H, W, row0, n_units,
-      (const int*)mv_r16, (const int*)mv_c16, (const int*)taps, (int*)out_r,
-      (int*)out_c, (uint8_t*)pred);
-  return (int)cudaGetLastError();
+  return sample_bytes == 1
+             ? launch<uint8_t>(src, ref, rows, H, W, row0, mv_r16, mv_c16,
+                               taps, out_r, out_c, pred, stream)
+             : launch<uint16_t>(src, ref, rows, H, W, row0, mv_r16, mv_c16,
+                                taps, out_r, out_c, pred, stream);
 }

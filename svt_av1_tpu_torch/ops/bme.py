@@ -27,6 +27,8 @@ import functools
 import numpy as np
 import torch
 
+from ..device import SAMPLE_DTYPES
+
 SB = 64
 COARSE_R = 8            # +-8 at /8 => +-64 full-pel
 # full-res refinement reach around the coarse winner: the /8 coarse SAD
@@ -237,9 +239,10 @@ def refine_plain(src, ref, coarse, shapes=ME_SHAPES, row0: int = 0) -> dict:
 
 def subpel_plain(src, ref, mv_r16, mv_c16, bd: int = 8, row0: int = 0):
     """Quarter-pel refinement per 16x16 unit (plain): returns (mvq8_r,
-    mvq8_c) int32 [nr16, nc16] and the assembled best prediction, uint8
-    [rows, W] for the ``rows`` of ``src`` (a stripe at global row
-    ``row0`` of the whole reference ``ref``, or the whole frame)."""
+    mvq8_c) int32 [nr16, nc16] and the assembled best prediction [rows,
+    W] in the planes' sample type (``device.SAMPLE_DTYPES[bd]``: uint8 at
+    8 bits, int16 at 10) for the ``rows`` of ``src`` (a stripe at global
+    row ``row0`` of the whole reference ``ref``, or the whole frame)."""
     from .inter import convolve_2d_sr_torch
 
     H, W = ref.shape
@@ -284,7 +287,7 @@ def subpel_plain(src, ref, mv_r16, mv_c16, bd: int = 8, row0: int = 0):
     mvq8_r = (mv_r16 * 8 + best_dy.reshape(nr16, nc16)).to(torch.int32)
     mvq8_c = (mv_c16 * 8 + best_dx.reshape(nr16, nc16)).to(torch.int32)
     pred = best_pred.reshape(nr16, nc16, 16, 16).permute(0, 2, 1, 3) \
-        .reshape(nr16 * 16, nc16 * 16).to(torch.uint8)
+        .reshape(nr16 * 16, nc16 * 16).to(SAMPLE_DTYPES[bd])
     return mvq8_r, mvq8_c, pred
 
 
@@ -314,18 +317,26 @@ def to_block_maps(me_out, buf_w: int, buf_h: int):
 # --------------------------------------------------------------------------
 
 def _check_planes(name: str, src: torch.Tensor, ref: torch.Tensor,
-                  row0: int):
+                  row0: int) -> int:
     """The planes K5-K7 take: ``ref`` the whole [H, W] reference, ``src``
     the whole frame or a stripe of its rows starting at ``row0``, both
-    contiguous uint8 on one CUDA device, whole 64x64 superblocks (a
-    plane of one SB row or column clamps its windows to one origin, as
-    the numpy twin's clip does)."""
+    contiguous on one CUDA device and of one sample type: uint8 (8-bit
+    video, and MCTF's planes at any bit depth, which the reference
+    narrows) or int16 holding 10-bit samples in [0, 1023]
+    (``device.SAMPLE_DTYPES``); whole 64x64 superblocks (a plane of one SB
+    row or column clamps its windows to one origin, as the numpy twin's
+    clip does).  Returns the bytes per sample, which selects the kernel's
+    form."""
     for t in (src, ref):
         if t.device.type != "cuda":
             raise ValueError(f"{name}: unsupported device {t.device}")
-        if t.dtype != torch.uint8 or t.dim() != 2 or not t.is_contiguous():
-            raise ValueError(f"{name} takes contiguous 8-bit [H, W] uint8 "
-                             "planes")
+        if t.dtype not in (torch.uint8, torch.int16) or t.dim() != 2 \
+                or not t.is_contiguous():
+            raise ValueError(f"{name} takes contiguous [H, W] uint8 or "
+                             "int16 (10-bit) planes")
+    if src.dtype != ref.dtype:
+        raise ValueError(f"{name}: source {src.dtype} and reference "
+                         f"{ref.dtype} differ")
     if src.device != ref.device:
         raise ValueError(f"{name}: planes on different devices")
     rows, w_src = src.shape
@@ -336,6 +347,7 @@ def _check_planes(name: str, src: torch.Tensor, ref: torch.Tensor,
                          f"{tuple(ref.shape)}")
     if rows % SB or rows == 0 or H % SB or W % SB or W == 0:
         raise ValueError(f"{name}: planes must be whole 64x64 superblocks")
+    return src.element_size()
 
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
@@ -346,11 +358,12 @@ def me_coarse(src: torch.Tensor, ref: torch.Tensor,
     """K5: the SB-level coarse search, mv [n_sby, n_sbx, 2] int32, of
     ``src`` (the frame, or a stripe at global row ``row0``) against the
     whole reference ``ref``.  CPU tensors take the plain version; CUDA
-    tensors launch kernels/csrc/me_coarse.cu once."""
+    tensors launch kernels/csrc/me_coarse.cu once, its 8-bit form on
+    uint8 planes and its 16-bit form on int16 ones."""
     if src.device.type == "cpu":
         return coarse_sb_search(src, ref, coarse_r, row0)
     me_coarse.calls += 1
-    _check_planes("me_coarse", src, ref, row0)
+    sample_bytes = _check_planes("me_coarse", src, ref, row0)
     if not 1 <= coarse_r <= 32:
         raise ValueError(f"me_coarse: coarse_r {coarse_r} outside 1..32")
     from ..kernels.build import check_launch, cuda_fn, ptr, raw_stream
@@ -359,10 +372,10 @@ def me_coarse(src: torch.Tensor, ref: torch.Tensor,
     H, W = ref.shape
     out = torch.empty((rows // SB, W // SB, 2), dtype=torch.int32,
                       device=src.device)
-    fn = cuda_fn("me_coarse", "me_coarse_launch", (_P, _P) + (_I,) * 5
+    fn = cuda_fn("me_coarse", "me_coarse_launch", (_P, _P) + (_I,) * 6
              + (_P,) * 2)
-    err = fn(ptr(src), ptr(ref), rows, H, W, int(coarse_r), int(row0),
-             ptr(out), raw_stream(src))
+    err = fn(ptr(src), ptr(ref), sample_bytes, rows, H, W, int(coarse_r),
+             int(row0), ptr(out), raw_stream(src))
     check_launch("me_coarse", err)
     me_coarse.launches += 1
     return out
@@ -391,11 +404,12 @@ def me_refine(src: torch.Tensor, ref: torch.Tensor, coarse: torch.Tensor,
     shapes' biased argmins and the window merge; the same dict as
     ``refine_plain``.  ``src`` is the frame or a stripe at global row
     ``row0`` of the whole reference ``ref``.  CPU tensors take the plain
-    version; CUDA tensors launch kernels/csrc/me_refine.cu."""
+    version; CUDA tensors launch kernels/csrc/me_refine.cu (its 8-bit
+    form on uint8 planes, its 16-bit form on int16 ones)."""
     if src.device.type == "cpu":
         return refine_plain(src, ref, coarse, shapes, row0)
     me_refine.calls += 1
-    _check_planes("me_refine", src, ref, row0)
+    sample_bytes = _check_planes("me_refine", src, ref, row0)
     spec, counts = refine_spec(shapes)
     shapes = tuple(tuple(s) for s in shapes)
     rows = src.shape[0]
@@ -413,9 +427,9 @@ def me_refine(src: torch.Tensor, ref: torch.Tensor, coarse: torch.Tensor,
     spec = (ctypes.c_int * len(spec))(*spec)
     res = torch.empty((n, n_out, 4), dtype=torch.int32, device=src.device)
     fn = cuda_fn("me_refine", "me_refine_launch",
-             (_P, _P, _I, _I, _I, _I, _P, _P, _I, _P, _P))
-    err = fn(ptr(src), ptr(ref), rows, H, W, int(row0), ptr(coarse), spec,
-             len(shapes), ptr(res), stream(src))
+             (_P, _P, _I, _I, _I, _I, _I, _P, _P, _I, _P, _P))
+    err = fn(ptr(src), ptr(ref), sample_bytes, rows, H, W, int(row0),
+             ptr(coarse), spec, len(shapes), ptr(res), stream(src))
     check_launch("me_refine", err)
     me_refine.launches += 1
     out = {"grid": (n_sby, n_sbx)}
@@ -454,16 +468,19 @@ def subpel_refine16(src: torch.Tensor, ref: torch.Tensor,
                     row0: int = 0):
     """K7: quarter-pel refinement of every 16x16 unit around its full-pel
     MV through the REGULAR 8-tap filter.  Returns (mvq8_r, mvq8_c) int32
-    [rows/16, W/16] in eighth-pel and the winners' prediction plane, uint8
-    [rows, W], for ``src`` (the frame, or a stripe at global row ``row0``
-    of the whole reference ``ref``).  CPU tensors take the plain version;
-    CUDA tensors launch kernels/csrc/subpel_refine.cu."""
+    [rows/16, W/16] in eighth-pel and the winners' prediction plane [rows,
+    W] in the planes' sample type, for ``src`` (the frame, or a stripe at
+    global row ``row0`` of the whole reference ``ref``): uint8 planes at
+    ``bd`` 8, int16 at ``bd`` 10 (``device.SAMPLE_DTYPES``).  CPU tensors
+    take the plain version; CUDA tensors launch
+    kernels/csrc/subpel_refine.cu, its 8-bit or its 16-bit form."""
     if src.device.type == "cpu":
         return subpel_plain(src, ref, mv_r16, mv_c16, bd, row0)
     subpel_refine16.calls += 1
-    _check_planes("subpel_refine16", src, ref, row0)
-    if bd != 8:
-        raise ValueError("subpel_refine16: 8-bit only")
+    sample_bytes = _check_planes("subpel_refine16", src, ref, row0)
+    if SAMPLE_DTYPES.get(bd) != src.dtype:
+        raise ValueError(f"subpel_refine16 takes uint8 planes at bd 8 and "
+                         f"int16 at bd 10, not {src.dtype} at bd {bd}")
     rows = src.shape[0]
     H, W = ref.shape
     for t in (mv_r16, mv_c16):
@@ -475,13 +492,13 @@ def subpel_refine16(src: torch.Tensor, ref: torch.Tensor,
 
     mvq_r = torch.empty_like(mv_r16)
     mvq_c = torch.empty_like(mv_c16)
-    pred = torch.empty((rows, W), dtype=torch.uint8, device=src.device)
+    pred = torch.empty((rows, W), dtype=src.dtype, device=src.device)
     taps = _regular_taps(src.device)
     fn = cuda_fn("subpel_refine", "subpel_refine_launch",
-             (_P, _P, _I, _I, _I, _I) + (_P,) * 7)
-    err = fn(ptr(src), ptr(ref), rows, H, W, int(row0), ptr(mv_r16),
-             ptr(mv_c16), ptr(taps), ptr(mvq_r), ptr(mvq_c), ptr(pred),
-             stream(src))
+             (_P, _P, _I, _I, _I, _I, _I) + (_P,) * 7)
+    err = fn(ptr(src), ptr(ref), sample_bytes, rows, H, W, int(row0),
+             ptr(mv_r16), ptr(mv_c16), ptr(taps), ptr(mvq_r), ptr(mvq_c),
+             ptr(pred), stream(src))
     check_launch("subpel_refine16", err)
     subpel_refine16.launches += 1
     return mvq_r, mvq_c, pred

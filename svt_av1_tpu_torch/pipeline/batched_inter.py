@@ -26,6 +26,7 @@ import functools
 import numpy as np
 import torch
 
+from ..device import SAMPLE_DTYPES
 from ..ops import bme, omd
 from ..ops import quant as qz
 
@@ -354,7 +355,7 @@ def compound_joint_plain(src, refs, preds, mvq_r, mvq_c, sb_r, sb_c,
     mv = [_take16(torch.stack([p[i] for p in pairs]), pick)
           for i in range(4)]
     return dict(pred=comp16.permute(0, 2, 1, 3).reshape(H, W)
-                .to(torch.uint8),
+                .to(SAMPLE_DTYPES[bd]),
                 sad=_take16(torch.stack([sad0, sad_b, sad_f]), pick),
                 mv_r=mv[0], mv_c=mv[1], mv1_r=mv[2], mv1_c=mv[3],
                 fwd_i=fi, bwd_i=bi)
@@ -381,14 +382,19 @@ def _k8_consts(qindex: int, bd: int, device: torch.device):
 
 
 def _check_unit_inputs(name, src, preds, mvq_r, mvq_c, sb_r, sb_c, bd):
-    """The shapes, types and device K8 and K9 take; returns (K, H, W)."""
+    """The shapes, types and device K8 and K9 take: the source and its
+    predictions in the sample type of ``bd`` (``device.SAMPLE_DTYPES``:
+    uint8 at 8 bits, int16 at 10); returns (K, H, W)."""
     if src.device.type != "cuda":
         raise ValueError(f"{name}: unsupported device {src.device}")
     K, H, W = preds.shape
-    if bd != 8 or src.dtype != torch.uint8 or preds.dtype != torch.uint8 \
+    dt = SAMPLE_DTYPES.get(bd)
+    if dt is None or src.dtype != dt or preds.dtype != dt \
             or tuple(src.shape) != (H, W) or not 1 <= K <= 3:
-        raise ValueError(f"{name} takes an 8-bit uint8 [H, W] source and "
-                         "1..3 uint8 predictions of the same size")
+        raise ValueError(f"{name} takes a [H, W] source and 1..3 "
+                         "predictions of the same size, uint8 at bd 8 or "
+                         f"int16 at bd 10, not {src.dtype} / {preds.dtype} "
+                         f"at bd {bd}")
     if H % 64 or W % 64:
         raise ValueError(f"{name}: planes must be whole 64x64 SBs")
     for t, shape in ((mvq_r, (K, H // 16, W // 16)),
@@ -408,14 +414,14 @@ def _check_unit_inputs(name, src, preds, mvq_r, mvq_c, sb_r, sb_c, bd):
 def inter_select(src, preds, mvq_r, mvq_c, sb_r, sb_c, qindex: int,
                  lam: float, bd: int = 8, comp=None):
     """K8: per-unit reference selection, the winning prediction's residual
-    and its cost maps for the 10 INTER_SHAPES.  ``src`` uint8 [H, W];
-    ``preds`` uint8 [K, H, W] (K <= 3) the references' quarter-pel
-    predictions; ``mvq_r/mvq_c`` int32 [K, H/16, W/16] eighth-pel MVs;
-    ``sb_r/sb_c`` int32 [K, H/64, W/64] the full-pel 64x64 winners;
-    ``comp`` the averaged-compound candidate (``compound_joint``'s dict)
-    or None.  Returns (sel_fields, mvbits16, {(w, h): cost}).  CPU
-    tensors take the plain version; CUDA tensors launch
-    kernels/csrc/inter_select.cu."""
+    and its cost maps for the 10 INTER_SHAPES.  ``src`` [H, W] and
+    ``preds`` [K, H, W] (K <= 3, the references' quarter-pel predictions)
+    uint8 at ``bd`` 8, int16 at ``bd`` 10; ``mvq_r/mvq_c`` int32 [K, H/16,
+    W/16] eighth-pel MVs; ``sb_r/sb_c`` int32 [K, H/64, W/64] the
+    full-pel 64x64 winners; ``comp`` the averaged-compound candidate
+    (``compound_joint``'s dict) or None.  Returns (sel_fields, mvbits16,
+    {(w, h): cost}).  CPU tensors take the plain version; CUDA tensors
+    launch kernels/csrc/inter_select.cu, its 8-bit or its 16-bit form."""
     if src.device.type == "cpu":
         return inter_select_plain(src, preds, mvq_r, mvq_c, sb_r, sb_c,
                                   qindex, lam, bd, comp)
@@ -428,19 +434,18 @@ def inter_select(src, preds, mvq_r, mvq_c, sb_r, sb_c, qindex: int,
             raise ValueError(f"inter_select: comp must hold {COMP_KEYS}")
         for k in COMP_KEYS:
             t = comp[k]
-            want = ((H, W), torch.uint8) if k == "pred" \
+            want = ((H, W), src.dtype) if k == "pred" \
                 else ((nr16, nc16), torch.int32)
             if tuple(t.shape) != want[0] or t.dtype != want[1] \
                     or not t.is_contiguous() or t.device != src.device:
                 raise ValueError(f"inter_select: comp[{k!r}] must be "
                                  f"contiguous {want[1]} {want[0]}")
-    from ..kernels.build import check_launch, cuda_lib, ptr, stream
+    from ..kernels.build import check_launch, cuda_fn, ptr, stream
 
-    fn = cuda_lib("inter_select").inter_select_launch
-    fn.restype = ctypes.c_int
     P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    fn.argtypes = [P, P, I, I, I, P, P, P, P, P, I, F, F, F, F, P, P, P, F] \
-        + [P] * 8 + [P] * 10
+    fn = cuda_fn("inter_select", "inter_select_launch",
+                 (P, P, I, I, I, I, P, P, P, P, P, I, F, F, F, F, P, P, P, F)
+                 + (P,) * 18)
     dev = src.device
     n_tab = _table_len(H, W)
     tab = _log2_table(n_tab, dev)
@@ -455,10 +460,11 @@ def inter_select(src, preds, mvq_r, mvq_c, sb_r, sb_c, qindex: int,
     cptr = [ptr(comp[k]) if comp is not None else None
             for k in ("pred", "sad", "fwd_i", "bwd_i", "mv_r", "mv_c",
                       "mv1_r", "mv1_c")]
-    err = fn(ptr(src), ptr(preds), K, H, W, ptr(mvq_r), ptr(mvq_c),
-             ptr(sb_r), ptr(sb_c), ptr(tab), n_tab, float(pens[0]),
-             float(pens[1]), float(pens[2]), float(pens[3]), ptr(shapes),
-             ptr(qpar), ptr(_dct_stack(dev)), float(np.float32(lam)), *cptr,
+    err = fn(ptr(src), ptr(preds), src.element_size(), K, H, W, ptr(mvq_r),
+             ptr(mvq_c), ptr(sb_r), ptr(sb_c), ptr(tab), n_tab,
+             float(pens[0]), float(pens[1]), float(pens[2]), float(pens[3]),
+             ptr(shapes), ptr(qpar), ptr(_dct_stack(dev)),
+             float(np.float32(lam)), *cptr,
              *(ptr(out[k]) for k in SEL_KEYS), ptr(mvb), ptr(cost),
              stream(src))
     check_launch("inter_select", err)
@@ -495,6 +501,9 @@ def compound_joint(src, refs, preds, mvq_r, mvq_c, sb_r, sb_c, bwd_mask,
         return compound_joint_plain(src, refs, preds, mvq_r, mvq_c, sb_r,
                                     sb_c, bwd_mask, rel_dists, qindex, bd)
     compound_joint.calls += 1
+    if bd != 8:
+        raise ValueError("compound_joint: 8-bit only (its 16-bit form is "
+                         "still to port, ROADMAP B15c)")
     _, H, W = _check_unit_inputs("compound_joint", src, preds, mvq_r, mvq_c,
                                  sb_r, sb_c, bd)
     if refs.dtype != torch.uint8 or tuple(refs.shape) != tuple(preds.shape) \
@@ -540,13 +549,14 @@ def inter_frame_maps(src, refs, qindex, lam, mode_bits, bd=8,
                      rel_dists=None, row0=0, with_intra=True):
     """(intra, inter_cost_maps, sel_fields, mvbits16): the open-loop
     decision state of one inter frame against 1..3 references, as tensors
-    on the device of ``src`` (a buf-aligned uint8 [H, W] plane; ``refs`` a
-    list of such planes).  CUDA planes run K5 -> K6 -> K7 per reference,
-    K9 for the compound candidate, then K8, then one K1 launch for the
-    intra maps of all omd.ALL_SHAPES, whose packed output ``intra`` is
-    (``omd.unpack_decisions`` gives the maps); CPU planes run the plain
-    versions.  MVs are quarter-pel (eighth-pel
-    values, multiples of 2).
+    on the device of ``src`` (a buf-aligned [H, W] plane in the sample type
+    of ``bd``, ``device.SAMPLE_DTYPES``: uint8 at 8 bits, int16 at 10;
+    ``refs`` a list of such planes).  CUDA planes run K5 -> K6 -> K7 per
+    reference, K9 for the compound candidate, then K8, then one K1 launch
+    for the intra maps of all omd.ALL_SHAPES, whose packed output
+    ``intra`` is (``omd.unpack_decisions`` gives the maps); CPU planes
+    run the plain versions.  MVs are quarter-pel (eighth-pel values,
+    multiples of 2).
 
     Stripes: with ``row0`` > 0, ``src`` is a stripe of 64-row multiples
     starting at that global row, the references stay whole frames, and
@@ -614,10 +624,10 @@ def inter_maps_dispatch(src, refs, buf_w, buf_h, qindex, lam, mode_bits,
     """Run inter_frame_maps on ``device`` and return numpy results.
 
     ``src`` and the entries of ``refs`` are buf-aligned host arrays or
-    uint8 tensors already on ``device`` (the encoder uploads each coded
-    picture's ME plane once).  Each reference's coarse reach follows its
-    distance (bme.coarse_r_for_dist), and so do the compound candidate's
-    mirrored seeds."""
+    tensors of the sample type of ``bd`` already on ``device`` (the
+    encoder uploads each coded picture's ME plane once).  Each reference's
+    coarse reach follows its distance (bme.coarse_r_for_dist), and so do
+    the compound candidate's mirrored seeds."""
     dev = torch.device(device)
     refs = list(refs)
     src_t = omd.upload_plane(src, buf_w, buf_h, bd, dev)

@@ -313,9 +313,10 @@ class TorchDecider(TorchIntraDecider):
         self._inter = None          # {(w,h): is_inter bool map}
         self._sf = None             # per-16 selection field maps
         self._names = None          # plan ref index -> named ref
-        # buf-aligned uint8 ME planes on the device per DPB picture: a
-        # recon is referenced by several later frames, so it is cut,
-        # narrowed and uploaded once per coded picture (keyed by its
+        # buf-aligned ME planes on the device per DPB picture, in the
+        # sample type of the bit depth (device.SAMPLE_DTYPES): a recon is
+        # referenced by several later frames, so it is cut, converted and
+        # uploaded once per coded picture (keyed by its
         # padded luma array, which the DPB entry keeps; the cache entry
         # keeps it alive too, so its id stays unique)
         self._me_plane_cache = {}
@@ -342,8 +343,10 @@ class TorchDecider(TorchIntraDecider):
             self._plan_inter(codec)
 
     def _ref_plane(self, codec, name):
-        """Buf-aligned uint8 ME plane of a named ref's reconstruction on
-        the device, uploaded once per coded picture."""
+        """Buf-aligned ME plane of a named ref's reconstruction on the
+        device, uploaded once per coded picture in the sample type of the
+        bit depth (uint8 at 8 bits, int16 holding the 10-bit samples at
+        10, as the reference keeps uint16)."""
         from .frame_codec import REF_PAD
 
         luma = codec.refs[name][0]
@@ -353,8 +356,8 @@ class TorchDecider(TorchIntraDecider):
             return hit[1]
         ref_y = np.asarray(luma)[REF_PAD:REF_PAD + codec.buf_h,
                                  REF_PAD:REF_PAD + codec.buf_w]
-        dev = omd.upload_plane(ref_y.astype(np.uint8), codec.buf_w,
-                               codec.buf_h, codec.seq.bit_depth, self.device)
+        dev = omd.upload_plane(ref_y, codec.buf_w, codec.buf_h,
+                               codec.seq.bit_depth, self.device)
         if len(self._me_plane_cache) > 12:
             self._me_plane_cache.pop(next(iter(self._me_plane_cache)))
         self._me_plane_cache[key] = (luma, dev)

@@ -182,9 +182,10 @@ def test_closed_loop_plan_decodes(tmp_path, monkeypatch):
     # all-intra key frames under the random-access structure: MCTF of key
     # frames with the one-picture pipeline is not ported
     dict(pred_structure=PredStructure.RANDOM_ACCESS),
-    # 10 bits are ported for all-intra only: low-delay P and random access
-    # need the 16-bit forms of K5-K10
-    dict(encoder_bit_depth=10, intra_period_length=-1),
+    # 10 bits are ported for all-intra and low-delay P: random access
+    # (here bench.py's, TPL on) needs the 16-bit forms of K9 and K10
+    dict(encoder_bit_depth=10, intra_period_length=33,
+         pred_structure=PredStructure.RANDOM_ACCESS),
     dict(enable_restoration=1),
     dict(superres_mode=1),
     dict(intra_period_length=-1, pred_structure=PredStructure.RANDOM_ACCESS,

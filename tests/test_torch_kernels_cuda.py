@@ -1636,3 +1636,349 @@ def test_tenbit_stream_on_the_card_equals_the_plain_stream(dev, tmp_path):
     assert omd.intra_decision_packed.launches > before[0]
     assert cdef.cdef_search.launches > before[1]
     assert out["cuda"] == out["cpu"]
+
+
+# -- 10-bit low-delay P: the 16-bit forms of K5-K8 (me_coarse.cu,
+# me_refine.cu, subpel_refine.cu, inter_select.cu)
+
+def _pair10(kind, h, w, seed):
+    """(src, ref) int16 10-bit planes: a textured plane and its fractional
+    move plus noise ("textured"), flat and period-8 planes where offsets
+    and candidates tie ("ties"), or blocks at 0 and 1023 against their
+    complement moved by a few samples ("extremes": the largest absolute
+    differences the samples allow)."""
+    rng = np.random.default_rng(seed)
+    if kind == "textured":
+        ref = _plane10(h, w, seed).astype(np.int32)
+        a = np.roll(ref, (3, -5), axis=(0, 1))
+        b = np.roll(ref, (4, -5), axis=(0, 1))
+        src = ((a + b + 1) // 2 + rng.integers(-8, 9, (h, w))).clip(0, 1023)
+        return src.astype(np.int16), ref.astype(np.int16)
+    if kind == "ties":
+        yy, xx = np.mgrid[0:h, 0:w]
+        ref = (300 + 80 * (xx % 8) + 20 * (yy % 8)).astype(np.int16)
+        ref[:, : w // 2] = 700
+        return np.roll(ref, (2, 3), axis=(0, 1)), ref
+    src = _extreme_plane10(h, w, seed)
+    return src, np.roll(1023 - src, (1, -2), axis=(0, 1))
+
+
+def _cuda10(dev, kind, h, w, seed):
+    return tuple(torch.from_numpy(np.ascontiguousarray(p)).to(dev)
+                 for p in _pair10(kind, h, w, seed))
+
+
+def _unchanged(*tensors):
+    """Copies of the inputs, to show after a call that the kernel left
+    them as they were."""
+    return [t.clone() for t in tensors]
+
+
+def _k5_16_equal(src, ref, r, row0=0):
+    keep = _unchanged(src, ref)
+    want = bme.coarse_sb_search(src, ref, r, row0)
+    before = (bme.me_coarse.calls, bme.me_coarse.launches)
+    got = bme.me_coarse(src, ref, r, row0)
+    assert (bme.me_coarse.calls, bme.me_coarse.launches) == (
+        before[0] + 1, before[1] + 1)
+    assert torch.equal(got, want), (r, row0)
+    assert all(torch.equal(a, b) for a, b in zip(keep, (src, ref)))
+    return got
+
+
+@pytest.mark.parametrize("kind", ["textured", "ties", "extremes"])
+@pytest.mark.parametrize("r", [8, 12, 16, 24])
+def test_k5_16bit_1080p_matches_plain(dev, kind, r):
+    """K5's 16-bit form on 1152x1920 int16 planes at each reach of the
+    path, one launch per call, the inputs left unmodified."""
+    src, ref = _cuda10(dev, kind, 1152, 1920, r)
+    assert int(src.max()) > 255
+    _k5_16_equal(src, ref, r)
+    if kind == "textured":
+        _k5_16_equal(src, torch.roll(ref, (7 * r, -5 * r), (0, 1))
+                     .contiguous(), r)
+
+
+@pytest.mark.parametrize("shape", [(64, 1920), (1152, 64)],
+                         ids=["one_sb_row", "one_sb_column"])
+@pytest.mark.parametrize("r", [8, 24])
+def test_k5_16bit_one_sb_row_and_column_match_plain(dev, shape, r):
+    _k5_16_equal(*_cuda10(dev, "textured", *shape, r), r)
+
+
+@pytest.mark.parametrize("row0", [64, 512, 1024])
+def test_k5_16bit_stripes_match_plain(dev, row0):
+    src, ref = _cuda10(dev, "textured", 1088, 1920, row0)
+    stripe = src[row0:row0 + 64].contiguous()
+    got = _k5_16_equal(stripe, ref, 8, row0)
+    assert torch.equal(got, bme.coarse_sb_search(src, ref, 8)[
+        row0 // 64:row0 // 64 + 1])
+
+
+def _k6_16_equal(src, ref, coarse, shapes, row0=0):
+    keep = _unchanged(src, ref, coarse)
+    before = (bme.me_refine.calls, bme.me_refine.launches)
+    got = bme.me_refine(src, ref, coarse, shapes, row0)
+    assert (bme.me_refine.calls, bme.me_refine.launches) == (
+        before[0] + 1, before[1] + 1)
+    want = bme.refine_plain(src, ref, coarse, shapes, row0)
+    for s in shapes:
+        for g, w in zip(got[s], want[s]):
+            assert torch.equal(g, w), s
+    if (16, 16) in shapes:
+        assert torch.equal(got["win16"], want["win16"])
+    assert all(torch.equal(a, b) for a, b in zip(keep, (src, ref, coarse)))
+    return got
+
+
+@pytest.mark.parametrize("shapes", [bme.ME_SHAPES, ((16, 16), (64, 64))],
+                         ids=["all", "path"])
+@pytest.mark.parametrize("kind", ["textured", "ties", "extremes"])
+def test_k6_16bit_1080p_matches_plain(dev, kind, shapes):
+    """K6's 16-bit form on 1152x1920 int16 planes: the 8x8 table (all 8
+    ME shapes) and the 16x16 table of 32-bit entries (the path's shapes;
+    "extremes" puts 16x16 SADs far above 65,535), with K5's winners and
+    with arbitrary ones, one launch per call."""
+    src, ref = _cuda10(dev, kind, 1152, 1920, 3)
+    rng = np.random.default_rng(4)
+    for coarse in (bme.me_coarse(src, ref, 8), torch.from_numpy(
+            rng.integers(-40, 41, (18, 30, 2)).astype(np.int32)).to(dev)):
+        _k6_16_equal(src, ref, coarse, shapes)
+
+
+@pytest.mark.parametrize("shapes", [bme.ME_SHAPES, ((16, 16), (64, 64))],
+                         ids=["all", "path"])
+def test_k6_16bit_sads_of_1023_against_0_match_plain(dev, shapes):
+    """Samples of 1023 against 0: every offset ties, and every 8x8 SAD is
+    65,472 (the fine table's uint16 limit) and every 16x16 one 261,888
+    (the coarse table's 32-bit entries)."""
+    src = torch.full((192, 256), 1023, dtype=torch.int16, device=dev)
+    ref = torch.zeros_like(src)
+    got = _k6_16_equal(src, ref, bme.me_coarse(src, ref, 8), shapes)
+    for (w, h) in shapes:
+        assert bool((got[(w, h)][2] == w * h * 1023).all()), (w, h)
+
+
+@pytest.mark.parametrize("shape", [(64, 1920), (1152, 64)],
+                         ids=["one_sb_row", "one_sb_column"])
+@pytest.mark.parametrize("shapes", [bme.ME_SHAPES, ((16, 16), (64, 64))],
+                         ids=["all", "path"])
+def test_k6_16bit_one_sb_row_and_column_match_plain(dev, shape, shapes):
+    src, ref = _cuda10(dev, "textured", *shape, 6)
+    # a reference one sample past a 16-byte boundary: the clamped path
+    off = torch.empty(ref.numel() + 16, dtype=torch.int16, device=dev)[
+        1:1 + ref.numel()].view(ref.shape).copy_(ref)
+    for r in (ref, off):
+        _k6_16_equal(src, r, bme.me_coarse(src, ref, 8), shapes)
+
+
+@pytest.mark.parametrize("row0", [64, 512, 1024])
+def test_k6_16bit_stripes_match_plain(dev, row0):
+    src, ref = _cuda10(dev, "textured", 1088, 1920, row0)
+    stripe = src[row0:row0 + 64].contiguous()
+    coarse = bme.me_coarse(stripe, ref, 8, row0)
+    path = ((16, 16), (64, 64))
+    got = _k6_16_equal(stripe, ref, coarse, path, row0)
+    whole = bme.refine_plain(src, ref, bme.coarse_sb_search(src, ref, 8),
+                             path)
+    k = (row0 // 64) * 30
+    for s in path:
+        for g, w in zip(got[s], whole[s]):
+            assert torch.equal(g, w[k:k + 30]), s
+
+
+def _k7_16_equal(src, ref, mv_r, mv_c, row0=0):
+    keep = _unchanged(src, ref, mv_r, mv_c)
+    before = (bme.subpel_refine16.calls, bme.subpel_refine16.launches)
+    got = bme.subpel_refine16(src, ref, mv_r, mv_c, 10, row0)
+    assert (bme.subpel_refine16.calls, bme.subpel_refine16.launches) == (
+        before[0] + 1, before[1] + 1)
+    want = bme.subpel_plain(src, ref, mv_r, mv_c, 10, row0)
+    assert got[2].dtype == want[2].dtype == torch.int16
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    assert all(torch.equal(a, b)
+               for a, b in zip(keep, (src, ref, mv_r, mv_c)))
+    return got
+
+
+def _me16(src, ref, ny, nx):
+    me = bme.frame_me(src, ref, 8, ((16, 16), (64, 64)))
+    return (bi._nested_to_grid(me[(16, 16)][0], ny, nx, 4, 4),
+            bi._nested_to_grid(me[(16, 16)][1], ny, nx, 4, 4), me)
+
+
+@pytest.mark.parametrize("kind", ["textured", "ties", "extremes"])
+def test_k7_16bit_1080p_matches_plain(dev, kind):
+    """K7's 16-bit form on 1088x1920 int16 planes at bd 10, with the ME's
+    MVs and with MVs past every edge: MVs and the int16 prediction
+    exactly the plain version's, one launch per call."""
+    src, ref = _cuda10(dev, kind, 1088, 1920, 9)
+    mv_r, mv_c, _ = _me16(src, ref, 17, 30)
+    got = _k7_16_equal(src, ref, mv_r, mv_c)
+    assert int(got[2].max()) > 255
+    if kind == "textured":
+        assert bool((got[0] % 8 != 0).any())
+    r, c = _edge_mvs(np.random.default_rng(9), 68, 120, 1088, 1920)
+    _k7_16_equal(src, ref, r.to(dev), c.to(dev))
+
+
+def test_k7_16bit_one_sb_row_matches_plain(dev):
+    src, ref = _cuda10(dev, "textured", 64, 1920, 2)
+    mv_r, mv_c, _ = _me16(src, ref, 1, 30)
+    _k7_16_equal(src, ref, mv_r, mv_c)
+    r, c = _edge_mvs(np.random.default_rng(2), 4, 120, 64, 1920)
+    _k7_16_equal(src, ref, r.to(dev), c.to(dev))
+
+
+@pytest.mark.parametrize("row0", [64, 512, 1024])
+def test_k7_16bit_stripe_matches_plain(dev, row0):
+    src, ref = _cuda10(dev, "textured", 1088, 1920, row0)
+    mv_r, mv_c, _ = _me16(src, ref, 17, 30)
+    whole = _k7_16_equal(src, ref, mv_r, mv_c)
+    k = row0 // 16
+    part = _k7_16_equal(src[row0:row0 + 64].contiguous(), ref,
+                        mv_r[k:k + 4].contiguous(),
+                        mv_c[k:k + 4].contiguous(), row0)
+    assert torch.equal(part[2], whole[2][row0:row0 + 64])
+
+
+def _k8_refs10(dev, src, refs):
+    """(preds, mvq_r, mvq_c, sb_r, sb_c) of each reference through the
+    16-bit K5-K7 at bd 10."""
+    H, W = src.shape
+    ny, nx = H // 64, W // 64
+    parts = []
+    for r in refs:
+        mv_r, mv_c, me = _me16(src, r, ny, nx)
+        a, b, p = bme.subpel_refine16(src, r, mv_r, mv_c, 10)
+        parts.append((p, a, b, me[(64, 64)][0].reshape(ny, nx),
+                      me[(64, 64)][1].reshape(ny, nx)))
+    return tuple(torch.stack([q[i] for q in parts]).contiguous()
+                 for i in range(5))
+
+
+def _k8_args10(dev, kind, k, H=1088, W=1920, seed=3):
+    """K8's inputs at bd 10: the kind's pair, with references moved apart
+    so that each wins somewhere."""
+    src, ref = _cuda10(dev, kind, H, W, seed)
+    refs = [torch.roll(ref, (i, -2 * i), (0, 1)).contiguous()
+            for i in range(k)]
+    return (src,) + _k8_refs10(dev, src, refs)
+
+
+def _k8_16_equal(args, comp=None):
+    keep = _unchanged(*args[:6])
+    before = (bi.inter_select.calls, bi.inter_select.launches)
+    f = _assert_k8_equals_plain(args, comp)
+    assert bi.inter_select.calls == before[0] + 1
+    assert all(torch.equal(a, b) for a, b in zip(keep, args[:6]))
+    return f
+
+
+@pytest.mark.parametrize("k", [1, 2, 3])
+@pytest.mark.parametrize("kind", ["textured", "extremes"])
+def test_k8_16bit_1080p_matches_plain(dev, kind, k):
+    """K8's 16-bit form on 1088x1920 int16 planes with 1-3 references at
+    bd 10: every selection field equal, every cost of every shape within
+    the gate, one launch per call."""
+    args = _k8_args10(dev, kind, k)
+    f = _k8_16_equal(args + (60, 900.0 * 16, 10))
+    if k == 3 and kind == "textured":
+        assert len(torch.unique(f["sel"])) > 1
+
+
+def test_k8_16bit_one_sb_row_matches_plain(dev):
+    _k8_16_equal(_k8_args10(dev, "textured", 2, 64, 1920, 7)
+                 + (160, 2500.0 * 16, 10))
+
+
+def test_k8_16bit_compound_row_matches_plain(dev):
+    """K8's 16-bit form with a 16-bit compound row (the plain compound
+    search's int16 prediction, K9 being 8-bit only) at 1080p."""
+    # two 10-bit patterns, the source their cross-fade, each moved
+    H, W = 1088, 1920
+    rng = np.random.default_rng(6)
+    yy, xx = np.mgrid[0:H, 0:W]
+    pats = [(440 + 240 * np.sin(xx / (9 + 4 * i) + i)
+             + 160 * np.cos(yy / (7 + 3 * i))
+             + rng.integers(-48, 49, (H, W))).clip(0, 1023).astype(np.int32)
+            for i in range(2)]
+    moved = [np.roll(p, sh, axis=(0, 1))
+             for p, sh in zip(pats, ((2, -3), (-6, 5)))]
+    src = ((moved[0] + moved[1] + 1) // 2 + rng.integers(-8, 9, (H, W)))
+    src = torch.from_numpy(src.clip(0, 1023).astype(np.int16)).to(dev)
+    refs = torch.stack([torch.from_numpy(p.astype(np.int16)) for p in pats]) \
+        .to(dev).contiguous()
+    preds, mr, mc, sr, sc = _k8_refs10(dev, src, list(refs))
+    comp = bi.compound_joint_plain(src, refs, preds, mr, mc, sr, sc,
+                                   (False, True), (-1, 1), 60, 10)
+    assert comp["pred"].dtype == torch.int16
+    f = _k8_16_equal((src, preds, mr, mc, sr, sc, 60, 900.0 * 16, 10), comp)
+    assert bool((f["sel"] == 2).any())
+
+
+def test_16bit_inter_wrappers_refuse_other_pairings(dev):
+    """A 10-bit plane reaches a 16-bit form or raises: K5 and K6 take one
+    sample type for both planes, uint8 or int16; K7 and K8 uint8 at bd 8
+    and int16 at bd 10; K9 is 8-bit only."""
+    z8 = torch.zeros((128, 128), dtype=torch.uint8, device=dev)
+    z16 = z8.to(torch.int16)
+    mv = torch.zeros((8, 8), dtype=torch.int32, device=dev)
+    for a, b in ((z16, z8), (z8, z16), (z16.to(torch.int32), z16)):
+        with pytest.raises(ValueError):
+            bme.me_coarse(a, b)
+        with pytest.raises(ValueError):
+            bme.me_refine(a, b, torch.zeros((2, 2, 2), dtype=torch.int32,
+                                            device=dev))
+    for p, bd in ((z8, 10), (z16, 8), (z16, 12), (z8, 12)):
+        with pytest.raises(ValueError):
+            bme.subpel_refine16(p, p, mv, mv, bd)
+    mvk = torch.zeros((1, 8, 8), dtype=torch.int32, device=dev)
+    sbk = torch.zeros((1, 2, 2), dtype=torch.int32, device=dev)
+    for s, p, bd in ((z8, z8[None], 10), (z16, z16[None], 8),
+                     (z16, z8[None], 10), (z16, z16[None], 12)):
+        with pytest.raises(ValueError):
+            bi.inter_select(s, p.contiguous(), mvk, mvk, sbk, sbk, 60, 1.0,
+                            bd)
+    comp = {k: torch.zeros((8, 8), dtype=torch.int32, device=dev)
+            for k in bi.COMP_KEYS}
+    comp["pred"] = z8
+    with pytest.raises(ValueError):          # an 8-bit compound row
+        bi.inter_select(z16, z16[None].contiguous(), mvk, mvk, sbk, sbk, 60,
+                        1.0, 10, comp=comp)
+    two = torch.stack([z16, z16]).contiguous()
+    with pytest.raises(ValueError):
+        bi.compound_joint(z16, two, two, mvk.repeat(2, 1, 1),
+                          mvk.repeat(2, 1, 1), sbk.repeat(2, 1, 1),
+                          sbk.repeat(2, 1, 1), (False, True), (-1, 1), 60,
+                          10)
+
+
+def test_tenbit_ipp_stream_on_the_card_equals_the_plain_stream(dev,
+                                                               tmp_path):
+    """A 10-bit low-delay P clip (192x128, a key frame and three P frames)
+    coded on the card through the 16-bit K1 and K5-K8 equals the CPU
+    stream."""
+    base = _plane10(160, 224, 4).astype(np.uint16)
+    frames = []
+    for i in range(4):
+        y = np.ascontiguousarray(np.roll(base, (i, 2 * i), axis=(0, 1))
+                                 [:128, :192])
+        frames.append((y, (y[::2, ::2] // 2 + 200).astype(np.uint16),
+                       (700 - y[1::2, 1::2] // 3).astype(np.uint16)))
+    cfg = EncoderConfig(source_width=192, source_height=128, qp=40,
+                        enc_mode=8, intra_period_length=-1,
+                        encoder_bit_depth=10,
+                        pred_structure=PredStructure.LOW_DELAY_P)
+    fns = (bme.me_coarse, bme.me_refine, bme.subpel_refine16,
+           bi.inter_select)
+    out = {}
+    for d in ("cuda", "cpu"):
+        before = [f.launches for f in fns]
+        p = tmp_path / f"{d}.ivf"
+        encode_ivf(frames, cfg, str(p), device=d)
+        out[d] = p.read_bytes()
+        if d == "cuda":
+            assert all(f.launches > b for f, b in zip(fns, before))
+    assert out["cuda"] == out["cpu"]

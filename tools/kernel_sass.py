@@ -10,14 +10,21 @@ Needs the CUDA toolkit (nvcc, cuobjdump); no card.  Prints:
    memory per entry;
 2. the SASS opcode histogram of each of their entries, and apart the
    packed-integer opcodes the redesigns rest on (every opcode that
-   starts with VABSDIFF4, IDP (dp4a and dp2a) or PRMT) and the branches
-   and shared-memory atomics (BRA, BSSY, BSYNC, WARPSYNC, ATOMS);
+   starts with VABSDIFF, IDP (dp4a and dp2a) or PRMT) and the branches
+   and shared-memory atomics (BRA, BSSY, BSYNC, WARPSYNC, ATOMS); the
+   kernels with a 16-bit form (K1, K4's search, K5-K8) list the entries
+   of both template instantiations (uint8_t and uint16_t);
 3. the SASS of five exact forms of "accumulate the sum of the four
    absolute byte differences of two words" (K6's inner operation):
    ``__vsadu4``, PTX ``vabsdiff4.u32.u32.u32.add`` with the accumulator
    as its third operand, ``__vabsdiffu4`` + ``__dp4a``, ``__vmaxu4 - __vminu4``
    + ``__dp4a``, and four ``__sad`` on single bytes, with the opcode
-   count of each.
+   count of each; and of three forms of the 16-bit forms' "two absolute
+   differences of 16-bit halves": ``__vabsdiffu2`` added as packed halves,
+   PTX ``vabsdiff2.u32.u32.u32.add``, two ``__sad`` on the halves, PTX
+   ``vabsdiff.u32.u32.u32.add`` with the ``.h0`` and ``.h1`` selectors,
+   and ``__vmaxu2 - __vminu2`` added as packed halves (no half borrows,
+   since the maximum is at least the minimum in each).
 
 The objects go to the build directory (build/torch_kernels/sass/).
 """
@@ -34,7 +41,7 @@ sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 from svt_av1_tpu_torch.kernels import build  # noqa: E402
 
 ARCH = "-gencode=arch=compute_90a,code=sm_90a"
-PACKED_OPCODES = ("VABSDIFF4", "IDP", "PRMT")
+PACKED_OPCODES = ("VABSDIFF", "IDP", "PRMT")
 CONTROL_OPCODES = ("BRA", "BSSY", "BSYNC", "WARPSYNC", "ATOMS")
 
 SAD_PROBE = r"""
@@ -65,6 +72,28 @@ PROBE(sad_bytes, __sad(x & 255, y & 255,
                        __sad((x >> 8) & 255, (y >> 8) & 255,
                              __sad((x >> 16) & 255, (y >> 16) & 255,
                                    __sad(x >> 24, y >> 24, acc)))))
+__device__ __forceinline__ uint32_t vabsdiff2_add(uint32_t a, uint32_t b,
+                                                  uint32_t c) {
+  uint32_t d;
+  asm("vabsdiff2.u32.u32.u32.add %0, %1, %2, %3;" : "=r"(d)
+      : "r"(a), "r"(b), "r"(c));
+  return d;
+}
+PROBE(sad16_vabsdiffu2_packed, acc + __vabsdiffu2(x, y))
+PROBE(sad16_ptx_vabsdiff2_add, vabsdiff2_add(x, y, acc))
+PROBE(sad16_halves, __sad(x & 0xffff, y & 0xffff, __sad(x >> 16, y >> 16,
+                                                        acc)))
+__device__ __forceinline__ uint32_t vabsdiff_h(uint32_t a, uint32_t b,
+                                               uint32_t c) {
+  uint32_t d, e;
+  asm("vabsdiff.u32.u32.u32.add %0, %1.h0, %2.h0, %3;" : "=r"(d)
+      : "r"(a), "r"(b), "r"(c));
+  asm("vabsdiff.u32.u32.u32.add %0, %1.h1, %2.h1, %3;" : "=r"(e)
+      : "r"(a), "r"(b), "r"(d));
+  return e;
+}
+PROBE(sad16_ptx_vabsdiff_h0_h1, vabsdiff_h(x, y, acc))
+PROBE(sad16_vmaxu2_vminu2_packed, acc + (__vmaxu2(x, y) - __vminu2(x, y)))
 """
 
 

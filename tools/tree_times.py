@@ -25,13 +25,17 @@ parts run.
   reference) on two frames of the moving clip at 1920x1152, after the
   path's K5/K6; K8: the random-access path's call (two references, past
   and future, and K9's compound row) on three frames of the moving clip
-  at 1920x1152; K9: the random-access path's call on the same inputs
-  (two references); K2 on the kernels phase's luma plane at the path's
-  level and on its first chroma plane, K3 on that luma plane, K4's
+  at 1920x1152, and the low-delay P call (one reference, after the
+  path's K5-K7) on two frames; K9: the random-access path's call on the
+  same inputs (two references); K2 on the kernels phase's luma plane at
+  the path's level and on its first chroma plane, K3 on that luma plane, K4's
   search (the 5x3 grid) and apply over the three planes of the first
   frame; K10 on TPL's half-resolution plane; where the tree has the
   16-bit forms (device.py SAMPLE_DTYPES), K1 and K4's search also on the
-  10-bit frame (synth_clip at bd 10, int16 planes).  K3 and K4's apply also
+  10-bit frame (synth_clip at bd 10, int16 planes), and where its K5
+  takes int16 planes, K5 (every reach of the path), K6 (the path's
+  shapes), K7 and K8's low-delay P call on two frames of the moving clip
+  at 10 bits.  K3 and K4's apply also
   have a device time with the L2 cache flushed before each call
   (``device_ms_cold``: a 128 MB write between the calls, the kernels'
   own time alone): their 1080p inputs fit in the 50 MB L2, which the
@@ -105,6 +109,8 @@ def kernel_times(cs, np, torch):
     ny, nx = bh // 64, bw // 64
     mv = [bi._nested_to_grid(me[(16, 16)][i], ny, nx, 4, 4) for i in (0, 1)]
     calls["K7 path 1 ref"] = lambda: bme.subpel_refine16(src, ref, *mv)
+    calls["K8 1 ref"] = k8_one_ref(bme, bi, src, ref, me, mv, ny, nx, 8,
+                                   lam)
     calls["K8 compound row"], calls["K9 2 refs"] = ra_calls(cs, torch, dev)
     calls["K4 search 5x3"] = k4_search_call(cs, np, torch, dev)
     from svt_av1_tpu_torch import device
@@ -116,12 +122,44 @@ def kernel_times(cs, np, torch):
             p10, qindex, lam * 16, mb, 10)
         calls["K4 search 5x3 10-bit"] = k4_search_call(cs, np, torch, dev,
                                                        bd=10)
+        s10, r10 = (omd.upload_plane(f[0], bw, bh, 10, dev)
+                    for f in cs.synth_clip(W, H, 2, bd=10)[::-1])
+        try:
+            bme.me_coarse(s10, r10, bme.COARSE_R)
+        except ValueError:          # a tree without K5-K8's 16-bit forms
+            s10 = None
+        if s10 is not None:
+            for r in cs.K5_PATH_RADII:
+                calls[f"K5 r{r} 1920x1152 10-bit"] = functools.partial(
+                    bme.me_coarse, s10, r10, r)
+            calls["K6 path 16x16+64x64 10-bit"] = k6(s10, r10,
+                                                     ((16, 16), (64, 64)))
+            me10 = bme.frame_me(s10, r10, bme.COARSE_R,
+                                ((16, 16), (64, 64)))
+            mv10 = [bi._nested_to_grid(me10[(16, 16)][i], ny, nx, 4, 4)
+                    for i in (0, 1)]
+            calls["K7 path 1 ref 10-bit"] = lambda: bme.subpel_refine16(
+                s10, r10, *mv10, 10)
+            calls["K8 1 ref 10-bit"] = k8_one_ref(bme, bi, s10, r10, me10,
+                                                  mv10, ny, nx, 10, lam * 16)
     calls.update(filter_calls(cs, np, torch, dev))
     cold = {k: device_ms_cold(torch, calls[k], name) for k, name in (
         ("K3 1080p luma", "cdef_direction_kernel"),
         ("K4 apply 3 planes", "cdef_apply_kernel"))}
     return ({k: cs.cuda_ms(f, 20) for k, f in calls.items()},
             {k: cs.device_ms(f) for k, f in calls.items()}, cold)
+
+
+def k8_one_ref(bme, bi, src, ref, me, mv, ny, nx, bd, lam):
+    """K8's low-delay P call with one reference (the path's K7 output) at
+    ``bd``, as a function of no arguments."""
+    a, b, p = bme.subpel_refine16(src, ref, *mv, bd)
+    sb = [me[(64, 64)][i].reshape(1, ny, nx).contiguous() for i in (0, 1)]
+    args = (src, p[None].contiguous(), a[None].contiguous(),
+            b[None].contiguous(), *sb, 160, lam)
+    if bd == 8:
+        return lambda: bi.inter_select(*args)
+    return lambda: bi.inter_select(*args, bd)
 
 
 def device_ms_cold(torch, fn, kernel, reps=20):
