@@ -65,8 +65,9 @@ Phases, each of which must pass (the script exits non-zero otherwise):
    closed-GOP half (8 frames of 128x64 as one stream and as two GOPs)
    must decode, with the port's Decoder, to identical pictures;
 9. decode: the port's Decoder on the card decodes the 192x128x5
-   random-access card stream of phase 7 and the first three temporal
-   units of the 1080p low-delay P stream of phase 5, counts as in 4;
+   random-access card stream of phase 7 and the first two temporal
+   units (the key frame and a P frame) of the 1080p low-delay P stream
+   of phase 5, counts as in 4;
    every shown frame must equal the encoder's recon; K2, K3 and K4's
    apply must have launched; md5 and ms per frame (host tile walk,
    card filters) printed;
@@ -107,7 +108,30 @@ declare 10 bits); the agreement phase adds 64x64x2 10-bit all-intra and
 192x128x6 10-bit low-delay P clips, whose card streams the Decoder on
 the card must turn into their recon.
 
-The kernels phase also holds K9, K8 with the compound row, K10, and
+10-bit random access: the kernels phase holds K9's 16-bit form at the
+1080p 10-bit random-access shapes (three frames of the moving clip at
+10 bits, one past and one future reference) exactly against its plain
+version, with K8's 16-bit form taking its compound row, K10 in both
+sample types on one 960x576 plane and on a 17-plane TPL window (one
+launch, bit-equal, beside the library call ``torch.var`` of a float32
+copy), and K5/K6's 16-bit forms at the TPL geometry (16x16 alone); each
+16-bit form printed beside its 8-bit form with ptxas's lines of both
+instantiations.  A 10-bit random-access phase codes bench.py's
+configuration at 10 bits on RA_FRAMES frames of the moving clip at 10
+bits, counts as in 4: every kernel K1-K10 must launch, K5's and K6's
+calls are printed by sample type (uint8: MCTF's planes, narrowed as the
+reference narrows them; int16: the plans' and TPL's), the sequence
+header must declare 10 bits, the plans must choose compound, the stream
+must hold show_existing frames and every shown frame's PSNR at peak 1023
+must clear the floor; it prints the fps over bench.py's window and the
+whole run and the stage times.  The agreement phase adds a 192x128x5
+10-bit random-access clip (hierarchical_levels 2), whose card stream
+the Decoder on the card decodes to its recon.  The kernels line has
+``compound_joint_16bit`` and ``block_var16_16bit`` rows with the calls
+and launches of the 10-bit random-access encode.
+
+The kernels phase also holds K9, K8 with the compound row, K10 (one
+960x576 plane and a 17-plane window, one launch for the window), and
 K5/K6 at the MCTF (1088x1920, 32x32) and TPL (576x960, 16x16)
 geometries against their plain versions, and the stripe modes: K5/K6/K7
 at row0 64 of a 1280x256 reference (K6 at every ME shape and at the
@@ -364,16 +388,17 @@ def k7_ops_per_candidate(n_units):
                       + 25 * 256 * 3)
 
 
-def k9_ops(n_units, packed=True):
+def k9_ops(n_units, packed=True, per_op=4):
     """K9's operations: per unit 2 arms x 49 offsets of 256 pixels and
     the plain average's 256, each averaged and compared with the source,
     and the 2 x 256 pixel pairs of the per-reference SADs.  ``packed``:
-    4 pixels per packed average and per packed absolute difference with
-    accumulate (12,800 per unit); else add, shift, |diff|, accumulate per
+    ``per_op`` pixels per packed average and per packed absolute
+    difference with accumulate (4 bytes at 8 bits: 12,800 per unit; 2
+    16-bit halves at 10: 25,600); else add, shift, |diff|, accumulate per
     averaged pixel and 3 operations per pixel pair (102,912)."""
     averaged, pairs = 2 * 49 * 256 + 256, 2 * 256
     if packed:
-        return n_units * (2 * averaged // 4 + pairs // 4)
+        return n_units * (2 * averaged // per_op + pairs // per_op)
     return n_units * (4 * averaged + 3 * pairs)
 
 
@@ -1010,31 +1035,89 @@ def tenbit_inter_report(results):
               f"{r16['plain_ms']:.4f} ms ({r8['plain_ms']:.4f})")
 
 
-def _half_res(y, W, H):
+def _half_res(y, W, H, bd=8):
     """The TPL statistics' plane: the buf-aligned luma, 2x2-averaged (the
-    rounding of tpl_gop_flow's bufal)."""
+    rounding of tpl_gop_flow's bufal), uint8 at ``bd`` 8 and int16 at 10
+    (the device sample types)."""
     a = np.pad(y, ((0, H - y.shape[0]), (0, W - y.shape[1])), mode="edge")
     a = a.astype(np.int32).reshape(H // 2, 2, W // 2, 2).sum((1, 3))
-    return ((a + 2) >> 2).astype(np.uint8)
+    return ((a + 2) >> 2).astype(np.uint8 if bd == 8 else np.int16)
 
 
-def ra_kernels_phase(dev, clip):
+def k10_check(dev, lumas, W, H, bd):
+    """K10 at ``bd`` (uint8 or int16 planes) on one half-resolution TPL
+    plane and on the window of all ``lumas`` (one launch), each bit-equal
+    to its plain version, with CUDA-event, device and plain times, its
+    bound (the input read once, the output written once) and the library
+    call's time: ``torch.var`` of a float32 copy of the blocks, times 256
+    (a conversion and one reduction, summed in another order; checked to
+    rtol 1e-5).  Returns the window's results, the plane's under
+    "one_plane"."""
+    from svt_av1_tpu_torch.pipeline import tpl
+
+    win = torch.stack([torch.from_numpy(_half_res(y, W, H, bd))
+                       for y in lumas]).to(dev)
+    n, hh, ww = win.shape
+    rows = {}
+    for what, x in (("one plane", win[0]), (f"{n}-plane window", win)):
+        k10 = lambda: tpl.block_var16(x)  # noqa: E731
+        k10_plain = lambda: tpl.block_var16_plain(x)  # noqa: E731
+        lib = lambda: torch.var(  # noqa: E731
+            x.view(-1, hh // 16, 16, ww // 16, 16).float(), dim=(2, 4),
+            correction=0) * 256
+        a, b, c = k10(), k10_plain(), lib()
+        torch.cuda.synchronize()
+        err = (a - b).abs().max().item()
+        lib_rel = ((c.view(a.shape) - a).abs() / a.clamp_min(1.0)).max() \
+            .item()
+        assert torch.equal(a, b), (bd, what, err)
+        assert lib_rel <= 1e-5, lib_rel
+        rows[what] = dict(
+            ms=cuda_ms(k10, KERNEL_REPS),
+            plain_ms=cuda_ms(k10_plain, PLAIN_REPS), device_ms=device_ms(k10),
+            library_ms=cuda_ms(lib, KERNEL_REPS),
+            library_device_ms=device_ms(lib), max_abs_err=err,
+            bound=bound_ms(nbytes(x, a), 5 * x.numel()),
+            per_call=f"1 launch, {what} of {ww}x{hh} {x.dtype}")
+        r = rows[what]
+        print(f"K10 block_var16 {bd}-bit, {what} ({ww}x{hh}, {x.dtype}): "
+              f"bit-equal to the plain version; kernel {r['ms']:.4f} ms, "
+              f"device {r['device_ms']:.5f} ms, bound {r['bound'][0]:.5f} "
+              f"ms ({r['bound'][1]}), plain {r['plain_ms']:.4f} ms; library "
+              f"(torch.var of a float32 copy) {r['library_ms']:.4f} ms, "
+              f"device {r['library_device_ms']:.5f} ms, max relative "
+              f"difference {lib_rel:.3g}")
+    out = rows[f"{n}-plane window"]
+    out["one_plane"] = rows["one plane"]
+    return out
+
+
+def ra_kernels_phase(dev, clip, window, bd=8, results8=None):
     """K9, K8 with the compound row and K10 at the random-access path's
-    shapes, and K5/K6 at the MCTF and TPL geometries, each against its
-    plain version on the same card tensors.  ``clip``: three consecutive
-    frames of the moving clip; the middle one is predicted from the
-    outer two (one past, one future reference)."""
+    shapes, and K5/K6 at the MCTF (8 bits only) and TPL geometries, each
+    against its plain version on the same card tensors.  ``clip``: three
+    consecutive frames of the moving clip; the middle one is predicted
+    from the outer two (one past, one future reference).  ``window``: the
+    lumas of a TPL window (17 frames), K10's input at half resolution.
+    At ``bd`` 10 (frames of the 10-bit clip, int16 planes) the 16-bit
+    forms, whose results take the suffix "_16bit": K9's bound counts
+    2-byte samples and 2 pixel pairs per packed operation, K8's 16-bit
+    form takes K9's 16-bit compound row, and each is printed beside the
+    8-bit form of ``results8`` with ptxas's lines of both instantiations
+    of K9 and K10."""
+    from svt_av1_tpu_torch.kernels import build
     from svt_av1_tpu_torch.ops import bme, omd
     from svt_av1_tpu_torch.pipeline import batched_inter as bi
-    from svt_av1_tpu_torch.pipeline import tpl
     from svt_av1_tpu_torch.pipeline.rate_control import RateControl
     from svt_av1_tpu_torch.pipeline.rdo import rd_lambda
 
     W, H = -(-WIDTH // 128) * 128, -(-HEIGHT // 128) * 128
     nr16, nc16 = H // 16, W // 16
     ny, nx = H // 64, W // 64
-    src = omd.upload_plane(clip[1][0], W, H, 8, dev)
-    refs = [omd.upload_plane(clip[k][0], W, H, 8, dev) for k in (0, 2)]
+    sfx, form = ("", "") if bd == 8 else ("_16bit", " 16-bit")
+    per_op = 4 if bd == 8 else 2
+    src = omd.upload_plane(clip[1][0], W, H, bd, dev)
+    refs = [omd.upload_plane(clip[k][0], W, H, bd, dev) for k in (0, 2)]
     bwd, rel = (False, True), (-1, 1)
     parts = []
     for k, ref in enumerate(refs):
@@ -1042,52 +1125,56 @@ def ra_kernels_phase(dev, clip):
                          ((16, 16), (64, 64)))
         a, b, pr = bme.subpel_refine16(
             src, ref, bi._nested_to_grid(m[(16, 16)][0], ny, nx, 4, 4),
-            bi._nested_to_grid(m[(16, 16)][1], ny, nx, 4, 4))
+            bi._nested_to_grid(m[(16, 16)][1], ny, nx, 4, 4), bd)
         parts.append((pr, a, b, m[(64, 64)][0].reshape(ny, nx),
                       m[(64, 64)][1].reshape(ny, nx)))
     preds, mvq_r, mvq_c, sb_r, sb_c = (
         torch.stack([p[i] for p in parts]).contiguous() for i in range(5))
     ref_stack = torch.stack(refs).contiguous()
-    cfg = ra_config(WIDTH, HEIGHT)
+    cfg = ra_config(WIDTH, HEIGHT, encoder_bit_depth=bd)
     rc = RateControl(cfg, float(cfg.frame_rate))
     rc.hierarchical_levels = cfg.hierarchical_levels
     qindex = rc.pick_qindex(False, 1, 8, (0, 16), -1)
-    lam = rd_lambda(qindex, 8)
+    lam = rd_lambda(qindex, bd)
     results = {}
 
     # -- K9 the compound candidate
     k9_args = (src, ref_stack, preds, mvq_r, mvq_c, sb_r, sb_c, bwd, rel,
-               qindex)
+               qindex, bd)
     k9 = lambda: bi.compound_joint(*k9_args)  # noqa: E731
     k9_plain = lambda: bi.compound_joint_plain(*k9_args)  # noqa: E731
     comp, want = k9(), k9_plain()
     torch.cuda.synchronize()
+    assert comp["pred"].dtype == want["pred"].dtype == src.dtype
     err = max((comp[k].to(torch.int32) - want[k].to(torch.int32)).abs()
               .max().item() for k in bi.COMP_KEYS)
     refined = ((comp["mv1_r"] != mvq_r[1]) | (comp["mv1_c"] != mvq_c[1])
                | (comp["mv_r"] != mvq_r[0]) | (comp["mv_c"] != mvq_c[0]))
-    print(f"K9 compound_joint: max |kernel - plain| {err} over "
+    print(f"K9 compound_joint{form}: max |kernel - plain| {err} over "
           f"{len(bi.COMP_KEYS)} outputs, units with a jointly refined arm "
-          f"{refined.float().mean().item():.4f}")
+          f"{refined.float().mean().item():.4f}, prediction "
+          f"{comp['pred'].dtype} up to {comp['pred'].max().item()}")
     assert err == 0
     units = nr16 * nc16
     k9_bytes = nbytes(src, ref_stack, preds, mvq_r, mvq_c, sb_r, sb_c,
                       *comp.values())
+    ops = k9_ops(units, per_op=per_op)
     old = bound_ms(k9_bytes, k9_ops(units, packed=False))
-    results["compound_joint"] = dict(
+    results["compound_joint" + sfx] = dict(
         ms=cuda_ms(k9, KERNEL_REPS), plain_ms=cuda_ms(k9_plain, PLAIN_REPS),
-        max_abs_err=err, bound=bound_ms(k9_bytes, k9_ops(units)),
-        per_call=f"1 launch, 2 references, {units} units "
-                 f"({k9_ops(units) / 1e9:.3f} G packed integer operations; "
-                 f"the scalar count bounds it at {old[0]:.5f} ms)")
+        device_ms=device_ms(k9), max_abs_err=err,
+        bound=bound_ms(k9_bytes, ops),
+        per_call=f"1 launch, 2 references, {units} units, {src.dtype} "
+                 f"({ops / 1e9:.3f} G packed integer operations; the "
+                 f"scalar count bounds it at {old[0]:.5f} ms)")
 
     # -- K8 with the compound row: the random-access path's call
-    args = (src, preds, mvq_r, mvq_c, sb_r, sb_c, qindex, lam)
+    args = (src, preds, mvq_r, mvq_c, sb_r, sb_c, qindex, lam, bd)
     (f1, m1, c1), (f2, m2, c2), counts = near_counts(
         "inter_select", lambda: bi.inter_select(*args, comp=comp),
         lambda: bi.inter_select_plain(*args, comp=comp))
-    print_near("K8 inter_select with the compound row on the 1080p "
-               "random-access frame", counts)
+    print_near(f"K8 inter_select{form} with K9's compound row on the 1080p "
+               f"{bd}-bit random-access frame", counts)
     for key in bi.SEL_KEYS:
         assert torch.equal(f1[key], f2[key]), ("compound row", key)
     mv_err = (m1 - m2).abs().max().item()
@@ -1098,54 +1185,45 @@ def ra_kernels_phase(dev, clip):
         worst = min(worst, close.float().mean().item())
         err = max(err, (c1[s] - c2[s]).abs().max().item())
     hist = torch.bincount(f1["sel"].flatten(), minlength=3).tolist()
-    print(f"K8 inter_select with the compound row: selection fields "
+    print(f"K8 inter_select{form} with the compound row: selection fields "
           f"equal, units per candidate (past, future, compound) {hist}, "
           f"max |mvbits| diff {mv_err}, costs within rtol 2e-4 / atol 2: "
           f"worst shape {worst:.6f}")
-    assert worst >= 0.99, worst
-    k8 = lambda: bi.inter_select(*args, comp=comp)  # noqa: E731
-    k8_plain = lambda: bi.inter_select_plain(*args, comp=comp)  # noqa
-    dct_flops = 2 * k8_dct_macs(omd.INTER_SHAPES) * H * W
-    flops = dct_flops + 12 * len(omd.INTER_SHAPES) * H * W + 3 * 3 * H * W
-    out_b = units * 32 + sum((H // h) * (W // w) * 4
-                             for (w, h) in omd.INTER_SHAPES)
-    in_b = nbytes(src, preds, mvq_r, mvq_c, sb_r, sb_c, *comp.values())
-    old = bound_ms(in_b + out_b, flops + 2 * (
-        576 - k8_dct_macs(omd.INTER_SHAPES)) * H * W)
-    results["inter_select"] = dict(
-        ms=cuda_ms(k8, KERNEL_REPS), plain_ms=cuda_ms(k8_plain, PLAIN_REPS),
-        max_abs_err=err, bound=bound_ms(in_b + out_b, flops),
-        per_call=f"1 launch, 2 references + the compound row "
-                 f"({dct_flops / 1e9:.2f} GFLOP of DCT; the whole products' "
-                 f"count bounds it at {old[0]:.5f} ms)")
+    assert worst >= 0.99 and hist[2] > 0, (worst, hist)
+    if bd == 8:
+        k8 = lambda: bi.inter_select(*args, comp=comp)  # noqa: E731
+        k8_plain = lambda: bi.inter_select_plain(*args, comp=comp)  # noqa
+        dct_flops = 2 * k8_dct_macs(omd.INTER_SHAPES) * H * W
+        flops = dct_flops + 12 * len(omd.INTER_SHAPES) * H * W + 3 * 3 * H * W
+        out_b = units * 32 + sum((H // h) * (W // w) * 4
+                                 for (w, h) in omd.INTER_SHAPES)
+        in_b = nbytes(src, preds, mvq_r, mvq_c, sb_r, sb_c, *comp.values())
+        old = bound_ms(in_b + out_b, flops + 2 * (
+            576 - k8_dct_macs(omd.INTER_SHAPES)) * H * W)
+        results["inter_select"] = dict(
+            ms=cuda_ms(k8, KERNEL_REPS),
+            plain_ms=cuda_ms(k8_plain, PLAIN_REPS), max_abs_err=err,
+            bound=bound_ms(in_b + out_b, flops),
+            per_call=f"1 launch, 2 references + the compound row "
+                     f"({dct_flops / 1e9:.2f} GFLOP of DCT; the whole "
+                     f"products' count bounds it at {old[0]:.5f} ms)")
 
-    # -- K10 at the TPL geometry
-    Hh, Wh = H // 2, W // 2
-    half = [torch.from_numpy(_half_res(clip[k][0], W, H)).to(dev)
+    # -- K10 at the TPL geometry: one plane and a window of planes
+    results["block_var16" + sfx] = k10_check(dev, window, W, H, bd)
+
+    # -- K5/K6 at the MCTF geometry (32x32 alone; its planes stay uint8 at
+    # every bit depth) and the TPL geometry (16x16 alone)
+    half = [torch.from_numpy(_half_res(clip[k][0], W, H, bd)).to(dev)
             for k in (0, 1)]
-    k10 = lambda: tpl.block_var16(half[0])  # noqa: E731
-    k10_plain = lambda: tpl.block_var16_plain(half[0])  # noqa: E731
-    a, b = k10(), k10_plain()
-    torch.cuda.synchronize()
-    rel_err = ((a - b).abs() / b.abs().clamp_min(1e-9)).max().item()
-    err = (a - b).abs().max().item()
-    print(f"K10 block_var16 {Wh}x{Hh}: max |kernel - plain| {err}, max "
-          f"relative {rel_err}")
-    assert rel_err <= 1e-6, rel_err
-    results["block_var16"] = dict(
-        ms=cuda_ms(k10, KERNEL_REPS), plain_ms=cuda_ms(k10_plain, PLAIN_REPS),
-        max_abs_err=err, bound=bound_ms(nbytes(half[0], a), 5 * Hh * Wh),
-        per_call=f"1 launch, {Wh}x{Hh}")
-
-    # -- K5/K6 at the MCTF geometry (32x32 alone) and the TPL geometry
-    # (16x16 alone)
-    Hm = -(-HEIGHT // 64) * 64
-    mctf = [torch.from_numpy(np.ascontiguousarray(np.pad(
-        clip[k][0], ((0, Hm - HEIGHT), (0, 0)), mode="edge"))).to(dev)
-        for k in (1, 0)]
+    geometries = [("TPL", (half[1], half[0]), (16, 16))]
+    if bd == 8:
+        Hm = -(-HEIGHT // 64) * 64
+        mctf = [torch.from_numpy(np.ascontiguousarray(np.pad(
+            clip[k][0], ((0, Hm - HEIGHT), (0, 0)), mode="edge"))).to(dev)
+            for k in (1, 0)]
+        geometries.insert(0, ("MCTF", mctf, (32, 32)))
     r = bme.COARSE_R
-    for what, (c, n), shape in (("MCTF", mctf, (32, 32)),
-                                ("TPL", (half[1], half[0]), (16, 16))):
+    for what, (c, n), shape in geometries:
         got = bme.frame_me(c, n, shapes=(shape,))
         coarse = bme.coarse_sb_search(c, n)
         want = bme.refine_plain(c, n, coarse, (shape,))
@@ -1162,18 +1240,33 @@ def ra_kernels_phase(dev, clip):
             (lambda: bme.me_refine(c, n, coarse, (shape,)), KERNEL_REPS),
             (lambda: bme.refine_plain(c, n, coarse, (shape,)), PLAIN_REPS))]
         k5_dev = device_ms(lambda: bme.me_coarse(c, n))
+        k6_dev = device_ms(lambda: bme.me_refine(c, n, coarse, (shape,)))
         # the bounds count as the K5 and K6 rows do
-        b5 = bound_ms(nbytes(c, n, coarse), k5_ops(n_sb, r, 2 * hh * ww))
+        b5 = bound_ms(nbytes(c, n, coarse),
+                      k5_ops(n_sb, r, 2 * hh * ww, per_op=per_op))
         b6 = bound_ms(nbytes(c, n, coarse, *got[shape]),
-                      k6_ops(n_sb))
-        c6 = k6_ceiling(n_sb)
-        print(f"K5/K6 at the {what} geometry {ww}x{hh}, shape "
-              f"{shape[0]}x{shape[1]} alone: max |kernel - plain| {err}; "
-              f"K5 {times[0]:.4f} ms (device {k5_dev:.5f} ms, plain "
-              f"{times[1]:.4f} ms, bound "
-              f"{b5[0]:.5f} ms, {b5[1]}), K6 {times[2]:.4f} ms (plain "
+                      k6_ops(n_sb, per_op))
+        c6 = k6_ceiling(n_sb, 16 if bd == 8 else 96)
+        print(f"K5/K6{form} at the {what} geometry {ww}x{hh} ({c.dtype}), "
+              f"shape {shape[0]}x{shape[1]} alone: max |kernel - plain| "
+              f"{err}; K5 {times[0]:.4f} ms (device {k5_dev:.5f} ms, plain "
+              f"{times[1]:.4f} ms, bound {b5[0]:.5f} ms, {b5[1]}), K6 "
+              f"{times[2]:.4f} ms (device {k6_dev:.5f} ms, plain "
               f"{times[3]:.4f} ms, bound {b6[0]:.5f} ms, {b6[1]}; design "
               f"ceiling {c6[0]:.5f} ms, {c6[1]})")
+
+    if bd != 8:
+        for name in ("compound_joint", "block_var16"):
+            for line in build.ptxas_report(name):
+                print(f"ptxas {name}: {line}")
+        for k8, k16 in (("compound_joint", "compound_joint_16bit"),
+                        ("block_var16", "block_var16_16bit")):
+            r8, r16 = results8[k8], results[k16]
+            print(f"{k16} vs the 8-bit form: events {r16['ms']:.4f} ms "
+                  f"({r8['ms']:.4f}), device {r16['device_ms']:.5f} ms "
+                  f"({r8['device_ms']:.5f}), bound {r16['bound'][0]:.5f} "
+                  f"ms, {r16['bound'][1]} ({r8['bound'][0]:.5f}), plain "
+                  f"{r16['plain_ms']:.4f} ms ({r8['plain_ms']:.4f})")
     return results
 
 
@@ -1433,15 +1526,20 @@ class _Tally:
     del _forward
 
 
-def ra_phase(counters, frames, out_dir):
-    """bench.py's configuration on RA_FRAMES frames of the moving clip;
-    returns the launches and the wrapper calls of the run."""
+def ra_phase(counters, frames, out_dir, bd=8):
+    """bench.py's configuration on RA_FRAMES frames of the moving clip at
+    ``bd`` bits; returns the launches and the wrapper calls of the run.
+    At 10 bits the sequence header must declare 10 bits, and K5's and
+    K6's calls are printed by sample type: MCTF's uint8 (the reference's
+    narrowing), the plans' and TPL's int16."""
     from svt_av1_tpu_torch.api import Encoder
     from svt_av1_tpu_torch.io import IvfWriter
     from svt_av1_tpu_torch.ops import bme, dlf, omd
 
-    path = Path(out_dir) / "smoke_1080p_ra.ivf"
-    cfg = ra_config(WIDTH, HEIGHT)
+    what = "random access" if bd == 8 else f"{bd}-bit random access"
+    path = Path(out_dir) / ("smoke_1080p_ra.ivf" if bd == 8
+                            else f"smoke_1080p_ra_{bd}bit.ivf")
+    cfg = ra_config(WIDTH, HEIGHT, encoder_bit_depth=bd)
     enc = Encoder(cfg)                      # the default device: CUDA
     assert enc.device.type == "cuda"
     layers, comp = {}, []
@@ -1474,10 +1572,12 @@ def ra_phase(counters, frames, out_dir):
     # K5's calls by reach and plane, K2's by plane and level (the level
     # search's luma candidates, then the chroma planes at the winner)
     k5 = _Tally(bme.me_coarse, lambda src, ref, coarse_r=bme.COARSE_R, *a,
-                **kw: f"r {coarse_r}, {src.shape[1]}x{src.shape[0]}")
+                **kw: f"r {coarse_r}, {src.shape[1]}x{src.shape[0]}, "
+                f"{str(src.dtype)[6:]}")
+    k6 = _Tally(bme.me_refine, lambda src, *a, **kw: str(src.dtype)[6:])
     k2 = _Tally(dlf.deblock, lambda plane, *a, **kw:
                 f"{plane.shape[1]}x{plane.shape[0]}, levels {a[6]}/{a[7]}")
-    bme.me_coarse, dlf.deblock = k5, k2
+    bme.me_coarse, bme.me_refine, dlf.deblock = k5, k6, k2
     zero_counts(counters)
     torch.cuda.synchronize()
     for name in ("intra_decision", "inter_select"):
@@ -1495,33 +1595,34 @@ def ra_phase(counters, frames, out_dir):
                 pts += 1
     torch.cuda.synchronize()
     t1 = time.perf_counter()
-    bme.me_coarse, dlf.deblock = k5.fn, k2.fn
+    bme.me_coarse, bme.me_refine, dlf.deblock = k5.fn, k6.fn, k2.fn
     launches, calls = read_counts(counters)
     near = {name: omd.near_recomputes(name)
             for name in ("intra_decision", "inter_select")}
     n_timed = len(frames) - RA_WARM
-    print(f"random access (bench.py's configuration: RANDOM_ACCESS, "
+    print(f"{what} (bench.py's configuration: RANDOM_ACCESS, "
           f"hierarchical_levels {cfg.hierarchical_levels}, "
           f"intra_period_length {cfg.intra_period_length}, qp {QP}, preset "
-          f"8, TPL on, tf_level 2, compound_level 1): {len(frames)} frames "
+          f"8, TPL on, tf_level 2, compound_level 1, {bd} bits): "
+          f"{len(frames)} frames "
           f"{WIDTH}x{HEIGHT}; last {n_timed} frames after a {RA_WARM}-frame "
           f"warm-up in {t1 - t_warm:.3f} s, {n_timed / (t1 - t_warm):.4f} "
           f"fps; whole run {t1 - t0:.3f} s, {len(frames) / (t1 - t0):.4f} "
           f"fps; {path.stat().st_size} bytes, packets md5 "
           f"{stream_md5(path)}")
     rep = enc.perf_report()
-    print("random access stage ms/frame (host wall clock):", json.dumps(
+    print(f"{what} stage ms/frame (host wall clock):", json.dumps(
         {k: v.get("ms_per_frame") for k, v in rep.items() if k != "_wall"}))
-    print("random access main path launches:", json.dumps(launches))
-    print("random access main path wrapper calls:", json.dumps(calls))
-    print(f"random access near-boundary float64 recomputes: K1 "
+    print(f"{what} main path launches:", json.dumps(launches))
+    print(f"{what} main path wrapper calls:", json.dumps(calls))
+    print(f"{what} near-boundary float64 recomputes: K1 "
           f"{near['intra_decision']} over {launches['intra_decision']} "
           f"frames ({near['intra_decision'] / max(launches['intra_decision'], 1):.1f}"
           f" per frame), K8 {near['inter_select']} over "
           f"{launches['inter_select']} inter frames "
           f"({near['inter_select'] / max(launches['inter_select'], 1):.1f} "
           f"per frame)")
-    print(f"random-access encode alone: K1 intra_decision "
+    print(f"{what} encode alone: K1 intra_decision "
           f"{launches['intra_decision']} launches, K6 me_refine "
           f"{launches['me_refine']} launches")
     print(f"K5/K6 calls by use: MCTF {by_use['MCTF']}, TPL "
@@ -1531,10 +1632,26 @@ def ra_phase(counters, frames, out_dir):
           json.dumps(dict(sorted(k5.by.items()))))
     print("K2 calls by plane and level (vertical/horizontal):",
           json.dumps(dict(sorted(k2.by.items()))))
-    assert sum(k5.by.values()) == calls["me_coarse"]
+    by_dtype = {dt: (sum(v for k, v in k5.by.items() if k.endswith(dt)),
+                     k6.by[dt]) for dt in ("uint8", "int16")}
+    print("K5 / K6 calls (one launch each) by sample type: "
+          + ", ".join(f"{dt} {a} / {b}" for dt, (a, b) in by_dtype.items())
+          + " (uint8: MCTF's planes" + ("" if bd == 8 else
+                                        ", narrowed as the reference does;"
+                                        " int16: the plans' and TPL's")
+          + ")")
+    assert sum(k5.by.values()) == calls["me_coarse"] == launches["me_coarse"]
+    assert sum(k6.by.values()) == calls["me_refine"] == launches["me_refine"]
     assert sum(k2.by.values()) == calls["deblock"]
     missing = [n for n, c in launches.items() if c == 0]
-    assert not missing, f"kernels not launched on the main path: {missing}"
+    assert not missing, f"kernels not launched on the {what} path: {missing}"
+    if bd != 8:
+        assert by_dtype["uint8"] == (by_use["MCTF"],) * 2, by_dtype
+        assert by_dtype["int16"][0] == by_dtype["int16"][1] \
+            == calls["me_coarse"] - by_use["MCTF"] > 0, by_dtype
+        got_bd = stream_bit_depth(path)
+        print(f"{what}: the sequence header declares {got_bd} bits")
+        assert got_bd == bd
 
     heads = stream_headers(path)
     for h in heads:
@@ -1560,9 +1677,10 @@ def ra_phase(counters, frames, out_dir):
         rec = enc.recon_by_display[d]
         for p in range(3):
             assert rec[p].shape == src[p].shape
-        scores.append(psnr(src[0], rec[0]))
-    print(f"random access recon luma PSNR per shown frame (dB): "
-          f"{[round(x, 3) for x in scores]}")
+            assert rec[p].dtype == (np.uint8 if bd == 8 else np.uint16)
+        scores.append(psnr(src[0], rec[0], (1 << bd) - 1))
+    print(f"{what} recon luma PSNR (peak {(1 << bd) - 1}) per shown frame "
+          f"(dB): {[round(x, 3) for x in scores]}")
     assert min(scores) > PSNR_FLOOR_DB, (min(scores), PSNR_FLOOR_DB)
     return launches, calls
 
@@ -1592,20 +1710,24 @@ def agreement_clips():
 def tenbit_agreement_clips():
     """(name, frames, config) of the 64x64x2 10-bit all-intra clip (the
     corner of a 176x144 10-bit synth_clip, as agreement_clips cuts the
-    8-bit one) and of the 192x128x6 10-bit low-delay P clip (the moving
-    synth_clip at 10 bits)."""
+    8-bit one), of the 192x128x6 10-bit low-delay P clip (the moving
+    synth_clip at 10 bits) and of the 192x128x5 10-bit random-access clip
+    (its first 5 frames, hierarchical_levels 2: MCTF, TPL, compound,
+    show_existing)."""
     frames = [tuple(np.ascontiguousarray(p[:64 >> (i > 0), :64 >> (i > 0)])
                     for i, p in enumerate(f))
               for f in synth_clip(176, 144, 2, seed=13, bd=10)]
     yield "64x64x2 10-bit all-intra", frames, slice_config(64, 64, bd=10)
-    yield ("192x128x6 10-bit low-delay P",
-           synth_clip(192, 128, 6, seed=13, bd=10),
+    moving = synth_clip(192, 128, 6, seed=13, bd=10)
+    yield ("192x128x6 10-bit low-delay P", moving,
            slice_config(192, 128, -1, bd=10))
+    yield ("192x128x5 10-bit random access", moving[:5],
+           ra_config(192, 128, hierarchical_levels=2, encoder_bit_depth=10))
 
 
 def agreement_phase(out_dir):
-    """Returns the random-access card stream and the 10-bit all-intra and
-    low-delay P card streams, each (path, recon)."""
+    """Returns the random-access card stream and the 10-bit all-intra,
+    low-delay P and random-access card streams, each (path, recon)."""
     from svt_av1_tpu_torch.api import encode_ivf
 
     clips = list(agreement_clips()) + list(tenbit_agreement_clips())
@@ -1615,18 +1737,20 @@ def agreement_phase(out_dir):
             p = paths[dev] = Path(out_dir) / f"agree_{k}_{dev}.ivf"
             recon = encode_ivf(frames, cfg, str(p), device=dev)
             streams[dev] = p.read_bytes()
-            if name.endswith("random access") and dev == "cuda":
+            if name == "192x128x5 random access" and dev == "cuda":
                 ra_card = (p, recon)
             if "10-bit all-intra" in name and dev == "cuda":
                 tenbit_card = (p, recon)
             if "10-bit low-delay P" in name and dev == "cuda":
                 tenbit_ipp_card = (p, recon)
+            if "10-bit random access" in name and dev == "cuda":
+                tenbit_ra_card = (p, recon)
         same = streams["cuda"] == streams["cpu"]
         print(f"{name}: card stream {len(streams['cuda'])} bytes (packets "
               f"md5 {stream_md5(paths['cuda'])}), CPU stream "
               f"{len(streams['cpu'])} bytes, identical {same}")
         assert same, name
-    return ra_card, tenbit_card, tenbit_ipp_card
+    return ra_card, tenbit_card, tenbit_ipp_card, tenbit_ra_card
 
 
 # --------------------------------------------------------------------------
@@ -2062,12 +2186,19 @@ def main() -> int:
         WIDTH, HEIGHT, N_FRAMES - half, tex_sigma=SMOOTH_SIGMA, bd=10)
     kres.update(tenbit_kernels_phase(dev, frames10[0], kres))
     kres.update(inter_kernels_phase(dev, ipp_frames[0], ipp_frames[1]))
-    # the 10-bit low-delay P clip: the moving clip at 10 bits
-    ipp_frames10 = synth_clip(WIDTH, HEIGHT, N_FRAMES, bd=10)
+    # the 10-bit low-delay P and random-access clip: the moving clip at 10
+    # bits (its first N_FRAMES frames are synth_clip's N_FRAMES)
+    ra_frames10 = synth_clip(WIDTH, HEIGHT, RA_FRAMES, bd=10)
+    ipp_frames10 = ra_frames10[:N_FRAMES]
     kres.update(inter_kernels_phase(dev, ipp_frames10[0], ipp_frames10[1],
                                     bd=10))
     tenbit_inter_report(kres)
-    kres.update(ra_kernels_phase(dev, ra_frames[:3]))
+    # a TPL window: the previous mini-GOP's last picture and 16 more
+    kres.update(ra_kernels_phase(dev, ra_frames[:3],
+                                 [f[0] for f in ra_frames[:RA_WARM]]))
+    kres.update(ra_kernels_phase(
+        dev, ra_frames10[:3], [f[0] for f in ra_frames10[:RA_WARM]], 10,
+        kres))
 
     counters = {"intra_decision": omd.intra_decision_packed,
                 "deblock": dlf.deblock,
@@ -2089,7 +2220,9 @@ def main() -> int:
             counters, frames10, tmp)
         tbp_launches, tbp_calls, _ = ipp_phase(counters, ipp_frames10, tmp,
                                                bd=10)
-        ra_card, tenbit_card, tenbit_ipp_card = agreement_phase(tmp)
+        tbr_launches, tbr_calls = ra_phase(counters, ra_frames10, tmp, bd=10)
+        ra_card, tenbit_card, tenbit_ipp_card, tenbit_ra_card = \
+            agreement_phase(tmp)
         # the stripe modes against their plain versions, after the encodes
         # so that those run on the process state they ran on before: the
         # JAX geometry (1280x256, stripes at rows 64 and 192) and the full
@@ -2103,8 +2236,8 @@ def main() -> int:
         stripe_launches, stripe_calls, b14 = stripes_phase(counters)
         dec_launches, dec_calls = decode_phase(counters, [
             ("192x128x5 random access (card stream)", *ra_card, 7),
-            (f"{WIDTH}x{HEIGHT} low-delay P, first 3 temporal units",
-             *ipp_stream, 3)])
+            (f"{WIDTH}x{HEIGHT} low-delay P, first 2 temporal units",
+             *ipp_stream, 2)])
         # the 10-bit streams: the small card streams of the agreement phase
         # and the first frame of the 1080p all-intra one (the 1080p
         # low-delay P stream is not decoded: the host walk takes about 20
@@ -2113,13 +2246,16 @@ def main() -> int:
             ("64x64x2 10-bit all-intra (card stream)", *tenbit_card, 2),
             ("192x128x6 10-bit low-delay P (card stream)", *tenbit_ipp_card,
              6),
+            ("192x128x5 10-bit random access (card stream)",
+             *tenbit_ra_card, 7),
             (f"{WIDTH}x{HEIGHT} 10-bit all-intra, first temporal unit",
              tb_path, tb_recon, 1)])
-    print("10-bit path launches (the 1080p encode + the 10-bit decodes):",
+    print("10-bit path launches (the 1080p all-intra encode + the 10-bit "
+          "decodes):",
           json.dumps({k: tb_launches[k] + tb_dec_launches[k]
                       for k in counters}))
-    print("10-bit path wrapper calls (the 1080p encode + the 10-bit "
-          "decodes):", json.dumps({k: tb_calls[k] + tb_dec_calls[k]
+    print("10-bit path wrapper calls (the 1080p all-intra encode + the "
+          "10-bit decodes):", json.dumps({k: tb_calls[k] + tb_dec_calls[k]
                                    for k in counters}))
     # the kernels line counts the launches of every main path: the
     # random-access encode, the two stripe dryruns and the decodes
@@ -2159,7 +2295,7 @@ def main() -> int:
             source=f"svt_av1_tpu_torch/kernels/csrc/{src}",
             replaces=replaces, calls=calls[name], launches=launches[name],
             max_abs_err=r["max_abs_err"], ms=r["ms"], plain_ms=r["plain_ms"],
-            bound_ms=b_ms, bound_by=b_by, library_ms=None)
+            bound_ms=b_ms, bound_by=b_by, library_ms=r.get("library_ms"))
         # the design ceilings rest on assumed peaks, not on this run: they
         # are printed, not put in the kernels line
         ceiling = ""
@@ -2168,6 +2304,8 @@ def main() -> int:
                        f"({r['ceiling'][1]})")
         if "device_ms" in r:
             ceiling += f", device {r['device_ms']:.5f} ms"
+        if r.get("library_ms") is not None:
+            ceiling += f", library {r['library_ms']:.4f} ms"
         rows.append(row)
         print(f"{name}: {r['per_call']}: kernel {r['ms']:.4f} ms, plain "
               f"{r['plain_ms']:.4f} ms, bound {b_ms:.5f} ms ({b_by})"
@@ -2183,15 +2321,18 @@ def main() -> int:
     # the 16-bit forms: their launches on the 10-bit encode that runs
     # them, K1's and K4's search's on the all-intra one, K5-K8's on the
     # low-delay P one
-    ai10 = (tb_calls, tb_launches, "10-bit all-intra")
-    ipp10 = (tbp_calls, tbp_launches, "10-bit low-delay P")
+    ai10 = (tb_calls, tb_launches, f"{N_FRAMES}-frame 10-bit all-intra")
+    ipp10 = (tbp_calls, tbp_launches, f"{N_FRAMES}-frame 10-bit low-delay P")
+    ra10 = (tbr_calls, tbr_launches, f"{RA_FRAMES}-frame 10-bit random access")
     for name, base, (calls16, launches16, where) in (
             ("intra_decision_16bit", "intra_decision", ai10),
             ("cdef_search_16bit", "cdef_search", ai10),
             ("me_coarse_16bit", "me_coarse", ipp10),
             ("me_refine_16bit", "me_refine", ipp10),
             ("subpel_refine_16bit", "subpel_refine16", ipp10),
-            ("inter_select_16bit", "inter_select", ipp10)):
+            ("inter_select_16bit", "inter_select", ipp10),
+            ("compound_joint_16bit", "compound_joint", ra10),
+            ("block_var16_16bit", "block_var16", ra10)):
         r = kres[base + "_16bit"]
         src, replaces = sources[base]
         b_ms, b_by = r["bound"]
@@ -2201,13 +2342,15 @@ def main() -> int:
             replaces=replaces, calls=calls16[base],
             launches=launches16[base], max_abs_err=r["max_abs_err"],
             ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=b_ms, bound_by=b_by,
-            library_ms=None))
+            library_ms=r.get("library_ms")))
         ceiling = (f", design ceiling {r['ceiling'][0]:.5f} ms "
                    f"({r['ceiling'][1]})") if "ceiling" in r else ""
+        if r.get("library_ms") is not None:
+            ceiling += f", library {r['library_ms']:.4f} ms"
         print(f"{name}: {r['per_call']}: kernel {r['ms']:.4f} ms, plain "
               f"{r['plain_ms']:.4f} ms, bound {b_ms:.5f} ms ({b_by})"
               f"{ceiling}, device {r['device_ms']:.5f} ms; calls / "
-              f"launches on the {N_FRAMES}-frame {where} encode: "
+              f"launches on the {where} encode: "
               f"{calls16[base]} / {launches16[base]}")
         assert launches16[base] > 0, name
     # the row's times are the JAX geometry's (4 stripes of 1280x64); its

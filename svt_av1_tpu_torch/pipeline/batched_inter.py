@@ -482,15 +482,17 @@ inter_select.launches = inter_select.calls = 0
 def compound_joint(src, refs, preds, mvq_r, mvq_c, sb_r, sb_c, bwd_mask,
                    rel_dists, qindex: int, bd: int = 8) -> dict:
     """K9: the averaged-compound candidate of every 16x16 unit.  ``refs``
-    uint8 [K, H, W] the reference planes; ``preds``, ``mvq_r/mvq_c`` and
-    ``sb_r/sb_c`` as for ``inter_select``; ``bwd_mask[k]`` marks the
-    backward references (at least one on each side); ``rel_dists[k]``
-    each reference's signed display distance.  Returns {"pred": uint8
-    [H, W] the compound prediction, "sad": its SAD, "mv_r", "mv_c" the
-    forward and "mv1_r", "mv1_c" the backward arm's eighth-pel MV,
-    "fwd_i", "bwd_i" the paired references}, each int32 [H/16, W/16].
-    CPU tensors take the plain version; CUDA tensors launch
-    kernels/csrc/compound_joint.cu."""
+    [K, H, W] the reference planes, in the sample type of ``bd`` as
+    ``src`` and ``preds`` (uint8 at 8 bits, int16 at 10); ``preds``,
+    ``mvq_r/mvq_c`` and ``sb_r/sb_c`` as for ``inter_select``;
+    ``bwd_mask[k]`` marks the backward references (at least one on each
+    side); ``rel_dists[k]`` each reference's signed display distance.
+    Returns {"pred": [H, W] the compound prediction in the sample type,
+    "sad": its SAD, "mv_r", "mv_c" the forward and "mv1_r", "mv1_c" the
+    backward arm's eighth-pel MV, "fwd_i", "bwd_i" the paired references},
+    each but "pred" int32 [H/16, W/16].  CPU tensors take the plain
+    version; CUDA tensors launch kernels/csrc/compound_joint.cu, its 8-bit
+    or its 16-bit form."""
     K = preds.shape[0]
     bwd_mask = tuple(bool(b) for b in bwd_mask[:K])
     if len(rel_dists) != K or len(bwd_mask) != K \
@@ -501,25 +503,21 @@ def compound_joint(src, refs, preds, mvq_r, mvq_c, sb_r, sb_c, bwd_mask,
         return compound_joint_plain(src, refs, preds, mvq_r, mvq_c, sb_r,
                                     sb_c, bwd_mask, rel_dists, qindex, bd)
     compound_joint.calls += 1
-    if bd != 8:
-        raise ValueError("compound_joint: 8-bit only (its 16-bit form is "
-                         "still to port, ROADMAP B15c)")
     _, H, W = _check_unit_inputs("compound_joint", src, preds, mvq_r, mvq_c,
                                  sb_r, sb_c, bd)
-    if refs.dtype != torch.uint8 or tuple(refs.shape) != tuple(preds.shape) \
+    if refs.dtype != src.dtype or tuple(refs.shape) != tuple(preds.shape) \
             or not refs.is_contiguous() or refs.device != src.device:
-        raise ValueError("compound_joint: refs must be contiguous uint8 "
-                         "[K, H, W] beside the predictions")
+        raise ValueError(f"compound_joint: refs must be contiguous {src.dtype}"
+                         " [K, H, W] beside the predictions")
     if any(t.data_ptr() % 16 for t in (src, refs, preds)):
         raise ValueError("compound_joint: the kernel reads rows as 16-byte "
                          "words; planes must start on 16-byte boundaries")
-    from ..kernels.build import check_launch, cuda_lib, ptr, stream
+    from ..kernels.build import check_launch, cuda_fn, ptr, stream
 
-    fn = cuda_lib("compound_joint").compound_joint_launch
-    fn.restype = ctypes.c_int
     P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    fn.argtypes = [P, P, P, I, I, I, P, P, P, P, P, I, F, I, I, I, I] \
-        + [P] * 9
+    fn = cuda_fn("compound_joint", "compound_joint_launch",
+                 (P, P, P, I, I, I, I, P, P, P, P, P, I, F, I, I, I, I)
+                 + (P,) * 9)
     dev = src.device
     n_tab = _table_len(H, W)
     rel = [int(d) for d in rel_dists] + [0] * (3 - K)
@@ -527,10 +525,11 @@ def compound_joint(src, refs, preds, mvq_r, mvq_c, sb_r, sb_c, bwd_mask,
     nr16, nc16 = H // 16, W // 16
     out = {k: torch.empty((nr16, nc16), dtype=torch.int32, device=dev)
            for k in COMP_KEYS if k != "pred"}
-    out["pred"] = torch.empty((H, W), dtype=torch.uint8, device=dev)
-    err = fn(ptr(src), ptr(refs), ptr(preds), K, H, W, ptr(mvq_r),
-             ptr(mvq_c), ptr(sb_r), ptr(sb_c), ptr(_log2_table(n_tab, dev)),
-             n_tab, float(selection_pens(qindex, bd)[3]), mask, *rel,
+    out["pred"] = torch.empty((H, W), dtype=src.dtype, device=dev)
+    err = fn(ptr(src), ptr(refs), ptr(preds), src.element_size(), K, H, W,
+             ptr(mvq_r), ptr(mvq_c), ptr(sb_r), ptr(sb_c),
+             ptr(_log2_table(n_tab, dev)), n_tab,
+             float(selection_pens(qindex, bd)[3]), mask, *rel,
              *(ptr(out[k]) for k in COMP_KEYS), stream(src))
     check_launch("compound_joint", err)
     compound_joint.launches += 1

@@ -82,6 +82,13 @@ def _me32(center_t, neigh_t):
 
 
 def _upload(plane, device) -> torch.Tensor:
+    """The plane as uint8 on ``device``, for the 32x32 ME.  At 10 bits this
+    keeps each sample modulo 256, as the JAX package's device path does
+    (svt_av1_tpu/pipeline/mctf.py ``_me32``, which hands its jitted ME
+    ``center_y.astype(np.uint8)`` and ``ny.astype(np.uint8)``); its numpy
+    twin searches the full samples, and may find other MVs.  ROADMAP.md
+    section C lists this narrowing as the reference's, kept for byte
+    identity; tests/test_torch_tenbit_random_access.py pins it."""
     return torch.from_numpy(np.ascontiguousarray(plane, np.uint8)).to(device)
 
 

@@ -8,10 +8,12 @@ intra/inter costs per block, mc_dep flow through the MV field, r0/beta
 
 Per consecutive display pair, the batched frame ME on the encoder's
 device (K5/K6 at the single shape 16x16) gives the 16x16 SAD/MV field,
-and K10 each frame's per-block spatial (intra-proxy) cost, the variance
-of its 16x16 blocks; the backward propagation runs on the host over the
-small [nr16, nc16] grids; the output is a per-frame r0 that the rate
-control turns into kf/gf boosts.
+and K10, in one launch for the window, each frame's per-block spatial
+(intra-proxy) cost, the variance of its 16x16 blocks; the backward
+propagation runs on the host over the small [nr16, nc16] grids; the
+output is a per-frame r0 that the rate control turns into kf/gf boosts.
+The planes keep the sample type of the bit depth (int16 at 10 bits, as
+the JAX package keeps uint16).
 """
 from __future__ import annotations
 
@@ -20,6 +22,7 @@ import ctypes
 import numpy as np
 import torch
 
+from ..device import SAMPLE_DTYPES
 from ..ops import bme
 
 # qindex steps removed per doubling of the dependency multiplier beta
@@ -32,51 +35,60 @@ MAX_BOOST = 16          # cap (reference: kf/arf boost limits)
 # K10: per-16x16 source variance, plain version and wrapper
 # --------------------------------------------------------------------------
 
-def block_var16_plain(plane: torch.Tensor) -> torch.Tensor:
-    """float32 [H/16, W/16]: sum((b - mean)^2) over each 16x16 block of
-    ``plane`` [H, W].  The mean (sum / 256) and each deviation are exact
-    in float32 and each square rounds once; the 256 squares are summed
-    in one fixed order, which K10 follows: the block read column by
-    column in runs of 8 rows, run j added to lane j mod 8 of 8 float32
-    accumulators in turn, then the lanes folded in halves (4, 2, 1)."""
-    H, W = plane.shape
+def block_var16_plain(planes: torch.Tensor) -> torch.Tensor:
+    """float32 [H/16, W/16] (or [n, H/16, W/16]): sum((b - mean)^2) over
+    each 16x16 block of ``planes`` [H, W] (or [n, H, W]), uint8 or int16
+    samples.  The mean (sum / 256) and each deviation are exact in float32
+    and each square rounds once; the 256 squares are summed in one fixed
+    order, which K10 follows: the block read column by column in runs of 8
+    rows, run j added to lane j mod 8 of 8 float32 accumulators in turn,
+    then the lanes folded in halves (4, 2, 1)."""
+    *lead, H, W = planes.shape
     nr, nc = H // 16, W // 16
-    b = plane.to(torch.int32).reshape(nr, 16, nc, 16).permute(0, 2, 1, 3)
+    b = planes.to(torch.int32).reshape(*lead, nr, 16, nc, 16) \
+        .transpose(-3, -2)
     mean = b.sum((-1, -2), keepdim=True).to(torch.float32) / 256.0
     d = b.to(torch.float32) - mean
-    sq = (d * d).transpose(-1, -2).reshape(nr, nc, 32, 8)
-    acc = sq[:, :, 0]
+    sq = (d * d).transpose(-1, -2).reshape(*lead, nr, nc, 32, 8)
+    acc = sq[..., 0, :]
     for j in range(1, 32):
-        acc = acc + sq[:, :, j]
+        acc = acc + sq[..., j, :]
     for half in (4, 2, 1):
         acc = acc[..., :half] + acc[..., half:2 * half]
     return acc[..., 0].contiguous()
 
 
-def block_var16(plane: torch.Tensor) -> torch.Tensor:
-    """K10: per-16x16 variance sums of a uint8 plane (see
-    ``block_var16_plain``).  CPU tensors take the plain version; CUDA
-    tensors launch kernels/csrc/block_var16.cu."""
-    if plane.device.type == "cpu":
-        return block_var16_plain(plane)
+def block_var16(planes: torch.Tensor) -> torch.Tensor:
+    """K10: per-16x16 variance sums of a plane [H, W] or of a window of
+    planes [n, H, W], uint8 (8-bit samples) or int16 (10-bit samples, in
+    [0, 1024)), in one launch (see ``block_var16_plain``).  CPU tensors
+    take the plain version; CUDA tensors launch
+    kernels/csrc/block_var16.cu, its 8-bit or its 16-bit form."""
+    if planes.device.type == "cpu":
+        return block_var16_plain(planes)
     block_var16.calls += 1
-    if plane.device.type != "cuda":
-        raise ValueError(f"block_var16: unsupported device {plane.device}")
-    if plane.dtype != torch.uint8 or plane.dim() != 2 \
-            or not plane.is_contiguous():
-        raise ValueError("block_var16 takes a contiguous uint8 [H, W] plane")
-    H, W = plane.shape
-    if H % 16 or W % 16 or H == 0 or W == 0:
+    if planes.device.type != "cuda":
+        raise ValueError(f"block_var16: unsupported device {planes.device}")
+    if planes.dtype not in (torch.uint8, torch.int16) \
+            or planes.dim() not in (2, 3) or not planes.is_contiguous():
+        raise ValueError("block_var16 takes a contiguous uint8 or int16 "
+                         f"[H, W] or [n, H, W], not {planes.dtype} "
+                         f"{tuple(planes.shape)}")
+    *lead, H, W = planes.shape
+    n = lead[0] if lead else 1
+    if H % 16 or W % 16 or H == 0 or W == 0 or n == 0:
         raise ValueError("block_var16: planes must be whole 16x16 blocks")
-    from ..kernels.build import check_launch, cuda_lib, ptr, stream
+    if planes.data_ptr() % 16:
+        raise ValueError("block_var16: the kernel reads rows as 16-byte "
+                         "words; planes must start on a 16-byte boundary")
+    from ..kernels.build import check_launch, cuda_fn, ptr, stream
 
-    fn = cuda_lib("block_var16").block_var16_launch
-    fn.restype = ctypes.c_int
     P, I = ctypes.c_void_p, ctypes.c_int
-    fn.argtypes = [P, I, I, P, P]
-    out = torch.empty((H // 16, W // 16), dtype=torch.float32,
-                      device=plane.device)
-    err = fn(ptr(plane), H, W, ptr(out), stream(plane))
+    fn = cuda_fn("block_var16", "block_var16_launch", (P, I, I, I, I, P, P))
+    out = torch.empty((*lead, H // 16, W // 16), dtype=torch.float32,
+                      device=planes.device)
+    err = fn(ptr(planes), n, H, W, planes.element_size(), ptr(out),
+             stream(planes))
     check_launch("block_var16", err)
     block_var16.launches += 1
     return out
@@ -91,7 +103,8 @@ def _pair_stats(src, ref):
     batched frame ME of the device planes ``src`` and ``ref`` at the
     single shape 16x16 (K5/K6).  The pair's variance, the fourth
     statistic of the JAX package's _block16_stats, reads the source
-    alone: ``tpl_gop_flow`` takes it once per frame from K10."""
+    alone: ``tpl_gop_flow`` takes it for the whole window from one K10
+    launch."""
     me = bme.frame_me(src, ref, shapes=((16, 16),))
     n_sby, n_sbx = me["grid"]
 
@@ -169,14 +182,15 @@ def tpl_gop_flow(frames_y, displays, buf_w: int, buf_h: int, bd: int,
         a[h0:, :] = a[h0 - 1:h0, :]
         return a
 
-    # each frame serves as src AND ref of adjacent pairs: one upload per
-    # frame for the whole window, and one variance (it reads the source
-    # only)
-    planes = [torch.from_numpy(bufal(np.asarray(f)).astype(np.uint8))
-              .to(device) for f in frames_y]
+    # each frame serves as src AND ref of adjacent pairs: the window goes
+    # up once, in the sample type of the bit depth (as the JAX package
+    # keeps uint16 at 10 bits), as one [n, buf_h, buf_w] tensor whose rows
+    # K5/K6 read as views; its variances (they read the sources only) are
+    # one K10 launch
+    planes = torch.from_numpy(np.stack([bufal(f) for f in frames_y])) \
+        .to(SAMPLE_DTYPES[bd]).to(device)
     # per-frame intra-cost proxy (variance)
-    intra = [block_var16(p).cpu().numpy().astype(np.float64) + 1.0
-             for p in planes]
+    intra = list(block_var16(planes).cpu().numpy().astype(np.float64) + 1.0)
     fwd = [None] * n         # i predicted from i-1
     bwd = [None] * n         # i predicted from i+1
     for i in range(n):

@@ -182,16 +182,17 @@ def test_closed_loop_plan_decodes(tmp_path, monkeypatch):
     # all-intra key frames under the random-access structure: MCTF of key
     # frames with the one-picture pipeline is not ported
     dict(pred_structure=PredStructure.RANDOM_ACCESS),
-    # 10 bits are ported for all-intra and low-delay P: random access
-    # (here bench.py's, TPL on) needs the 16-bit forms of K9 and K10
+    # 10 bits are ported wherever 8 bits are: 10-bit random access with
+    # masked compound still raises, as at 8 bits
     dict(encoder_bit_depth=10, intra_period_length=33,
-         pred_structure=PredStructure.RANDOM_ACCESS),
+         pred_structure=PredStructure.RANDOM_ACCESS, compound_level=2),
     dict(enable_restoration=1),
     dict(superres_mode=1),
     dict(intra_period_length=-1, pred_structure=PredStructure.RANDOM_ACCESS,
          compound_level=2),
+    # and 10-bit random access at another preset
     dict(encoder_bit_depth=10, intra_period_length=-1,
-         pred_structure=PredStructure.RANDOM_ACCESS),
+         pred_structure=PredStructure.RANDOM_ACCESS, enc_mode=6),
 ], ids=["preset6", "film_grain", "random_access", "10bit", "restoration",
         "superres", "masked_compound", "10bit_random_access"])
 def test_unported_configuration_raises(kw):
@@ -200,6 +201,23 @@ def test_unported_configuration_raises(kw):
                                   **SLICE), **kw})
     with pytest.raises(NotImplementedError):
         api.Encoder(cfg, device="cpu")
+
+
+@pytest.mark.parametrize("kw", [
+    # bench.py's random access at 10 bits (intra_period_length 33, TPL on)
+    dict(encoder_bit_depth=10, intra_period_length=33,
+         pred_structure=PredStructure.RANDOM_ACCESS),
+    dict(encoder_bit_depth=10, intra_period_length=-1,
+         pred_structure=PredStructure.RANDOM_ACCESS),
+], ids=["10bit", "10bit_random_access"])
+def test_tenbit_random_access_is_admitted(kw):
+    """10-bit random access at preset 8 (the 16-bit forms of K9 and K10,
+    TPL on 16-bit planes) is part of the ported slice."""
+    cfg = EncoderConfig(**{**dict(source_width=64, source_height=64,
+                                  pred_structure=PredStructure.LOW_DELAY_P,
+                                  **SLICE), **kw})
+    enc = api.Encoder(cfg, device="cpu")
+    assert enc.cfg.encoder_bit_depth == 10 and enc.pd.gop > 1
 
 
 def test_twelve_bit_raises():

@@ -22,12 +22,43 @@ from test_filter_chain import _coded_frame
 W, H, QIDX = 128, 96, 80
 
 
-def _port_frame(w=W, h=H, qidx=QIDX, seed=1):
-    """The port's FrameCodec on the source test_filter_chain codes."""
-    ref = _coded_frame(w, h, qidx, seed)
+def _coded_frame10(w, h, qidx, seed):
+    """test_filter_chain's source and key frame at 10 bits: each 8-bit
+    sample times 4 plus low bits from the same generator, coded by the
+    JAX FrameCodec with the numpy intra decider."""
+    from svt_av1_tpu.bitstream.headers import FrameHeader as RefFH
+    from svt_av1_tpu.bitstream.headers import SequenceHeader as RefSeq
+    from svt_av1_tpu.constants import FrameType as RefFT
+    from svt_av1_tpu.pipeline.batched_md import BatchedIntraDecider
+    from svt_av1_tpu.pipeline.frame_codec import FrameCodec as RefCodec
+
+    src8 = _coded_frame(w, h, qidx, seed).source
+    rng = np.random.default_rng(seed)
+    planes = tuple(((p[:(h >> (1 if i else 0)), :(w >> (1 if i else 0))]
+                     .astype(np.uint16) << 2)
+                    | rng.integers(0, 4, (h >> (1 if i else 0),
+                                          w >> (1 if i else 0)),
+                                   dtype=np.uint16))
+                   for i, p in enumerate(src8))
+    seq = RefSeq(max_frame_width=w, max_frame_height=h, bit_depth=10)
+    seq.enable_restoration = False
+    seq.enable_cdef = True
+    fh = RefFH(frame_type=RefFT.KEY_FRAME, frame_width=w, frame_height=h,
+               base_q_idx=qidx, filter_level=(8, 8), filter_level_uv=(8, 8))
+    codec = RefCodec(seq, fh, source_planes=planes)
+    codec.encode_tiles(BatchedIntraDecider(use_jax=False))
+    return codec
+
+
+def _port_frame(w=W, h=H, qidx=QIDX, seed=1, bd=8):
+    """The port's FrameCodec on the source test_filter_chain codes (at
+    ``bd`` 10, _coded_frame10's)."""
+    ref = _coded_frame(w, h, qidx, seed) if bd == 8 \
+        else _coded_frame10(w, h, qidx, seed)
     planes = tuple(p[:(h >> (1 if i else 0)), :(w >> (1 if i else 0))]
-                   .astype(np.uint8) for i, p in enumerate(ref.source))
-    seq = SequenceHeader(max_frame_width=w, max_frame_height=h)
+                   .astype(np.uint8 if bd == 8 else np.uint16)
+                   for i, p in enumerate(ref.source))
+    seq = SequenceHeader(max_frame_width=w, max_frame_height=h, bit_depth=bd)
     seq.enable_restoration = False
     seq.enable_cdef = True
     fh = FrameHeader(frame_type=FrameType.KEY_FRAME, frame_width=w,
@@ -39,7 +70,7 @@ def _port_frame(w=W, h=H, qidx=QIDX, seed=1):
     return codec, ref
 
 
-def _twin_search(ref, fast, totals=None):
+def _twin_search(ref, fast, totals=None, bd=8):
     """Level and strengths by the chain's search rule, from the JAX numpy
     twins: luma SSE over {off, L/2, L, 3L/2}, then the (pri, sec) grid
     argmin of cdef_search_errs on the deblocked planes.  ``totals``, a
@@ -61,13 +92,13 @@ def _twin_search(ref, fast, totals=None):
     sses = [best_sse]
     for lv in cands:
         fy = ref_dlf.loop_filter_plane_full(ref.recon[0], *prm[0], vw, vh,
-                                            lv, lv, fh.sharpness, 8, np)
+                                            lv, lv, fh.sharpness, bd, np)
         sse = int(((fy[:vh, :vw] - src) ** 2).sum())
         sses.append(sse)
         if sse < best_sse:
             best, best_sse = lv, sse
     deb = [ref.recon[p] if best == 0 else ref_dlf.loop_filter_plane_full(
-        ref.recon[p], *prm[p], *vis[p], best, best, fh.sharpness, 8, np)
+        ref.recon[p], *prm[p], *vis[p], best, best, fh.sharpness, bd, np)
         for p in range(3)]
     fw, fhp = ref.mi_cols * 4, ref.mi_rows * 4
     ns = ref_cdef.nonskip_grid(ref.skips, ref.mi_rows, ref.mi_cols)
@@ -76,11 +107,11 @@ def _twin_search(ref, fast, totals=None):
             for p, s in enumerate(ref.source)]
     padded = ref_cdef.pad_very_large(rec[0], fw, fhp, 8, np)
     dirs, var = ref_cdef.find_dir_grid(
-        ref_cdef._units_of(padded, fw, fhp, 8, np), 0, np)
+        ref_cdef._units_of(padded, fw, fhp, 8, np), bd - 8, np)
     pri_set, sec_set = (PRI_SET_FAST, SEC_SET_FAST) if fast \
         else (PRI_SET, SEC_SET)
     errs = ref_cdef.cdef_search_errs(srcs, rec, dirs, var, ns, fw, fhp,
-                                     fh.cdef_damping, 8, pri_set, sec_set,
+                                     fh.cdef_damping, bd, pri_set, sec_set,
                                      np)
     if totals is not None:
         totals["dlf_sse"] = torch.tensor(sses, dtype=torch.int64)
@@ -218,4 +249,31 @@ def test_jax_fused_chain_equals_the_port_chain_at_1080p(monkeypatch):
     print(f"C2 at 1920x1080: port {got}, JAX fused chain {want}, exact "
           f"twins {twin}; margins {dryrun.margins(totals)}; luma SSE per "
           f"candidate {totals['dlf_sse'].tolist()}")
+    assert got == want == twin
+
+
+@pytest.mark.slow
+def test_jax_fused_chain_equals_the_port_chain_at_1080p_10bit(monkeypatch):
+    """C5: the same comparison at 10 bits (the float32 SSE sums of the JAX
+    fused chain 16 times larger) on the 1080p key frame at 10 bits: the
+    same deblocking level and CDEF strengths, the margins printed."""
+    monkeypatch.setenv("SVT_TPU_DEVICE", "1")
+    from svt_av1_tpu.ops.filter_chain import dlf_cdef_chain as jax_chain
+    from svt_av1_tpu_torch.parallel import dryrun
+
+    codec, ref = _port_frame(1920, 1080, 120, seed=3, bd=10)
+    for p in range(3):
+        np.testing.assert_array_equal(codec.recon[p], ref.recon[p])
+    codec.cdef_fast = ref.cdef_fast = True
+    totals = {}
+    twin = _twin_search(ref, True, totals, bd=10)
+    assert jax_chain(ref)
+    assert dlf_cdef_chain(codec)
+    got = (codec.fh.filter_level[0], (codec.fh.cdef_y_strengths[0],
+                                      codec.fh.cdef_uv_strengths[0]))
+    want = (ref.fh.filter_level[0], (ref.fh.cdef_y_strengths[0],
+                                     ref.fh.cdef_uv_strengths[0]))
+    print(f"C5 at 1920x1080, 10 bits: port {got}, JAX fused chain {want}, "
+          f"exact twins {twin}; margins {dryrun.margins(totals)}; luma SSE "
+          f"per candidate {totals['dlf_sse'].tolist()}")
     assert got == want == twin

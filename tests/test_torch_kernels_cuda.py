@@ -981,11 +981,11 @@ def test_k7_stripe_of_a_1920_reference_matches_plain(dev, row0):
     _k7_equal(stripe, ref, r.to(dev), c.to(dev), row0)
 
 
-def _k9_inputs(dev, src, refs, mvs=None, seed=0):
+def _k9_inputs(dev, src, refs, mvs=None, seed=0, bd=8):
     """(src, refs, preds, mvq_r, mvq_c, sb_r, sb_c) on the card from numpy
-    planes: each reference through the path's K5-K7, or, with ``mvs``,
-    arbitrary quarter-pel MV fields (and SB winners) beside the
-    predictions K7 made."""
+    planes (uint8 at ``bd`` 8, int16 at 10): each reference through the
+    path's K5-K7, or, with ``mvs``, arbitrary quarter-pel MV fields (and
+    SB winners) beside the predictions K7 made."""
     H, W = src.shape
     src_t = torch.from_numpy(np.ascontiguousarray(src)).to(dev)
     ny, nx = H // 64, W // 64
@@ -996,7 +996,7 @@ def _k9_inputs(dev, src, refs, mvs=None, seed=0):
         me = bme.frame_me(src_t, r, 8, ((16, 16), (64, 64)))
         a, b, p = bme.subpel_refine16(
             src_t, r, bi._nested_to_grid(me[(16, 16)][0], ny, nx, 4, 4),
-            bi._nested_to_grid(me[(16, 16)][1], ny, nx, 4, 4))
+            bi._nested_to_grid(me[(16, 16)][1], ny, nx, 4, 4), bd)
         sr, sc = me[(64, 64)][0].reshape(ny, nx), me[(64, 64)][1].reshape(
             ny, nx)
         if mvs == "edges":
@@ -1895,7 +1895,7 @@ def test_k8_16bit_one_sb_row_matches_plain(dev):
 
 def test_k8_16bit_compound_row_matches_plain(dev):
     """K8's 16-bit form with a 16-bit compound row (the plain compound
-    search's int16 prediction, K9 being 8-bit only) at 1080p."""
+    search's int16 prediction) at 1080p."""
     # two 10-bit patterns, the source their cross-fade, each moved
     H, W = 1088, 1920
     rng = np.random.default_rng(6)
@@ -1920,8 +1920,8 @@ def test_k8_16bit_compound_row_matches_plain(dev):
 
 def test_16bit_inter_wrappers_refuse_other_pairings(dev):
     """A 10-bit plane reaches a 16-bit form or raises: K5 and K6 take one
-    sample type for both planes, uint8 or int16; K7 and K8 uint8 at bd 8
-    and int16 at bd 10; K9 is 8-bit only."""
+    sample type for both planes, uint8 or int16; K7, K8 and K9 uint8 at
+    bd 8 and int16 at bd 10."""
     z8 = torch.zeros((128, 128), dtype=torch.uint8, device=dev)
     z16 = z8.to(torch.int16)
     mv = torch.zeros((8, 8), dtype=torch.int32, device=dev)
@@ -1947,12 +1947,13 @@ def test_16bit_inter_wrappers_refuse_other_pairings(dev):
     with pytest.raises(ValueError):          # an 8-bit compound row
         bi.inter_select(z16, z16[None].contiguous(), mvk, mvk, sbk, sbk, 60,
                         1.0, 10, comp=comp)
-    two = torch.stack([z16, z16]).contiguous()
-    with pytest.raises(ValueError):
-        bi.compound_joint(z16, two, two, mvk.repeat(2, 1, 1),
-                          mvk.repeat(2, 1, 1), sbk.repeat(2, 1, 1),
-                          sbk.repeat(2, 1, 1), (False, True), (-1, 1), 60,
-                          10)
+    for s, p, bd in ((z16, z16, 8), (z8, z8, 10), (z16, z16, 12)):
+        two = torch.stack([p, p]).contiguous()
+        with pytest.raises(ValueError):
+            bi.compound_joint(s, two, two, mvk.repeat(2, 1, 1),
+                              mvk.repeat(2, 1, 1), sbk.repeat(2, 1, 1),
+                              sbk.repeat(2, 1, 1), (False, True), (-1, 1),
+                              60, bd)
 
 
 def test_tenbit_ipp_stream_on_the_card_equals_the_plain_stream(dev,
@@ -1973,6 +1974,204 @@ def test_tenbit_ipp_stream_on_the_card_equals_the_plain_stream(dev,
                         pred_structure=PredStructure.LOW_DELAY_P)
     fns = (bme.me_coarse, bme.me_refine, bme.subpel_refine16,
            bi.inter_select)
+    out = {}
+    for d in ("cuda", "cpu"):
+        before = [f.launches for f in fns]
+        p = tmp_path / f"{d}.ivf"
+        encode_ivf(frames, cfg, str(p), device=d)
+        out[d] = p.read_bytes()
+        if d == "cuda":
+            assert all(f.launches > b for f, b in zip(fns, before))
+    assert out["cuda"] == out["cpu"]
+
+
+# -- 10-bit random access: K9's 16-bit form (compound_joint.cu), K10
+# redesigned in both sample types (block_var16.cu), K5/K6 16-bit at TPL's
+# geometry
+
+def _k9_16_equal(args, bwd, rel, qindex=60):
+    """K9's 16-bit form against the plain version at bd 10: every output
+    equal, one launch per call, the inputs left as they were."""
+    keep = _unchanged(*args)
+    before = (bi.compound_joint.calls, bi.compound_joint.launches)
+    got = bi.compound_joint(*args, bwd, rel, qindex, 10)
+    assert (bi.compound_joint.calls, bi.compound_joint.launches) == (
+        before[0] + 1, before[1] + 1)
+    want = bi.compound_joint_plain(*args, bwd, rel, qindex, 10)
+    assert got["pred"].dtype == want["pred"].dtype == torch.int16
+    for key in bi.COMP_KEYS:
+        assert torch.equal(got[key], want[key]), key
+    assert all(torch.equal(a, b) for a, b in zip(keep, args))
+    return got
+
+
+@pytest.mark.parametrize("kind", ["textured", "ties", "extremes"])
+def test_k9_16bit_1080p_matches_plain(dev, kind):
+    """K9's 16-bit form on the random-access path's 1920x1152 int16
+    planes: a textured pair, flat and period-8 planes where offsets and
+    the three candidates tie, and planes of 0 and 1023 (the largest
+    absolute differences and averages); the textured case's compound row
+    then feeds K8's 16-bit form."""
+    src, ref = _pair10(kind, 1152, 1920, 12)
+    refs = [ref, np.roll(ref, (8, -8) if kind == "ties" else (-6, 5),
+                         axis=(0, 1))]
+    args = _k9_inputs(dev, src, refs, bd=10)
+    got = _k9_16_equal(args, (False, True), (-1, 1))
+    if kind == "textured":
+        assert int(got["pred"].max()) > 255
+        refined = (got["mv1_r"] != args[4][1]) | (got["mv_r"] != args[4][0])
+        assert bool(refined.any())
+        _k8_16_equal((args[0],) + args[2:] + (60, 900.0 * 16, 10), got)
+
+
+@pytest.mark.parametrize("size", [(192, 256), (64, 1920)],
+                         ids=["frame", "one_sb_row"])
+def test_k9_16bit_windows_clipped_at_every_edge_match_plain(dev, size):
+    """Mirrored seeds that put each arm's window past every edge of a
+    10-bit plane (the origin clips to the pad, the reads clamp)."""
+    H, W = size
+    src, ref = _pair10("textured", H, W, 9)
+    refs = [ref, np.roll(ref, (3, 5), axis=(0, 1))]
+    for seed in range(3):
+        args = _k9_inputs(dev, src, refs, "edges", seed, bd=10)
+        _k9_16_equal(args, (False, True), (-2, 3))
+        _k9_16_equal(args, (True, False), (1, -1))
+
+
+@pytest.mark.parametrize("mask", [m for m in range(1, 7)],
+                         ids=lambda m: "".join("B" if (m >> k) & 1 else "F"
+                                               for k in range(3)))
+def test_k9_16bit_three_references_each_backward_mask_match_plain(dev,
+                                                                   mask):
+    src, ref = _pair10("textured", 192, 256, mask)
+    refs = [ref, np.roll(ref, (2, -3), axis=(0, 1)),
+            np.roll(ref, (-5, 4), axis=(0, 1))]
+    bwd = tuple(bool((mask >> k) & 1) for k in range(3))
+    rel = tuple((k + 1) * (1 if b else -1) for k, b in enumerate(bwd))
+    _k9_16_equal(_k9_inputs(dev, src, refs, bd=10), bwd, rel)
+
+
+def test_k9_16bit_refuses_planes_off_16_byte_boundaries(dev):
+    src, ref = _pair10("textured", 64, 128, 0)
+    args = _k9_inputs(dev, src, [ref, np.roll(ref, 2, axis=1)], bd=10)
+    shifted = torch.empty(args[0].numel() + 8, dtype=torch.int16,
+                          device=dev)[1:1 + args[0].numel()].view(
+                              args[0].shape)
+    shifted.copy_(args[0])
+    with pytest.raises(ValueError):
+        bi.compound_joint(shifted, *args[1:], (False, True), (-1, 1), 60,
+                          10)
+
+
+def _k10_window(dev, dt, n, h, w, seed, kind="textured"):
+    """n planes of [h, w] on the card: textured 10-bit planes as int16, or
+    as uint8 their top 8 bits; ``kind`` "extremes": blocks at both ends
+    of the range."""
+    planes = [_extreme_plane10(h, w, seed + k) if kind == "extremes"
+              else _plane10(h, w, seed + k) for k in range(n)]
+    a = np.stack(planes).astype(np.int32)
+    if dt == torch.uint8:
+        a = np.where(a == 1023, 255, a >> 2)
+    return torch.from_numpy(a).to(dt).to(dev).contiguous()
+
+
+def _k10_equal(x):
+    keep = _unchanged(x)
+    before = (tpl.block_var16.calls, tpl.block_var16.launches)
+    got = tpl.block_var16(x)
+    assert (tpl.block_var16.calls, tpl.block_var16.launches) == (
+        before[0] + 1, before[1] + 1)
+    assert torch.equal(got, tpl.block_var16_plain(x))
+    assert torch.equal(keep[0], x)
+    return got
+
+
+@pytest.mark.parametrize("n", [1, 2, 17])
+@pytest.mark.parametrize("dt", [torch.uint8, torch.int16],
+                         ids=["8bit", "16bit"])
+def test_k10_window_at_the_tpl_geometry_matches_plain(dev, dt, n):
+    """K10 on one 960x576 plane and on windows of 2 and 17 planes, one
+    launch for the window, bit-equal to the plain version."""
+    x = _k10_window(dev, dt, n, 576, 960, n)
+    got = _k10_equal(x if n > 1 else x[0])
+    assert got.shape == ((n,) if n > 1 else ()) + (36, 60)
+
+
+@pytest.mark.parametrize("size", [(16, 16), (48, 80), (304, 432),
+                                  (576, 976)])
+@pytest.mark.parametrize("dt", [torch.uint8, torch.int16],
+                         ids=["8bit", "16bit"])
+def test_k10_sizes_off_the_cta_strip_match_plain(dev, dt, size):
+    """Widths that are multiples of 16 but not of the 256-column strip of
+    a CTA (its last run ragged), and one block."""
+    _k10_equal(_k10_window(dev, dt, 3, *size, 5))
+
+
+@pytest.mark.parametrize("dt", [torch.uint8, torch.int16],
+                         ids=["8bit", "16bit"])
+def test_k10_extremes_match_plain(dev, dt):
+    """Blocks of samples at both ends of the range (0 and 1023, or 0 and
+    255) and flat blocks at each end (zero variance)."""
+    x = _k10_window(dev, dt, 4, 576, 960, 7, "extremes")
+    x[1] = 0
+    x[2] = 1023 if dt == torch.int16 else 255
+    got = _k10_equal(x)
+    assert bool((got[1] == 0).all()) and bool((got[2] == 0).all())
+
+
+def test_k9_k10_refuse_other_pairings(dev):
+    """K9 takes uint8 at bd 8 and int16 at bd 10, refs of the source's
+    type; K10 contiguous uint8 or int16 [H, W] or [n, H, W] of whole
+    16x16 blocks on a 16-byte boundary; anything else raises."""
+    src, ref = _pair10("textured", 64, 128, 1)
+    args = _k9_inputs(dev, src, [ref, np.roll(ref, 2, axis=1)], bd=10)
+    for bd in (8, 12):
+        with pytest.raises(ValueError):
+            bi.compound_joint(*args, (False, True), (-1, 1), 60, bd)
+    with pytest.raises(ValueError):           # 8-bit refs beside int16
+        bi.compound_joint(args[0], args[1].to(torch.uint8), *args[2:],
+                          (False, True), (-1, 1), 60, 10)
+    z = torch.zeros((2, 64, 64), dtype=torch.int16, device=dev)
+    for bad in (z.to(torch.int32), z.float(), z[None], z[:, :48, :40],
+                z.transpose(1, 2), z[0, :, :8]):
+        with pytest.raises(ValueError):
+            tpl.block_var16(bad)
+    flat = torch.zeros(64 * 64 + 8, dtype=torch.int16, device=dev)
+    with pytest.raises(ValueError):           # off a 16-byte boundary
+        tpl.block_var16(flat[1:1 + 64 * 64].view(64, 64))
+
+
+@pytest.mark.parametrize("kind", ["textured", "extremes"])
+def test_k5_k6_16bit_at_the_tpl_geometry_match_plain(dev, kind):
+    """TPL's statistics at 10 bits: K5 and K6's 16-bit forms on 960x576
+    int16 planes with the single shape 16x16, one launch each."""
+    src, ref = _cuda10(dev, kind, 576, 960, 4)
+    _k5_16_equal(src, ref, bme.COARSE_R)
+    coarse = bme.coarse_sb_search(src, ref)
+    _k6_16_equal(src, ref, coarse, ((16, 16),))
+    got = bme.frame_me(src, ref, shapes=((16, 16),))
+    want = bme.refine_plain(src, ref, coarse, ((16, 16),))
+    for g, w in zip(got[(16, 16)], want[(16, 16)]):
+        assert torch.equal(g, w)
+
+
+def test_tenbit_ra_stream_on_the_card_equals_the_plain_stream(dev,
+                                                              tmp_path):
+    """A 10-bit random-access clip (192x128x5, hierarchical_levels 2: MCTF,
+    TPL, compound, show_existing) coded on the card through the 16-bit
+    forms of K1 and K5-K10 equals the CPU stream."""
+    base = _plane10(160, 224, 8).astype(np.uint16)
+    frames = []
+    for i in range(5):
+        y = np.ascontiguousarray(np.roll(base, (i, 2 * i), axis=(0, 1))
+                                 [:128, :192])
+        frames.append((y, (y[::2, ::2] // 2 + 200).astype(np.uint16),
+                       (700 - y[1::2, 1::2] // 3).astype(np.uint16)))
+    cfg = EncoderConfig(source_width=192, source_height=128, qp=40,
+                        enc_mode=8, intra_period_length=-1,
+                        hierarchical_levels=2, encoder_bit_depth=10)
+    fns = (bme.me_coarse, bme.me_refine, bme.subpel_refine16,
+           bi.inter_select, bi.compound_joint, tpl.block_var16)
     out = {}
     for d in ("cuda", "cpu"):
         before = [f.launches for f in fns]

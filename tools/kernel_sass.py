@@ -6,13 +6,13 @@ Needs the CUDA toolkit (nvcc, cuobjdump); no card.  Prints:
 
 1. ``-Xptxas -v`` for each named kernel source (default: intra_decision,
    me_refine, inter_select, cdef_filter, subpel_refine, compound_joint,
-   me_coarse, deblock and cdef_direction): registers, spills and shared
-   memory per entry;
+   me_coarse, deblock, cdef_direction and block_var16): registers,
+   spills and shared memory per entry;
 2. the SASS opcode histogram of each of their entries, and apart the
    packed-integer opcodes the redesigns rest on (every opcode that
    starts with VABSDIFF, IDP (dp4a and dp2a) or PRMT) and the branches
    and shared-memory atomics (BRA, BSSY, BSYNC, WARPSYNC, ATOMS); the
-   kernels with a 16-bit form (K1, K4's search, K5-K8) list the entries
+   kernels with a 16-bit form (K1, K4's search, K5-K10) list the entries
    of both template instantiations (uint8_t and uint16_t);
 3. the SASS of five exact forms of "accumulate the sum of the four
    absolute byte differences of two words" (K6's inner operation):
@@ -24,7 +24,9 @@ Needs the CUDA toolkit (nvcc, cuobjdump); no card.  Prints:
    PTX ``vabsdiff2.u32.u32.u32.add``, two ``__sad`` on the halves, PTX
    ``vabsdiff.u32.u32.u32.add`` with the ``.h0`` and ``.h1`` selectors,
    and ``__vmaxu2 - __vminu2`` added as packed halves (no half borrows,
-   since the maximum is at least the minimum in each).
+   since the maximum is at least the minimum in each); and of K9's
+   rounded-up averages, ``__vavgu4`` (its 8-bit form) and two 16-bit
+   ones, ``__vavgu2`` and ``(a | b) - (((a ^ b) >> 1) & 0x7fff7fff)``.
 
 The objects go to the build directory (build/torch_kernels/sass/).
 """
@@ -94,6 +96,10 @@ __device__ __forceinline__ uint32_t vabsdiff_h(uint32_t a, uint32_t b,
 }
 PROBE(sad16_ptx_vabsdiff_h0_h1, vabsdiff_h(x, y, acc))
 PROBE(sad16_vmaxu2_vminu2_packed, acc + (__vmaxu2(x, y) - __vminu2(x, y)))
+PROBE(avg8_vavgu4, acc + __vavgu4(x, y))
+PROBE(avg16_vavgu2, acc + __vavgu2(x, y))
+PROBE(avg16_or_minus_half_xor,
+      acc + ((x | y) - (((x ^ y) >> 1) & 0x7fff7fffu)))
 """
 
 
@@ -129,7 +135,7 @@ def main() -> int:
     names = sys.argv[1:] or ["intra_decision", "me_refine", "inter_select",
                              "cdef_filter", "subpel_refine",
                              "compound_joint", "me_coarse", "deblock",
-                             "cdef_direction"]
+                             "cdef_direction", "block_var16"]
     out_dir = build.BUILD_DIR / "sass"
     out_dir.mkdir(parents=True, exist_ok=True)
     for name in names:

@@ -27,10 +27,13 @@ parts run.
   and future, and K9's compound row) on three frames of the moving clip
   at 1920x1152, and the low-delay P call (one reference, after the
   path's K5-K7) on two frames; K9: the random-access path's call on the
-  same inputs (two references); K2 on the kernels phase's luma plane at
+  same inputs (two references), and at 10 bits where the tree's K9 takes
+  int16 planes; K2 on the kernels phase's luma plane at
   the path's level and on its first chroma plane, K3 on that luma plane, K4's
   search (the 5x3 grid) and apply over the three planes of the first
-  frame; K10 on TPL's half-resolution plane; where the tree has the
+  frame; K10 on TPL's half-resolution plane and on a 17-plane TPL window
+  (one call where the tree's K10 takes a window, else one per plane; at
+  10 bits where it takes int16 planes); where the tree has the
   16-bit forms (device.py SAMPLE_DTYPES), K1 and K4's search also on the
   10-bit frame (synth_clip at bd 10, int16 planes), and where its K5
   takes int16 planes, K5 (every reach of the path), K6 (the path's
@@ -105,6 +108,7 @@ def kernel_times(cs, np, torch):
     calls["K6 TPL 16x16"] = k6(*half, ((16, 16),))
     calls["K5 TPL r8 960x576"] = lambda: bme.me_coarse(*half, 8)
     calls["K10 TPL 960x576"] = lambda: tpl.block_var16(half[1])
+    calls.update(k10_window_calls(cs, np, torch, dev, tpl, bw, bh))
     me = bme.frame_me(src, ref, bme.COARSE_R, ((16, 16), (64, 64)))
     ny, nx = bh // 64, bw // 64
     mv = [bi._nested_to_grid(me[(16, 16)][i], ny, nx, 4, 4) for i in (0, 1)]
@@ -112,6 +116,9 @@ def kernel_times(cs, np, torch):
     calls["K8 1 ref"] = k8_one_ref(bme, bi, src, ref, me, mv, ny, nx, 8,
                                    lam)
     calls["K8 compound row"], calls["K9 2 refs"] = ra_calls(cs, torch, dev)
+    k9_10 = ra_calls(cs, torch, dev, bd=10)
+    if k9_10 is not None:
+        calls["K9 2 refs 10-bit"] = k9_10[1]
     calls["K4 search 5x3"] = k4_search_call(cs, np, torch, dev)
     from svt_av1_tpu_torch import device
 
@@ -215,16 +222,39 @@ def filter_calls(cs, np, torch, dev):
                 rec, ns, dirs, var, 8 * 4 + 1, 4 * 4 + 2, 5, W, H, 8)}
 
 
-def ra_calls(cs, torch, dev):
+def k10_window_calls(cs, np, torch, dev, tpl, bw, bh):
+    """K10 on a 17-plane TPL window of half-resolution planes (the first 17
+    frames of the moving clip): one call where the tree's K10 takes a
+    window, else one call per plane; at 10 bits (int16 planes) only where
+    it takes them."""
+    clip = cs.synth_clip(cs.WIDTH, cs.HEIGHT, cs.RA_WARM)
+    clip10 = cs.synth_clip(cs.WIDTH, cs.HEIGHT, cs.RA_WARM, bd=10)
+    out = {}
+    for name, frames, bd in (("K10 TPL window 17x960x576", clip, 8),
+                             ("K10 TPL window 17x960x576 10-bit", clip10,
+                              10)):
+        win = torch.stack([torch.from_numpy(cs._half_res(f[0], bw, bh, bd))
+                           for f in frames]).to(dev)
+        try:
+            tpl.block_var16(win)
+            out[name] = functools.partial(tpl.block_var16, win)
+        except ValueError:      # a tree whose K10 takes one uint8 plane
+            if bd == 8:
+                out[name] = lambda win=win: [tpl.block_var16(p) for p in win]
+    return out
+
+
+def ra_calls(cs, torch, dev, bd=8):
     """K8 and K9 as the random-access path calls them: the middle of three
-    frames against the outer two (K8 with the compound row)."""
+    frames against the outer two (K8 with the compound row); at ``bd`` 10
+    the moving clip at 10 bits, and None where the tree's K9 refuses it."""
     from svt_av1_tpu_torch.ops import bme, omd
     from svt_av1_tpu_torch.pipeline import batched_inter as bi
 
     W, H = -(-cs.WIDTH // 128) * 128, -(-cs.HEIGHT // 128) * 128
-    clip = cs.synth_clip(cs.WIDTH, cs.HEIGHT, 3)
-    src = omd.upload_plane(clip[1][0], W, H, 8, dev)
-    refs = [omd.upload_plane(clip[k][0], W, H, 8, dev) for k in (0, 2)]
+    clip = cs.synth_clip(cs.WIDTH, cs.HEIGHT, 3, bd=bd)
+    src = omd.upload_plane(clip[1][0], W, H, bd, dev)
+    refs = [omd.upload_plane(clip[k][0], W, H, bd, dev) for k in (0, 2)]
     ny, nx = H // 64, W // 64
     parts = []
     for k, ref in enumerate(refs):
@@ -232,16 +262,21 @@ def ra_calls(cs, torch, dev):
                          ((16, 16), (64, 64)))
         a, b, pr = bme.subpel_refine16(
             src, ref, bi._nested_to_grid(m[(16, 16)][0], ny, nx, 4, 4),
-            bi._nested_to_grid(m[(16, 16)][1], ny, nx, 4, 4))
+            bi._nested_to_grid(m[(16, 16)][1], ny, nx, 4, 4), bd)
         parts.append((pr, a, b, m[(64, 64)][0].reshape(ny, nx),
                       m[(64, 64)][1].reshape(ny, nx)))
     preds, mvq_r, mvq_c, sb_r, sb_c = (
         torch.stack([p[i] for p in parts]).contiguous() for i in range(5))
     qindex, lam = 160, 2500.0
     k9_args = (src, torch.stack(refs).contiguous(), preds, mvq_r, mvq_c,
-               sb_r, sb_c, (False, True), (-1, 1), qindex)
-    comp = bi.compound_joint(*k9_args)
-    args = (src, preds, mvq_r, mvq_c, sb_r, sb_c, qindex, lam)
+               sb_r, sb_c, (False, True), (-1, 1), qindex) \
+        + ((bd,) if bd != 8 else ())
+    try:
+        comp = bi.compound_joint(*k9_args)
+    except ValueError:          # a tree whose K9 is 8-bit only
+        return None
+    args = (src, preds, mvq_r, mvq_c, sb_r, sb_c, qindex, lam) \
+        + ((bd,) if bd != 8 else ())
     return (lambda: bi.inter_select(*args, comp=comp),
             lambda: bi.compound_joint(*k9_args))
 
