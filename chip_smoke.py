@@ -138,6 +138,32 @@ at row0 64 of a 1280x256 reference (K6 at every ME shape and at the
 step's shapes 16x16 and 64x64), K1 with true halo rows, K4's search
 and apply with and without the neighbours' rows.
 
+Presets 7, 6 and 5: the kernels phase holds K4's per-fb forms (B16, the
+per-64x64 CDEF presets of cdef_bits > 0) at 1080p in both sample types:
+the search's totals per 64x64 filter block over the full 8 x 4 grid and
+the apply with 8 presets on a random index grid, each exactly equal to
+its plain version, with event, device and plain times and the bound.  A
+presets phase (after the decodes) runs PRESET_JOBS at once, one worker
+process each, since the host walks of these presets take most of their
+time: preset 7 low-delay P at 1080p (2 frames: the key frame on K1's
+plan, the P frame on the per-block host walk, the filter chain on
+K2-K4), preset 6 low-delay P at 1080p (2 frames: the host RD walk, DLF
+on K2, the per-fb search and apply on K3/K4, the loop-restoration search
+and the second entropy pass), preset 6 at 10 bits (one 1080p key
+frame), preset 5 low-delay P at 352x288 (3 frames) and preset 6 random
+access at 192x128 (5 frames), the last two also coded on the CPU, where
+the streams must be identical.  In each worker every count is set to 0
+just before its encode and read just after; each job's kernels must
+launch, its PSNR clear the floor and its stream decode on the card to
+its recon; the preset-6 and preset-5 streams must carry cdef_bits > 0
+and loop restoration.  It prints each job's stage times per frame
+(``lr_search`` and ``reencode`` among them), fps, PSNR, per frame the
+cdef_bits, loop-restoration and global-motion types from the stream, and
+the per-fb forms' launches per preset-6 frame; the kernels line has
+``cdef_search_fb``, ``cdef_apply_multi``, ``cdef_search_fb_16bit`` and
+``cdef_apply_multi_bd10`` rows with the calls and launches of the preset
+jobs that run them.
+
 ``--trace DIR`` adds a phase before the last two lines: encodes under
 torch.profiler (TRACE_FRAMES all-intra frames, TRACE_FRAMES P frames
 after a warm-up, and the second 16-frame mini-GOP of the random-access
@@ -508,6 +534,60 @@ def k1_agreement(packed, want, shapes, buf_w, buf_h, what):
     return err
 
 
+def per_fb_kernels(dev, src, rec, dirs, var, ns, bd, rng):
+    """K4's per-fb forms (B16) on the 1080p planes: the search over the
+    full 8 x 4 grid (its totals per 64x64 filter block) and the apply with
+    8 presets (cdef_bits 3) on a random index grid, each exactly equal to
+    its plain version, with event, device and plain times and the bound.
+    Returns {"search": ..., "apply": ...}."""
+    from svt_av1_tpu_torch.ops import cdef
+
+    damping = 5
+    k4f = lambda: cdef.cdef_search_fb(  # noqa: E731
+        src, rec, dirs, var, ns, WIDTH, HEIGHT, damping, bd)
+    k4f_plain = lambda: cdef.cdef_search_errs_fb_plain(  # noqa: E731
+        src, rec, dirs, var, ns, WIDTH, HEIGHT, damping, bd)
+    got, want = k4f(), k4f_plain()
+    torch.cuda.synchronize()
+    err = max((g - w).abs().max().item() for g, w in zip(got, want))
+    print(f"K4 cdef_search_fb {src[0].dtype} (8x4 grid, "
+          f"{tuple(got[0].shape[1:])} filter blocks): max |kernel - plain| "
+          f"{err}")
+    assert err == 0
+    vis_px = WIDTH * HEIGHT + 2 * (WIDTH // 2) * (HEIGHT // 2)
+    frac = ns.float().mean().item()
+    ops = k4_search_ops(cdef.PRI_SET, cdef.SEC_SET)
+    search = dict(
+        ms=cuda_ms(k4f, KERNEL_REPS), plain_ms=cuda_ms(k4f_plain, PLAIN_REPS),
+        device_ms=device_ms(k4f), max_abs_err=err,
+        bound=bound_ms(vis_px * (4 + src[0].element_size())
+                       + nbytes(dirs, var, ns, *got), vis_px * frac * ops),
+        per_call=f"1 launch, three planes, 32 combinations ({ops} "
+                 f"operations per filtered pixel)")
+    nvfb, nhfb = got[0].shape[1:]
+    ys = tuple(int(v) for v in rng.integers(1, 64, 8))
+    us = tuple(int(v) for v in rng.integers(1, 64, 8))
+    # the index grid on the host, as the codec hands it over
+    idx = rng.integers(0, 8, (nvfb, nhfb)).astype(np.int32)
+    k4m = lambda: cdef.cdef_apply_multi(  # noqa: E731
+        rec, ns, dirs, var, ys, us, idx, damping, WIDTH, HEIGHT, bd)
+    k4m_plain = lambda: cdef.cdef_frame_multi_plain(  # noqa: E731
+        rec, ns, dirs, var, ys, us, idx, damping, WIDTH, HEIGHT, bd)
+    got, want = k4m(), k4m_plain()
+    torch.cuda.synchronize()
+    err = max((g - w).abs().max().item() for g, w in zip(got, want))
+    print(f"K4 cdef_apply_multi bd {bd} (8 presets y {ys}, uv {us}): max "
+          f"|kernel - plain| {err}")
+    assert err == 0
+    apply = dict(
+        ms=cuda_ms(k4m, KERNEL_REPS), plain_ms=cuda_ms(k4m_plain, PLAIN_REPS),
+        device_ms=device_ms(k4m), max_abs_err=err,
+        bound=bound_ms(2 * nbytes(*rec) + nbytes(dirs, var, ns) + idx.size,
+                       vis_px * frac * (12 * 9 + 5)),
+        per_call="1 launch, three planes, 8 presets")
+    return {"search": search, "apply": apply}
+
+
 def kernels_phase(dev, frame):
     from svt_av1_tpu_torch.entropy.tables import FrameCdfs
     from svt_av1_tpu_torch.kernels import build
@@ -667,6 +747,9 @@ def kernels_phase(dev, frame):
         bound=bound_ms(2 * nbytes(*rec) + nbytes(d1, v1, ns),
                        vis_px * frac * (ops_px - 3)),
         per_call="1 launch, three planes")
+    fb = per_fb_kernels(dev, src, rec, d1, v1, ns, 8, rng)
+    results["cdef_search_fb"], results["cdef_apply_multi"] = \
+        fb["search"], fb["apply"]
     return results
 
 
@@ -781,12 +864,17 @@ def tenbit_kernels_phase(dev, frame, results):
     print(f"K4 cdef_apply bd 10 (y {ystr}, uv {uvstr}): max |kernel - "
           f"plain| {e}")
     assert e == 0
+    fb = per_fb_kernels(dev, src, rec, d1, v1, ns, bd, rng)
+    out["cdef_search_fb_16bit"], out["cdef_apply_multi_bd10"] = \
+        fb["search"], fb["apply"]
 
     for name in ("intra_decision", "cdef_filter"):
         for line in build.ptxas_report(name):
             print(f"ptxas {name}: {line}")
     for k8, k16 in (("intra_decision", "intra_decision_16bit"),
-                    ("cdef_search", "cdef_search_16bit")):
+                    ("cdef_search", "cdef_search_16bit"),
+                    ("cdef_search_fb", "cdef_search_fb_16bit"),
+                    ("cdef_apply_multi", "cdef_apply_multi_bd10")):
         r8, r16 = results[k8], out[k16]
         print(f"{k16} vs the 8-bit form: events {r16['ms']:.4f} ms "
               f"({r8['ms']:.4f}), device {r16['device_ms']:.5f} ms "
@@ -1643,7 +1731,7 @@ def ra_phase(counters, frames, out_dir, bd=8):
     assert sum(k5.by.values()) == calls["me_coarse"] == launches["me_coarse"]
     assert sum(k6.by.values()) == calls["me_refine"] == launches["me_refine"]
     assert sum(k2.by.values()) == calls["deblock"]
-    missing = [n for n, c in launches.items() if c == 0]
+    missing = [n for n in RA_KERNELS if launches[n] == 0]
     assert not missing, f"kernels not launched on the {what} path: {missing}"
     if bd != 8:
         assert by_dtype["uint8"] == (by_use["MCTF"],) * 2, by_dtype
@@ -2052,6 +2140,246 @@ def decode_phase(counters, streams):
 
 
 # --------------------------------------------------------------------------
+# presets 7, 6 and 5: the per-block host walk of inter frames (7), the host
+# RD walk (6, 5) with per-64x64 CDEF presets on K3/K4 (B16), loop
+# restoration and its second entropy pass, and the global-motion fit
+# --------------------------------------------------------------------------
+
+# (name, preset, width, height, frames, structure, bit depth, clip, also
+# coded on the CPU); each runs in a worker process of its own, since the
+# host walks of these presets take most of their time
+PRESET_JOBS = (
+    ("preset 7 low-delay P", 7, WIDTH, HEIGHT, 2, "ld", 8, "moving", False),
+    ("preset 6 low-delay P", 6, WIDTH, HEIGHT, 2, "ld", 8, "moving", False),
+    ("preset 6 10-bit key frame", 6, WIDTH, HEIGHT, 1, "ld", 10, "moving",
+     False),
+    ("preset 5 low-delay P 352x288", 5, 352, 288, 3, "ld", 8, "hetero",
+     True),
+    ("preset 6 random access 192x128", 6, 192, 128, 5, "ra", 8, "moving",
+     True),
+)
+# the kernels each job must launch: the fused chain (K2-K4) at preset 7,
+# K2 and the per-fb forms of K4 at presets 6 and 5; K1 plans preset 7's
+# key frame; MCTF and TPL run K5, K6 and K10 under random access
+PRESET_KERNELS = {
+    7: ("intra_decision", "deblock", "cdef_direction", "cdef_search",
+        "cdef_apply"),
+    6: ("deblock", "cdef_direction", "cdef_search_fb", "cdef_apply_multi"),
+    5: ("deblock", "cdef_direction", "cdef_search_fb", "cdef_apply_multi"),
+}
+PRESET_RA_KERNELS = ("me_coarse", "me_refine", "block_var16")
+
+
+def kernel_counters():
+    """{name: wrapper} of every CUDA kernel wrapper with its counts."""
+    from svt_av1_tpu_torch.ops import bme, cdef, dlf, omd
+    from svt_av1_tpu_torch.pipeline import batched_inter as bi
+    from svt_av1_tpu_torch.pipeline import tpl
+
+    return {"intra_decision": omd.intra_decision_packed,
+            "deblock": dlf.deblock,
+            "cdef_direction": cdef.cdef_direction,
+            "cdef_search": cdef.cdef_search,
+            "cdef_apply": cdef.cdef_apply,
+            "cdef_search_fb": cdef.cdef_search_fb,
+            "cdef_apply_multi": cdef.cdef_apply_multi,
+            "me_coarse": bme.me_coarse,
+            "me_refine": bme.me_refine,
+            "subpel_refine16": bme.subpel_refine16,
+            "inter_select": bi.inter_select,
+            "compound_joint": bi.compound_joint,
+            "block_var16": tpl.block_var16}
+
+
+def hetero_clip(w, h, n, seed=1):
+    """Smooth gradient left, strong texture right, moving 2 pixels a frame
+    (tests/test_cdef_multi.py's clip): the filter blocks' CDEF winners
+    differ, so the preset search pays for cdef_bits > 0."""
+    rng = np.random.default_rng(seed)
+    yy, xx = np.mgrid[0:h, 0:w]
+    frames = []
+    for i in range(n):
+        y = (60 + xx // 3 + yy // 6).astype(np.int32)
+        tex = (128 + 90 * np.sin(xx * 1.1) * np.cos(yy * 0.9)
+               + rng.integers(-25, 26, (h, w))).astype(np.int32)
+        y[:, w // 2:] = tex[:, w // 2:]
+        y = np.roll(y, i * 2, axis=1)
+        u = np.full((h // 2, w // 2), 120, np.uint8)
+        v = np.full((h // 2, w // 2), 130, np.uint8)
+        frames.append((np.clip(y, 0, 255).astype(np.uint8), u, v))
+    return frames
+
+
+def preset_config(preset, w, h, structure, bd):
+    """qp 40 at ``preset``: low-delay P (one key frame, then P frames) or
+    random access with hierarchical_levels 2 (MCTF at tf_level 1, TPL)."""
+    from svt_av1_tpu_torch.config import EncoderConfig, PredStructure
+
+    kw = dict(pred_structure=PredStructure.LOW_DELAY_P) if structure == "ld" \
+        else dict(hierarchical_levels=2)
+    return EncoderConfig(source_width=w, source_height=h, qp=QP,
+                         enc_mode=preset, intra_period_length=-1,
+                         encoder_bit_depth=bd, **kw)
+
+
+def stream_features(path):
+    """Per coded frame of the IVF at ``path``: (frame type, cdef_bits, the
+    three planes' loop-restoration types, the global-motion types of the
+    seven references), read back from the frame headers with the
+    reference slots' order hints and global-motion parameters tracked as
+    a decoder tracks them."""
+    from svt_av1_tpu_torch.bitstream.bits import BitReader
+    from svt_av1_tpu_torch.bitstream.headers import (GM_IDENTITY_MAT,
+                                                     iter_obus,
+                                                     parse_frame_header,
+                                                     parse_sequence_header)
+    from svt_av1_tpu_torch.constants import ObuType
+    from svt_av1_tpu_torch.io import IvfReader
+
+    seq, hints, gms, out = None, [0] * 8, [None] * 8, []
+    for pkt, _ in IvfReader(str(path)):
+        for obu_type, payload in iter_obus(pkt):
+            if obu_type == ObuType.OBU_SEQUENCE_HEADER:
+                seq = parse_sequence_header(payload)
+            elif obu_type == ObuType.OBU_FRAME:
+                fh = parse_frame_header(BitReader(payload), seq,
+                                        tuple(hints), gms)
+                gm = tuple(fh.global_motion[i][0]
+                           if i < len(fh.global_motion) else 0
+                           for i in range(7))
+                out.append((int(fh.frame_type), fh.cdef_bits,
+                            tuple(fh.lr_type), gm))
+                mats = tuple(fh.global_motion[i][1]
+                             if i < len(fh.global_motion)
+                             else GM_IDENTITY_MAT for i in range(7))
+                mask = 0xFF if fh.frame_type == 0 and fh.show_frame \
+                    else fh.refresh_frame_flags
+                for i in range(8):
+                    if (mask >> i) & 1:
+                        hints[i], gms[i] = fh.order_hint, mats
+    return out
+
+
+def preset_job(spec):
+    """One job of PRESET_JOBS in a worker process: the port's Encoder on
+    the card with every count set to 0 just before and read just after,
+    the stream's features, the port's Decoder on the card (every shown
+    frame must equal the encoder's recon) and, where asked, the same
+    encode with the plain versions on the CPU (the streams must be
+    byte-identical).  Returns what the main process prints and checks."""
+    sys.path.insert(0, str(Path(__file__).resolve().parent))
+    from svt_av1_tpu_torch.api import Decoder, Encoder, encode_ivf
+    from svt_av1_tpu_torch.io import IvfReader, IvfWriter
+
+    name, preset, w, h, n, structure, bd, clip, on_cpu = spec
+    if clip == "hetero":
+        frames = hetero_clip(w, h, n)
+    else:
+        frames = synth_clip(w, h, n, bd=bd) if (w, h) == (WIDTH, HEIGHT) \
+            else synth_clip(w, h, n, seed=13, bd=bd)
+    cfg = preset_config(preset, w, h, structure, bd)
+    counters = kernel_counters()
+    out = dict(name=name, preset=preset, frames=n)
+    with tempfile.TemporaryDirectory(
+            dir=os.environ.get("TMPDIR") or tempfile.gettempdir()) as tmp:
+        path = Path(tmp) / "card.ivf"
+        enc = Encoder(cfg)                  # the default device: CUDA
+        assert enc.device.type == "cuda"
+        zero_counts(counters)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with IvfWriter(str(path), w, h, cfg.frame_rate) as wr:
+            pts = 0
+            for planes in list(frames) + [None]:
+                for pkt in (enc.flush() if planes is None
+                            else enc.send_picture(planes)):
+                    wr.write_frame(pkt, pts=pts)
+                    pts += 1
+        torch.cuda.synchronize()
+        out["wall_s"] = time.perf_counter() - t0
+        out["launches"], out["calls"] = read_counts(counters)
+        recon = [enc.recon_by_display[d] for d in sorted(enc.recon_by_display)]
+        assert len(recon) == n
+        peak = (1 << bd) - 1
+        out["psnr"] = [psnr(src[0], rec[0], peak)
+                       for src, rec in zip(frames, recon)]
+        out["stages"] = {k: v.get("ms_per_frame")
+                         for k, v in enc.perf_report().items()
+                         if k != "_wall"}
+        out["bytes"] = path.stat().st_size
+        out["md5"] = stream_md5(path)
+        out["features"] = stream_features(path)
+        dec = Decoder()                     # the default device: CUDA
+        assert dec.device.type == "cuda"
+        t0 = time.perf_counter()
+        shown = [g for g in (dec.decode_frame(p)
+                             for p, _ in IvfReader(str(path)))
+                 if g is not None]
+        torch.cuda.synchronize()
+        out["decode_ms_per_frame"] = (time.perf_counter() - t0) * 1e3 \
+            / dec.frames_decoded
+        assert len(shown) == n
+        for d, g in enumerate(shown):
+            for p in range(3):
+                assert np.array_equal(g[p], recon[d][p]), (name, d, p)
+        out["decode_md5"] = dec.md5.hexdigest()
+        if on_cpu:
+            cpu = Path(tmp) / "cpu.ivf"
+            encode_ivf(frames, cfg, str(cpu), device="cpu")
+            out["cpu_identical"] = cpu.read_bytes() == path.read_bytes()
+    return out
+
+
+def presets_phase():
+    """PRESET_JOBS, all at once in worker processes (each job's counts are
+    its own process's); every job's kernels must have launched, its PSNR
+    clear the floor, its stream decode on the card to its recon and,
+    where coded on the CPU too, equal the CPU's stream.  The preset-6 and
+    preset-5 streams must carry cdef_bits > 0 and loop restoration in at
+    least one frame.  Returns the results by job name."""
+    import concurrent.futures
+    import multiprocessing
+
+    t0 = time.perf_counter()
+    ctx = multiprocessing.get_context("spawn")
+    with concurrent.futures.ProcessPoolExecutor(
+            max_workers=len(PRESET_JOBS), mp_context=ctx) as pool:
+        results = list(pool.map(preset_job, PRESET_JOBS))
+    print(f"presets phase: {len(PRESET_JOBS)} jobs in "
+          f"{time.perf_counter() - t0:.3f} s wall")
+    by_name = {}
+    for (name, preset, w, h, n, structure, bd, _, on_cpu), r in zip(
+            PRESET_JOBS, results):
+        by_name[name] = r
+        print(f"{name} ({w}x{h}, {n} frames, {bd} bits): {r['wall_s']:.3f} s, "
+              f"{n / r['wall_s']:.4f} fps, {r['bytes']} bytes, packets md5 "
+              f"{r['md5']}; luma PSNR (dB) "
+              f"{[round(x, 3) for x in r['psnr']]}")
+        print(f"{name}: stage ms/frame (host wall clock):",
+              json.dumps(r["stages"]))
+        print(f"{name}: per coded frame (type, cdef_bits, lr types, gm "
+              f"types):", json.dumps(r["features"]))
+        print(f"{name}: launches:", json.dumps(r["launches"]))
+        print(f"{name}: decoded on the card to the recon, md5 "
+              f"{r['decode_md5']}, {r['decode_ms_per_frame']:.3f} ms per "
+              f"coded frame")
+        assert min(r["psnr"]) > PSNR_FLOOR_DB, (name, r["psnr"])
+        need = PRESET_KERNELS[preset] + (PRESET_RA_KERNELS
+                                         if structure == "ra" else ())
+        missing = [k for k in need if r["launches"][k] == 0]
+        assert not missing, f"{name}: kernels not launched: {missing}"
+        if on_cpu:
+            print(f"{name}: card stream identical to the CPU's: "
+                  f"{r['cpu_identical']}")
+            assert r["cpu_identical"], name
+    for what, key in (("cdef_bits > 0", 1), ("loop restoration", 2)):
+        assert any(any(f[key]) if key == 2 else f[key] > 0
+                   for r in results if r["preset"] <= 6
+                   for f in r["features"]), f"no frame carries {what}"
+    return by_name
+
+
+# --------------------------------------------------------------------------
 # optional: where the encode's time goes, from a profiler trace
 # --------------------------------------------------------------------------
 
@@ -2141,6 +2469,7 @@ ALLINTRA_KERNELS = ("intra_decision", "deblock", "cdef_direction",
 IPP_KERNELS = ALLINTRA_KERNELS + ("me_coarse", "me_refine",
                                   "subpel_refine16", "inter_select")
 STRIPE_KERNELS = IPP_KERNELS
+RA_KERNELS = IPP_KERNELS + ("compound_joint", "block_var16")
 
 
 def main() -> int:
@@ -2149,9 +2478,6 @@ def main() -> int:
         return 2
     sys.path.insert(0, str(Path(__file__).resolve().parent))
     from svt_av1_tpu_torch.kernels import build
-    from svt_av1_tpu_torch.ops import bme, cdef, dlf, omd
-    from svt_av1_tpu_torch.pipeline import batched_inter as bi
-    from svt_av1_tpu_torch.pipeline import tpl
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -2200,17 +2526,7 @@ def main() -> int:
         dev, ra_frames10[:3], [f[0] for f in ra_frames10[:RA_WARM]], 10,
         kres))
 
-    counters = {"intra_decision": omd.intra_decision_packed,
-                "deblock": dlf.deblock,
-                "cdef_direction": cdef.cdef_direction,
-                "cdef_search": cdef.cdef_search,
-                "cdef_apply": cdef.cdef_apply,
-                "me_coarse": bme.me_coarse,
-                "me_refine": bme.me_refine,
-                "subpel_refine16": bme.subpel_refine16,
-                "inter_select": bi.inter_select,
-                "compound_joint": bi.compound_joint,
-                "block_var16": tpl.block_var16}
+    counters = kernel_counters()
     out_dir = Path(os.environ.get("TMPDIR") or tempfile.gettempdir())
     with tempfile.TemporaryDirectory(dir=out_dir) as tmp:
         ai_launches = allintra_phase(counters, frames, tmp)
@@ -2250,6 +2566,7 @@ def main() -> int:
              *tenbit_ra_card, 7),
             (f"{WIDTH}x{HEIGHT} 10-bit all-intra, first temporal unit",
              tb_path, tb_recon, 1)])
+    presets = presets_phase()
     print("10-bit path launches (the 1080p all-intra encode + the 10-bit "
           "decodes):",
           json.dumps({k: tb_launches[k] + tb_dec_launches[k]
@@ -2353,6 +2670,38 @@ def main() -> int:
               f"launches on the {where} encode: "
               f"{calls16[base]} / {launches16[base]}")
         assert launches16[base] > 0, name
+    # K4's per-fb forms (B16): their calls and launches on the preset jobs
+    # that run them, the 8-bit forms on the 8-bit jobs, the 16-bit search
+    # and the apply at bd 10 on the 10-bit preset-6 key frame
+    for name, base, src, replaces, bd in (
+            ("cdef_search_fb", "cdef_search_fb", "cdef_filter.cu",
+             "svt_av1_tpu/ops/cdef.py:1004", 8),
+            ("cdef_apply_multi", "cdef_apply_multi", "cdef_filter.cu",
+             "svt_av1_tpu/ops/cdef.py:942", 8),
+            ("cdef_search_fb_16bit", "cdef_search_fb", "cdef_filter.cu",
+             "svt_av1_tpu/ops/cdef.py:1004", 10),
+            ("cdef_apply_multi_bd10", "cdef_apply_multi", "cdef_filter.cu",
+             "svt_av1_tpu/ops/cdef.py:942", 10)):
+        r = kres[name]
+        jobs = [(spec, presets[spec[0]]) for spec in PRESET_JOBS
+                if spec[6] == bd]
+        n_calls = sum(j["calls"][base] for _, j in jobs)
+        n_launches = sum(j["launches"][base] for _, j in jobs)
+        per_frame = {spec[0]: j["launches"][base] / spec[4]
+                     for spec, j in jobs if spec[1] == 6}
+        b_ms, b_by = r["bound"]
+        rows.append(dict(
+            name=name, route="cuda",
+            source=f"svt_av1_tpu_torch/kernels/csrc/{src}",
+            replaces=replaces, calls=n_calls, launches=n_launches,
+            max_abs_err=r["max_abs_err"], ms=r["ms"], plain_ms=r["plain_ms"],
+            bound_ms=b_ms, bound_by=b_by, library_ms=None))
+        print(f"{name}: {r['per_call']}: kernel {r['ms']:.4f} ms, device "
+              f"{r['device_ms']:.5f} ms, plain {r['plain_ms']:.4f} ms, bound "
+              f"{b_ms:.5f} ms ({b_by}); calls / launches on the {bd}-bit "
+              f"preset jobs: {n_calls} / {n_launches}; launches per "
+              f"preset-6 frame: {json.dumps(per_frame)}")
+        assert n_launches > 0, name
     # the row's times are the JAX geometry's (4 stripes of 1280x64); its
     # error is the larger of both geometries' kernel - plain differences
     four = b14[4]

@@ -6,19 +6,24 @@
 caller asks for another device.  Orchestration mirrors the reference API
 at frame granularity: picture decision, DPB bookkeeping, packetization.
 
-The encoder covers preset 8, 8-bit 4:2:0, in three configurations:
-all-intra, low-delay P (IPP: one key frame, then P frames predicted from
-past pictures) and random access (dyadic mini-GOPs with show_existing
-frames, MCTF on key and base-layer pictures, a TPL lookahead per mini-GOP
-feeding the qindex ladder, and averaged compound prediction): every other
-configuration raises NotImplementedError instead of running host code in
-place of device programs that are not ported yet.
+The encoder covers presets 8 to 5, 8- and 10-bit 4:2:0, in three
+configurations: all-intra, low-delay P (IPP: one key frame, then P frames
+predicted from past pictures) and random access (dyadic mini-GOPs with
+show_existing frames, MCTF on key and base-layer pictures, a TPL
+lookahead per mini-GOP feeding the qindex ladder, and averaged compound
+prediction).  Preset 8 plans every frame on the device; preset 7 plans
+key frames on the device and walks inter frames per block on the host;
+presets 6 and 5 take the host RD walk, per-64x64 CDEF presets (searched
+and applied on the device), loop restoration with its second entropy
+pass and, at 8 bits, a global-motion fit (and, at preset 5, warped and
+OBMC motion).  Every other configuration raises NotImplementedError
+instead of running host code in place of device programs that are not
+ported yet.
 
 The decoder walks the tiles on the host (the conformant walker of
 ``FrameCodec``) and runs the normative deblocking and CDEF on the device
-(the deblocking and CDEF kernels); loop restoration, super-resolution and
-film grain run on the host.  Streams with per-64x64 CDEF strength presets
-(``cdef_bits > 0``) raise ApiError(UNSUPPORTED_BITSTREAM).
+(the deblocking and CDEF kernels, per-64x64 presets included); loop
+restoration, super-resolution and film grain run on the host.
 """
 from __future__ import annotations
 
@@ -233,8 +238,8 @@ def _named_ref_displays(display: int, displays: set, anchor: int):
 def check_slice(cfg: EncoderConfig, sig, pd: PictureDecision) -> None:
     """Raise NotImplementedError outside the ported slice."""
     why = None
-    if cfg.enc_mode != 8:
-        why = f"enc_mode {cfg.enc_mode} (only preset 8 is ported)"
+    if not 5 <= cfg.enc_mode <= 8:
+        why = f"enc_mode {cfg.enc_mode} (presets 5 to 8 are ported)"
     elif cfg.encoder_bit_depth not in (8, 10):
         why = f"bit depth {cfg.encoder_bit_depth} (8 and 10 are ported)"
     elif cfg.encoder_color_format != ColorFormat.YUV420:
@@ -244,8 +249,6 @@ def check_slice(cfg: EncoderConfig, sig, pd: PictureDecision) -> None:
                "pred_structure=LOW_DELAY_P")
     elif sig.compound_level >= 2:
         why = "masked compound prediction (compound_level 2)"
-    elif sig.cdef_multi or sig.enable_restoration:
-        why = "per-64x64 CDEF presets and loop restoration"
     elif cfg.film_grain_denoise_strength > 0:
         why = "film grain synthesis"
     elif cfg.superres_mode:
@@ -294,7 +297,7 @@ class Encoder:
             enable_order_hint=self.pd.gop > 1,
             enable_superres=False,
             enable_cdef=sig.cdef_level > 0 and cfg.qp > 0,
-            enable_restoration=False,
+            enable_restoration=bool(sig.enable_restoration) and cfg.qp > 0,
             film_grain_params_present=False,
         )
         from .pipeline.rate_control import RateControl
@@ -347,7 +350,8 @@ class Encoder:
         if self.pd.gop > 1 and self.pd.key_interval != 1:
             return False
         pif = self.cfg.pictures_in_flight
-        return not (0 <= pif < 2)
+        return not (0 <= pif < 2) \
+            and hasattr(self._decider_cached(), "prefetch")
 
     def _buf_dims(self):
         cfg = self.cfg
@@ -358,8 +362,10 @@ class Encoder:
 
     def _prefetch(self, display: int, plane) -> None:
         """Submit the device decisions of key frame ``display`` to the
-        worker."""
+        worker (a decider without a device plan has none)."""
         dec = self._decider_cached()
+        if not hasattr(dec, "prefetch"):
+            return
         if dec._prefetch and display in dec._prefetch:
             return
         qindex = self.rc.peek_qindex(True, 0, display)
@@ -469,14 +475,42 @@ class Encoder:
         self.rc.r0.update(r0s)
         self.rc.tpl_group_size = consumed
 
+    def _decider(self):
+        """The preset's decider: the host RD walk at presets 5-6, the
+        batched intra plan on the device with the per-block host walk of
+        inter frames at preset 7, the device plans of every frame at
+        preset 8."""
+        cfg, sig = self.cfg, self.sig
+        if cfg.enc_mode <= 6:
+            from .pipeline.rdo import RdoDecider
+
+            # the intra candidate set follows the derived signals
+            modes = [m for m in range(13)
+                     if (sig.enable_paeth or m != 12)
+                     and (sig.enable_smooth or m not in (9, 10, 11))]
+            uv_modes = [m for m in (0, 1, 2, 9, 12)
+                        if (sig.enable_paeth or m != 12)
+                        and (sig.enable_smooth or m != 9)]
+            return RdoDecider(n_full_rd=sig.md_stage_nics[2],
+                              modes=tuple(modes), uv_modes=tuple(uv_modes),
+                              try_cfl=sig.enable_cfl,
+                              try_angle_delta=sig.intra_angle_delta)
+        if cfg.enc_mode == 7:
+            from .pipeline.batched_md import TorchIntraDecider
+
+            dec = TorchIntraDecider(self.device)
+        else:
+            from .pipeline.batched_md import TorchDecider
+
+            dec = TorchDecider(self.device)
+        dec.prof = self.prof
+        return dec
+
     def _decider_cached(self):
         """One decider per encoder (its state is keyed on the codec
         object, so the prefetch pipeline can hand results forward)."""
         if not hasattr(self, "_decider_obj"):
-            from .pipeline.batched_md import TorchDecider
-
-            self._decider_obj = TorchDecider(self.device)
-            self._decider_obj.prof = self.prof
+            self._decider_obj = self._decider()
         return self._decider_obj
 
     def _me_plane(self, y):
@@ -514,6 +548,8 @@ class Encoder:
         if nxt.layer == 0 and self.sig.tf_level > 0 and self.pd.gop > 1:
             return
         dec = self._decider_cached()
+        if not hasattr(dec, "prefetch_inter"):
+            return
         # this frame's coded source is nxt's likeliest reference
         self._store_me_src(job.display, self._me_plane(planes[0]))
         # exact post-refresh display set (slot replacement = eviction)
@@ -711,6 +747,17 @@ class Encoder:
             fh.reference_select = any(
                 self._rel_dist(named[n], job.display) > 0
                 for n in range(1, 8))
+            if (self.cfg.enable_global_motion and self.cfg.enc_mode <= 6
+                    and self.cfg.encoder_bit_depth == 8):
+                # ROTZOOM fit vs LAST; other refs stay identity
+                # (EbGlobalMotionEstimation.c analog; LS field fit)
+                from .bitstream.headers import GM_IDENTITY
+                from .pipeline.global_motion import estimate_rotzoom
+
+                got = estimate_rotzoom(planes[0], refs[1][0])
+                if got is not None:
+                    ident = (GM_IDENTITY, GM_IDENTITY_MAT)
+                    fh.global_motion = (got,) + (ident,) * 6
         aq_map = None
         if (job.is_key and self.sig.enable_adaptive_quantization
                 and fh.base_q_idx > 40):
@@ -755,6 +802,15 @@ class Encoder:
             if me_refs is not None:
                 codec.me_refs = me_refs
                 codec.me_ref_displays = {n: named[n] for n in range(1, 8)}
+        # the filter searches below may change tile syntax (cdef strength
+        # indices, LR parameters), forcing a second entropy pass; cache
+        # the first pass's decisions and quantized coefficients so that
+        # pass replays them instead of recomputing
+        may_reencode = ((self.sig.cdef_multi and self.seq.enable_cdef
+                         and fh.base_q_idx > 0 and not fh.allow_intrabc)
+                        or self.seq.enable_restoration)
+        if may_reencode:
+            codec.txb_cache = {}
         if not fh.error_resilient_mode:
             # pipeline overlap: submit the NEXT frame's open-loop device
             # plan before the host starts this frame's coding pass
@@ -762,15 +818,37 @@ class Encoder:
         with self.prof("encode_tiles"):
             tile_data = _assemble_tile_group(codec.encode_tiles(decider),
                                              fh)
+        pre_filter_recon = [p.copy() for p in codec.recon] \
+            if may_reencode else None
         from .ops.filter_chain import dlf_cdef_chain
+        cdef_reenc = False
         with self.prof("dlf_cdef"):
             if fh.allow_intrabc:
                 # spec forces DLF/CDEF/LR off on intrabc frames
                 codec.apply_loop_filter()      # early-returns, saves state
+            elif (self.sig.cdef_multi and self.seq.enable_cdef
+                    and fh.base_q_idx > 0):
+                # per-64x64 cdef presets (finish_cdef_search analog); the
+                # strength indices are tile syntax, so the entropy pass
+                # reruns below, shared with the LR re-encode
+                codec.apply_loop_filter()
+                cdef_reenc = codec.search_and_apply_cdef_multi(
+                    codec._rdoq_state()[1])
             elif not dlf_cdef_chain(codec):
                 codec.apply_loop_filter()
                 codec.search_and_apply_cdef()
         codec.apply_superres()
+        lr_reenc = False
+        if self.seq.enable_restoration and not fh.allow_intrabc:
+            from .pipeline.rdo import rd_lambda
+
+            with self.prof("lr_search"):
+                lr_reenc = codec.search_lr(
+                    rd_lambda(fh.base_q_idx, self.seq.bit_depth))
+        if lr_reenc or cdef_reenc:
+            codec, tile_data = self._reencode(
+                codec, fh, decider, planes, refs, init_fc, sign_bias,
+                aq_map, pre_filter_recon, lr_reenc)
         self.last_recon = codec.cropped_recon()
         self.recon_by_display[job.display] = self.last_recon
         if self.sig.open_loop_me and job.display not in self._me_src:
@@ -819,6 +897,44 @@ class Encoder:
                            job.is_key)
         self.frame_count += 1
         return out
+
+    def _reencode(self, codec, fh, decider, planes, refs, init_fc,
+                  sign_bias, aq_map, pre_filter_recon, lr_reenc: bool):
+        """The second entropy pass, once the filter searches changed tile
+        syntax (LR parameters, cdef strength indices): a new FrameCodec
+        replays the first pass's decisions and coefficients
+        (``txb_replay``) over its pre-filter recon, then the filters run
+        again at the searched header (the deblocking and CDEF kernels,
+        loop restoration on the host).  Returns the new codec and its
+        tile group payload."""
+        codec2 = FrameCodec(self.seq, fh, source_planes=planes, refs=refs,
+                            init_fc=init_fc, device=self.device)
+        codec2.sign_bias = sign_bias
+        if refs is not None:
+            codec2.ref_dists = codec.ref_dists
+        codec2.rdoq_level = codec.rdoq_level
+        codec2.rdoq_layer = codec.rdoq_layer
+        codec2.obmc_level = self.sig.obmc_level
+        codec2.compound_level = self.sig.compound_level
+        codec2.search_area = codec.search_area
+        codec2.hme_controls = codec.hme_controls
+        codec2.aq_map = aq_map
+        codec2.lr_plan = codec.lr_plan
+        codec2.cdef_idx_grid[:] = codec.cdef_idx_grid
+        # the device source planes of the first pass serve the second
+        codec2.dev_source = codec.dev_source
+        codec2.txb_replay = codec.txb_cache
+        for p in range(codec2.num_planes):
+            codec2.recon[p][:] = pre_filter_recon[p]
+        with self.prof("reencode"):
+            tile_data = _assemble_tile_group(codec2.encode_tiles(decider),
+                                             fh)
+            codec2.apply_loop_filter()
+            codec2.apply_cdef()
+            codec2.apply_superres()
+            if lr_reenc:
+                codec2.apply_lr()
+        return codec2, tile_data
 
     def _rel_dist(self, a: int, b: int) -> int:
         bits = self.seq.order_hint_bits

@@ -5,7 +5,10 @@
 // _cdef_apply_traced with _constrain_xp, _adjust_strength_xp and
 // pad_very_large; B10), run inside the fused filter chain and the
 // standalone CDEF programs (_jit_search_apply, _jit_search, _jit_apply;
-// B13).
+// B13); and, in its per-fb forms, the reference's host numpy for
+// per-64x64 strength presets (cdef_bits > 0; B16): cdef_search_errs_fb
+// (the search's totals per 64x64 filter block over the full 8 x 4 grid)
+// and cdef_frame_multi (the apply with each filter block's preset index).
 //
 // What bounds it on the H100: integer throughput in the search (each
 // pixel evaluates 15 strength combinations at preset 8, up to 32); in the
@@ -264,19 +267,27 @@ __device__ __forceinline__ int combine(int v, int sum, int mn, int mx) {
 }
 
 // Every plane's tiles in one launch; err: int64 [2, n_pri * n_sec] (luma,
-// chroma) to add to.  NPRI x NSEC is the grid (EXACT: with a zero
-// primary first and a zero secondary first, as both of the codec's
-// grids) or bounds it.  TS: the source samples' type, uint8_t for 8-bit
-// video, uint16_t for 10-bit (int16 planes holding [0, 1024)): a
-// thread's 8 squared errors and the warp's sum of 256 stay below 2^32
-// (256 * 1023^2 < 2.7e8; the wrapper refuses deeper samples).
-template <typename TS, int NPRI, int NSEC, bool EXACT>
+// chroma) to add to, or with PERFB [2, n_pri * n_sec, nvfb, nhfb], the
+// totals per 64x64 filter block (32x32 in chroma).  NPRI x NSEC is the
+// grid (EXACT: with a zero primary first and a zero secondary first, as
+// both of the codec's grids) or bounds it.  TS: the source samples' type,
+// uint8_t for 8-bit video, uint16_t for 10-bit (int16 planes holding [0,
+// 1024)): a thread's 8 squared errors and the warp's sum of 256 stay below
+// 2^32 (256 * 1023^2 < 2.7e8; the wrapper refuses deeper samples).
+//
+// PERFB: a luma tile (64x32 at a column that is a multiple of 64) lies in
+// one filter block; a chroma tile's 64 columns span two, threads 0-3 of a
+// row in the first and 4-7 in the second.  So each warp reduces its two
+// halves apart (lanes 0 and 4 hold them), the CTA sums its warps per half,
+// and adds one atomic per (half, combination) to its block's slot.
+template <typename TS, int NPRI, int NSEC, bool EXACT, bool PERFB = false>
 __global__ void __launch_bounds__(kSearchThreads) cdef_search_kernel(
     SearchArgs a, const int* __restrict__ dirs, const int* __restrict__ var,
     const uint8_t* __restrict__ nonskip, int uw,
-    unsigned long long* __restrict__ err) {
+    unsigned long long* __restrict__ err, int nvfb, int nhfb) {
+  constexpr int kHalves = PERFB ? 2 : 1;
   __shared__ __align__(16) int16_t tile[kHaloH * kSearchStride];
-  __shared__ uint32_t wsum[kSearchThreads / 32][NPRI * NSEC];
+  __shared__ uint32_t wsum[kSearchThreads / 32][kHalves][NPRI * NSEC];
   __shared__ int toff[8][12];
   // this CTA's plane, copied by constant indices (no local-memory copy of
   // the parameter)
@@ -389,18 +400,36 @@ __global__ void __launch_bounds__(kSearchThreads) cdef_search_kernel(
     for (int si = 0; si < NSEC; ++si) {
       if (!EXACT && (pi >= n_pri || si >= n_sec)) continue;
       uint32_t e = acc[pi][si];
+      if constexpr (PERFB) {
+        // lane 8r + c: xor 16, 8 sum the rows, xor 2, 1 a half of a row
 #pragma unroll
-      for (int off = 16; off > 0; off >>= 1)
-        e += __shfl_xor_sync(0xffffffffu, e, off);
-      if (lane == 0) wsum[warp][pi * n_sec + si] = e;
+        for (int off = 16; off > 0; off >>= 1)
+          if (off != 4) e += __shfl_xor_sync(0xffffffffu, e, off);
+        if ((lane & ~4) == 0) wsum[warp][lane >> 2][pi * n_sec + si] = e;
+      } else {
+#pragma unroll
+        for (int off = 16; off > 0; off >>= 1)
+          e += __shfl_xor_sync(0xffffffffu, e, off);
+        if (lane == 0) wsum[warp][0][pi * n_sec + si] = e;
+      }
     }
   __syncthreads();
   const int n_combo = n_pri * n_sec;
-  if (tid < n_combo) {
+  if (tid < kHalves * n_combo) {
+    const int h = tid / n_combo, c = tid - h * n_combo;
     unsigned long long tot = 0;
 #pragma unroll
-    for (int w = 0; w < kSearchThreads / 32; ++w) tot += wsum[w][tid];
-    if (tot) atomicAdd(&err[P.grp * n_combo + tid], tot);
+    for (int w = 0; w < kSearchThreads / 32; ++w) tot += wsum[w][h][c];
+    if constexpr (PERFB) {
+      const int fby = P.is_luma ? y0 >> 6 : y0 >> 5;
+      const int fbx = P.is_luma ? x0 >> 6 : (x0 >> 5) + h;
+      if (tot && fbx < nhfb)
+        atomicAdd(&err[((size_t)(P.grp * n_combo + c) * nvfb + fby) * nhfb +
+                       fbx],
+                  tot);
+    } else {
+      if (tot) atomicAdd(&err[P.grp * n_combo + c], tot);
+    }
   }
 }
 
@@ -479,10 +508,40 @@ __device__ __forceinline__ int filter_px(const int16_t* tile, int at,
   return combine(v, sum, (int)mn, mx);
 }
 
-// Every plane's tiles over its whole buffer in one launch.
+// Pixels 4 * h2 .. 4 * h2 + 3 of a thread's run v (from column xs, tile
+// position at), those inside [0, pw), filtered along the tap offsets of
+// their unit's direction.
+__device__ __forceinline__ void filter_run(const int16_t* tile, int at,
+                                           const int* toff_d, int (&v)[8],
+                                           int h2, int xs, int pw, int pa,
+                                           int psh, int w0, int w1, int sec,
+                                           int ssh) {
+  int off[12];
+#pragma unroll
+  for (int i = 0; i < 12; ++i) off[i] = toff_d[i];
+#pragma unroll
+  for (int i = 4 * h2; i < 4 * h2 + 4; ++i)
+    if (xs + i < pw)
+      v[i] = filter_px(tile, at + i, off, v[i], pa, psh, w0, w1, sec, ssh);
+}
+
+// The per-fb apply's presets: each list's coded strengths (pri * 4 + sec,
+// 6 bits each, at most 8) and the 64x64 filter blocks' indices into them.
+struct Presets {
+  unsigned long long y, uv;
+  const uint8_t* idx;             // [nvfb, nhfb]
+  int nhfb;
+};
+
+// Every plane's tiles over its whole buffer in one launch.  MULTI: each
+// unit takes the strengths of its filter block's index into the plane's
+// preset list (the plane's pri and sec then only say whether any preset
+// filters it); otherwise every unit the plane's pri and sec.
+template <bool MULTI>
 __global__ void __launch_bounds__(kTileThreads) cdef_apply_kernel(
-    ApplyArgs a, const int* __restrict__ dirs, const int* __restrict__ var,
-    const uint8_t* __restrict__ nonskip, int uw) {
+    ApplyArgs a, Presets m, const int* __restrict__ dirs,
+    const int* __restrict__ var, const uint8_t* __restrict__ nonskip,
+    int uw) {
   __shared__ __align__(16) int16_t tile[kHaloH * kApplyStride];
   __shared__ int toff[8][12];
   ApplyPlane P = a.pl[0];
@@ -499,6 +558,8 @@ __global__ void __launch_bounds__(kTileThreads) cdef_apply_kernel(
   int v[8];
   if (y < P.H) load_run(P.in + y * P.W, xs, P.W, P.vec, v);
   int du[2] = {0, 0}, nsu[2] = {0, 0}, vr = 0;
+  // MULTI: each unit's strengths (pixels 0-3, 4-7), from its filter block
+  int upri[2] = {0, 0}, usec[2] = {0, 0};
   if ((P.pri > 0 || P.sec > 0) && y < P.ph) {
 #pragma unroll
     for (int h2 = 0; h2 < 2; ++h2) {
@@ -506,13 +567,27 @@ __global__ void __launch_bounds__(kTileThreads) cdef_apply_kernel(
       if (x < P.pw && (h2 == 0 || !P.is_luma)) {
         const int u = (y >> P.bsl) * uw + (x >> P.bsl);
         nsu[h2] = nonskip[u];
-        du[h2] = P.pri > 0 ? dirs[u] : 0;
+        if constexpr (MULTI) {
+          // the unit's filter block: 8 units of 8x8 luma a side
+          const int k =
+              m.idx[((y >> P.bsl) >> 3) * m.nhfb + ((x >> P.bsl) >> 3)];
+          const int c = (int)((P.is_luma ? m.y : m.uv) >> (6 * k)) & 63;
+          const int sc = c & 3;
+          upri[h2] = (c >> 2) << a.cs;
+          usec[h2] = (sc + (sc == 3)) << a.cs;
+          nsu[h2] &= upri[h2] > 0 || usec[h2] > 0;
+          du[h2] = upri[h2] > 0 ? dirs[u] : 0;
+        } else {
+          du[h2] = P.pri > 0 ? dirs[u] : 0;
+        }
         if (P.is_luma) vr = var[u];
       }
     }
     if (P.is_luma) {
       du[1] = du[0];
       nsu[1] = nsu[0];
+      upri[1] = upri[0];
+      usec[1] = usec[0];
     }
   }
   // the halo: items 0-63 the groups of rows 0, 1, kTileH + 2, kTileH + 3,
@@ -556,23 +631,30 @@ __global__ void __launch_bounds__(kTileThreads) cdef_apply_kernel(
     else if (hr >= 0)
       tile[hr * kApplyStride + hc] = (int16_t)hq.x;
     __syncthreads();
-    const int pa = P.is_luma ? adjust_strength(P.pri, vr) : P.pri;
-    const int psh = pa > 0 ? damp_shift(pa, P.damping) : 0;
-    const int ssh = P.sec > 0 ? damp_shift(P.sec, P.damping) : 0;
-    // primary weights 4, 2, or 3, 3 for an odd adjusted strength >> cs
-    const int odd = (pa >> a.cs) & 1, w0 = odd ? 3 : 4, w1 = odd ? 3 : 2;
     const int at = (ty + 2) * kApplyStride + tx + 2;
+    if constexpr (MULTI) {
 #pragma unroll
-    for (int h2 = 0; h2 < 2; ++h2) {
-      if (!nsu[h2]) continue;
-      int off[12];
+      for (int h2 = 0; h2 < 2; ++h2) {
+        if (!nsu[h2]) continue;
+        const int pa = P.is_luma ? adjust_strength(upri[h2], vr) : upri[h2];
+        const int psh = pa > 0 ? damp_shift(pa, P.damping) : 0;
+        const int ssh = usec[h2] > 0 ? damp_shift(usec[h2], P.damping) : 0;
+        const int odd = (pa >> a.cs) & 1, w0 = odd ? 3 : 4, w1 = odd ? 3 : 2;
+        filter_run(tile, at, toff[du[h2]], v, h2, xs, P.pw, pa, psh, w0, w1,
+                   usec[h2], ssh);
+      }
+    } else {
+      const int pa = P.is_luma ? adjust_strength(P.pri, vr) : P.pri;
+      const int psh = pa > 0 ? damp_shift(pa, P.damping) : 0;
+      const int ssh = P.sec > 0 ? damp_shift(P.sec, P.damping) : 0;
+      // primary weights 4, 2, or 3, 3 for an odd adjusted strength >> cs
+      const int odd = (pa >> a.cs) & 1, w0 = odd ? 3 : 4, w1 = odd ? 3 : 2;
 #pragma unroll
-      for (int i = 0; i < 12; ++i) off[i] = toff[du[h2]][i];
-#pragma unroll
-      for (int i = 4 * h2; i < 4 * h2 + 4; ++i)
-        if (xs + i < P.pw)
-          v[i] = filter_px(tile, at + i, off, v[i], pa, psh, w0, w1, P.sec,
-                           ssh);
+      for (int h2 = 0; h2 < 2; ++h2) {
+        if (!nsu[h2]) continue;
+        filter_run(tile, at, toff[du[h2]], v, h2, xs, P.pw, pa, psh, w0, w1,
+                   P.sec, ssh);
+      }
     }
   }
   if (y < P.H) store_run(P.out + y * P.W, xs, P.W, P.vec, v);
@@ -580,44 +662,37 @@ __global__ void __launch_bounds__(kTileThreads) cdef_apply_kernel(
 
 // The search's launch for source samples of type TS: the fast grid of the
 // high presets (5 x 3) and the full grid (8 x 4) with their counts known
-// at compile time; any other set bounded by 8 x 4.
+// at compile time; any other set bounded by 8 x 4.  The per-fb form takes
+// the full grid only.
 template <typename TS>
-void search_grid(int n_pri, int n_sec, bool zero_first, dim3 grid,
-                 dim3 block, cudaStream_t st, const SearchArgs& a,
+void search_grid(int n_pri, int n_sec, bool zero_first, bool per_fb,
+                 dim3 grid, dim3 block, cudaStream_t st, const SearchArgs& a,
                  const int* d, const int* vr, const uint8_t* ns, int uw,
-                 unsigned long long* e) {
-  if (n_pri == 5 && n_sec == 3 && zero_first)
+                 unsigned long long* e, int nvfb, int nhfb) {
+  if (per_fb)
+    cdef_search_kernel<TS, kMaxPri, kMaxSec, true, true>
+        <<<grid, block, 0, st>>>(a, d, vr, ns, uw, e, nvfb, nhfb);
+  else if (n_pri == 5 && n_sec == 3 && zero_first)
     cdef_search_kernel<TS, 5, 3, true><<<grid, block, 0, st>>>(a, d, vr, ns,
-                                                               uw, e);
+                                                               uw, e, 0, 0);
   else if (n_pri == kMaxPri && n_sec == kMaxSec && zero_first)
     cdef_search_kernel<TS, kMaxPri, kMaxSec, true><<<grid, block, 0, st>>>(
-        a, d, vr, ns, uw, e);
+        a, d, vr, ns, uw, e, 0, 0);
   else
     cdef_search_kernel<TS, kMaxPri, kMaxSec, false><<<grid, block, 0, st>>>(
-        a, d, vr, ns, uw, e);
+        a, d, vr, ns, uw, e, 0, 0);
 }
 
-}  // namespace
-
-// One launch for the search of n_planes planes (luma, then chroma):
-// rec[i]: int32 [H[i], W[i]]; src[i]: the source of the same shape,
-// src_bytes 1 (uint8) or 2 (16-bit samples of 10-bit video); frame [0,
-// ph[i]) x [0, pw[i]); top[i], bottom[i]: int32 [2, W[i]] rows above and
-// below a stripe of the frame, or null at the frame's edges; dirs, var:
-// int32 luma unit maps and nonskip uint8 [uh, uw] (8x8 luma units, 4x4 in
-// chroma); pri_pack: 4-bit coded primaries, sec_pack: 2-bit coded
-// secondaries; damping: the luma damping (chroma takes one less); err:
-// int64 [2, n_pri * n_sec] totals (luma, chroma) to add to.
-extern "C" int cdef_search_launch(int n_planes, const void* const* rec,
-                                  const void* const* src, int src_bytes,
-                                  const void* const* top,
-                                  const void* const* bottom, const int* H,
-                                  const int* W, const int* ph, const int* pw,
-                                  const void* dirs, const void* var,
-                                  const void* nonskip, int uw,
-                                  unsigned pri_pack, int n_pri,
-                                  unsigned sec_pack, int n_sec, int damping,
-                                  int cs, void* err, void* stream) {
+// Both search entries: nvfb = 0 for the frame totals, else the per-fb
+// totals of an nvfb x nhfb grid of filter blocks (the full grid only).
+int search_launch(int n_planes, const void* const* rec,
+                  const void* const* src, int src_bytes,
+                  const void* const* top, const void* const* bottom,
+                  const int* H, const int* W, const int* ph, const int* pw,
+                  const void* dirs, const void* var, const void* nonskip,
+                  int uw, unsigned pri_pack, int n_pri, unsigned sec_pack,
+                  int n_sec, int damping, int cs, int nvfb, int nhfb,
+                  void* err, void* stream) {
   if (n_planes < 1 || n_planes > 3 || n_pri < 1 || n_pri > kMaxPri ||
       n_sec < 1 || n_sec > kMaxSec || (src_bytes != 1 && src_bytes != 2))
     return (int)cudaErrorInvalidValue;
@@ -664,26 +739,25 @@ extern "C" int cdef_search_launch(int n_planes, const void* const* rec,
   bool zero_first = a.pri[0] == 0 && a.sec[0] == 0;
   for (int i = 1; i < n_pri; ++i) zero_first &= a.pri[i] > 0;
   for (int i = 1; i < n_sec; ++i) zero_first &= a.sec[i] > 0;
+  const bool per_fb = nvfb > 0;
+  if (per_fb && !(n_pri == kMaxPri && n_sec == kMaxSec && zero_first &&
+                  nvfb * 64 >= ph[0] && nhfb * 64 >= pw[0]))
+    return (int)cudaErrorInvalidValue;
   if (src_bytes == 1)
-    search_grid<uint8_t>(n_pri, n_sec, zero_first, grid, block, st, a, d, vr,
-                         ns, uw, e);
+    search_grid<uint8_t>(n_pri, n_sec, zero_first, per_fb, grid, block, st, a,
+                         d, vr, ns, uw, e, nvfb, nhfb);
   else
-    search_grid<uint16_t>(n_pri, n_sec, zero_first, grid, block, st, a, d, vr,
-                          ns, uw, e);
+    search_grid<uint16_t>(n_pri, n_sec, zero_first, per_fb, grid, block, st,
+                          a, d, vr, ns, uw, e, nvfb, nhfb);
   return (int)cudaGetLastError();
 }
 
-// One launch for the apply of n_planes planes (luma, then chroma); per
-// plane i, ptrs[4i..4i+3] = in, out, top, bottom and dims[6i..6i+5] = H,
-// W, ph, pw, pri, sec: in and out int32 [H, W], out the filtered frame
-// [0, ph) x [0, pw) and a copy of in elsewhere; top, bottom as for
-// cdef_search_launch; pri, sec the plane's strengths in filter units (sec
-// 3 already 4, both shifted by cs).  dirs, var, nonskip, uw and damping
-// as for cdef_search_launch.
-extern "C" int cdef_apply_launch(int n_planes, const void* const* ptrs,
-                                 const int* dims, const void* dirs,
-                                 const void* var, const void* nonskip,
-                                 int uw, int damping, int cs, void* stream) {
+// Both apply entries: per plane i, ptrs[4i..4i+3] and dims[6i..6i+5] as
+// for cdef_apply_launch; m.idx null for the frame-level apply.
+int apply_launch(int n_planes, const void* const* ptrs, const int* dims,
+                 const void* dirs, const void* var, const void* nonskip,
+                 int uw, int damping, int cs, const Presets& m,
+                 void* stream) {
   if (n_planes < 1 || n_planes > 3) return (int)cudaErrorInvalidValue;
   ApplyArgs a{};
   a.n_planes = n_planes;
@@ -715,7 +789,91 @@ extern "C" int cdef_apply_launch(int n_planes, const void* const* ptrs,
     p.cta0 = ctas;
     ctas += p.tiles_x * ((p.H + kTileH - 1) / kTileH);
   }
-  cdef_apply_kernel<<<ctas, kTileThreads, 0, (cudaStream_t)stream>>>(
-      a, (const int*)dirs, (const int*)var, (const uint8_t*)nonskip, uw);
+  const int* dr = (const int*)dirs;
+  const int* vr = (const int*)var;
+  const uint8_t* ns = (const uint8_t*)nonskip;
+  if (m.idx)
+    cdef_apply_kernel<true><<<ctas, kTileThreads, 0, (cudaStream_t)stream>>>(
+        a, m, dr, vr, ns, uw);
+  else
+    cdef_apply_kernel<false><<<ctas, kTileThreads, 0, (cudaStream_t)stream>>>(
+        a, m, dr, vr, ns, uw);
   return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// One launch for the search of n_planes planes (luma, then chroma):
+// rec[i]: int32 [H[i], W[i]]; src[i]: the source of the same shape,
+// src_bytes 1 (uint8) or 2 (16-bit samples of 10-bit video); frame [0,
+// ph[i]) x [0, pw[i]); top[i], bottom[i]: int32 [2, W[i]] rows above and
+// below a stripe of the frame, or null at the frame's edges; dirs, var:
+// int32 luma unit maps and nonskip uint8 [uh, uw] (8x8 luma units, 4x4 in
+// chroma); pri_pack: 4-bit coded primaries, sec_pack: 2-bit coded
+// secondaries; damping: the luma damping (chroma takes one less); err:
+// int64 [2, n_pri * n_sec] totals (luma, chroma) to add to.
+extern "C" int cdef_search_launch(int n_planes, const void* const* rec,
+                                  const void* const* src, int src_bytes,
+                                  const void* const* top,
+                                  const void* const* bottom, const int* H,
+                                  const int* W, const int* ph, const int* pw,
+                                  const void* dirs, const void* var,
+                                  const void* nonskip, int uw,
+                                  unsigned pri_pack, int n_pri,
+                                  unsigned sec_pack, int n_sec, int damping,
+                                  int cs, void* err, void* stream) {
+  return search_launch(n_planes, rec, src, src_bytes, top, bottom, H, W, ph,
+                       pw, dirs, var, nonskip, uw, pri_pack, n_pri, sec_pack,
+                       n_sec, damping, cs, 0, 0, err, stream);
+}
+
+// The per-fb search (cdef_bits > 0): the arguments of cdef_search_launch
+// with the full grid (8 x 4, zero strengths first), and err int64 [2,
+// 32, nvfb, nhfb], the totals per 64x64 filter block of the luma frame
+// (32x32 in chroma) to add to.
+extern "C" int cdef_search_fb_launch(
+    int n_planes, const void* const* rec, const void* const* src,
+    int src_bytes, const void* const* top, const void* const* bottom,
+    const int* H, const int* W, const int* ph, const int* pw,
+    const void* dirs, const void* var, const void* nonskip, int uw,
+    unsigned pri_pack, int n_pri, unsigned sec_pack, int n_sec, int damping,
+    int cs, int nvfb, int nhfb, void* err, void* stream) {
+  if (nvfb < 1 || nhfb < 1) return (int)cudaErrorInvalidValue;
+  return search_launch(n_planes, rec, src, src_bytes, top, bottom, H, W, ph,
+                       pw, dirs, var, nonskip, uw, pri_pack, n_pri, sec_pack,
+                       n_sec, damping, cs, nvfb, nhfb, err, stream);
+}
+
+// One launch for the apply of n_planes planes (luma, then chroma); per
+// plane i, ptrs[4i..4i+3] = in, out, top, bottom and dims[6i..6i+5] = H,
+// W, ph, pw, pri, sec: in and out int32 [H, W], out the filtered frame
+// [0, ph) x [0, pw) and a copy of in elsewhere; top, bottom as for
+// cdef_search_launch; pri, sec the plane's strengths in filter units (sec
+// 3 already 4, both shifted by cs).  dirs, var, nonskip, uw and damping
+// as for cdef_search_launch.
+extern "C" int cdef_apply_launch(int n_planes, const void* const* ptrs,
+                                 const int* dims, const void* dirs,
+                                 const void* var, const void* nonskip,
+                                 int uw, int damping, int cs, void* stream) {
+  return apply_launch(n_planes, ptrs, dims, dirs, var, nonskip, uw, damping,
+                      cs, Presets{0, 0, nullptr, 0}, stream);
+}
+
+// The per-fb apply (cdef_bits > 0): the arguments of cdef_apply_launch,
+// with each plane's pri, sec nonzero where any preset of its list filters
+// it; y_pack, uv_pack the coded strength lists (pri * 4 + sec, 6 bits
+// each); idx uint8 [nvfb, nhfb] the 64x64 filter blocks' indices into
+// them (below the lists' length).
+extern "C" int cdef_apply_multi_launch(int n_planes, const void* const* ptrs,
+                                       const int* dims, const void* dirs,
+                                       const void* var, const void* nonskip,
+                                       int uw, int damping, int cs,
+                                       unsigned long long y_pack,
+                                       unsigned long long uv_pack,
+                                       const void* idx, int nhfb,
+                                       void* stream) {
+  if (!idx || nhfb < 1) return (int)cudaErrorInvalidValue;
+  return apply_launch(n_planes, ptrs, dims, dirs, var, nonskip, uw, damping,
+                      cs, Presets{y_pack, uv_pack, (const uint8_t*)idx, nhfb},
+                      stream);
 }

@@ -1,14 +1,19 @@
 """CDEF: constrained directional enhancement filter (port of
 svt_av1_tpu/ops/cdef.py; AV1 spec 7.15).
 
-The constants and the nonskip map are copies.  The encoder runs only
+The constants, the nonskip map and the host preset pick of per-64x64
+strength presets (``pick_cdef_presets``) are copies.  The codec runs only
 the full-plane formulation, in two forms: plain PyTorch
 (``find_dir_grid``, ``_PlaneCtx``, ``cdef_search_errs``,
-``_cdef_apply_traced``) and the CUDA kernels K3
+``_cdef_apply_traced``, and for cdef_bits > 0 ``cdef_search_errs_fb_plain``
+and ``cdef_frame_multi_plain``) and the CUDA kernels K3
 ``kernels/csrc/cdef_direction.cu`` (``cdef_direction``) and K4
-``kernels/csrc/cdef_filter.cu`` (``cdef_search`` and ``cdef_apply``).
-The reference's per-unit host filter (``cdef_frame``) and host strength
-search belong to its decoder and host paths, which are not ported.
+``kernels/csrc/cdef_filter.cu`` (``cdef_search`` and ``cdef_apply``, and
+their per-fb forms ``cdef_search_fb`` and ``cdef_apply_multi``).  The
+reference's per-unit host filter (``cdef_frame``) and host strength
+search belong to its host paths, which are not ported; its per-64x64
+search and apply (``cdef_search_errs_fb``, ``cdef_frame_multi``) are host
+numpy there and K4's per-fb forms here.
 
 Notes of the reference module:
 
@@ -241,10 +246,10 @@ class _PlaneCtx:
                     self.ds.append(s - x)
         self.mx, self.mn = mx, mn
 
-    def run(self, pri_map, sec_strength: int, damping: int,
-            coeff_shift: int):
-        """Filter with per-pixel primary strengths; returns the filtered
-        plane (call sites mask by eligibility)."""
+    def run(self, pri_map, sec_strength, damping: int, coeff_shift: int):
+        """Filter with per-pixel primary strengths and a secondary
+        strength (an int, or a per-pixel map); returns the filtered plane
+        (call sites mask by eligibility)."""
         tap_idx = (pri_map >> coeff_shift) & 1
         pt0 = torch.where(tap_idx == 1, 3, 4)
         pt1 = torch.where(tap_idx == 1, 3, 2)
@@ -254,8 +259,9 @@ class _PlaneCtx:
             for sgn in range(2):
                 sum_ = sum_ + ptap * _constrain_xp(self.dp[2 * k + sgn],
                                                    pri_map, damping)
-        if sec_strength:
-            sec = torch.full_like(pri_map, sec_strength)
+        if torch.is_tensor(sec_strength) or sec_strength:
+            sec = sec_strength if torch.is_tensor(sec_strength) \
+                else torch.full_like(pri_map, sec_strength)
             for k, stap in ((0, 2), (1, 1)):
                 for j in range(4):
                     sum_ = sum_ + stap * _constrain_xp(self.ds[4 * k + j],
@@ -264,7 +270,8 @@ class _PlaneCtx:
         return torch.minimum(torch.maximum(y, self.mn), self.mx)
 
 
-def _adjust_strength_xp(strength: int, var):
+def _adjust_strength_xp(strength, var):
+    """adjust_strength of a strength (an int, or a map shaped as var)."""
     v6 = var >> 6
     msb = _msb_int(v6, 26).clamp_max(12)
     out = (strength * (4 + msb) + 8) >> 4
@@ -279,16 +286,29 @@ def _strength_parts(strength: int, cs: int):
             (sec + (sec == 3)) << cs)
 
 
+def _fb_sums(sq, fbpx: int, nvfb: int, nhfb: int):
+    """[H, W] squared errors -> [nvfb, nhfb] sums per filter block of
+    fbpx x fbpx samples."""
+    H, W = sq.shape
+    ph, pw = nvfb * fbpx, nhfb * fbpx
+    sq = torch.nn.functional.pad(sq, (0, max(pw - W, 0), 0, max(ph - H, 0)))
+    return sq[:ph, :pw].reshape(nvfb, fbpx, nhfb, fbpx).sum((1, 3))
+
+
 def cdef_search_errs(source, recon, dirs, var, nonskip, fw: int, fh: int,
                      damping: int, bit_depth: int = 8,
-                     pri_set=PRI_SET, sec_set=SEC_SET, padded_planes=None):
+                     pri_set=PRI_SET, sec_set=SEC_SET, padded_planes=None,
+                     per_fb: bool = False):
     """SSE of every (pri, sec) strength combo over the in-frame non-skip
     pixels (plain PyTorch).  Returns (err_y, err_uv): exact int64
     [len(pri_set), len(sec_set)]; err_uv sums both chroma planes (None
     for luma alone).  ``padded_planes``: the planes already padded, one
-    per plane of ``recon`` (a stripe's ``pad_halo``)."""
+    per plane of ``recon`` (a stripe's ``pad_halo``).  ``per_fb``: the
+    sums per 64x64 filter block instead, [len(pri_set), len(sec_set),
+    ceil(fh / 64), ceil(fw / 64)]."""
     cs = max(bit_depth - 8, 0)
     nonskip = nonskip.bool()
+    nvfb, nhfb = -(-fh // 64), -(-fw // 64)
     errs = []
     for group in ((0,), (1, 2)):
         acc = None
@@ -324,8 +344,11 @@ def cdef_search_errs(source, recon, dirs, var, nonskip, fw: int, fh: int,
                     filt = c.x if p == 0 and s_ == 0 else \
                         c.run(pri_map, s_, dmp, cs)
                     d = (filt - src).to(torch.int64)
-                    e.append((d * d)[keep].sum())
-            plane_err = torch.stack(e).reshape(len(pri_set), len(sec_set))
+                    e.append(_fb_sums(torch.where(keep, d * d, 0),
+                                      64 >> sub, nvfb, nhfb) if per_fb
+                             else (d * d)[keep].sum())
+            plane_err = torch.stack(e).reshape(len(pri_set), len(sec_set),
+                                               *e[0].shape)
             acc = plane_err if acc is None else acc + plane_err
         errs.append(acc)
     return errs[0], errs[1]
@@ -399,6 +422,68 @@ def search_plain(source, recon, dirs, var, nonskip, fw: int, fh: int,
     return cdef_search_errs(source, recon, dirs, var, nonskip, fw, fh,
                             damping, bit_depth, pri_set, sec_set,
                             _halo_pads(recon, fw, fh, halos))
+
+
+def cdef_search_errs_fb_plain(source, recon, dirs, var, nonskip, fw: int,
+                              fh: int, damping: int, bit_depth: int = 8):
+    """Plain version of K4's per-fb search (the reference's
+    cdef_search_errs_fb): the squared error of every combination of the
+    full grid per 64x64 filter block, exact int64 [32, ceil(fh / 64),
+    ceil(fw / 64)] for luma and for the two chroma planes together (None
+    for luma alone)."""
+    err_y, err_uv = cdef_search_errs(source, recon, dirs, var, nonskip, fw,
+                                     fh, damping, bit_depth, per_fb=True)
+    flat = [None if e is None else e.reshape(-1, *e.shape[2:])
+            for e in (err_y, err_uv)]
+    return flat[0], flat[1]
+
+
+def _unit_strengths(strengths, idx_units, cs: int):
+    """Per 8x8 unit (pri, sec) in filter units: the coded strengths
+    (pri*4+sec) of a preset list picked by the units' indices (sec 3
+    applies as 4)."""
+    s = torch.as_tensor(strengths, dtype=torch.int32,
+                        device=idx_units.device)[idx_units]
+    sec = s % CDEF_SEC_STRENGTHS
+    return (s // CDEF_SEC_STRENGTHS) << cs, \
+        (sec + (sec == 3).to(torch.int32)) << cs
+
+
+def cdef_frame_multi_plain(planes, nonskip, dirs, var, y_list, uv_list,
+                           idx_grid, damping: int, fw: int, fh: int,
+                           bd: int):
+    """Plain version of K4's per-fb apply (the reference's
+    cdef_frame_multi, spec 7.15.1): normative CDEF of the int32 planes
+    where each 64x64 filter block takes the strengths ``y_list[k]``,
+    ``uv_list[k]`` of its index k in ``idx_grid`` [ceil(fh / 64),
+    ceil(fw / 64)].  Each unit's direction is 0 where its coded primary
+    is 0, and luma primaries are adjusted by the unit's variance, as the
+    frame-level apply does.  Returns full-size planes: the in-frame
+    region filtered where its unit is non-skip, everything else
+    copied."""
+    cs = max(bd - 8, 0)
+    nonskip = nonskip.bool()
+    uh, uw = nonskip.shape
+    idx = torch.as_tensor(idx_grid, device=nonskip.device).long()
+    idx_units = _expand(idx, 8)[:uh, :uw]
+    pads = _halo_pads(planes, fw, fh, None)
+    out = []
+    for pli, plane in enumerate(planes):
+        bs = 8 if pli == 0 else 4
+        sub = 0 if pli == 0 else 1
+        pw, ph = fw >> sub, fh >> sub
+        pri, sec = _unit_strengths(y_list if pli == 0 else uv_list,
+                                   idx_units, cs)
+        ctx = _PlaneCtx(pads[pli], torch.where(pri > 0, dirs, 0), bs)
+        pri_map = _expand(_adjust_strength_xp(pri, var) if pli == 0
+                          else pri, bs)
+        filt = ctx.run(pri_map, _expand(sec, bs),
+                       damping + cs - (0 if pli == 0 else 1), cs)
+        keep = _expand(nonskip & ((pri > 0) | (sec > 0)), bs)
+        o = plane.to(torch.int32).clone()
+        o[:ph, :pw] = torch.where(keep, filt, ctx.x)[:ph, :pw]
+        out.append(o)
+    return out
 
 
 # --------------------------------------------------------------------------
@@ -518,6 +603,25 @@ def cdef_search(source, recon, dirs, var, nonskip, fw: int, fh: int,
         return search_plain(source, recon, dirs, var, nonskip, fw, fh,
                             damping, bit_depth, pri_set, sec_set, halos)
     cdef_search.calls += 1
+    acc = _search_launch("cdef_search_launch", (), (),
+                         2 * len(pri_set) * len(sec_set), source, recon,
+                         dirs, var, nonskip, fw, fh, damping, bit_depth,
+                         pri_set, sec_set, halos)
+    cdef_search.launches += 1
+    errs = acc.reshape(2, len(pri_set), len(sec_set))
+    return errs[0], (errs[1] if len(recon) > 1 else None)
+
+
+cdef_search.launches = cdef_search.calls = 0
+
+
+def _search_launch(entry: str, extra_types: tuple, extra_args: tuple,
+                   n_err: int, source, recon, dirs, var, nonskip, fw: int,
+                   fh: int, damping: int, bit_depth: int, pri_set, sec_set,
+                   halos):
+    """Check the planes of a K4 search, launch its entry ``entry`` (the
+    common arguments, then ``extra_args``) and return the int64
+    accumulator of ``n_err`` totals it added to."""
     if recon[0].device.type != "cuda":
         raise ValueError(f"unsupported device {recon[0].device}")
     from ..kernels.build import check_launch, cuda_fn, ptr, raw_stream
@@ -533,9 +637,10 @@ def cdef_search(source, recon, dirs, var, nonskip, fw: int, fh: int,
         # a warp's sum of 256 squared errors must stay below 2^32
         raise ValueError(f"cdef_search takes bit depths 8 and 10, not "
                          f"{bit_depth}")
-    fn = cuda_fn("cdef_filter", "cdef_search_launch",
+    fn = cuda_fn("cdef_filter", entry,
              (_I, _P, _P, _I) + (_P,) * 6 + (_P,) * 3 + (_I,)
-             + (ctypes.c_uint, _I, ctypes.c_uint, _I) + (_I,) * 2 + (_P,) * 2)
+             + (ctypes.c_uint, _I, ctypes.c_uint, _I) + (_I,) * 2
+             + extra_types + (_P,) * 2)
     cs = max(bit_depth - 8, 0)
     ns = _nonskip_bytes(nonskip)
     dims, halo = [], []
@@ -550,8 +655,7 @@ def cdef_search(source, recon, dirs, var, nonskip, fw: int, fh: int,
         sub = 0 if pli == 0 else 1
         dims.append((*rec.shape, fh >> sub, fw >> sub))
         halo.append(_halo_ptrs(halos, pli, rec))
-    combos = len(pri_set) * len(sec_set)
-    acc = torch.zeros(2 * combos, dtype=torch.int64, device=recon[0].device)
+    acc = torch.zeros(n_err, dtype=torch.int64, device=recon[0].device)
 
     err = fn(n, _arr(_P, [ptr(r) for r in recon[:n]]),
              _arr(_P, [ptr(s) for s in source[:n]]),
@@ -560,14 +664,9 @@ def cdef_search(source, recon, dirs, var, nonskip, fw: int, fh: int,
              *(_arr(_I, [d[i] for d in dims]) for i in range(4)),
              ptr(dirs), ptr(var), ptr(ns), ns.shape[1], _pack(pri_set, 4),
              len(pri_set), _pack(sec_set, 2), len(sec_set), damping + cs,
-             cs, ptr(acc), raw_stream(recon[0]))
-    check_launch("cdef_search", err)
-    cdef_search.launches += 1
-    errs = acc.reshape(2, len(pri_set), len(sec_set))
-    return errs[0], (errs[1] if n > 1 else None)
-
-
-cdef_search.launches = cdef_search.calls = 0
+             cs, *extra_args, ptr(acc), raw_stream(recon[0]))
+    check_launch(entry, err)
+    return acc
 
 
 def cdef_apply(planes, nonskip, dirs, var, y_strength: int,
@@ -585,6 +684,25 @@ def cdef_apply(planes, nonskip, dirs, var, y_strength: int,
         return cdef_apply_plain(planes, nonskip, dirs, var, y_strength,
                                 uv_strength, damping, fw, fh, bd, halos)
     cdef_apply.calls += 1
+    cs = max(bd - 8, 0)
+    out = _apply_launch("cdef_apply_launch", (), (), planes, nonskip, dirs,
+                        var, [_strength_parts(y_strength if p == 0
+                                              else uv_strength, cs)
+                              for p in range(len(planes))],
+                        damping, fw, fh, bd, halos)
+    cdef_apply.launches += 1
+    return out
+
+
+cdef_apply.launches = cdef_apply.calls = 0
+
+
+def _apply_launch(entry: str, extra_types: tuple, extra_args: tuple, planes,
+                  nonskip, dirs, var, strengths, damping: int, fw: int,
+                  fh: int, bd: int, halos):
+    """Check the planes of a K4 apply, launch its entry ``entry`` (the
+    common arguments, then ``extra_args``) with each plane's (pri, sec)
+    pair ``strengths`` and return the new planes."""
     if planes[0].device.type != "cuda":
         raise ValueError(f"unsupported device {planes[0].device}")
     from ..kernels.build import check_launch, cuda_fn, ptr, raw_stream
@@ -593,8 +711,8 @@ def cdef_apply(planes, nonskip, dirs, var, y_strength: int,
     n = len(planes)
     if not 1 <= n <= 3:
         raise ValueError("cdef_apply takes 1 to 3 planes")
-    fn = cuda_fn("cdef_filter", "cdef_apply_launch",
-             (_I, _P, _P) + (_P,) * 3 + (_I,) * 3 + (_P,))
+    fn = cuda_fn("cdef_filter", entry,
+             (_I, _P, _P) + (_P,) * 3 + (_I,) * 3 + extra_types + (_P,))
     cs = max(bd - 8, 0)
     ns = _nonskip_bytes(nonskip)
     # per plane: (in, out, top, bottom) and (H, W, ph, pw, pri, sec)
@@ -608,18 +726,13 @@ def cdef_apply(planes, nonskip, dirs, var, y_strength: int,
         ptrs += [plane.data_ptr(), o.data_ptr(),
                  *(_halo_ptrs(halos, pli, plane) if halos is not None
                    else (None, None))]
-        dims += [*plane.shape, fh >> sub, fw >> sub,
-                 *_strength_parts(y_strength if sub == 0 else uv_strength,
-                                  cs)]
+        dims += [*plane.shape, fh >> sub, fw >> sub, *strengths[pli]]
         out.append(o)
     err = fn(n, _arr(_P, ptrs), _arr(_I, dims), ptr(dirs), ptr(var),
-             ptr(ns), ns.shape[1], damping + cs, cs, raw_stream(planes[0]))
-    check_launch("cdef_apply", err)
-    cdef_apply.launches += 1
+             ptr(ns), ns.shape[1], damping + cs, cs, *extra_args,
+             raw_stream(planes[0]))
+    check_launch(entry, err)
     return out
-
-
-cdef_apply.launches = cdef_apply.calls = 0
 
 
 # --------------------------------------------------------------------------
@@ -670,3 +783,185 @@ def cdef_search_apply_device(source, recon, skips, mi_rows, mi_cols,
         source, _device_planes(recon, dev), torch.from_numpy(ns).to(dev),
         mi_cols * 4, mi_rows * 4, damping, bit_depth, pri_set, sec_set)
     return [o.cpu().numpy() for o in out], ystr, uvstr
+
+
+# --------------------------------------------------------------------------
+# Per-64x64 strength presets (cdef_bits > 0): K4's per-fb search and apply,
+# and the preset pick on the host (finish_cdef_search /
+# joint_strength_search_dual, EbEncCdef.c:1140; copies of the reference's
+# _search_one_dual, joint_strength_search_dual and pick_cdef_presets)
+# --------------------------------------------------------------------------
+
+CDEF_STRENGTH_BITS = 6
+
+
+def cdef_search_fb(source, recon, dirs, var, nonskip, fw: int, fh: int,
+                   damping: int, bit_depth: int = 8):
+    """K4's per-fb search: exact int64 squared errors of every combination
+    of the full grid (PRI_SET x SEC_SET) per 64x64 filter block, [32,
+    ceil(fh / 64), ceil(fw / 64)] for luma and for the two chroma planes
+    together (None for luma alone); the planes as for ``cdef_search``.
+    CPU tensors take cdef_search_errs_fb_plain; CUDA tensors launch the
+    kernel once for all the planes."""
+    if recon[0].device.type == "cpu":
+        return cdef_search_errs_fb_plain(source, recon, dirs, var, nonskip,
+                                         fw, fh, damping, bit_depth)
+    cdef_search_fb.calls += 1
+    nvfb, nhfb = -(-fh // 64), -(-fw // 64)
+    acc = _search_launch("cdef_search_fb_launch", (_I, _I), (nvfb, nhfb),
+                         2 * len(PRI_SET) * len(SEC_SET) * nvfb * nhfb,
+                         source, recon, dirs, var, nonskip, fw, fh, damping,
+                         bit_depth, PRI_SET, SEC_SET, None)
+    cdef_search_fb.launches += 1
+    errs = acc.reshape(2, -1, nvfb, nhfb)
+    return errs[0], (errs[1] if len(recon) > 1 else None)
+
+
+cdef_search_fb.launches = cdef_search_fb.calls = 0
+
+
+def _strength_pack(strengths) -> int:
+    """A preset list of at most 8 coded strengths (pri*4+sec), 6 bits
+    each, as the per-fb apply reads it."""
+    if not 1 <= len(strengths) <= 8:
+        raise ValueError("a CDEF preset list holds 1 to 8 strengths")
+    return _pack(strengths, CDEF_STRENGTH_BITS)
+
+
+def cdef_apply_multi(planes, nonskip, dirs, var, y_list, uv_list, idx_grid,
+                     damping: int, fw: int, fh: int, bd: int):
+    """K4's per-fb apply: normative CDEF of the int32 planes with the
+    strengths of each 64x64 filter block's index in ``idx_grid`` (uint8 or
+    int [ceil(fh / 64), ceil(fw / 64)], entries < len(y_list)) into the
+    coded lists ``y_list`` and ``uv_list`` (at most 8 each), given the
+    (dirs, var) unit maps.  Returns new full-size planes, the input left as
+    it is.  CPU tensors take cdef_frame_multi_plain; CUDA tensors launch
+    the kernel once for all the planes.  Samples as for ``cdef_apply``."""
+    if planes[0].device.type == "cpu":
+        return cdef_frame_multi_plain(planes, nonskip, dirs, var, y_list,
+                                      uv_list, idx_grid, damping, fw, fh,
+                                      bd)
+    cdef_apply_multi.calls += 1
+    nvfb, nhfb = -(-fh // 64), -(-fw // 64)
+    if len(y_list) != len(uv_list):
+        raise ValueError("the luma and chroma preset lists differ in length")
+    packs = (_strength_pack(y_list), _strength_pack(uv_list))
+    # the codec's grid lies on the host: checked there, then uploaded
+    idx = torch.as_tensor(idx_grid)
+    if tuple(idx.shape) != (nvfb, nhfb):
+        raise ValueError(f"idx_grid: {(nvfb, nhfb)} expected, got "
+                         f"{tuple(idx.shape)}")
+    if int(idx.min()) < 0 or int(idx.max()) >= len(y_list):
+        raise ValueError("idx_grid indexes past the preset lists")
+    idx = idx.to(device=planes[0].device, dtype=torch.uint8).contiguous()
+    active = [any(v for v in (y_list if p == 0 else uv_list))
+              for p in range(len(planes))]
+    out = _apply_launch("cdef_apply_multi_launch",
+                        (ctypes.c_ulonglong, ctypes.c_ulonglong, _P, _I),
+                        (*packs, idx.data_ptr(), nhfb), planes, nonskip, dirs,
+                        var, [(int(a), int(a)) for a in active], damping,
+                        fw, fh, bd, None)
+    cdef_apply_multi.launches += 1
+    return out
+
+
+cdef_apply_multi.launches = cdef_apply_multi.calls = 0
+
+
+def _search_one_dual(lev_y, lev_uv, i, my, muv):
+    """Add strength pair i minimizing the total min-over-set mse
+    (svt_search_one_dual_c, EbEncCdef.c:1070).  my/muv: [n_fb, NC]."""
+    n_fb, nc = my.shape
+    if i > 0:
+        cur = np.min(my[:, lev_y[:i]] + muv[:, lev_uv[:i]], axis=1)
+    else:
+        cur = np.full(n_fb, np.inf, my.dtype)
+    cand = my[:, :, None] + muv[:, None, :]              # [n_fb, NC, NC]
+    tot = np.minimum(cur[:, None, None], cand).sum(0)    # [NC, NC]
+    j = int(np.argmin(tot))
+    lev_y[i], lev_uv[i] = j // nc, j % nc
+    return float(tot.ravel()[j])
+
+
+def joint_strength_search_dual(my, muv, nb_strengths: int):
+    """Greedy + refinement set search (joint_strength_search_dual,
+    EbEncCdef.c:1140).  Returns (lev_y, lev_uv, total_mse)."""
+    lev_y = np.zeros(nb_strengths, np.int64)
+    lev_uv = np.zeros(nb_strengths, np.int64)
+    best = np.inf
+    for i in range(nb_strengths):
+        best = _search_one_dual(lev_y, lev_uv, i, my, muv)
+    for _ in range(4 * nb_strengths):
+        lev_y[:-1] = lev_y[1:]
+        lev_uv[:-1] = lev_uv[1:]
+        best = _search_one_dual(lev_y, lev_uv, nb_strengths - 1, my, muv)
+    return lev_y, lev_uv, best
+
+
+def pick_cdef_presets(mse_y, mse_uv, eligible, lambda_sse: int,
+                      pri_set=(0, 1, 2, 4, 6, 8, 12, 15),
+                      sec_set=(0, 1, 2, 3)):
+    """finish_cdef_search port: choose cdef_bits (0..3), the strength
+    lists and the per-fb indices minimizing mse + lambda * signalling.
+
+    mse_y/mse_uv: [NC, nvfb, nhfb]; eligible: [nvfb, nhfb] bool (fbs
+    with any non-skip unit).  Returns (cdef_bits, y_list, uv_list,
+    idx_grid [nvfb, nhfb])."""
+    combos = [(p, s) for p in pri_set for s in sec_set]
+    nc = len(combos)
+    el = np.asarray(eligible, bool)
+    my = np.asarray(mse_y, np.float64).reshape(nc, -1).T[el.ravel()]
+    muv = np.asarray(mse_uv, np.float64).reshape(nc, -1).T[el.ravel()]
+    n_fb = my.shape[0]
+    if n_fb == 0:
+        return 0, (0,), (0,), np.zeros(el.shape, np.int32)
+
+    best_cost = np.inf
+    best = None
+    for bits in range(4):
+        nb = 1 << bits
+        lev_y, lev_uv, tot = joint_strength_search_dual(my, muv, nb)
+        total_bits = n_fb * bits + nb * CDEF_STRENGTH_BITS * 2
+        rate = 512 * total_bits
+        dist = int(tot) * 16
+        cost = ((rate * lambda_sse + 256) >> 9) + (dist << 7)
+        if cost < best_cost:
+            best_cost = cost
+            best = (bits, lev_y.copy(), lev_uv.copy())
+    bits, lev_y, lev_uv = best
+    y_list = tuple(combos[int(k)][0] * CDEF_SEC_STRENGTHS
+                   + combos[int(k)][1] for k in lev_y)
+    uv_list = tuple(combos[int(k)][0] * CDEF_SEC_STRENGTHS
+                    + combos[int(k)][1] for k in lev_uv)
+    sel = my[:, lev_y] + muv[:, lev_uv]                # [n_fb, nb]
+    gi = np.argmin(sel, axis=1).astype(np.int32)
+    idx_grid = np.zeros(el.shape, np.int32)
+    idx_grid[el] = gi
+    return bits, y_list, uv_list, idx_grid
+
+
+def eligible_fbs(nonskip: np.ndarray, fw: int, fh: int) -> np.ndarray:
+    """[ceil(fh / 64), ceil(fw / 64)] bool: the filter blocks with any
+    non-skip 8x8 unit, the ones the preset search weighs."""
+    uh, uw = nonskip.shape
+    nvfb, nhfb = (fh + 63) // 64, (fw + 63) // 64
+    el = np.zeros((nvfb * 8, nhfb * 8), bool)
+    el[:uh, :uw] = nonskip
+    return el.reshape(nvfb, 8, nhfb, 8).any(axis=(1, 3))
+
+
+def search_apply_multi(source, planes, nonskip, fw: int, fh: int,
+                       damping: int, bd: int, lambda_sse: int):
+    """The per-64x64 preset search and apply on the planes' device: K3's
+    directions, K4's per-fb search, the preset pick on the host (from the
+    exact sums as float64) and K4's per-fb apply of the picks.  Returns
+    (planes, cdef_bits, y_list, uv_list, idx_grid)."""
+    dirs, var = cdef_direction(planes[0], fw, fh, max(bd - 8, 0))
+    err_y, err_uv = cdef_search_fb(source, planes, dirs, var, nonskip, fw,
+                                   fh, damping, bd)
+    eligible = eligible_fbs(nonskip.cpu().numpy(), fw, fh)
+    bits, y_list, uv_list, idx_grid = pick_cdef_presets(
+        err_y.cpu().numpy(), err_uv.cpu().numpy(), eligible, lambda_sse)
+    out = cdef_apply_multi(planes, nonskip, dirs, var, y_list, uv_list,
+                           idx_grid, damping, fw, fh, bd)
+    return out, bits, y_list, uv_list, idx_grid

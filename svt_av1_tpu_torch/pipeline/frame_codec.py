@@ -2225,8 +2225,8 @@ class FrameCodec:
         pipeline), on the codec's device (the deblocking kernel).  The
         encoder searches the level over the candidate ladder and applies
         the winner (EbDlfProcess.c level search analog); the searched
-        level lands in the header.  The decoder applies the header's
-        levels."""
+        level lands in the header.  The decoder, and the encoder's second
+        entropy pass over a searched header, apply the header's levels."""
         from ..ops import dlf
 
         fh = self.fh
@@ -2234,7 +2234,7 @@ class FrameCodec:
                 or max(fh.filter_level) == 0:
             self._save_deblocked()
             return
-        if self.source is None:
+        if self.source is None or getattr(fh, "dlf_level_searched", False):
             self._apply_header_deblocking()
             self._save_deblocked()
             return
@@ -2286,9 +2286,12 @@ class FrameCodec:
             self.recon[p] = out.cpu().numpy()
 
     def apply_cdef(self):
-        """Decoder: normative CDEF at the header's frame-level strengths
-        (spec 7.15) on the codec's device: the direction search, then the
-        filter (the CDEF kernels)."""
+        """Normative CDEF at the header's strengths (spec 7.15) on the
+        codec's device: the direction search, then the filter (the CDEF
+        kernels), at the frame-level strengths or, with cdef_bits > 0,
+        at each 64x64 filter block's preset (spec 7.15.1: cdef_idx,
+        coded in-tile, selects into the header's lists).  The decoder
+        and the encoder's second entropy pass call it."""
         import torch
 
         from ..ops import cdef as cdef_ops
@@ -2297,27 +2300,35 @@ class FrameCodec:
         if (not self.seq.enable_cdef or fh.coded_lossless
                 or fh.allow_intrabc):
             return
-        if fh.cdef_bits > 0:
-            raise UnsupportedBitstream(
-                "per-64x64 CDEF strength presets (cdef_bits > 0, "
-                "cdef_frame_multi) are not ported")
         y_str, uv_str = fh.cdef_y_strengths[0], fh.cdef_uv_strengths[0]
-        if y_str == 0 and uv_str == 0:
+        if fh.cdef_bits == 0 and y_str == 0 and uv_str == 0:
             return
         ns = cdef_ops.nonskip_grid(self.skips, self.mi_rows, self.mi_cols)
         if not ns.any():
             return
         fw, fh_px = self.mi_cols * 4, self.mi_rows * 4
-        planes = [torch.from_numpy(np.ascontiguousarray(p, np.int32)).to(
-            self.device) for p in self.recon[:self.num_planes]]
+        planes = self._recon_on_device()
+        ns = torch.from_numpy(ns).to(self.device)
         bd = self.seq.bit_depth
         dirs, var = cdef_ops.cdef_direction(planes[0], fw, fh_px,
                                             max(bd - 8, 0))
-        out = cdef_ops.cdef_apply(planes, torch.from_numpy(ns).to(
-            self.device), dirs, var, y_str, uv_str, fh.cdef_damping, fw,
-            fh_px, bd)
+        if fh.cdef_bits > 0:
+            out = cdef_ops.cdef_apply_multi(
+                planes, ns, dirs, var, fh.cdef_y_strengths,
+                fh.cdef_uv_strengths, self.cdef_idx_grid, fh.cdef_damping,
+                fw, fh_px, bd)
+        else:
+            out = cdef_ops.cdef_apply(planes, ns, dirs, var, y_str, uv_str,
+                                      fh.cdef_damping, fw, fh_px, bd)
         for p, o in enumerate(out):
             self.recon[p] = o.cpu().numpy()
+
+    def _recon_on_device(self):
+        """The recon planes as int32 tensors on the codec's device."""
+        import torch
+
+        return [torch.from_numpy(np.ascontiguousarray(p, np.int32)).to(
+            self.device) for p in self.recon[:self.num_planes]]
 
     def _save_deblocked(self):
         if self.seq.enable_restoration:
@@ -2364,6 +2375,77 @@ class FrameCodec:
             return                    # strengths 0: recon unchanged
         for p in range(self.num_planes):
             self.recon[p] = out[p]
+
+    def search_and_apply_cdef_multi(self, lambda_sse: int) -> bool:
+        """Multi-preset CDEF search (finish_cdef_search,
+        EbEncCdef.c:1167) on the codec's device: per-64x64-fb error maps
+        over the full strength grid (K4's per-fb search), joint
+        preset-set selection under the frame SSE lambda on the host,
+        per-fb indices, and the apply of the winners (K4's per-fb apply).
+        Fills the frame header + ``cdef_idx_grid``; returns True when
+        cdef_bits > 0 (the tile syntax must then be coded with the
+        indices)."""
+        import torch
+
+        from ..ops import cdef as cdef_ops
+
+        fh = self.fh
+        if (not self.seq.enable_cdef or fh.coded_lossless
+                or fh.allow_intrabc or self.source is None):
+            return False
+        nonskip = cdef_ops.nonskip_grid(self.skips, self.mi_rows,
+                                        self.mi_cols)
+        if not nonskip.any():
+            fh.cdef_y_strengths = (0,)
+            fh.cdef_uv_strengths = (0,)
+            return False
+        planes = self._recon_on_device()
+        out, bits, y_list, uv_list, idx_grid = cdef_ops.search_apply_multi(
+            self.device_source()[:self.num_planes], planes,
+            torch.from_numpy(nonskip).to(self.device), self.mi_cols * 4,
+            self.mi_rows * 4, fh.cdef_damping, self.seq.bit_depth,
+            lambda_sse)
+        fh.cdef_bits = bits
+        fh.cdef_y_strengths = y_list
+        fh.cdef_uv_strengths = uv_list
+        self.cdef_idx_grid[:] = idx_grid[:self.cdef_idx_grid.shape[0],
+                                         :self.cdef_idx_grid.shape[1]]
+        for p, o in enumerate(out):
+            self.recon[p] = o.cpu().numpy()
+        return bits > 0
+
+    def search_cdef(self):
+        """Encoder-side frame-level strength search on the codec's device
+        (K3's directions, K4's search over the full grid); fills the
+        frame-header fields."""
+        import torch
+
+        from ..ops import cdef as cdef_ops
+
+        fh = self.fh
+        if (not self.seq.enable_cdef or fh.coded_lossless
+                or fh.allow_intrabc):
+            return
+        nonskip = cdef_ops.nonskip_grid(self.skips, self.mi_rows,
+                                        self.mi_cols)
+        if not nonskip.any():
+            fh.cdef_y_strengths = (0,)
+            fh.cdef_uv_strengths = (0,)
+            return
+        fw, fh_px, bd = self.mi_cols * 4, self.mi_rows * 4, \
+            self.seq.bit_depth
+        planes = self._recon_on_device()
+        dirs, var = cdef_ops.cdef_direction(planes[0], fw, fh_px,
+                                            max(bd - 8, 0))
+        err_y, err_uv = cdef_ops.cdef_search(
+            self.device_source()[:self.num_planes], planes, dirs, var,
+            torch.from_numpy(nonskip).to(self.device), fw, fh_px,
+            fh.cdef_damping, bd)
+        fh.cdef_y_strengths = (cdef_ops.pick_strength(
+            err_y, cdef_ops.PRI_SET, cdef_ops.SEC_SET),)
+        fh.cdef_uv_strengths = (cdef_ops.pick_strength(
+            err_uv, cdef_ops.PRI_SET, cdef_ops.SEC_SET)
+            if err_uv is not None else 0,)
 
     # -- inter frames ------------------------------------------------------
 

@@ -8,9 +8,9 @@ test_torch_encode.py and test_torch_random_access.py) decodes to the
 encoder's recon, and to the planes and md5 of the JAX package's Decoder
 on the same bytes.  Broken payloads raise ApiError with the JAX decoder's
 code; a JAX stream with loop restoration decodes identically through the
-port's host restoration; a stream with per-64x64 CDEF presets
-(cdef_bits > 0) raises UNSUPPORTED_BITSTREAM.  The JAX encodes run its
-host path (SVT_TPU_DEVICE=0), which takes seconds on the CPU.
+port's host restoration, and a JAX preset-6 stream with per-64x64 CDEF
+presets (cdef_bits > 0) through the per-fb apply.  The JAX encodes run
+its host path (SVT_TPU_DEVICE=0), which takes seconds on the CPU.
 """
 import functools
 
@@ -138,12 +138,18 @@ def test_jax_stream_with_loop_restoration_decodes_identically(monkeypatch):
 
 
 def test_per_64x64_cdef_presets_raise_unsupported(monkeypatch):
+    """A stream with per-64x64 CDEF presets (cdef_bits > 0) no longer
+    raises: the port's Decoder applies them (K4's per-fb apply) to the
+    JAX Decoder's pictures and md5."""
     pkts = _jax_stream(128, 128, monkeypatch, enc_mode=6)
     assert _frame_headers(pkts)[0].cdef_bits > 0
-    with pytest.raises(api.ApiError) as info:
-        _decode(api.Decoder(device="cpu"), pkts)
-    assert info.value.code == api.ErrorCode.UNSUPPORTED_BITSTREAM
-    assert "cdef_bits" in str(info.value)
+    dec, ref = api.Decoder(device="cpu"), ref_api.Decoder()
+    got, want = _decode(dec, pkts), _decode(ref, pkts)
+    assert len(got) == len(want) == 2
+    for g, w in zip(got, want):
+        for p in range(3):
+            np.testing.assert_array_equal(g[p], w[p])
+    assert dec.md5.hexdigest() == ref.md5.hexdigest()
 
 
 def test_decode_ivf_returns_frames_and_md5(tmp_path):

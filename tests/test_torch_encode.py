@@ -177,7 +177,8 @@ def test_closed_loop_plan_decodes(tmp_path, monkeypatch):
 
 
 @pytest.mark.parametrize("kw", [
-    dict(enc_mode=6),
+    # presets 5-8 are ported; preset 4 takes the partition RD walk
+    dict(enc_mode=4),
     dict(film_grain_denoise_strength=10),
     # all-intra key frames under the random-access structure: MCTF of key
     # frames with the one-picture pipeline is not ported
@@ -186,13 +187,14 @@ def test_closed_loop_plan_decodes(tmp_path, monkeypatch):
     # masked compound still raises, as at 8 bits
     dict(encoder_bit_depth=10, intra_period_length=33,
          pred_structure=PredStructure.RANDOM_ACCESS, compound_level=2),
-    dict(enable_restoration=1),
+    # loop restoration is ported (presets 5-6); preset 2 is not
+    dict(enc_mode=2, enable_restoration=1),
     dict(superres_mode=1),
     dict(intra_period_length=-1, pred_structure=PredStructure.RANDOM_ACCESS,
          compound_level=2),
-    # and 10-bit random access at another preset
+    # and 10-bit random access at a preset below the ported ones
     dict(encoder_bit_depth=10, intra_period_length=-1,
-         pred_structure=PredStructure.RANDOM_ACCESS, enc_mode=6),
+         pred_structure=PredStructure.RANDOM_ACCESS, enc_mode=4),
 ], ids=["preset6", "film_grain", "random_access", "10bit", "restoration",
         "superres", "masked_compound", "10bit_random_access"])
 def test_unported_configuration_raises(kw):

@@ -52,6 +52,18 @@ assert len(shown) == 5
 for d, g in enumerate(shown):
     assert all(np.array_equal(g[k], enc.recon_by_display[d][k])
                for k in range(3))
+# preset 6: the RD walk, per-64x64 CDEF presets, loop restoration with its
+# second entropy pass and the global-motion fit
+enc6 = Encoder(EncoderConfig(source_width=192, source_height=128, qp=40,
+                             enc_mode=6, intra_period_length=-1,
+                             pred_structure=PredStructure.LOW_DELAY_P),
+               device="cpu")
+p6 = []
+for i in range(2):
+    p6 += enc6.send_picture((np.ascontiguousarray(y[i:i + 128, i:i + 192]),
+                             u, v))
+p6 += enc6.flush()
+assert len(p6) == 2
 from svt_av1_tpu_torch.parallel import stripes
 assert stripes.LocalStripes(2).from_above([1, 2]) == [None, 1]
 bad = sorted(m for m in sys.modules
@@ -74,6 +86,7 @@ def test_the_scan_covers_every_package_of_the_port():
                if p.is_relative_to(PORT)}
     assert {"parallel", "pipeline", "ops", "kernels"} <= scanned
     assert PORT / "parallel" / "stripes.py" in _sources()
+    assert PORT / "pipeline" / "global_motion.py" in _sources()
 
 
 def test_port_encode_loads_no_jax_module():

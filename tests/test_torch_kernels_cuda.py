@@ -2181,3 +2181,107 @@ def test_tenbit_ra_stream_on_the_card_equals_the_plain_stream(dev,
         if d == "cuda":
             assert all(f.launches > b for f, b in zip(fns, before))
     assert out["cuda"] == out["cpu"]
+
+
+# -- K4's per-fb forms (cdef_bits > 0): the search's totals per 64x64
+# filter block and the apply with each filter block's preset index
+
+def _k4_fb_inputs(dev, w, h, bd, seed):
+    """Recon planes (int32) of a [ceil8(h), ceil8(w)] buffer, sources of
+    the sample type near them, the recon's directions and a nonskip
+    map."""
+    fw, fh = -(-w // 8) * 8, -(-h // 8) * 8
+    if bd == 8:
+        rec = _k4_planes(dev, [(fh, fw), (fh // 2, fw // 2),
+                               (fh // 2, fw // 2)], seed)
+        src = [(r + torch.randint(-9, 10, r.shape, device=dev))
+               .clamp(0, 255).to(torch.uint8) for r in rec]
+    else:
+        rec = [torch.from_numpy(_plane10(fh >> s, fw >> s, seed + s)
+                                .astype(np.int32)).to(dev) for s in (0, 1, 1)]
+        src = [(r + torch.randint(-36, 37, r.shape, device=dev))
+               .clamp(0, 1023).to(torch.int16) for r in rec]
+    dirs, var = cdef.cdef_direction(rec[0], fw, fh, bd - 8)
+    ns = _k4_ns(dev, fw, fh, seed, 0.7)
+    return src, rec, dirs, var, ns, fw, fh
+
+
+@pytest.mark.parametrize("bd", [8, 10], ids=["uint8", "int16"])
+@pytest.mark.parametrize("size", [(1920, 1080), (200, 136), (72, 40)],
+                         ids=["1080p", "200x136", "72x40"])
+def test_k4_search_fb_matches_plain(dev, bd, size):
+    """K4's per-fb search, one launch for the three planes over the full
+    8 x 4 grid: every filter block's totals exactly the plain version's
+    (int64 [32, nvfb, nhfb] per group), and their sum the frame-level
+    search's."""
+    src, rec, dirs, var, ns, fw, fh = _k4_fb_inputs(dev, *size, bd, 5)
+    before = (cdef.cdef_search_fb.calls, cdef.cdef_search_fb.launches)
+    got = cdef.cdef_search_fb(src, rec, dirs, var, ns, fw, fh, 5, bd)
+    assert (cdef.cdef_search_fb.calls, cdef.cdef_search_fb.launches) == (
+        before[0] + 1, before[1] + 1)
+    want = cdef.cdef_search_errs_fb_plain(src, rec, dirs, var, ns, fw, fh, 5,
+                                          bd)
+    frame = cdef.cdef_search(src, rec, dirs, var, ns, fw, fh, 5, bd)
+    for g, w, f in zip(got, want, frame):
+        assert g.dtype == torch.int64
+        assert g.shape == (32, -(-fh // 64), -(-fw // 64))
+        assert torch.equal(g, w)
+        assert torch.equal(g.sum((1, 2)).reshape(8, 4), f)
+    luma = cdef.cdef_search_fb(src[:1], rec[:1], dirs, var, ns, fw, fh, 5,
+                               bd)
+    assert luma[1] is None and torch.equal(luma[0], got[0])
+
+
+@pytest.mark.parametrize("bd", [8, 10])
+@pytest.mark.parametrize("bits", [1, 2, 3])
+@pytest.mark.parametrize("size", [(1920, 1080), (200, 136)],
+                         ids=["1080p", "200x136"])
+def test_k4_apply_multi_matches_plain(dev, bd, bits, size):
+    """K4's per-fb apply, one launch for the three planes, on random index
+    grids into random lists of 2^bits presets: exactly the plain version,
+    the input untouched."""
+    _, rec, dirs, var, ns, fw, fh = _k4_fb_inputs(dev, *size, bd, bits)
+    rng = np.random.default_rng(bits * 10 + bd)
+    nb = 1 << bits
+    for trial in range(2):
+        ys = tuple(int(v) for v in rng.integers(0, 64, nb))
+        us = tuple(int(v) for v in rng.integers(0, 64, nb))
+        if trial:
+            ys, us = (0,) + ys[1:], (0,) + us[1:]   # a preset that copies
+        idx = rng.integers(0, nb, (-(-fh // 64), -(-fw // 64)))
+        keep = [p.clone() for p in rec]
+        before = cdef.cdef_apply_multi.launches
+        got = cdef.cdef_apply_multi(rec, ns, dirs, var, ys, us, idx, 4, fw,
+                                    fh, bd)
+        assert cdef.cdef_apply_multi.launches == before + 1
+        want = cdef.cdef_frame_multi_plain(rec, ns, dirs, var, ys, us, idx,
+                                           4, fw, fh, bd)
+        for g, w, p, k in zip(got, want, rec, keep):
+            assert torch.equal(g, w), (ys, us)
+            assert torch.equal(p, k) and g.data_ptr() != p.data_ptr()
+
+
+def test_k4_apply_multi_one_preset_is_the_frame_level_apply(dev):
+    _, rec, dirs, var, ns, fw, fh = _k4_fb_inputs(dev, 1920, 1080, 8, 7)
+    idx = np.zeros((-(-fh // 64), -(-fw // 64)), np.int32)
+    for ys, us in ((37, 14), (0, 6), (61, 0)):
+        got = cdef.cdef_apply_multi(rec, ns, dirs, var, (ys,), (us,), idx, 5,
+                                    fw, fh, 8)
+        want = cdef.cdef_apply(rec, ns, dirs, var, ys, us, 5, fw, fh, 8)
+        for g, w in zip(got, want):
+            assert torch.equal(g, w)
+
+
+def test_k4_per_fb_forms_refuse_bad_inputs(dev):
+    _, rec, dirs, var, ns, fw, fh = _k4_fb_inputs(dev, 200, 136, 8, 9)
+    good = np.zeros((3, 4), np.int32)
+    for ys, us, idx in (((1, 2), (3, 4), good + 2),      # past the lists
+                        ((1, 2), (3,), good),             # lengths differ
+                        (tuple(range(9)), tuple(range(9)), good),
+                        ((1,), (1,), np.zeros((2, 4), np.int32))):
+        with pytest.raises(ValueError):
+            cdef.cdef_apply_multi(rec, ns, dirs, var, ys, us, idx, 4, fw, fh,
+                                  8)
+    src = [r.to(torch.int16) for r in rec]            # 8 bits take uint8
+    with pytest.raises(ValueError):
+        cdef.cdef_search_fb(src, rec, dirs, var, ns, fw, fh, 4, 8)
