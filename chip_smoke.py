@@ -215,10 +215,14 @@ TRACE_FRAMES = 3
 RA_FRAMES, RA_WARM = 33, 17
 
 # published peaks of one H100 SXM (NVIDIA's data sheet, dense rates):
-# HBM bytes/s and float32 (non-tensor-core) operations/s; the integer
-# kernels' 32-bit operations are counted against the same rate
+# HBM bytes/s, and float32 (non-tensor-core) FLOP/s, which count a fused
+# multiply-add as two; the same pipes issue at most 4 x 32
+# lane-instructions an SM and clock (132 SMs at 1.98 GHz), half the FLOP
+# rate, so that an integer or non-FMA operation (a min, max, abs, shift,
+# add) is counted once against that rate
 PEAK_BYTES_S = 3.35e12
-PEAK_OPS_S = 67e12
+PEAK_FP32_FLOPS_S = 67e12
+PEAK_LANE_INSTR_S = 132 * 128 * 1.98e9   # lane-instructions/s: 4 x 32 per SM
 
 
 def synth_clip(w, h, n, seed=3, tex_sigma=TEXTURE_SIGMA, bd=8):
@@ -285,9 +289,13 @@ def device_ms(fn, reps=KERNEL_REPS):
     return us / reps / 1e3
 
 
-def bound_ms(n_bytes, n_ops):
+def bound_ms(n_bytes, n_ops, flops=0):
+    """(ms, what bounds it): the larger of the bytes at the memory rate
+    and the operations at the issue rate, ``n_ops`` lane-instructions
+    (integer or non-FMA float operations) and ``flops`` float32 FLOPs of
+    fused multiply-adds (two each: K1's and K8's DCTs)."""
     t_bytes = n_bytes / PEAK_BYTES_S * 1e3
-    t_ops = n_ops / PEAK_OPS_S * 1e3
+    t_ops = (n_ops / PEAK_LANE_INSTR_S + flops / PEAK_FP32_FLOPS_S) * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -300,14 +308,40 @@ def k8_dct_macs(shapes):
 
 
 def k4_search_ops(pri_set, sec_set):
-    """K4's search operations per filtered pixel in its shared form: 4
-    primary constrains per nonzero pri, 8 secondary ones per nonzero sec
-    for each of the two tap sets (9 operations each: the constrain and
-    its weighted add), and per combination the sum, rounding, clip and
-    squared error (10).  About 580 at the 5x3 grid."""
+    """K4's search lane-instructions per filtered pixel, the least its
+    function needs (below the kernels' own: the per-fb search's loop
+    issues about 700 SASS instructions a pixel at the 8x4 grid).  Each tap
+    of a tap set (the unit's direction: 4 primary taps where the grid has
+    a nonzero pri, 8 secondary ones where it has a nonzero sec; direction
+    0's 8 secondary ones for the zero primary) its |d|, signed weight and
+    the bounds' max and min (4); each constrain (4 per nonzero pri, 8 per
+    nonzero sec and tap set) its shift, subtract, min-relu and weighted
+    add (4); each combination its parts' sum, the rounding (sign, add,
+    shift), the add of v - s, the clamp (2) and the squared error's
+    multiply-add (8; 7 where one part is zero, 1 at (0, 0)).  623 at the
+    8x4 grid, 379 at the 5x3."""
     n_p = sum(1 for p in pri_set if p)
     n_s = sum(1 for s in sec_set if s)
-    return (4 * n_p + 2 * 8 * n_s) * 9 + len(pri_set) * len(sec_set) * 10
+    zero_pri = 0 in pri_set
+    taps = 4 * (n_p > 0) + 8 * (n_s > 0) + 8 * (n_s > 0 and zero_pri)
+    constrains = 4 * n_p + 8 * n_s * ((n_p > 0) + zero_pri)
+    combos = sum(1 if not (p or s) else 8 if p and s else 7
+                 for p in pri_set for s in sec_set)
+    return 4 * taps + 4 * constrains + combos
+
+
+def k4_apply_ops(ystr, uvstr, w, h):
+    """K4's apply lane-instructions over every pixel of a w x h 4:2:0
+    frame at coded strengths ``ystr`` (luma) and ``uvstr`` (chroma), pri
+    * 4 + sec each: each tap of a nonzero part (4 primary, 8 secondary)
+    its |d|, signed weight, the bounds' max and min, and its constrain's
+    shift, subtract, min-relu and weighted add (8); then the rounding
+    (sign, add, shift), the add of v and the clamp (6).  102 a pixel where
+    both parts are nonzero, none at (0, 0) (a copy)."""
+    def px_ops(st):
+        taps = 4 * (st >> 2 > 0) + 8 * (st & 3 > 0)
+        return 8 * taps + 6 if taps else 0
+    return w * h * px_ops(ystr) + 2 * (w // 2) * (h // 2) * px_ops(uvstr)
 
 
 def near_counts(name, kernel_call, plain_call):
@@ -336,9 +370,8 @@ def print_near(what, counts):
 
 # the design ceilings of the kernels redesigned for Hopper: the least
 # time their own work takes at the card's published peaks, beside the
-# bound of the function (operations at the float32 / integer rate)
+# bound of the function
 PEAK_TF32_S = 495e12            # dense TF32 tensor-core FLOP/s
-PEAK_LANE_INSTR_S = 132 * 128 * 1.98e9   # lane-instructions/s: 4 x 32 per SM
 
 
 def k1_ceiling(px, shapes):
@@ -350,7 +383,7 @@ def k1_ceiling(px, shapes):
     and the sums: about 20 operations); the larger of the two."""
     tc = sum((14 if 8 in s else 13) * px * 2 * (2 * s[1] + 3 * s[0])
              for s in shapes) / PEAK_TF32_S
-    alu = sum(13 * px * 20 for _ in shapes) / PEAK_OPS_S
+    alu = sum(13 * px * 20 for _ in shapes) / PEAK_LANE_INSTR_S
     return (tc * 1e3, "tensor cores") if tc >= alu else (alu * 1e3,
                                                          "float32 pipes")
 
@@ -583,7 +616,9 @@ def per_fb_kernels(dev, src, rec, dirs, var, ns, bd, rng):
         ms=cuda_ms(k4m, KERNEL_REPS), plain_ms=cuda_ms(k4m_plain, PLAIN_REPS),
         device_ms=device_ms(k4m), max_abs_err=err,
         bound=bound_ms(2 * nbytes(*rec) + nbytes(dirs, var, ns) + idx.size,
-                       vis_px * frac * (12 * 9 + 5)),
+                       frac * np.mean([k4_apply_ops(ys[k], us[k], WIDTH,
+                                                    HEIGHT)
+                                       for k in idx.reshape(-1)])),
         per_call="1 launch, three planes, 8 presets")
     return {"search": search, "apply": apply}
 
@@ -628,7 +663,8 @@ def kernels_phase(dev, frame):
     flops = sum(13 * 2 * px * (w + h) for (w, h) in shapes)
     results["intra_decision"] = dict(
         ms=cuda_ms(k1, KERNEL_REPS), plain_ms=cuda_ms(k1_plain, PLAIN_REPS),
-        device_ms=device_ms(k1), max_abs_err=err, bound=bound_ms(nbytes(plane, packed), flops),
+        device_ms=device_ms(k1), max_abs_err=err,
+        bound=bound_ms(nbytes(plane, packed), 0, flops),
         ceiling=k1_ceiling(px, shapes),
         per_call=f"1 launch, 7 shapes ({flops / 1e9:.2f} GFLOP)")
     print(f"K1 intra_decision as 7 one-shape launches (the same kernel): "
@@ -714,9 +750,10 @@ def kernels_phase(dev, frame):
     combos = len(pri_set) * len(sec_set)
     vis_px = WIDTH * HEIGHT + 2 * (WIDTH // 2) * (HEIGHT // 2)
     frac = ns.float().mean().item()
-    # the apply's per filtered pixel: 12 taps of constrain (7 ops) and
-    # multiply-add (2), rounding and clip (5)
-    ops_px = 12 * 9 + 5 + 3
+    # each combination filtered apart: the apply's 102 a pixel at
+    # strength 5 (pri 1, sec 1), the subtract of s and the squared error's
+    # multiply-add
+    ops_px = k4_apply_ops(5, 0, 1, 1) + 2
     vis_bytes = vis_px * (4 + 1)            # int32 recon + uint8 source
     in_bytes = vis_bytes + nbytes(d1, v1, ns)
     old = bound_ms(in_bytes, vis_px * frac * combos * ops_px)
@@ -745,7 +782,7 @@ def kernels_phase(dev, frame):
         ms=cuda_ms(k4a, KERNEL_REPS), plain_ms=cuda_ms(k4a_plain, PLAIN_REPS),
         device_ms=device_ms(k4a), max_abs_err=err,
         bound=bound_ms(2 * nbytes(*rec) + nbytes(d1, v1, ns),
-                       vis_px * frac * (ops_px - 3)),
+                       frac * k4_apply_ops(ystr, uvstr, WIDTH, HEIGHT)),
         per_call="1 launch, three planes")
     fb = per_fb_kernels(dev, src, rec, d1, v1, ns, 8, rng)
     results["cdef_search_fb"], results["cdef_apply_multi"] = \
@@ -800,7 +837,7 @@ def tenbit_kernels_phase(dev, frame, results):
     out["intra_decision_16bit"] = dict(
         ms=cuda_ms(k1, KERNEL_REPS), plain_ms=cuda_ms(k1_plain, PLAIN_REPS),
         device_ms=device_ms(k1), max_abs_err=err,
-        bound=bound_ms(nbytes(plane, packed), flops),
+        bound=bound_ms(nbytes(plane, packed), 0, flops),
         ceiling=k1_ceiling(px, shapes),
         per_call=f"1 launch, 7 shapes of a 10-bit plane ({flops / 1e9:.2f} "
                  f"GFLOP, 2-byte samples)")
@@ -1073,15 +1110,15 @@ def inter_kernels_phase(dev, ref_frame, src_frame, bd=8):
     dct_flops = 2 * k8_dct_macs(omd.INTER_SHAPES) * H * W
     # per coefficient and shape: the quantizer / rate model, about 12
     # float operations; per pixel and reference: the SAD
-    flops = dct_flops + 12 * len(omd.INTER_SHAPES) * H * W + 3 * H * W
+    ops = 12 * len(omd.INTER_SHAPES) * H * W + 3 * H * W
     out_b = (H // 16) * (W // 16) * 16 + sum(
         (H // h) * (W // w) * 4 for (w, h) in omd.INTER_SHAPES)
-    old = bound_ms(nbytes(*one[:6]) + out_b, flops + 2 * (
+    old = bound_ms(nbytes(*one[:6]) + out_b, ops, dct_flops + 2 * (
         576 - k8_dct_macs(omd.INTER_SHAPES)) * H * W)
     results["inter_select" + sfx] = dict(
         ms=cuda_ms(k8, KERNEL_REPS), plain_ms=cuda_ms(k8_plain, PLAIN_REPS),
         device_ms=device_ms(k8), max_abs_err=err,
-        bound=bound_ms(nbytes(*one[:6]) + out_b, flops),
+        bound=bound_ms(nbytes(*one[:6]) + out_b, ops, dct_flops),
         per_call=f"1 launch, 1 reference ({dct_flops / 1e9:.2f} GFLOP of "
                  f"DCT; the whole products' count bounds it at "
                  f"{old[0]:.5f} ms)")
@@ -1282,16 +1319,16 @@ def ra_kernels_phase(dev, clip, window, bd=8, results8=None):
         k8 = lambda: bi.inter_select(*args, comp=comp)  # noqa: E731
         k8_plain = lambda: bi.inter_select_plain(*args, comp=comp)  # noqa
         dct_flops = 2 * k8_dct_macs(omd.INTER_SHAPES) * H * W
-        flops = dct_flops + 12 * len(omd.INTER_SHAPES) * H * W + 3 * 3 * H * W
+        ops = 12 * len(omd.INTER_SHAPES) * H * W + 3 * 3 * H * W
         out_b = units * 32 + sum((H // h) * (W // w) * 4
                                  for (w, h) in omd.INTER_SHAPES)
         in_b = nbytes(src, preds, mvq_r, mvq_c, sb_r, sb_c, *comp.values())
-        old = bound_ms(in_b + out_b, flops + 2 * (
+        old = bound_ms(in_b + out_b, ops, dct_flops + 2 * (
             576 - k8_dct_macs(omd.INTER_SHAPES)) * H * W)
         results["inter_select"] = dict(
             ms=cuda_ms(k8, KERNEL_REPS),
             plain_ms=cuda_ms(k8_plain, PLAIN_REPS), max_abs_err=err,
-            bound=bound_ms(in_b + out_b, flops),
+            bound=bound_ms(in_b + out_b, ops, dct_flops),
             per_call=f"1 launch, 2 references + the compound row "
                      f"({dct_flops / 1e9:.2f} GFLOP of DCT; the whole "
                      f"products' count bounds it at {old[0]:.5f} ms)")
@@ -1985,8 +2022,8 @@ def step_bound(rep):
     H, W = frame.ref.shape
     by = {"bytes": 0.0, "operations": 0.0}
 
-    def add(n_bytes, n_ops):
-        t, kind = bound_ms(n_bytes, n_ops)
+    def add(n_bytes, n_ops, flops=0):
+        t, kind = bound_ms(n_bytes, n_ops, flops)
         by[kind] += t
 
     for s in stripes:
@@ -2000,11 +2037,11 @@ def step_bound(rep):
         add(px + H * W + units * 16 + px, k7_ops(units))
         add(2 * px + units * 12 + units * 36 + sum(
             (rows // h) * (W // w) * 4 for (w, h) in omd.INTER_SHAPES),
-            2 * k8_dct_macs(omd.INTER_SHAPES) * px
-            + 12 * len(omd.INTER_SHAPES) * px + 3 * px)
+            12 * len(omd.INTER_SHAPES) * px + 3 * px,
+            2 * k8_dct_macs(omd.INTER_SHAPES) * px)
         add(px + 33 * W + sum(8 * (rows // h) * (W // w)
                               for (w, h) in omd.ALL_SHAPES),
-            sum(13 * 2 * px * (w + h) for (w, h) in omd.ALL_SHAPES))
+            0, sum(13 * 2 * px * (w + h) for (w, h) in omd.ALL_SHAPES))
         ext = (rows + 32) * W
         for _ in frame.dlf_levels:
             add(2 * ext * 4 + nbytes(s.av, s.fv, s.ah, s.fh), 0)
@@ -2013,7 +2050,8 @@ def step_bound(rep):
         frac = s.nonskip.float().mean().item()
         add(px * 5 + 4 * W * 4 + n_u * 9,
             px * frac * k4_search_ops(frame.pri_set, frame.sec_set))
-        add(2 * px * 4 + 4 * W * 4 + n_u * 9, px * frac * 113)
+        add(2 * px * 4 + 4 * W * 4 + n_u * 9,
+            frac * k4_apply_ops(rep["ystr"], 0, W, rows))
     return by["bytes"] + by["operations"], max(by, key=by.get)
 
 

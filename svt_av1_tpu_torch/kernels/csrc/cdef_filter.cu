@@ -80,6 +80,13 @@
 //   H100.)
 // * Tile rows are 70 int16 apart (35 words, odd), so that the 4 rows of 8
 //   threads that a warp filters fall in distinct banks.
+// Per-fb forms (B16):
+// * The search (cdef_search_fb_kernel) has a pixel loop of its own, cut to
+//   the fewest instructions, its 32 sums in registers in both sample types.
+// * The apply passes the filter blocks' preset indices by value in the
+//   launch's parameters (FbGrid<1>; no copy to the card), and each thread
+//   decodes its filter block's preset once and runs the frame-level code
+//   path with it.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -132,6 +139,12 @@ __device__ __forceinline__ int sample(const Src& p, const int* row, int x) {
   return row && x >= 0 && x < p.pw ? row[x] : Out;
 }
 
+// The apply's tile and the per-fb search's hold -CDEF_VERY_LARGE outside
+// the frame: a signed maximum and an unsigned minimum both pass over it,
+// and its taps, like the reference's at CDEF_VERY_LARGE, add nothing
+// (|d| >> shift exceeds every strength).
+constexpr int kOutside = -kVeryLarge;
+
 constexpr int kTileW = 64, kTileH = 32;
 constexpr int kTileThreads = 256;         // 8 pixels of a tile row each
 constexpr int kHaloH = kTileH + 4;
@@ -162,8 +175,8 @@ __device__ __forceinline__ void put4(int16_t* t, int c, int4 q) {
 // The tile of rows [y0 - 2, y0 + kTileH + 2) and columns [x0 - 2, x0 +
 // kTileW + 2) of the surroundings, as int16, Stride (even) per row, from
 // a 4-byte aligned base: each row's kGroups groups of middle columns
-// (sample4) and its 4 edge columns.
-template <int Stride>
+// (sample4) and its 4 edge columns; Out outside the frame.
+template <int Stride, int Out = kVeryLarge>
 __device__ void load_tile(int16_t* tile, const Src& p, int y0, int x0,
                           bool vec) {
   constexpr int kItems = kGroups + 4;
@@ -172,11 +185,11 @@ __device__ void load_tile(int16_t* tile, const Src& p, int y0, int x0,
     const int* row = src_row(p, y0 - 2 + r);
     int16_t* t = tile + r * Stride;
     if (k < kGroups) {
-      put4(t, 2 + 4 * k, sample4(p, row, x0 + 4 * k, vec));
+      put4(t, 2 + 4 * k, sample4<Out>(p, row, x0 + 4 * k, vec));
     } else {
       // columns 0, 1 and kTileW + 2, kTileW + 3
       const int c = k - kGroups + (k - kGroups < 2 ? 0 : kTileW);
-      t[c] = (int16_t)sample(p, row, x0 - 2 + c);
+      t[c] = (int16_t)sample<Out>(p, row, x0 - 2 + c);
     }
   }
 }
@@ -267,27 +280,19 @@ __device__ __forceinline__ int combine(int v, int sum, int mn, int mx) {
 }
 
 // Every plane's tiles in one launch; err: int64 [2, n_pri * n_sec] (luma,
-// chroma) to add to, or with PERFB [2, n_pri * n_sec, nvfb, nhfb], the
-// totals per 64x64 filter block (32x32 in chroma).  NPRI x NSEC is the
-// grid (EXACT: with a zero primary first and a zero secondary first, as
-// both of the codec's grids) or bounds it.  TS: the source samples' type,
-// uint8_t for 8-bit video, uint16_t for 10-bit (int16 planes holding [0,
-// 1024)): a thread's 8 squared errors and the warp's sum of 256 stay below
-// 2^32 (256 * 1023^2 < 2.7e8; the wrapper refuses deeper samples).
-//
-// PERFB: a luma tile (64x32 at a column that is a multiple of 64) lies in
-// one filter block; a chroma tile's 64 columns span two, threads 0-3 of a
-// row in the first and 4-7 in the second.  So each warp reduces its two
-// halves apart (lanes 0 and 4 hold them), the CTA sums its warps per half,
-// and adds one atomic per (half, combination) to its block's slot.
-template <typename TS, int NPRI, int NSEC, bool EXACT, bool PERFB = false>
+// chroma) to add to.  NPRI x NSEC is the grid (EXACT: with a zero primary
+// first and a zero secondary first, as both of the codec's grids) or
+// bounds it.  TS: the source samples' type, uint8_t for 8-bit video,
+// uint16_t for 10-bit (int16 planes holding [0, 1024)): a thread's 8
+// squared errors and the warp's sum of 256 stay below 2^32 (256 * 1023^2
+// < 2.7e8; the wrapper refuses deeper samples).
+template <typename TS, int NPRI, int NSEC, bool EXACT>
 __global__ void __launch_bounds__(kSearchThreads) cdef_search_kernel(
     SearchArgs a, const int* __restrict__ dirs, const int* __restrict__ var,
     const uint8_t* __restrict__ nonskip, int uw,
-    unsigned long long* __restrict__ err, int nvfb, int nhfb) {
-  constexpr int kHalves = PERFB ? 2 : 1;
+    unsigned long long* __restrict__ err) {
   __shared__ __align__(16) int16_t tile[kHaloH * kSearchStride];
-  __shared__ uint32_t wsum[kSearchThreads / 32][kHalves][NPRI * NSEC];
+  __shared__ uint32_t wsum[kSearchThreads / 32][NPRI * NSEC];
   __shared__ int toff[8][12];
   // this CTA's plane, copied by constant indices (no local-memory copy of
   // the parameter)
@@ -400,36 +405,259 @@ __global__ void __launch_bounds__(kSearchThreads) cdef_search_kernel(
     for (int si = 0; si < NSEC; ++si) {
       if (!EXACT && (pi >= n_pri || si >= n_sec)) continue;
       uint32_t e = acc[pi][si];
-      if constexpr (PERFB) {
-        // lane 8r + c: xor 16, 8 sum the rows, xor 2, 1 a half of a row
 #pragma unroll
-        for (int off = 16; off > 0; off >>= 1)
-          if (off != 4) e += __shfl_xor_sync(0xffffffffu, e, off);
-        if ((lane & ~4) == 0) wsum[warp][lane >> 2][pi * n_sec + si] = e;
-      } else {
-#pragma unroll
-        for (int off = 16; off > 0; off >>= 1)
-          e += __shfl_xor_sync(0xffffffffu, e, off);
-        if (lane == 0) wsum[warp][0][pi * n_sec + si] = e;
-      }
+      for (int off = 16; off > 0; off >>= 1)
+        e += __shfl_xor_sync(0xffffffffu, e, off);
+      if (lane == 0) wsum[warp][pi * n_sec + si] = e;
     }
   __syncthreads();
   const int n_combo = n_pri * n_sec;
-  if (tid < kHalves * n_combo) {
-    const int h = tid / n_combo, c = tid - h * n_combo;
+  if (tid < n_combo) {
     unsigned long long tot = 0;
 #pragma unroll
-    for (int w = 0; w < kSearchThreads / 32; ++w) tot += wsum[w][h][c];
-    if constexpr (PERFB) {
-      const int fby = P.is_luma ? y0 >> 6 : y0 >> 5;
-      const int fbx = P.is_luma ? x0 >> 6 : (x0 >> 5) + h;
-      if (tot && fbx < nhfb)
-        atomicAdd(&err[((size_t)(P.grp * n_combo + c) * nvfb + fby) * nhfb +
-                       fbx],
-                  tot);
+    for (int w = 0; w < kSearchThreads / 32; ++w) tot += wsum[w][tid];
+    if (tot) atomicAdd(&err[P.grp * n_combo + tid], tot);
+  }
+}
+
+// The per-fb search (cdef_bits > 0): the full grid's totals per 64x64
+// filter block (32x32 in chroma), err int64 [2, 32, nvfb, nhfb].
+//
+// Its pixel loop is written for the fewest instructions (splitting the
+// grid between two CTAs of a tile, 16 sums a thread and three CTAs an SM,
+// ran slower: both halves read the unit's taps and their secondary parts):
+// the tile holds kOutside beyond the frame (the clip bounds are a signed
+// maximum and an unsigned minimum, no mask); each |constrain| is one
+// min-relu (DPX) after its shift and subtract, with no branch on a zero
+// strength (min-relu gives 0 there); each tap set is done with before the
+// next (direction 0's taps, then the unit's); each combination is its
+// error e = clamp(v - s + round(sum), mn - s, mx - s) and e * e.  A
+// thread loads its 8 source samples at once (8 or 16 bytes) before its
+// pixel loop and shifts the next one down each pixel.  The 32 running sums
+// stay in registers: __launch_bounds__ caps both sample types at 128
+// registers, two CTAs (16 warps) an SM.
+//
+// A luma tile (64x32 at a column that is a multiple of 64) lies in one
+// filter block; a chroma tile's 64 columns span two, threads 0-3 of a row
+// in the first and 4-7 in the second.  So each warp reduces its two halves
+// apart (lanes 0 and 4 hold them), the CTA sums its warps per half, and
+// adds one atomic per (filter block, combination).
+
+// A thread's 8 source samples from column xs of row y: packed in q0 (and
+// q1 for 16-bit samples), sample i at bits [i * 8 * sizeof(TS), ...); one
+// 8- or 16-byte load where the run lies inside the row and the row starts
+// on such a boundary.
+template <typename TS>
+__device__ __forceinline__ void load_src8(const TS* row, int xs, int W,
+                                          int pw, bool vec,
+                                          unsigned long long& q0,
+                                          unsigned long long& q1) {
+  q0 = q1 = 0;
+  if (vec && xs + 8 <= W) {
+    if constexpr (sizeof(TS) == 1) {
+      q0 = *reinterpret_cast<const unsigned long long*>(row + xs);
     } else {
-      if (tot) atomicAdd(&err[P.grp * n_combo + c], tot);
+      const uint4 t = *reinterpret_cast<const uint4*>(row + xs);
+      q0 = t.x | ((unsigned long long)t.y << 32);
+      q1 = t.z | ((unsigned long long)t.w << 32);
     }
+    return;
+  }
+  constexpr int kBits = 8 * sizeof(TS);
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    if (xs + i >= pw) break;
+    const unsigned long long v = row[xs + i];
+    const int b = i * kBits;
+    if (b < 64) q0 |= v << b;
+    else q1 |= v << (b - 64);
+  }
+}
+
+// The next sample of the run, shifted out of (q0, q1).
+template <typename TS>
+__device__ __forceinline__ int next_src(unsigned long long& q0,
+                                        unsigned long long& q1) {
+  constexpr int kBits = 8 * sizeof(TS);
+  const int s = (int)(q0 & ((1u << kBits) - 1));
+  q0 = (q0 >> kBits) | (q1 << (64 - kBits));
+  q1 >>= kBits;
+  return s;
+}
+
+// One tap set around tile position at (offsets off, sample v): |tap - v|
+// and the signed weight of each tap (primary: the sign; secondary: 2 or 1
+// times it), and the clip bounds over the taps and v (kOutside taps pass
+// over both).
+__device__ __forceinline__ void fb_taps(const int16_t* tile, int at,
+                                        const int* off, int v,
+                                        int (&ad)[12], int (&ws)[12],
+                                        int& mx, int& mn) {
+  mx = v;
+  unsigned umn = v;
+#pragma unroll
+  for (int i = 0; i < 12; ++i) {
+    const int a = tile[at + off[i]];
+    const int d = a - v;
+    ad[i] = abs(d);
+    const int w = i < 4 ? 1 : (i < 8 ? 2 : 1);
+    ws[i] = d < 0 ? -w : w;
+    mx = max(mx, a);
+    umn = min(umn, (unsigned)a);
+  }
+  mn = (int)umn;
+}
+
+// The weighted constrains of taps [i0, i1) at strength st (shift sh): 0
+// at st = 0.
+template <int I0, int I1>
+__device__ __forceinline__ int fb_part(const int (&ad)[12],
+                                       const int (&ws)[12], int st, int sh) {
+  int sum = 0;
+#pragma unroll
+  for (int i = I0; i < I1; ++i)
+    sum += ws[i] * __vimin_s32_relu(ad[i], st - (ad[i] >> sh));
+  return sum;
+}
+
+// The error of one combination: e = f - s with f the filtered value
+// clamp(v + round(sum / 16), mn, mx), from vs = v - s and the bounds less s.
+__device__ __forceinline__ int fb_err(int vs, int sum, int mns, int mxs) {
+  const int e = vs + ((sum + 8 + (sum >> 31)) >> 4);
+  return min(max(e, mns), mxs);
+}
+
+template <typename TS>
+__global__ void __launch_bounds__(kSearchThreads, 2) cdef_search_fb_kernel(
+    SearchArgs a, const int* __restrict__ dirs, const int* __restrict__ var,
+    const uint8_t* __restrict__ nonskip, int uw,
+    unsigned long long* __restrict__ err, int nvfb, int nhfb) {
+  constexpr int kCombos = kMaxPri * kMaxSec;
+  __shared__ __align__(16) int16_t tile[kHaloH * kSearchStride];
+  __shared__ uint32_t wsum[kSearchThreads / 32][2][kCombos];
+  __shared__ int toff[8][12];
+  SearchPlane P = a.pl[0];
+  if (a.n_planes > 1 && (int)blockIdx.x >= a.pl[1].cta0) P = a.pl[1];
+  if (a.n_planes > 2 && (int)blockIdx.x >= a.pl[2].cta0) P = a.pl[2];
+  const int ti = (int)blockIdx.x - P.cta0;
+  const int y0 = (ti / P.tiles_x) * kTileH, x0 = (ti % P.tiles_x) * kTileW;
+  const Src sp = {P.rec, P.top, P.bottom, P.W, P.ph, P.pw};
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  if (tid < 96)
+    toff[tid / 12][tid % 12] = tap_offset<kSearchStride>(tid / 12, tid % 12);
+  load_tile<kSearchStride, kOutside>(tile, sp, y0, x0, P.vec);
+
+  const int cs = a.cs, damping = P.damping;
+  const int y = y0 + (tid >> 3), xs = x0 + 8 * (tid & 7);
+  // its units: one 8x8 in luma, two 4x4 in chroma (pixels 0-3, 4-7)
+  int du[2] = {0, 0}, nsu[2] = {0, 0}, vr = 0;
+  unsigned long long q0 = 0, q1 = 0;
+  if (y < P.ph) {
+#pragma unroll
+    for (int h2 = 0; h2 < 2; ++h2) {
+      const int x = xs + 4 * h2;
+      if (x < P.pw && (h2 == 0 || !P.is_luma)) {
+        const int u = (y >> P.bsl) * uw + (x >> P.bsl);
+        du[h2] = dirs[u];
+        nsu[h2] = nonskip[u];
+        if (P.is_luma) vr = var[u];
+      }
+    }
+    if (P.is_luma) {
+      du[1] = du[0];
+      nsu[1] = nsu[0];
+    }
+    const TS* src = static_cast<const TS*>(P.src);
+    const bool svec = P.W % 8 == 0 &&
+                      ((uintptr_t)src & (8 * sizeof(TS) - 1)) == 0;
+    load_src8<TS>(src + (size_t)y * P.W, xs, P.W, P.pw, svec, q0, q1);
+  }
+  // primaries 1-7 (0 is the zero primary) and secondaries 1-3
+  int pa[kMaxPri], psh[kMaxPri], sec_sh[kMaxSec];
+#pragma unroll
+  for (int pi = 1; pi < kMaxPri; ++pi) {
+    const int p = a.pri[pi] << cs;
+    pa[pi] = P.is_luma ? adjust_strength(p, vr) : p;
+    psh[pi] = damp_shift(pa[pi], damping);
+  }
+#pragma unroll
+  for (int si = 1; si < kMaxSec; ++si)
+    sec_sh[si] = damp_shift(a.sec[si], damping);
+  uint32_t acc[kMaxPri][kMaxSec];
+#pragma unroll
+  for (int pi = 0; pi < kMaxPri; ++pi)
+#pragma unroll
+    for (int si = 0; si < kMaxSec; ++si) acc[pi][si] = 0;
+  __syncthreads();
+
+  const int ly = (tid >> 3) + 2;
+#pragma unroll 1
+  for (int i = 0; i < 8; ++i) {
+    const int s = next_src<TS>(q0, q1);
+    const int x = xs + i;
+    if (y >= P.ph || x >= P.pw) break;
+    if (!(i < 4 ? nsu[0] : nsu[1])) continue;
+    const int at = ly * kSearchStride + x - x0 + 2;
+    const int v = tile[at], vs = v - s;
+    int ad[12], ws[12], mx, mn;
+    // the zero primary: direction 0's taps and bounds
+    fb_taps(tile, at, toff[0], v, ad, ws, mx, mn);
+    acc[0][0] += (uint32_t)(vs * vs);
+#pragma unroll
+    for (int si = 1; si < kMaxSec; ++si) {
+      const int e = fb_err(vs, fb_part<4, 12>(ad, ws, a.sec[si], sec_sh[si]),
+                           mn - s, mx - s);
+      acc[0][si] += (uint32_t)(e * e);
+    }
+    // the other primaries: the unit's direction
+    fb_taps(tile, at, toff[i < 4 ? du[0] : du[1]], v, ad, ws, mx, mn);
+    const int mns = mn - s, mxs = mx - s;
+    int sd[kMaxSec];
+    sd[0] = 0;
+#pragma unroll
+    for (int si = 1; si < kMaxSec; ++si)
+      sd[si] = fb_part<4, 12>(ad, ws, a.sec[si], sec_sh[si]);
+#pragma unroll
+    for (int pi = 1; pi < kMaxPri; ++pi) {
+      const int odd = (pa[pi] >> cs) & 1;
+      const int prim =
+          (odd ? 3 : 4) * fb_part<0, 2>(ad, ws, pa[pi], psh[pi]) +
+          (odd ? 3 : 2) * fb_part<2, 4>(ad, ws, pa[pi], psh[pi]);
+#pragma unroll
+      for (int si = 0; si < kMaxSec; ++si) {
+        const int e = fb_err(vs, prim + sd[si], mns, mxs);
+        acc[pi][si] += (uint32_t)(e * e);
+      }
+    }
+  }
+  // per combination one warp reduction of each half (lane 8r + c: xor 16,
+  // 8 sum the rows, xor 2, 1 a half of a row), then the CTA's warps in
+  // int64, one atomic per (filter block, combination)
+#pragma unroll
+  for (int pi = 0; pi < kMaxPri; ++pi)
+#pragma unroll
+    for (int si = 0; si < kMaxSec; ++si) {
+      uint32_t e = acc[pi][si];
+#pragma unroll
+      for (int off = 16; off > 0; off >>= 1)
+        if (off != 4) e += __shfl_xor_sync(0xffffffffu, e, off);
+      if ((lane & ~4) == 0) wsum[warp][lane >> 2][pi * kMaxSec + si] = e;
+    }
+  __syncthreads();
+  if (tid < 2 * kCombos) {
+    const int h = tid / kCombos, c = tid - h * kCombos;
+    unsigned long long tot = 0;
+#pragma unroll
+    for (int w = 0; w < kSearchThreads / 32; ++w) {
+      tot += wsum[w][h][c];
+      if (P.is_luma) tot += wsum[w][1][c];    // one filter block
+    }
+    const int fby = P.is_luma ? y0 >> 6 : y0 >> 5;
+    const int fbx = P.is_luma ? x0 >> 6 : (x0 >> 5) + h;
+    if (tot && fbx < nhfb && !(P.is_luma && h))
+      atomicAdd(&err[((size_t)(P.grp * kCombos + c) * nvfb + fby) * nhfb +
+                     fbx],
+                tot);
   }
 }
 
@@ -476,11 +704,6 @@ __device__ __forceinline__ void store_run(int* row, int x, int W, bool vec,
   }
 }
 
-// The apply's tile holds -CDEF_VERY_LARGE outside the frame: a signed
-// maximum and an unsigned minimum both pass over it, and its taps, like
-// the reference's at CDEF_VERY_LARGE, add nothing (|d| >> shift exceeds
-// every strength).
-constexpr int kOutside = -kVeryLarge;
 
 // The filtered value of sample v at tile position at: its 12 taps at the
 // tile offsets off, the primary part at strength pri (damping shift psh,
@@ -526,22 +749,88 @@ __device__ __forceinline__ void filter_run(const int16_t* tile, int at,
 }
 
 // The per-fb apply's presets: each list's coded strengths (pri * 4 + sec,
-// 6 bits each, at most 8) and the 64x64 filter blocks' indices into them.
+// 6 bits each, at most 8) and the filter block grid's size.
 struct Presets {
   unsigned long long y, uv;
-  const uint8_t* idx;             // [nvfb, nhfb]
-  int nhfb;
+  int nvfb, nhfb;
 };
 
-// Every plane's tiles over its whole buffer in one launch.  MULTI: each
-// unit takes the strengths of its filter block's index into the plane's
-// preset list (the plane's pri and sec then only say whether any preset
-// filters it); otherwise every unit the plane's pri and sec.
-template <bool MULTI>
-__global__ void __launch_bounds__(kTileThreads) cdef_apply_kernel(
-    ApplyArgs a, Presets m, const int* __restrict__ dirs,
-    const int* __restrict__ var, const uint8_t* __restrict__ nonskip,
-    int uw) {
+// The filter blocks' preset indices by value in the launch's parameters:
+// 3 bits per block, row-major, 10 blocks to a word, block k at bits [3j,
+// 3j + 3) of word k / 10, j = k % 10 (the top 2 bits unused).  Capacity:
+// the 128 x 68 blocks of AV1's largest level-6.3 picture (8192 x 4352),
+// 3,484 bytes, inside the 4 KB of parameters with the rest of the
+// launch's.  A larger grid takes the device-memory form.
+constexpr int kGridBlocks = 128 * 68;
+constexpr int kGridWords = (kGridBlocks + 9) / 10;
+
+// The grid of an apply launch: none (MODE 0, the frame-level apply), the
+// packed indices by value (MODE 1), or a uint8 [nvfb, nhfb] grid in device
+// memory (MODE 2, past kGridBlocks).
+template <int MODE>
+struct FbGrid {
+  int unused;
+};
+template <>
+struct FbGrid<1> {
+  uint32_t w[kGridWords];
+};
+template <>
+struct FbGrid<2> {
+  const uint8_t* idx;
+};
+
+__device__ __forceinline__ int grid_index(const FbGrid<1>& g, int k) {
+  const int q = k / 10;
+  return (int)(g.w[q] >> (3 * (k - 10 * q))) & 7;
+}
+
+__device__ __forceinline__ int grid_index(const FbGrid<2>& g, int k) {
+  return g.idx[k];
+}
+
+// The per-fb apply's strengths of a thread (pri, sec in filter units) at
+// tile (y0, x0), thread column tx: a luma tile (64x32 at a column that is
+// a multiple of 64) lies in one filter block and a chroma tile's halves
+// (threads 0-3 and 4-7 of a row) in two, so the thread decodes its half's
+// preset once, the same value across the tile or the half.  Returns
+// whether any unit of the tile may filter (a preset other than (0, 0)).
+template <int MODE>
+__device__ __forceinline__ bool fb_preset(const ApplyPlane& P,
+                                          const Presets& m,
+                                          const FbGrid<MODE>& g, int cs,
+                                          int y0, int x0, int tx, int& pri,
+                                          int& sec) {
+  bool live = false;
+  if (y0 >= P.ph) return false;
+  const int sh = P.is_luma ? 6 : 5, mine = P.is_luma ? 0 : tx >> 5;
+  const int at = (y0 >> sh) * m.nhfb + (x0 >> sh);
+  const unsigned long long list = P.is_luma ? m.y : m.uv;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    if ((h && P.is_luma) || x0 + 32 * h >= P.pw) break;
+    const int c = (int)(list >> (6 * grid_index(g, at + h))) & 63;
+    const int sc = c & 3, hp = (c >> 2) << cs, hs = (sc + (sc == 3)) << cs;
+    live |= hp > 0 || hs > 0;
+    if (h == mine) {
+      pri = hp;
+      sec = hs;
+    }
+  }
+  return live;
+}
+
+// Every plane's tiles over its whole buffer in one launch.  MODE 0: every
+// unit takes the plane's pri and sec.  MODE 1, 2 (per-fb): each thread
+// the strengths of its filter block's index into the plane's preset list
+// (fb_preset; the plane's pri and sec are not read), then the same code
+// path; a tile whose presets are all (0, 0) copies without loading its
+// halo.  Five CTAs an SM: 48 registers in every form.
+template <int MODE>
+__global__ void __launch_bounds__(kTileThreads, 5) cdef_apply_kernel(
+    ApplyArgs a, Presets m, const __grid_constant__ FbGrid<MODE> g,
+    const int* __restrict__ dirs, const int* __restrict__ var,
+    const uint8_t* __restrict__ nonskip, int uw) {
   __shared__ __align__(16) int16_t tile[kHaloH * kApplyStride];
   __shared__ int toff[8][12];
   ApplyPlane P = a.pl[0];
@@ -558,48 +847,38 @@ __global__ void __launch_bounds__(kTileThreads) cdef_apply_kernel(
   int v[8];
   if (y < P.H) load_run(P.in + y * P.W, xs, P.W, P.vec, v);
   int du[2] = {0, 0}, nsu[2] = {0, 0}, vr = 0;
-  // MULTI: each unit's strengths (pixels 0-3, 4-7), from its filter block
-  int upri[2] = {0, 0}, usec[2] = {0, 0};
-  if ((P.pri > 0 || P.sec > 0) && y < P.ph) {
+  // MODE 1, 2: the thread's strengths
+  int upri = 0, usec = 0;
+  bool live = true;
+  if constexpr (MODE != 0)
+    live = fb_preset<MODE>(P, m, g, a.cs, y0, x0, tx, upri, usec);
+  const bool on = MODE == 0 ? P.pri > 0 || P.sec > 0 : upri > 0 || usec > 0;
+  if (on && y < P.ph) {
 #pragma unroll
     for (int h2 = 0; h2 < 2; ++h2) {
       const int x = xs + 4 * h2;
       if (x < P.pw && (h2 == 0 || !P.is_luma)) {
         const int u = (y >> P.bsl) * uw + (x >> P.bsl);
         nsu[h2] = nonskip[u];
-        if constexpr (MULTI) {
-          // the unit's filter block: 8 units of 8x8 luma a side
-          const int k =
-              m.idx[((y >> P.bsl) >> 3) * m.nhfb + ((x >> P.bsl) >> 3)];
-          const int c = (int)((P.is_luma ? m.y : m.uv) >> (6 * k)) & 63;
-          const int sc = c & 3;
-          upri[h2] = (c >> 2) << a.cs;
-          usec[h2] = (sc + (sc == 3)) << a.cs;
-          nsu[h2] &= upri[h2] > 0 || usec[h2] > 0;
-          du[h2] = upri[h2] > 0 ? dirs[u] : 0;
-        } else {
-          du[h2] = P.pri > 0 ? dirs[u] : 0;
-        }
+        du[h2] = (MODE == 0 ? P.pri : upri) > 0 ? dirs[u] : 0;
         if (P.is_luma) vr = var[u];
       }
     }
     if (P.is_luma) {
       du[1] = du[0];
       nsu[1] = nsu[0];
-      upri[1] = upri[0];
-      usec[1] = usec[0];
     }
   }
   // the halo: items 0-63 the groups of rows 0, 1, kTileH + 2, kTileH + 3,
   // items 64-207 columns 0, 1, kTileW + 2, kTileW + 3 of every row
   int hr = -1, hc = 0;
   int4 hq = make_int4(0, 0, 0, 0);
-  if (tid < 4 * kGroups) {
+  if (live && tid < 4 * kGroups) {
     const int r4 = tid / kGroups;
     hr = r4 < 2 ? r4 : kTileH + r4;
     hc = 2 + 4 * (tid % kGroups);
     hq = sample4<kOutside>(sp, src_row(sp, y0 - 2 + hr), x0 - 2 + hc, P.vec);
-  } else if (tid < 4 * kGroups + 4 * kHaloH) {
+  } else if (live && tid < 4 * kGroups + 4 * kHaloH) {
     const int e = tid - 4 * kGroups;
     hr = e >> 2;
     hc = (e & 3) + ((e & 2) ? kTileW : 0);
@@ -632,29 +911,17 @@ __global__ void __launch_bounds__(kTileThreads) cdef_apply_kernel(
       tile[hr * kApplyStride + hc] = (int16_t)hq.x;
     __syncthreads();
     const int at = (ty + 2) * kApplyStride + tx + 2;
-    if constexpr (MULTI) {
+    const int pri = MODE == 0 ? P.pri : upri, sec = MODE == 0 ? P.sec : usec;
+    const int pa = P.is_luma ? adjust_strength(pri, vr) : pri;
+    const int psh = pa > 0 ? damp_shift(pa, P.damping) : 0;
+    const int ssh = sec > 0 ? damp_shift(sec, P.damping) : 0;
+    // primary weights 4, 2, or 3, 3 for an odd adjusted strength >> cs
+    const int odd = (pa >> a.cs) & 1, w0 = odd ? 3 : 4, w1 = odd ? 3 : 2;
 #pragma unroll
-      for (int h2 = 0; h2 < 2; ++h2) {
-        if (!nsu[h2]) continue;
-        const int pa = P.is_luma ? adjust_strength(upri[h2], vr) : upri[h2];
-        const int psh = pa > 0 ? damp_shift(pa, P.damping) : 0;
-        const int ssh = usec[h2] > 0 ? damp_shift(usec[h2], P.damping) : 0;
-        const int odd = (pa >> a.cs) & 1, w0 = odd ? 3 : 4, w1 = odd ? 3 : 2;
-        filter_run(tile, at, toff[du[h2]], v, h2, xs, P.pw, pa, psh, w0, w1,
-                   usec[h2], ssh);
-      }
-    } else {
-      const int pa = P.is_luma ? adjust_strength(P.pri, vr) : P.pri;
-      const int psh = pa > 0 ? damp_shift(pa, P.damping) : 0;
-      const int ssh = P.sec > 0 ? damp_shift(P.sec, P.damping) : 0;
-      // primary weights 4, 2, or 3, 3 for an odd adjusted strength >> cs
-      const int odd = (pa >> a.cs) & 1, w0 = odd ? 3 : 4, w1 = odd ? 3 : 2;
-#pragma unroll
-      for (int h2 = 0; h2 < 2; ++h2) {
-        if (!nsu[h2]) continue;
-        filter_run(tile, at, toff[du[h2]], v, h2, xs, P.pw, pa, psh, w0, w1,
-                   P.sec, ssh);
-      }
+    for (int h2 = 0; h2 < 2; ++h2) {
+      if (!nsu[h2]) continue;
+      filter_run(tile, at, toff[du[h2]], v, h2, xs, P.pw, pa, psh, w0, w1,
+                 sec, ssh);
     }
   }
   if (y < P.H) store_run(P.out + y * P.W, xs, P.W, P.vec, v);
@@ -670,17 +937,17 @@ void search_grid(int n_pri, int n_sec, bool zero_first, bool per_fb,
                  const int* d, const int* vr, const uint8_t* ns, int uw,
                  unsigned long long* e, int nvfb, int nhfb) {
   if (per_fb)
-    cdef_search_kernel<TS, kMaxPri, kMaxSec, true, true>
-        <<<grid, block, 0, st>>>(a, d, vr, ns, uw, e, nvfb, nhfb);
+    cdef_search_fb_kernel<TS><<<grid, block, 0, st>>>(a, d, vr, ns, uw, e,
+                                                     nvfb, nhfb);
   else if (n_pri == 5 && n_sec == 3 && zero_first)
     cdef_search_kernel<TS, 5, 3, true><<<grid, block, 0, st>>>(a, d, vr, ns,
-                                                               uw, e, 0, 0);
+                                                               uw, e);
   else if (n_pri == kMaxPri && n_sec == kMaxSec && zero_first)
     cdef_search_kernel<TS, kMaxPri, kMaxSec, true><<<grid, block, 0, st>>>(
-        a, d, vr, ns, uw, e, 0, 0);
+        a, d, vr, ns, uw, e);
   else
     cdef_search_kernel<TS, kMaxPri, kMaxSec, false><<<grid, block, 0, st>>>(
-        a, d, vr, ns, uw, e, 0, 0);
+        a, d, vr, ns, uw, e);
 }
 
 // Both search entries: nvfb = 0 for the frame totals, else the per-fb
@@ -753,11 +1020,12 @@ int search_launch(int n_planes, const void* const* rec,
 }
 
 // Both apply entries: per plane i, ptrs[4i..4i+3] and dims[6i..6i+5] as
-// for cdef_apply_launch; m.idx null for the frame-level apply.
+// for cdef_apply_launch; per_fb: the per-fb apply with m, its grid words
+// gw (by value) or else its device grid idx.
 int apply_launch(int n_planes, const void* const* ptrs, const int* dims,
                  const void* dirs, const void* var, const void* nonskip,
-                 int uw, int damping, int cs, const Presets& m,
-                 void* stream) {
+                 int uw, int damping, int cs, bool per_fb, const Presets& m,
+                 const uint32_t* gw, const uint8_t* idx, void* stream) {
   if (n_planes < 1 || n_planes > 3) return (int)cudaErrorInvalidValue;
   ApplyArgs a{};
   a.n_planes = n_planes;
@@ -792,12 +1060,28 @@ int apply_launch(int n_planes, const void* const* ptrs, const int* dims,
   const int* dr = (const int*)dirs;
   const int* vr = (const int*)var;
   const uint8_t* ns = (const uint8_t*)nonskip;
-  if (m.idx)
-    cdef_apply_kernel<true><<<ctas, kTileThreads, 0, (cudaStream_t)stream>>>(
-        a, m, dr, vr, ns, uw);
-  else
-    cdef_apply_kernel<false><<<ctas, kTileThreads, 0, (cudaStream_t)stream>>>(
-        a, m, dr, vr, ns, uw);
+  cudaStream_t st = (cudaStream_t)stream;
+  if (!per_fb) {
+    cdef_apply_kernel<0><<<ctas, kTileThreads, 0, st>>>(
+        a, m, FbGrid<0>{0}, dr, vr, ns, uw);
+  } else {
+    // the grid covers the luma frame
+    if (m.nvfb < 1 || m.nhfb < 1 || m.nvfb * 64 < dims[2] ||
+        m.nhfb * 64 < dims[3])
+      return (int)cudaErrorInvalidValue;
+    if (gw) {
+      if (m.nvfb * m.nhfb > kGridBlocks) return (int)cudaErrorInvalidValue;
+      FbGrid<1> g{};
+      const int n = (m.nvfb * m.nhfb + 9) / 10;
+      for (int i = 0; i < n; ++i) g.w[i] = gw[i];
+      cdef_apply_kernel<1><<<ctas, kTileThreads, 0, st>>>(a, m, g, dr, vr,
+                                                          ns, uw);
+    } else {
+      if (!idx) return (int)cudaErrorInvalidValue;
+      cdef_apply_kernel<2><<<ctas, kTileThreads, 0, st>>>(
+          a, m, FbGrid<2>{idx}, dr, vr, ns, uw);
+    }
+  }
   return (int)cudaGetLastError();
 }
 
@@ -856,24 +1140,28 @@ extern "C" int cdef_apply_launch(int n_planes, const void* const* ptrs,
                                  const void* var, const void* nonskip,
                                  int uw, int damping, int cs, void* stream) {
   return apply_launch(n_planes, ptrs, dims, dirs, var, nonskip, uw, damping,
-                      cs, Presets{0, 0, nullptr, 0}, stream);
+                      cs, false, Presets{0, 0, 0, 0}, nullptr, nullptr,
+                      stream);
 }
 
-// The per-fb apply (cdef_bits > 0): the arguments of cdef_apply_launch,
-// with each plane's pri, sec nonzero where any preset of its list filters
-// it; y_pack, uv_pack the coded strength lists (pri * 4 + sec, 6 bits
-// each); idx uint8 [nvfb, nhfb] the 64x64 filter blocks' indices into
-// them (below the lists' length).
+// The per-fb apply (cdef_bits > 0): the arguments of cdef_apply_launch
+// (each plane's pri, sec unread); y_pack, uv_pack the coded strength
+// lists (pri * 4 + sec, 6 bits
+// each); the nvfb x nhfb filter blocks' indices into them (below the
+// lists' length) either packed on the host, grid: uint32 words of 10
+// blocks at 3 bits each, row-major (at most kGridBlocks blocks; see
+// FbGrid<1>), passed by value in the launch's parameters; or, with grid
+// null, idx:
+// uint8 [nvfb, nhfb] in device memory.
 extern "C" int cdef_apply_multi_launch(int n_planes, const void* const* ptrs,
                                        const int* dims, const void* dirs,
                                        const void* var, const void* nonskip,
                                        int uw, int damping, int cs,
                                        unsigned long long y_pack,
                                        unsigned long long uv_pack,
-                                       const void* idx, int nhfb,
-                                       void* stream) {
-  if (!idx || nhfb < 1) return (int)cudaErrorInvalidValue;
+                                       const void* grid, const void* idx,
+                                       int nvfb, int nhfb, void* stream) {
   return apply_launch(n_planes, ptrs, dims, dirs, var, nonskip, uw, damping,
-                      cs, Presets{y_pack, uv_pack, (const uint8_t*)idx, nhfb},
-                      stream);
+                      cs, true, Presets{y_pack, uv_pack, nvfb, nhfb},
+                      (const uint32_t*)grid, (const uint8_t*)idx, stream);
 }

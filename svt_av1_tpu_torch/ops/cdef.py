@@ -828,15 +828,38 @@ def _strength_pack(strengths) -> int:
     return _pack(strengths, CDEF_STRENGTH_BITS)
 
 
+# The per-fb apply's grid by value in the kernel's parameters: 3 bits per
+# filter block, up to the 128 x 68 blocks of AV1's largest level-6.3
+# picture (8192 x 4352; cdef_filter.cu kGridBlocks).  A larger grid goes to
+# the card as a uint8 tensor.
+FB_GRID_BLOCKS = 128 * 68
+_GRID_WEIGHTS = (1 << np.arange(0, 30, 3)).astype(np.uint32)
+
+
+def pack_fb_grid(idx: np.ndarray, n_presets: int) -> np.ndarray:
+    """The filter blocks' preset indices as the per-fb apply reads them by
+    value: 3 bits per block, row-major, 10 blocks to a uint32 word, block k
+    at bits [3j, 3j + 3) of word k // 10, j = k % 10.  Raises ValueError
+    for an index outside [0, n_presets) (n_presets <= 8)."""
+    n = idx.size
+    r = np.zeros(-(-n // 10) * 10, np.uint32)
+    r[:n] = idx.reshape(-1)           # a negative index wraps past 8
+    if r.max() >= n_presets:
+        raise ValueError("idx_grid indexes past the preset lists")
+    return r.reshape(-1, 10) @ _GRID_WEIGHTS
+
+
 def cdef_apply_multi(planes, nonskip, dirs, var, y_list, uv_list, idx_grid,
                      damping: int, fw: int, fh: int, bd: int):
     """K4's per-fb apply: normative CDEF of the int32 planes with the
-    strengths of each 64x64 filter block's index in ``idx_grid`` (uint8 or
-    int [ceil(fh / 64), ceil(fw / 64)], entries < len(y_list)) into the
-    coded lists ``y_list`` and ``uv_list`` (at most 8 each), given the
-    (dirs, var) unit maps.  Returns new full-size planes, the input left as
-    it is.  CPU tensors take cdef_frame_multi_plain; CUDA tensors launch
-    the kernel once for all the planes.  Samples as for ``cdef_apply``."""
+    strengths of each 64x64 filter block's index in ``idx_grid`` (a host
+    array of ints [ceil(fh / 64), ceil(fw / 64)], entries < len(y_list))
+    into the coded lists ``y_list`` and ``uv_list`` (at most 8 each), given
+    the (dirs, var) unit maps.  Returns new full-size planes, the input left
+    as it is.  CPU tensors take cdef_frame_multi_plain; CUDA tensors launch
+    the kernel once for all the planes, the grid checked and packed on the
+    host and passed by value (no copy to the card) up to FB_GRID_BLOCKS
+    blocks, past them copied to the card.  Samples as for ``cdef_apply``."""
     if planes[0].device.type == "cpu":
         return cdef_frame_multi_plain(planes, nonskip, dirs, var, y_list,
                                       uv_list, idx_grid, damping, fw, fh,
@@ -846,20 +869,23 @@ def cdef_apply_multi(planes, nonskip, dirs, var, y_list, uv_list, idx_grid,
     if len(y_list) != len(uv_list):
         raise ValueError("the luma and chroma preset lists differ in length")
     packs = (_strength_pack(y_list), _strength_pack(uv_list))
-    # the codec's grid lies on the host: checked there, then uploaded
-    idx = torch.as_tensor(idx_grid)
-    if tuple(idx.shape) != (nvfb, nhfb):
+    idx = np.asarray(idx_grid)
+    if idx.shape != (nvfb, nhfb):
         raise ValueError(f"idx_grid: {(nvfb, nhfb)} expected, got "
-                         f"{tuple(idx.shape)}")
-    if int(idx.min()) < 0 or int(idx.max()) >= len(y_list):
-        raise ValueError("idx_grid indexes past the preset lists")
-    idx = idx.to(device=planes[0].device, dtype=torch.uint8).contiguous()
-    active = [any(v for v in (y_list if p == 0 else uv_list))
-              for p in range(len(planes))]
+                         f"{idx.shape}")
+    if idx.size <= FB_GRID_BLOCKS:
+        grid = pack_fb_grid(idx, len(y_list))
+        grid_ptr, idx_ptr = grid.ctypes.data, None
+    else:
+        if idx.min() < 0 or idx.max() >= len(y_list):
+            raise ValueError("idx_grid indexes past the preset lists")
+        dev_idx = torch.from_numpy(idx.astype(np.uint8)).to(planes[0].device)
+        grid_ptr, idx_ptr = None, dev_idx.data_ptr()
     out = _apply_launch("cdef_apply_multi_launch",
-                        (ctypes.c_ulonglong, ctypes.c_ulonglong, _P, _I),
-                        (*packs, idx.data_ptr(), nhfb), planes, nonskip, dirs,
-                        var, [(int(a), int(a)) for a in active], damping,
+                        (ctypes.c_ulonglong, ctypes.c_ulonglong, _P, _P, _I,
+                         _I),
+                        (*packs, grid_ptr, idx_ptr, nvfb, nhfb), planes,
+                        nonskip, dirs, var, [(0, 0)] * len(planes), damping,
                         fw, fh, bd, None)
     cdef_apply_multi.launches += 1
     return out

@@ -2285,3 +2285,111 @@ def test_k4_per_fb_forms_refuse_bad_inputs(dev):
     src = [r.to(torch.int16) for r in rec]            # 8 bits take uint8
     with pytest.raises(ValueError):
         cdef.cdef_search_fb(src, rec, dirs, var, ns, fw, fh, 4, 8)
+
+
+def _cuda_records(fn, tries=3):
+    """fn()'s result and the names of the device records (kernels and
+    copies) torch.profiler took during it.  The profiler now and then
+    delivers no device record at all for a window that launched a kernel
+    (twice in about 30 windows on an H100); such a window is run
+    again."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(tries):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            out = fn()
+            torch.cuda.synchronize()
+        names = [e.name for e in prof.events()
+                 if e.device_type == DeviceType.CUDA]
+        if names:
+            break
+    return out, names
+
+
+@pytest.mark.parametrize("bd", [8, 10])
+def test_k4_apply_multi_chroma_halves_take_their_own_presets(dev, bd):
+    """A chroma tile's 64 columns span two filter blocks: grids whose
+    columns alternate between two presets (one of them (0, 0), or both
+    filtering) give every chroma tile halves of their own, in both
+    orders; exactly the plain version."""
+    _, rec, dirs, var, ns, fw, fh = _k4_fb_inputs(dev, 200, 136, bd, 11)
+    nvfb, nhfb = -(-fh // 64), -(-fw // 64)
+    cols = np.arange(nhfb) % 2
+    for ys, us in (((37, 0), (14, 0)), ((0, 61), (0, 22)),
+                   ((9, 50), (33, 7))):
+        for flip in (0, 1):
+            idx = np.broadcast_to(cols ^ flip, (nvfb, nhfb)).copy()
+            got = cdef.cdef_apply_multi(rec, ns, dirs, var, ys, us, idx, 5,
+                                        fw, fh, bd)
+            want = cdef.cdef_frame_multi_plain(rec, ns, dirs, var, ys, us,
+                                               idx, 5, fw, fh, bd)
+            for g, w in zip(got, want):
+                assert torch.equal(g, w), (ys, us, flip)
+            assert not torch.equal(got[1], rec[1])
+
+
+@pytest.mark.parametrize("bd", [8, 10])
+def test_k4_apply_multi_every_block_at_zero_copies(dev, bd):
+    """Every filter block at preset (0, 0), with lists that hold no other
+    and with lists whose other presets no block takes: the input, as the
+    plain version gives it."""
+    _, rec, dirs, var, ns, fw, fh = _k4_fb_inputs(dev, 1920, 1080, bd, 15)
+    idx = np.zeros((-(-fh // 64), -(-fw // 64)), np.int32)
+    for ys, us in (((0,), (0,)), ((0, 37), (0, 14)), ((0, 0, 9, 63),
+                                                      (0, 5, 0, 40))):
+        got = cdef.cdef_apply_multi(rec, ns, dirs, var, ys, us, idx, 5, fw,
+                                    fh, bd)
+        want = cdef.cdef_frame_multi_plain(rec, ns, dirs, var, ys, us, idx,
+                                           5, fw, fh, bd)
+        for g, w, p in zip(got, want, rec):
+            assert torch.equal(g, w) and torch.equal(g, p)
+
+
+def test_k4_apply_multi_one_kernel_and_no_copy_at_1080p(dev):
+    """One per-fb apply call on a 1080p grid (17 x 30 filter blocks, 8
+    presets) records one kernel, the by-value form, and no copy: the grid
+    travels in the launch's parameters."""
+    _, rec, dirs, var, ns, fw, fh = _k4_fb_inputs(dev, 1920, 1080, 8, 17)
+    rng = np.random.default_rng(17)
+    ys = tuple(int(v) for v in rng.integers(1, 64, 8))
+    us = tuple(int(v) for v in rng.integers(1, 64, 8))
+    idx = rng.integers(0, 8, (17, 30)).astype(np.int32)
+    cdef.cdef_apply_multi(rec, ns, dirs, var, ys, us, idx, 5, fw, fh, 8)
+    got, names = _cuda_records(lambda: cdef.cdef_apply_multi(
+        rec, ns, dirs, var, ys, us, idx, 5, fw, fh, 8))
+    assert len(names) == 1 and "cdef_apply_kernel<1>" in names[0], names
+    want = cdef.cdef_frame_multi_plain(rec, ns, dirs, var, ys, us, idx, 5,
+                                       fw, fh, 8)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("size,form", [
+    ((8192, 4352), "cdef_apply_kernel<1>"),
+    ((8256, 4352), "cdef_apply_kernel<2>")],
+    ids=["capacity", "past_capacity"])
+def test_k4_apply_multi_grid_at_the_by_value_capacity(dev, size, form):
+    """The by-value grid holds the 128 x 68 filter blocks of AV1's largest
+    level-6.3 picture (8192 x 4352), the kernel's capacity (it refuses a
+    larger by-value grid); one column of blocks more takes the
+    device-memory form.  Both exactly the plain version, one launch
+    each."""
+    assert cdef.FB_GRID_BLOCKS == 128 * 68
+    _, rec, dirs, var, ns, fw, fh = _k4_fb_inputs(dev, *size, 8, 19)
+    nvfb, nhfb = -(-fh // 64), -(-fw // 64)
+    assert (nvfb * nhfb <= cdef.FB_GRID_BLOCKS) == form.endswith("<1>")
+    rng = np.random.default_rng(19)
+    ys = tuple(int(v) for v in rng.integers(0, 64, 8))
+    us = tuple(int(v) for v in rng.integers(0, 64, 8))
+    idx = rng.integers(0, 8, (nvfb, nhfb)).astype(np.int32)
+    got, names = _cuda_records(lambda: cdef.cdef_apply_multi(
+        rec, ns, dirs, var, ys, us, idx, 5, fw, fh, 8))
+    applies = [n for n in names if "cdef_apply" in n]
+    assert len(applies) == 1 and form in applies[0], names
+    want = cdef.cdef_frame_multi_plain(rec, ns, dirs, var, ys, us, idx, 5,
+                                       fw, fh, 8)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)

@@ -21,13 +21,9 @@ against the JAX package's numpy twins at bd 10, and the packings the
   roundings over every sum 10-bit samples reach, with its shared form at
   bd 10 against the plain version;
 * C4's first site: the decider uploads a reference's recon with its
-  samples above 255;
-* 10-bit low-delay P streams at 128x96x3 and 192x128x6 coded by the
-  port, byte-identical to the JAX device path's (SVT_TPU_DEVICE=1), and
-  decoded to the recon by both decoders.  The clip has real motion
-  (chip_smoke.py's synth_clip texture at 10 bits): with C6 put back, its
-  streams differ from the JAX path's, where those of test_e2e.py's
-  ``tenbit_clip`` did not.
+  samples above 255.
+
+The slice's streams are in tests/test_torch_tenbit_inter_streams.py.
 """
 import types
 
@@ -35,21 +31,10 @@ import numpy as np
 import pytest
 import torch
 
-from svt_av1_tpu import api as ref_api
-from svt_av1_tpu.config import EncoderConfig as RefConfig
-from svt_av1_tpu.config import PredStructure as RefPred
 from svt_av1_tpu.entropy.tables import FrameCdfs
 from svt_av1_tpu.ops import bme as ref_bme
 from svt_av1_tpu.pipeline import batched_inter as ref_bi
 from svt_av1_tpu.pipeline.batched_md import default_mode_bits
-from svt_av1_tpu_torch import api
-from svt_av1_tpu_torch.bitstream.bits import BitReader
-from svt_av1_tpu_torch.bitstream.headers import (iter_obus,
-                                                 parse_frame_header,
-                                                 parse_sequence_header)
-from svt_av1_tpu_torch.config import EncoderConfig, PredStructure
-from svt_av1_tpu_torch.constants import ObuType
-from svt_av1_tpu_torch.io import IvfReader
 from svt_av1_tpu_torch.ops import bme, omd
 from svt_av1_tpu_torch.pipeline import batched_inter as bi
 from svt_av1_tpu_torch.pipeline.batched_md import TorchDecider
@@ -71,31 +56,6 @@ def _clip10():
 
 def _t16(a):
     return torch.from_numpy(np.ascontiguousarray(a).astype(np.int16))
-
-
-def moving_clip10(w, h, n, seed=3):
-    """A 10-bit 4:2:0 clip with real motion: chip_smoke.py's synth_clip
-    (a noise texture moving by (1.7, 3.1) pixels a frame over a
-    background, a moving rectangle) scaled to 10 bits, its low bits drawn
-    from the same generator."""
-    rng = np.random.default_rng(seed)
-    yy, xx = np.mgrid[0:h, 0:w]
-    tex = rng.normal(0, 12.0, (h * 2, w * 2))
-    frames = []
-    for i in range(n):
-        dx, dy = int(3.1 * i) % w, int(1.7 * i) % h
-        y = (90 + 50 * np.sin((xx + 2 * i) / 37) + 25 * np.cos(yy / 29)
-             + tex[dy:dy + h, dx:dx + w])
-        x0, y0 = (40 + 5 * i) % (w - 80), (30 + 3 * i) % (h - 60)
-        y[y0:y0 + 60, x0:x0 + 80] = 190 - (xx[:60, :80] % 17) * 4
-        y = (y + rng.normal(0, 2, (h, w))).clip(0, 255)
-        u = (120 + 30 * np.sin((yy[:h // 2, :w // 2] + i) / 23)).clip(0, 255)
-        v = (130 - 30 * np.cos((xx[:h // 2, :w // 2] + 2 * i) / 31)) \
-            .clip(0, 255)
-        frames.append(tuple(
-            (np.floor(p).astype(np.uint16) << 2)
-            | rng.integers(0, 4, p.shape, dtype=np.uint16) for p in (y, u, v)))
-    return frames
 
 
 # --------------------------------------------------------------------------
@@ -511,68 +471,3 @@ def test_ref_plane_keeps_the_samples_of_the_recon(bd):
     np.testing.assert_array_equal(plane.numpy().astype(np.int64), want)
     if bd == 10:
         assert int(plane.max()) > 255
-
-
-# --------------------------------------------------------------------------
-# the slice end to end
-# --------------------------------------------------------------------------
-
-LOW_DELAY_P = dict(qp=40, enc_mode=8, intra_period_length=-1,
-                   encoder_bit_depth=BD)
-SIZES = {"128x96x3": (128, 96, 3), "192x128x6": (192, 128, 6)}
-
-
-@pytest.fixture(scope="module", params=list(SIZES))
-def streams(request, tmp_path_factory):
-    """(port bytes, port recon, port IVF path, JAX device-path bytes,
-    frames) of a 10-bit low-delay P clip."""
-    w, h, n = SIZES[request.param]
-    frames = moving_clip10(w, h, n)
-    tmp = tmp_path_factory.mktemp(f"tenbit_ipp_{request.param}")
-    cfg = EncoderConfig(source_width=w, source_height=h,
-                        pred_structure=PredStructure.LOW_DELAY_P,
-                        **LOW_DELAY_P)
-    port = tmp / "port.ivf"
-    recon = api.encode_ivf(frames, cfg, str(port), device="cpu")
-    ref_cfg = RefConfig(source_width=w, source_height=h,
-                        pred_structure=RefPred.LOW_DELAY_P, **LOW_DELAY_P)
-    ref = tmp / "ref.ivf"
-    with pytest.MonkeyPatch.context() as mp:
-        mp.setenv("SVT_TPU_DEVICE", "1")
-        ref_api.encode_ivf(frames, ref_cfg, str(ref))
-    return port.read_bytes(), recon, port, ref.read_bytes(), frames
-
-
-def test_ipp_stream_byte_identical_to_jax_device_path(streams):
-    data, recon, _, want, frames = streams
-    assert recon[0][0].dtype == np.uint16
-    assert int(frames[1][0].max()) > 255
-    assert len(data) == len(want)
-    assert data == want
-
-
-def test_ipp_decoders_reproduce_the_recon(streams):
-    """The JAX decoder and the port's Decoder give the port encoder's
-    recon; the sequence header says 10 bits; every frame after the first
-    is an inter frame."""
-    _, recon, path, _, _ = streams
-    for frames in (ref_api.decode_ivf(str(path))[0],
-                   api.decode_ivf(str(path), device="cpu")[0]):
-        assert len(frames) == len(recon)
-        for got, want in zip(frames, recon):
-            for p in range(3):
-                assert got[p].dtype == np.uint16
-                np.testing.assert_array_equal(got[p], want[p])
-    dec = api.Decoder(device="cpu")
-    dec.decode_frame(next(iter(IvfReader(str(path))))[0])
-    assert dec.get_stream_info()["bit_depth"] == BD
-    seq, kinds = None, []
-    for pkt, _ in IvfReader(str(path)):
-        for obu_type, payload in iter_obus(pkt):
-            if obu_type == ObuType.OBU_SEQUENCE_HEADER:
-                seq = parse_sequence_header(payload)
-            elif obu_type in (ObuType.OBU_FRAME, ObuType.OBU_FRAME_HEADER):
-                kinds.append(int(parse_frame_header(BitReader(payload),
-                                                    seq).frame_type))
-    assert seq.bit_depth == BD
-    assert kinds == [0] + [1] * (len(recon) - 1)

@@ -7,7 +7,9 @@ Needs the CUDA toolkit (nvcc, cuobjdump); no card.  Prints:
 1. ``-Xptxas -v`` for each named kernel source (default: intra_decision,
    me_refine, inter_select, cdef_filter, subpel_refine, compound_joint,
    me_coarse, deblock, cdef_direction and block_var16): registers,
-   spills and shared memory per entry;
+   spills and shared memory per entry, and then one line per entry with
+   its demangled name (each template instantiation apart: K4's
+   frame-level search and apply beside its per-fb forms);
 2. the SASS opcode histogram of each of their entries, and apart the
    packed-integer opcodes the redesigns rest on (every opcode that
    starts with VABSDIFF, IDP (dp4a and dp2a) or PRMT) and the branches
@@ -34,6 +36,7 @@ from __future__ import annotations
 
 import collections
 import re
+import shutil
 import subprocess
 import sys
 from pathlib import Path
@@ -125,6 +128,31 @@ def sass_by_function(cubin: Path) -> dict:
     return funcs
 
 
+def ptxas_entries(report: str) -> list:
+    """[(registers, spill store bytes, spill load bytes, demangled entry)]
+    from ptxas's -v report."""
+    rows, name, spills = [], None, (0, 0)
+    for line in report.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            name, spills = m.group(1), (0, 0)
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m and name:
+            spills = (int(m.group(1)), int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            rows.append((int(m.group(1)), *spills, name))
+            name = None
+    cufilt = Path(build._nvcc()).with_name("cu++filt")
+    demangle = str(cufilt) if cufilt.exists() else shutil.which("c++filt")
+    if not rows or not demangle:
+        return rows
+    names = run([demangle, *(r[3] for r in rows)]).splitlines()
+    return [(*r[:3], n) for r, n in zip(rows, names)]
+
+
 def opcode(ins: str) -> str:
     ins = re.sub(r"^@!?U?P\w+\s+", "", ins)
     return ins.split()[0] if ins else ""
@@ -142,8 +170,13 @@ def main() -> int:
         src = build.CSRC_DIR / build.CUDA_SOURCES[name]
         cubin = out_dir / f"{name}.cubin"
         print(f"== {name}: ptxas")
-        print(run([nvcc, "-O3", "-std=c++17", ARCH, "-cubin", "-Xptxas", "-v",
-                   "-I", str(build.CSRC_DIR), str(src), "-o", str(cubin)]))
+        report = run([nvcc, "-O3", "-std=c++17", ARCH, "-cubin", "-Xptxas",
+                      "-v", "-I", str(build.CSRC_DIR), str(src), "-o",
+                      str(cubin)])
+        print(report)
+        for regs, st, ld, entry in ptxas_entries(report):
+            print(f"== {name}: {regs} registers, {st} B spill stores, {ld} "
+                  f"B spill loads: {entry}")
         for fn, lines in sass_by_function(cubin).items():
             hist = collections.Counter(opcode(x) for x in lines)
             print(f"== {name}: {fn}: {len(lines)} instructions")

@@ -1,7 +1,8 @@
 """K1-K10 kernel times and the encode fps and stream md5s of one checkout,
 on chip_smoke.py's 1080p inputs.
 
-    python3 tools/tree_times.py [--root DIR] [--kernels] [--fps]
+    python3 tools/tree_times.py [--root DIR] [--kernels [--match TEXT]]
+                                [--fps]
 
 Imports ``svt_av1_tpu_torch`` from DIR (default: this checkout), so that
 two trees (a parent commit unpacked with ``git archive`` and the change)
@@ -42,7 +43,10 @@ parts run.
   have a device time with the L2 cache flushed before each call
   (``device_ms_cold``: a 128 MB write between the calls, the kernels'
   own time alone): their 1080p inputs fit in the 50 MB L2, which the
-  timing loop otherwise reuses.
+  timing loop otherwise reuses.  K4's per-fb forms on the same three
+  planes at 8 and 10 bits: the search over the full 8x4 grid, the apply
+  with 8 presets on a random 17x30 index grid given as a host array.
+  ``--match TEXT`` times only the calls whose name holds TEXT.
 * ``--fps``: the all-intra encode (three noise-like and three smooth
   frames), the low-delay P encode (6 frames of the moving clip) and the
   random-access encode (bench.py's configuration, 33 frames, fps over
@@ -68,7 +72,7 @@ from pathlib import Path
 HERE = Path(__file__).resolve().parent.parent
 
 
-def kernel_times(cs, np, torch):
+def kernel_times(cs, np, torch, match=None):
     from svt_av1_tpu_torch.ops import bme, omd
     from svt_av1_tpu_torch.pipeline import batched_inter as bi
     from svt_av1_tpu_torch.pipeline import tpl
@@ -150,9 +154,12 @@ def kernel_times(cs, np, torch):
             calls["K8 1 ref 10-bit"] = k8_one_ref(bme, bi, s10, r10, me10,
                                                   mv10, ny, nx, 10, lam * 16)
     calls.update(filter_calls(cs, np, torch, dev))
+    calls.update(k4_fb_calls(cs, np, torch, dev))
+    if match:
+        calls = {k: f for k, f in calls.items() if match in k}
     cold = {k: device_ms_cold(torch, calls[k], name) for k, name in (
         ("K3 1080p luma", "cdef_direction_kernel"),
-        ("K4 apply 3 planes", "cdef_apply_kernel"))}
+        ("K4 apply 3 planes", "cdef_apply_kernel")) if k in calls}
     return ({k: cs.cuda_ms(f, 20) for k, f in calls.items()},
             {k: cs.device_ms(f) for k, f in calls.items()}, cold)
 
@@ -281,10 +288,10 @@ def ra_calls(cs, torch, dev, bd=8):
             lambda: bi.compound_joint(*k9_args))
 
 
-def k4_search_call(cs, np, torch, dev, bd=8):
-    """K4's search over the three planes of the first frame at the fast
-    5x3 grid, as chip_smoke.py's kernels phase calls it (at ``bd`` 10: the
-    10-bit frame, int16 sources)."""
+def k4_inputs(cs, np, torch, dev, bd=8):
+    """K4's inputs on the three planes of the first frame: (sources, recon
+    planes, directions, variances, a nonskip map of 80% of the units); at
+    ``bd`` 10 the 10-bit frame, int16 sources."""
     from svt_av1_tpu_torch.ops import cdef
 
     W, H = cs.WIDTH, cs.HEIGHT
@@ -302,8 +309,42 @@ def k4_search_call(cs, np, torch, dev, bd=8):
            for r in rec]
     dirs, var = cdef.cdef_direction(rec[0], W, H, bd - 8)
     ns = torch.from_numpy(rng.random(tuple(dirs.shape)) < 0.8).to(dev)
-    return lambda: cdef.cdef_search(src, rec, dirs, var, ns, W, H, 5, bd,
-                                    cdef.PRI_SET_FAST, cdef.SEC_SET_FAST)
+    return src, rec, dirs, var, ns
+
+
+def k4_search_call(cs, np, torch, dev, bd=8):
+    """K4's search over the three planes of the first frame at the fast
+    5x3 grid, as chip_smoke.py's kernels phase calls it (at ``bd`` 10: the
+    10-bit frame, int16 sources)."""
+    from svt_av1_tpu_torch.ops import cdef
+
+    src, rec, dirs, var, ns = k4_inputs(cs, np, torch, dev, bd)
+    return lambda: cdef.cdef_search(src, rec, dirs, var, ns, cs.WIDTH,
+                                    cs.HEIGHT, 5, bd, cdef.PRI_SET_FAST,
+                                    cdef.SEC_SET_FAST)
+
+
+def k4_fb_calls(cs, np, torch, dev):
+    """K4's per-fb forms on the same planes at 8 and 10 bits: the search
+    over the full 8x4 grid (its totals per 64x64 filter block), and the
+    apply with 8 presets on a random index grid, handed over on the host
+    as the codec hands it over."""
+    from svt_av1_tpu_torch.ops import cdef
+
+    W, H = cs.WIDTH, cs.HEIGHT
+    rng = np.random.default_rng(1)
+    ys = tuple(int(v) for v in rng.integers(1, 64, 8))
+    us = tuple(int(v) for v in rng.integers(1, 64, 8))
+    idx = rng.integers(0, 8, (-(-H // 64), -(-W // 64))).astype(np.int32)
+    calls = {}
+    for bd, sfx in ((8, ""), (10, " 10-bit")):
+        src, rec, dirs, var, ns = k4_inputs(cs, np, torch, dev, bd)
+        calls["K4 search fb 8x4" + sfx] = functools.partial(
+            cdef.cdef_search_fb, src, rec, dirs, var, ns, W, H, 5, bd)
+        calls[f"K4 apply multi 8 presets bd {bd}"] = functools.partial(
+            cdef.cdef_apply_multi, rec, ns, dirs, var, ys, us, idx, 5, W, H,
+            bd)
+    return calls
 
 
 def encode_fps(cs, torch):
@@ -379,8 +420,9 @@ def main() -> int:
         "the package must come from --root"
     out = {}
     if want_k:
+        match = args[args.index("--match") + 1] if "--match" in args else None
         out["ms"], out["device_ms"], out["device_ms_cold"] = kernel_times(
-            cs, np, torch)
+            cs, np, torch, match)
     if want_f:
         out["fps"], out["md5"], out["stage_ms"] = encode_fps(cs, torch)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
