@@ -143,9 +143,8 @@ per-64x64 CDEF presets of cdef_bits > 0) at 1080p in both sample types:
 the search's totals per 64x64 filter block over the full 8 x 4 grid and
 the apply with 8 presets on a random index grid, each exactly equal to
 its plain version, with event, device and plain times and the bound.  A
-presets phase (after the decodes) runs PRESET_JOBS at once, one worker
-process each, since the host walks of these presets take most of their
-time: preset 7 low-delay P at 1080p (2 frames: the key frame on K1's
+presets phase (after the decodes) runs PRESET_JOBS in worker processes,
+since the host walks of these presets take most of their time: preset 7 low-delay P at 1080p (2 frames: the key frame on K1's
 plan, the P frame on the per-block host walk, the filter chain on
 K2-K4), preset 6 low-delay P at 1080p (2 frames: the host RD walk, DLF
 on K2, the per-fb search and apply on K3/K4, the loop-restoration search
@@ -163,6 +162,30 @@ the per-fb forms' launches per preset-6 frame; the kernels line has
 ``cdef_search_fb``, ``cdef_apply_multi``, ``cdef_search_fb_16bit`` and
 ``cdef_apply_multi_bd10`` rows with the calls and launches of the preset
 jobs that run them.
+
+Presets 4 to 2 and the rest of the encoder's surface: the kernels phase
+also holds K1, K3 and K4's frame-level search and apply at the widths
+super-resolution codes a 1080p frame at (9/8: 1707 in a 1728-wide
+buffer; 16/8: 960), luma and chroma, one launch a call, against their
+plain versions (superres_kernel_checks).  The worker pool starts right
+after the build with the EARLY_JOBS longest preset jobs (a preset-4 key
+frame at 1920x544, preset 4 low-delay P at 352x288x3), which run beside
+the phases above; after the decodes the main process codes the default
+all-intra configuration (RANDOM_ACCESS structure, intra_period_length
+-2, tf_level 2: MCTF on every key frame, K1-K6) on N_FRAMES 1080p frames
+with get_recon (mctf_phase); then the pool takes the other preset jobs
+(preset 4 random access and preset 2 all-intra and low-delay P at
+128x96, the small ones also coded on the CPU in tasks of their own) and
+the surface jobs (super-resolution 9/8 and 16/8 at 1080p, decoded on the
+card; film grain, whose card and CPU decodes must give equal md5s with
+the grain applied; two passes through ``python -m svt_av1_tpu_torch.app``
+on a 1080p y4m with a scene cut, which must code a key frame there).
+The port's Decoder counts each preset stream's filter-intra, var-tx,
+wedge, diffwtd and inter-intra blocks (block_tools); the preset-4 key
+frame must read TX_MODE_SELECT, cdef_bits > 0 and filter intra, the
+preset-4 random-access stream the tools its CPU test finds.  The
+kernels line adds the launches of these paths; the script prints its
+wall time before that line.
 
 ``--trace DIR`` adds a phase before the last two lines: encodes under
 torch.profiler (TRACE_FRAMES all-intra frames, TRACE_FRAMES P frames
@@ -621,6 +644,99 @@ def per_fb_kernels(dev, src, rec, dirs, var, ns, bd, rng):
                                        for k in idx.reshape(-1)])),
         per_call="1 launch, three planes, 8 presets")
     return {"search": search, "apply": apply}
+
+
+def superres_planes(frame, denom, sb=64):
+    """``frame`` (a 1080p synth_clip frame) as super-resolution codes it
+    at ``denom``: each plane downscaled to the coded width
+    (ops/superres.py) and edge-padded to the codec's buffer (whole
+    ``sb`` superblocks).  Returns (planes, coded width, 8-aligned width
+    and height, buffer width and height)."""
+    from svt_av1_tpu_torch.ops.superres import downscale_plane, scaled_dim
+
+    fw = scaled_dim(frame[0].shape[1], denom)
+    h = frame[0].shape[0]
+    aw, ah = -(-fw // 8) * 8, -(-h // 8) * 8
+    bw, bh = -(-aw // sb) * sb, -(-ah // sb) * sb
+    planes = []
+    for i, p in enumerate(frame):
+        s = 1 if i else 0
+        small = downscale_plane(np.asarray(p), (fw + s) >> s)
+        tw, th = bw >> s, bh >> s
+        out = np.empty((th, tw), np.uint8)
+        out[:small.shape[0], :small.shape[1]] = small
+        out[:small.shape[0], small.shape[1]:] = small[:, -1:]
+        out[small.shape[0]:] = out[small.shape[0] - 1]
+        planes.append(out)
+    return planes, fw, aw, ah, bw, bh
+
+
+def superres_kernel_checks(dev, frame, denom, qindex=120):
+    """K1, K3 and K4's frame-level search and apply at the width that
+    super-resolution codes ``frame`` at (``denom`` 9: 1707 of 1920, a
+    1728-wide buffer; 16: 960), each call one launch, against its plain
+    version on the same card tensors: K1's modes equal and costs within
+    rtol 1e-5 on every block of every shape, K3 and K4 exactly.  Returns
+    {kernel: (max |kernel - plain|, launches of its call)}."""
+    from svt_av1_tpu_torch.ops import cdef, omd
+
+    planes, fw, aw, ah, bw, bh = superres_planes(frame, denom)
+    rng = np.random.default_rng(denom)
+    mb = tuple(np.linspace(1.0, 6.0, 13).tolist())
+    out = {}
+    y = torch.from_numpy(planes[0]).to(dev)
+    before = omd.intra_decision_packed.launches
+    packed = omd.intra_decision_packed(y, qindex, 250.0, mb)
+    n = omd.intra_decision_packed.launches - before
+    got = omd.unpack_decisions(packed, omd.ALL_SHAPES, bw, bh)
+    err = 0.0
+    for s in omd.ALL_SHAPES:
+        m, c = got[s]
+        m2, c2 = omd.intra_decision_plain(y, *s, qindex, 250.0, mb)
+        assert torch.equal(m, m2), (denom, s)
+        assert bool(torch.isclose(c, c2, rtol=1e-5).all()), (denom, s)
+        err = max(err, (c - c2).abs().max().item())
+    out["intra_decision"] = (err, n)
+    # the recon the filters see: the source with coding noise
+    rec = [(torch.from_numpy(p.astype(np.int32))
+            + torch.from_numpy(rng.integers(-6, 7, p.shape).astype(np.int32))
+            ).clamp(0, 255).to(dev) for p in planes]
+    src = [torch.from_numpy(p).to(dev) for p in planes]
+    before = cdef.cdef_direction.launches
+    d1, v1 = cdef.cdef_direction(rec[0], aw, ah, 0)
+    n = cdef.cdef_direction.launches - before
+    d2, v2 = cdef.find_dir_grid(cdef._units_of(
+        cdef.pad_very_large(rec[0], aw, ah, 8), aw, ah, 8), 0)
+    out["cdef_direction"] = (max((d1 - d2).abs().max().item(),
+                                 (v1 - v2).abs().max().item()), n)
+    ns = torch.from_numpy(rng.random(d1.shape) < 0.8).to(dev)
+    err = 0
+    for ps, ss in ((cdef.PRI_SET_FAST, cdef.SEC_SET_FAST),
+                   (cdef.PRI_SET, cdef.SEC_SET)):
+        before = cdef.cdef_search.launches
+        got = cdef.cdef_search(src, rec, d1, v1, ns, aw, ah, 5, 8, ps, ss)
+        n = cdef.cdef_search.launches - before
+        want = cdef.cdef_search_errs(src, rec, d1, v1, ns, aw, ah, 5, 8, ps,
+                                     ss)
+        err = max([err] + [(g - w).abs().max().item()
+                           for g, w in zip(got, want)])
+    out["cdef_search"] = (err, n)
+    err = 0
+    for ys, us in ((33, 18), (63, 0), (9, 61)):
+        before = cdef.cdef_apply.launches
+        got = cdef.cdef_apply(rec, ns, d1, v1, ys, us, 5, aw, ah, 8)
+        n = cdef.cdef_apply.launches - before
+        want = cdef.cdef_apply_plain(rec, ns, d1, v1, ys, us, 5, aw, ah, 8)
+        err = max([err] + [(g - w).abs().max().item()
+                           for g, w in zip(got, want)])
+    out["cdef_apply"] = (err, n)
+    print(f"superres {denom}/8 ({fw}x{frame[0].shape[0]}, buffer {bw}x{bh}; "
+          f"luma and chroma): max |kernel - plain| and launches per call: "
+          f"{json.dumps(out)}")
+    for name, (err, n) in out.items():
+        assert n == 1 and (name == "intra_decision" or err == 0), \
+            (denom, name, err, n)
+    return out
 
 
 def kernels_phase(dev, frame):
@@ -2178,33 +2294,57 @@ def decode_phase(counters, streams):
 
 
 # --------------------------------------------------------------------------
-# presets 7, 6 and 5: the per-block host walk of inter frames (7), the host
-# RD walk (6, 5) with per-64x64 CDEF presets on K3/K4 (B16), loop
-# restoration and its second entropy pass, and the global-motion fit
+# presets 7 to 2: the per-block host walk of inter frames (7), the host RD
+# walk (6, 5), the partition RD walk (4 to 2: var-tx, extended partitions,
+# filter intra, masked compound, inter-intra) with per-64x64 CDEF presets
+# on K3/K4 (B16), loop restoration and its second entropy pass, and the
+# global-motion fit
 # --------------------------------------------------------------------------
 
 # (name, preset, width, height, frames, structure, bit depth, clip, also
-# coded on the CPU); each runs in a worker process of its own, since the
-# host walks of these presets take most of their time
+# coded on the CPU, further settings); structure "ld" (one key frame, then
+# P frames), "ai" (every frame a key frame) or "ra" (hierarchical_levels
+# 2 unless the settings say otherwise); each runs in a worker process of
+# its own, since the host walks of these presets take most of their time,
+# the longest first; the first EARLY_JOBS start right after the build
+EARLY_JOBS = 2
 PRESET_JOBS = (
-    ("preset 7 low-delay P", 7, WIDTH, HEIGHT, 2, "ld", 8, "moving", False),
-    ("preset 6 low-delay P", 6, WIDTH, HEIGHT, 2, "ld", 8, "moving", False),
-    ("preset 6 10-bit key frame", 6, WIDTH, HEIGHT, 1, "ld", 10, "moving",
-     False),
+    # the full width at half the height: the 1080p key frame's host walk
+    # took 862 s in a worker (PERF.md), most of the script's time limit
+    ("preset 4 key frame 1920x544", 4, WIDTH, 544, 1, "ld", 8, "moving",
+     False, {}),
+    ("preset 4 low-delay P 352x288", 4, 352, 288, 3, "ld", 8, "moving",
+     True, {}),
+    ("preset 6 low-delay P", 6, WIDTH, HEIGHT, 2, "ld", 8, "moving", False,
+     {}),
+    ("preset 7 low-delay P", 7, WIDTH, HEIGHT, 2, "ld", 8, "moving", False,
+     {}),
     ("preset 5 low-delay P 352x288", 5, 352, 288, 3, "ld", 8, "hetero",
-     True),
+     True, {}),
+    ("preset 6 10-bit key frame", 6, WIDTH, HEIGHT, 1, "ld", 10, "moving",
+     False, {}),
+    ("preset 2 all-intra 128x96", 2, 128, 96, 2, "ai", 8, "wave", True, {}),
+    ("preset 2 low-delay P 128x96", 2, 128, 96, 2, "ld", 8, "wave", True,
+     {}),
+    # the clip and settings of tests/test_torch_presets_4_ra.py
+    ("preset 4 random access 128x96", 4, 128, 96, 3, "ra", 8, "wave", True,
+     dict(qp=50, hierarchical_levels=1)),
     ("preset 6 random access 192x128", 6, 192, 128, 5, "ra", 8, "moving",
-     True),
+     True, {}),
 )
 # the kernels each job must launch: the fused chain (K2-K4) at preset 7,
-# K2 and the per-fb forms of K4 at presets 6 and 5; K1 plans preset 7's
+# K2 and the per-fb forms of K4 at presets 6 to 2; K1 plans preset 7's
 # key frame; MCTF and TPL run K5, K6 and K10 under random access
 PRESET_KERNELS = {
     7: ("intra_decision", "deblock", "cdef_direction", "cdef_search",
         "cdef_apply"),
     6: ("deblock", "cdef_direction", "cdef_search_fb", "cdef_apply_multi"),
     5: ("deblock", "cdef_direction", "cdef_search_fb", "cdef_apply_multi"),
+    4: ("deblock", "cdef_direction", "cdef_search_fb", "cdef_apply_multi"),
+    2: ("deblock", "cdef_direction", "cdef_search_fb", "cdef_apply_multi"),
 }
+# the tools tests/test_torch_presets_4_ra.py finds in the same stream
+P4_RA_TOOLS = ("wedge", "diffwtd", "interintra", "filter_intra")
 PRESET_RA_KERNELS = ("me_coarse", "me_refine", "block_var16")
 
 
@@ -2248,24 +2388,66 @@ def hetero_clip(w, h, n, seed=1):
     return frames
 
 
-def preset_config(preset, w, h, structure, bd):
-    """qp 40 at ``preset``: low-delay P (one key frame, then P frames) or
-    random access with hierarchical_levels 2 (MCTF at tf_level 1, TPL)."""
+def cut_clip(w, h, n, cut, seed=1):
+    """Two scenes: a drifting sinusoid of one frequency and tint for
+    frames [0, cut), another from ``cut`` on, each with mild noise; the
+    two-pass statistics (pipeline/first_pass.py) put a scene change at
+    ``cut``."""
+    yy, xx = np.mgrid[0:h, 0:w]
+    frames = []
+    for scene, count in ((seed, cut), (seed + 1, n - cut)):
+        rng = np.random.default_rng(scene)
+        fx, fy, ph = rng.uniform(0.1, 0.4, 3)
+        for i in range(count):
+            y = 128 + 70 * np.sin((xx + i) * fx + ph) * np.cos(yy * fy) \
+                + rng.integers(-2, 3, (h, w))
+            u = np.full((h // 2, w // 2), 100 + 20 * scene, np.uint8)
+            v = np.full((h // 2, w // 2), 140, np.uint8)
+            frames.append((np.clip(y, 0, 255).astype(np.uint8), u, v))
+    return frames
+
+
+def wave_clip(w, h, n, seed=13):
+    """Two drifting waves and sample noise in luma, static chroma waves
+    (tests/test_e2e.py's synthetic_clip)."""
+    rng = np.random.default_rng(seed)
+    frames = []
+    for i in range(n):
+        yy, xx = np.mgrid[0:h, 0:w]
+        y = (110 + 70 * np.sin(xx / 17 + i * 0.5) + 50 * np.cos(yy / 23 + i)
+             + rng.integers(-10, 11, (h, w))).clip(0, 255).astype(np.uint8)
+        u = (128 + 40 * np.sin(yy[:h // 2, :w // 2] / 9)).clip(
+            0, 255).astype(np.uint8)
+        v = (128 - 40 * np.cos(xx[:h // 2, :w // 2] / 13)).clip(
+            0, 255).astype(np.uint8)
+        frames.append((y, u, v))
+    return frames
+
+
+def preset_config(preset, w, h, structure, bd, **extra):
+    """qp 40 at ``preset`` unless ``extra`` says otherwise: low-delay P (one
+    key frame, then P frames), all-intra, or random access with
+    hierarchical_levels 2 (MCTF at tf_level 1, TPL)."""
     from svt_av1_tpu_torch.config import EncoderConfig, PredStructure
 
-    kw = dict(pred_structure=PredStructure.LOW_DELAY_P) if structure == "ld" \
-        else dict(hierarchical_levels=2)
-    return EncoderConfig(source_width=w, source_height=h, qp=QP,
-                         enc_mode=preset, intra_period_length=-1,
+    kw = dict(qp=QP, intra_period_length=-1)
+    if structure == "ra":
+        kw["hierarchical_levels"] = 2
+    else:
+        kw["pred_structure"] = PredStructure.LOW_DELAY_P
+        if structure == "ai":
+            kw["intra_period_length"] = 0
+    kw.update(extra)
+    return EncoderConfig(source_width=w, source_height=h, enc_mode=preset,
                          encoder_bit_depth=bd, **kw)
 
 
 def stream_features(path):
     """Per coded frame of the IVF at ``path``: (frame type, cdef_bits, the
     three planes' loop-restoration types, the global-motion types of the
-    seven references), read back from the frame headers with the
-    reference slots' order hints and global-motion parameters tracked as
-    a decoder tracks them."""
+    seven references, TX_MODE_SELECT), read back from the frame headers
+    with the reference slots' order hints and global-motion parameters
+    tracked as a decoder tracks them."""
     from svt_av1_tpu_torch.bitstream.bits import BitReader
     from svt_av1_tpu_torch.bitstream.headers import (GM_IDENTITY_MAT,
                                                      iter_obus,
@@ -2286,7 +2468,7 @@ def stream_features(path):
                            if i < len(fh.global_motion) else 0
                            for i in range(7))
                 out.append((int(fh.frame_type), fh.cdef_bits,
-                            tuple(fh.lr_type), gm))
+                            tuple(fh.lr_type), gm, int(fh.tx_mode_select)))
                 mats = tuple(fh.global_motion[i][1]
                              if i < len(fh.global_motion)
                              else GM_IDENTITY_MAT for i in range(7))
@@ -2298,6 +2480,56 @@ def stream_features(path):
     return out
 
 
+def block_tools(path, device="cpu"):
+    """Decode the IVF at ``path`` with the port's Decoder on ``device`` and
+    count the coding tools its blocks use: filter intra (luma coding
+    blocks), wedge and diffwtd compound, inter-intra, var-tx (inter
+    blocks whose txfm_split tree splits).  Returns (counts, shown frames,
+    decoder)."""
+    from svt_av1_tpu_torch.api import Decoder
+    from svt_av1_tpu_torch.io import IvfReader
+    from svt_av1_tpu_torch.pipeline.frame_codec import FrameCodec
+
+    counts = collections.Counter()
+    fi_blocks = set()
+    predict, tx_size = FrameCodec.predict, FrameCodec._code_block_tx_size
+
+    def counted_predict(self, plane, mode, angle, px, py, pw, ph, ts,
+                        filter_intra_mode=-1, blk=None):
+        if plane == 0 and filter_intra_mode >= 0:
+            fi_blocks.add((counts["frames"], blk or (px, py, pw, ph)))
+        return predict(self, plane, mode, angle, px, py, pw, ph, ts,
+                       filter_intra_mode, blk)
+
+    def counted_tx_size(self, decision, skip, is_inter, *a):
+        leaves = tx_size(self, decision, skip, is_inter, *a)
+        if is_inter:
+            ct = getattr(decision, "compound_type", 0)
+            counts["wedge"] += ct == 1
+            counts["diffwtd"] += ct == 2
+            counts["interintra"] += bool(getattr(decision, "interintra",
+                                                 False))
+            counts["vartx"] += leaves is not None and len(leaves) > 1
+        return leaves
+
+    dec = Decoder(device)
+    shown = []
+    FrameCodec.predict = counted_predict
+    FrameCodec._code_block_tx_size = counted_tx_size
+    try:
+        for pkt, _ in IvfReader(str(path)):
+            n_dec = dec.frames_decoded
+            got = dec.decode_frame(pkt)
+            counts["frames"] += dec.frames_decoded - n_dec
+            if got is not None:
+                shown.append(got)
+    finally:
+        FrameCodec.predict, FrameCodec._code_block_tx_size = \
+            predict, tx_size
+    counts["filter_intra"] = len(fi_blocks)
+    return dict(counts), shown, dec
+
+
 def preset_job(spec):
     """One job of PRESET_JOBS in a worker process: the port's Encoder on
     the card with every count set to 0 just before and read just after,
@@ -2306,16 +2538,12 @@ def preset_job(spec):
     encode with the plain versions on the CPU (the streams must be
     byte-identical).  Returns what the main process prints and checks."""
     sys.path.insert(0, str(Path(__file__).resolve().parent))
-    from svt_av1_tpu_torch.api import Decoder, Encoder, encode_ivf
-    from svt_av1_tpu_torch.io import IvfReader, IvfWriter
+    from svt_av1_tpu_torch.api import Encoder
+    from svt_av1_tpu_torch.io import IvfWriter
 
-    name, preset, w, h, n, structure, bd, clip, on_cpu = spec
-    if clip == "hetero":
-        frames = hetero_clip(w, h, n)
-    else:
-        frames = synth_clip(w, h, n, bd=bd) if (w, h) == (WIDTH, HEIGHT) \
-            else synth_clip(w, h, n, seed=13, bd=bd)
-    cfg = preset_config(preset, w, h, structure, bd)
+    name, preset, w, h, n, structure, bd, clip, on_cpu, extra = spec
+    frames, cfg = preset_frames(spec), preset_config(preset, w, h, structure,
+                                                    bd, **extra)
     counters = kernel_counters()
     out = dict(name=name, preset=preset, frames=n)
     with tempfile.TemporaryDirectory(
@@ -2347,12 +2575,9 @@ def preset_job(spec):
         out["bytes"] = path.stat().st_size
         out["md5"] = stream_md5(path)
         out["features"] = stream_features(path)
-        dec = Decoder()                     # the default device: CUDA
-        assert dec.device.type == "cuda"
+        # the port's Decoder on the card, counting the blocks' tools
         t0 = time.perf_counter()
-        shown = [g for g in (dec.decode_frame(p)
-                             for p, _ in IvfReader(str(path)))
-                 if g is not None]
+        out["tools"], shown, dec = block_tools(path, "cuda")
         torch.cuda.synchronize()
         out["decode_ms_per_frame"] = (time.perf_counter() - t0) * 1e3 \
             / dec.frames_decoded
@@ -2361,32 +2586,341 @@ def preset_job(spec):
             for p in range(3):
                 assert np.array_equal(g[p], recon[d][p]), (name, d, p)
         out["decode_md5"] = dec.md5.hexdigest()
-        if on_cpu:
-            cpu = Path(tmp) / "cpu.ivf"
-            encode_ivf(frames, cfg, str(cpu), device="cpu")
-            out["cpu_identical"] = cpu.read_bytes() == path.read_bytes()
     return out
 
 
-def presets_phase():
-    """PRESET_JOBS, all at once in worker processes (each job's counts are
-    its own process's); every job's kernels must have launched, its PSNR
-    clear the floor, its stream decode on the card to its recon and,
-    where coded on the CPU too, equal the CPU's stream.  The preset-6 and
-    preset-5 streams must carry cdef_bits > 0 and loop restoration in at
-    least one frame.  Returns the results by job name."""
-    import concurrent.futures
+def preset_frames(spec):
+    """The frames of a PRESET_JOBS entry."""
+    name, preset, w, h, n, structure, bd, clip = spec[:8]
+    if clip == "hetero":
+        return hetero_clip(w, h, n)
+    if clip == "wave":
+        return wave_clip(w, h, n)
+    return synth_clip(w, h, n, bd=bd) if (w, h) == (WIDTH, HEIGHT) \
+        else synth_clip(w, h, n, seed=13, bd=bd)
+
+
+def cpu_stream_job(spec):
+    """The md5 of a PRESET_JOBS entry's stream coded with the plain versions
+    on the CPU (a task of its own beside the card's encode)."""
+    sys.path.insert(0, str(Path(__file__).resolve().parent))
+    from svt_av1_tpu_torch.api import encode_ivf
+
+    name, preset, w, h, n, structure, bd, _, _, extra = spec
+    with tempfile.TemporaryDirectory(
+            dir=os.environ.get("TMPDIR") or tempfile.gettempdir()) as tmp:
+        path = Path(tmp) / "cpu.ivf"
+        encode_ivf(preset_frames(spec),
+                   preset_config(preset, w, h, structure, bd, **extra),
+                   str(path), device="cpu")
+        return stream_md5(path)
+
+
+# --------------------------------------------------------------------------
+# the rest of the encoder's surface at 1080p: the default all-intra
+# configuration (MCTF), super-resolution, film grain, two-pass through the
+# command-line app, get_recon
+# --------------------------------------------------------------------------
+
+SUPERRES_DENOMS = (9, 16)
+SURFACE_FRAMES = {"all-intra MCTF": N_FRAMES, "superres": 2, "film grain": 3,
+                  "two-pass": N_FRAMES}
+# in worker processes; the all-intra MCTF cell runs in the main process
+# beside the other preset-8 cells (mctf_phase)
+SURFACE_JOBS = ("film grain", "superres", "two-pass")
+SURFACE_CUT = 3
+# the kernels each surface job's encodes must launch: K1-K4 on key frames,
+# K5/K6 through MCTF (all-intra) or the inter plans (film grain: low-delay
+# P, K1-K8)
+_K1_K4 = ("intra_decision", "deblock", "cdef_direction", "cdef_search",
+          "cdef_apply")
+SURFACE_KERNELS = {
+    "all-intra MCTF": _K1_K4 + ("me_coarse", "me_refine"),
+    "superres": _K1_K4,
+    "film grain": _K1_K4 + ("me_coarse", "me_refine", "subpel_refine16",
+                            "inter_select"),
+    "two-pass": (),
+}
+
+
+def _count(counters, totals):
+    """Add the counts since the last zeroing to ``totals`` (launches,
+    calls)."""
+    launches, calls = read_counts(counters)
+    for k in counters:
+        totals[0][k] += launches[k]
+        totals[1][k] += calls[k]
+
+
+def _decode_on_card(path, recon):
+    """The port's Decoder on the card: every shown frame equals ``recon``
+    (display order); returns (md5, ms per coded frame)."""
+    from svt_av1_tpu_torch.api import Decoder
+    from svt_av1_tpu_torch.io import IvfReader
+
+    dec = Decoder()                         # the default device: CUDA
+    t0 = time.perf_counter()
+    shown = [g for g in (dec.decode_frame(p)
+                         for p, _ in IvfReader(str(path))) if g is not None]
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3 / dec.frames_decoded
+    assert len(shown) == len(recon)
+    for d, g in enumerate(shown):
+        for p in range(3):
+            assert np.array_equal(g[p], recon[d][p]), (d, p)
+    return dec.md5.hexdigest(), ms
+
+
+def mctf_phase(counters, tmp):
+    """The JAX CLI's default configuration (RANDOM_ACCESS structure,
+    intra_period_length -2, preset 8, tf_level 2: every picture a key
+    frame that MCTF filters against the next buffered one) on N_FRAMES
+    frames of the moving clip, with get_recon, counts set to 0 just
+    before and read just after.  Returns (launches, calls, results)."""
+    from svt_av1_tpu_torch.config import EncoderConfig
+
+    frames = synth_clip(WIDTH, HEIGHT, SURFACE_FRAMES["all-intra MCTF"])
+    cfg = EncoderConfig(source_width=WIDTH, source_height=HEIGHT, qp=QP,
+                        enc_mode=8, intra_period_length=-2,
+                        recon_enabled=True)
+    path = Path(tmp) / "ai_mctf.ivf"
+    print("the default all-intra configuration (MCTF):")
+    launches, wall, enc, scores = run_encode(counters, frames, cfg, path)
+    _, calls = read_counts(counters)
+    print("the default all-intra configuration: launches",
+          json.dumps(launches))
+    missing = [k for k in SURFACE_KERNELS["all-intra MCTF"]
+               if not launches[k]]
+    assert not missing, f"all-intra MCTF: kernels not launched: {missing}"
+    assert enc.pd.gop > 1 and enc.pd.key_interval == 1 \
+        and enc.sig.tf_level == 2
+    assert all(f[0] == 0 for f in stream_features(path))
+    rep = enc.perf_report()
+    assert rep["temporal_filter"]["ms_per_frame"] > 0
+    for d in range(len(frames)):
+        assert enc.get_recon(d) is enc.recon_by_display[d]
+    print(f"get_recon: {len(frames)} pictures, each the encoder's "
+          f"recon_by_display entry")
+    return launches, calls, dict(fps=len(frames) / wall,
+                                 md5=stream_md5(path), psnr=scores)
+
+
+def _superres_job(counters, totals, tmp):
+    """All-intra preset 8 at superres_denom 9 and 16: frames coded at the
+    downscaled width (1707 and 960 of 1920), upscaled in the loop; PSNR in
+    the upscaled domain; each stream decoded on the card to its recon."""
+    from svt_av1_tpu_torch.config import EncoderConfig, PredStructure
+
+    frames = synth_clip(WIDTH, HEIGHT, SURFACE_FRAMES["superres"])
+    out = dict(launches={k: 0 for k in counters}, md5={}, psnr={})
+    for denom in SUPERRES_DENOMS:
+        cfg = EncoderConfig(source_width=WIDTH, source_height=HEIGHT,
+                            qp=QP, enc_mode=8, intra_period_length=0,
+                            pred_structure=PredStructure.LOW_DELAY_P,
+                            superres_mode=1, superres_denom=denom)
+        path = Path(tmp) / f"superres{denom}.ivf"
+        print(f"superres {denom}/8:")
+        launches, _, enc, scores = run_encode(counters, frames, cfg, path)
+        _count(counters, totals)
+        for k in counters:
+            out["launches"][k] += launches[k]
+        params = stream_frame_params(path)
+        widths = superres_widths(path)
+        print(f"superres {denom}/8: coded widths {widths}, upscaled "
+              f"{WIDTH}; launches: {json.dumps(launches)}")
+        assert all(w < WIDTH for w, _ in widths), widths
+        assert all(d == denom for _, d in widths) and len(params) == 2
+        md5, ms = _decode_on_card(path, [enc.recon_by_display[d]
+                                         for d in range(len(frames))])
+        print(f"superres {denom}/8: decoded on the card to the recon, md5 "
+              f"{md5}, {ms:.3f} ms per frame")
+        out["md5"][denom], out["psnr"][denom] = stream_md5(path), scores
+    return out
+
+
+def superres_widths(path):
+    """(coded width, superres denominator) per frame of the IVF."""
+    from svt_av1_tpu_torch.bitstream.bits import BitReader
+    from svt_av1_tpu_torch.bitstream.headers import (iter_obus,
+                                                     parse_frame_header,
+                                                     parse_sequence_header)
+    from svt_av1_tpu_torch.constants import ObuType
+    from svt_av1_tpu_torch.io import IvfReader
+
+    seq, out = None, []
+    for pkt, _ in IvfReader(str(path)):
+        for obu_type, payload in iter_obus(pkt):
+            if obu_type == ObuType.OBU_SEQUENCE_HEADER:
+                seq = parse_sequence_header(payload)
+            elif obu_type == ObuType.OBU_FRAME:
+                fh = parse_frame_header(BitReader(payload), seq)
+                out.append((fh.frame_width, fh.superres_denom))
+    return out
+
+
+def _film_grain_job(counters, totals, tmp):
+    """Low-delay P preset 8 with film_grain_denoise_strength 8: every frame
+    header carries grain parameters with apply_grain; the port's Decoder
+    on the card and on the CPU give equal md5s with the grain applied,
+    and the card's pictures before the grain equal the encoder's recon."""
+    from svt_av1_tpu_torch.api import Decoder
+    from svt_av1_tpu_torch.io import IvfReader
+
+    frames = synth_clip(WIDTH, HEIGHT, SURFACE_FRAMES["film grain"])
+    cfg = preset_config(8, WIDTH, HEIGHT, "ld", 8,
+                        film_grain_denoise_strength=8)
+    path = Path(tmp) / "grain.ivf"
+    launches, wall, enc, scores = run_encode(counters, frames, cfg, path)
+    _count(counters, totals)
+    md5s, before = {}, []
+    for device in ("cuda", "cpu"):
+        dec = Decoder(device)
+        if device == "cuda":
+            output = dec._output
+
+            def recorded(planes, film_grain=None):
+                before.append((planes, film_grain))
+                return output(planes, film_grain)
+
+            dec._output = recorded
+        t0 = time.perf_counter()
+        for pkt, _ in IvfReader(str(path)):
+            dec.decode_frame(pkt)
+        md5s[device] = (dec.md5.hexdigest(),
+                        (time.perf_counter() - t0) / dec.frames_decoded)
+    assert len(before) == len(frames)
+    for d, (planes, grain) in enumerate(before):
+        assert grain is not None and grain.apply_grain, d
+        for p in range(3):
+            assert np.array_equal(planes[p], enc.recon_by_display[d][p])
+    print(f"film grain: every frame carries grain parameters with "
+          f"apply_grain (seeds {[g.grain_seed for _, g in before]}); "
+          f"decoded md5 with the grain, card {md5s['cuda'][0]} "
+          f"({md5s['cuda'][1]:.3f} s a frame), CPU {md5s['cpu'][0]} "
+          f"({md5s['cpu'][1]:.3f} s a frame)")
+    assert md5s["cuda"][0] == md5s["cpu"][0]
+    return dict(launches=launches, fps=len(frames) / wall,
+                md5=stream_md5(path), psnr=scores)
+
+
+def _two_pass_job(counters, totals, tmp):
+    """Both passes through ``python -m svt_av1_tpu_torch.app`` (random
+    access, --keyint -1) on a 1080p y4m with a scene cut at SURFACE_CUT:
+    the second pass must code a key frame there."""
+    from fractions import Fraction
+
+    from svt_av1_tpu_torch.io.y4m import VideoInfo, Y4MWriter
+
+    n = SURFACE_FRAMES["two-pass"]
+    y4m, ivf = Path(tmp) / "cut.y4m", Path(tmp) / "two_pass.ivf"
+    w = Y4MWriter(str(y4m), VideoInfo(WIDTH, HEIGHT, Fraction(30)))
+    for f in cut_clip(WIDTH, HEIGHT, n, SURFACE_CUT):
+        w.write(f)
+    w.close()
+    root = Path(__file__).resolve().parent
+    env = dict(os.environ, PYTHONPATH=str(root))
+    for p in (1, 2):
+        t0 = time.perf_counter()
+        r = subprocess.run(
+            [sys.executable, "-m", "svt_av1_tpu_torch.app", "enc", "-i",
+             str(y4m), "-b", str(ivf), "-q", str(QP), "--keyint", "-1",
+             "--pass", str(p)], cwd=root, env=env, capture_output=True,
+            text=True, timeout=600)
+        assert r.returncode == 0, r.stderr[-3000:]
+        print(f"two-pass: pass {p} in {time.perf_counter() - t0:.3f} s: "
+              f"{r.stdout.strip().splitlines()[-1]}")
+    heads = [h for h in stream_headers(ivf) if not h["show_existing"]]
+    keys = sorted(h["display"] for h in heads if h["type"] == 0)
+    print(f"two-pass: key frames at displays {keys} of {n}")
+    assert sorted(h["display"] for h in heads) == list(range(n))
+    assert keys == [0, SURFACE_CUT], keys
+    return dict(launches={k: 0 for k in counters}, md5=stream_md5(ivf))
+
+
+def surface_job(name):
+    """One surface job in a worker process, its printed lines captured;
+    returns its results and the worker's launches and calls of the
+    in-process encodes."""
+    import contextlib
+    import io
+
+    sys.path.insert(0, str(Path(__file__).resolve().parent))
+    counters = kernel_counters()
+    totals = ({k: 0 for k in counters}, {k: 0 for k in counters})
+    buf = io.StringIO()
+    run = {"superres": _superres_job, "film grain": _film_grain_job,
+           "two-pass": _two_pass_job}[name]
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf), tempfile.TemporaryDirectory(
+            dir=os.environ.get("TMPDIR") or tempfile.gettempdir()) as tmp:
+        out = run(counters, totals, tmp)
+    out.update(name=name, log=buf.getvalue(), wall_s=time.perf_counter() - t0,
+               all_launches=totals[0], all_calls=totals[1])
+    return out
+
+
+def start_workers():
+    """The worker pool of the presets and surface phase, at most one
+    process a core, started right after the build with the EARLY_JOBS
+    longest preset jobs (host walks of minutes on one core each), so that
+    they run beside the earlier phases.  Returns (pool, their results)."""
     import multiprocessing
 
+    pool = multiprocessing.get_context("spawn").Pool(
+        min(os.cpu_count() or 8, 8))
+    early = {spec[0]: pool.apply_async(preset_job, (spec,))
+             for spec in PRESET_JOBS[:EARLY_JOBS]}
+    early.update({("cpu", spec[0]): pool.apply_async(cpu_stream_job, (spec,))
+                  for spec in PRESET_JOBS[:EARLY_JOBS] if spec[8]})
+    return pool, early
+
+
+def presets_phase(pool, early):
+    """The rest of PRESET_JOBS and the surface jobs in ``pool`` (each job's
+    counts are its own process's), the longest first, then every result,
+    ``early`` included; the pool is closed.  Every preset job's kernels
+    must have launched, its PSNR clear the floor, its stream decode on
+    the card to its recon and, where coded on the CPU too, equal the
+    CPU's stream.  The preset streams at 6 and below must carry
+    cdef_bits > 0 and loop restoration in at least one frame, those at 4
+    too; the preset-4 key frame TX_MODE_SELECT, cdef_bits > 0 and
+    filter-intra blocks; the preset-4 random-access stream the tools its
+    CPU test finds.  Returns (preset results by job name, surface results
+    by job name)."""
     t0 = time.perf_counter()
-    ctx = multiprocessing.get_context("spawn")
-    with concurrent.futures.ProcessPoolExecutor(
-            max_workers=len(PRESET_JOBS), mp_context=ctx) as pool:
-        results = list(pool.map(preset_job, PRESET_JOBS))
-    print(f"presets phase: {len(PRESET_JOBS)} jobs in "
-          f"{time.perf_counter() - t0:.3f} s wall")
+    # the two 1080p preset jobs, then the surface jobs, then the rest and
+    # the CPU encodes of the jobs coded on the CPU too
+    jobs = dict(early)
+    for spec in PRESET_JOBS[EARLY_JOBS:EARLY_JOBS + 2]:
+        jobs[spec[0]] = pool.apply_async(preset_job, (spec,))
+    surface = {name: pool.apply_async(surface_job, (name,))
+               for name in SURFACE_JOBS}
+    for spec in PRESET_JOBS[EARLY_JOBS + 2:]:
+        jobs[spec[0]] = pool.apply_async(preset_job, (spec,))
+    for spec in PRESET_JOBS[EARLY_JOBS:]:
+        if spec[8]:
+            jobs[("cpu", spec[0])] = pool.apply_async(cpu_stream_job,
+                                                      (spec,))
+    surface = {name: f.get() for name, f in surface.items()}
+    jobs = {k: f.get() for k, f in jobs.items()}
+    pool.close()
+    pool.join()
+    results = []
+    for spec in PRESET_JOBS:
+        r = jobs[spec[0]]
+        if spec[8]:
+            r["cpu_identical"] = jobs[("cpu", spec[0])] == r["md5"]
+        results.append(r)
+    print(f"presets and surface phase: {len(PRESET_JOBS)} preset jobs "
+          f"({EARLY_JOBS} of them started after the build) and "
+          f"{len(surface)} surface jobs, {time.perf_counter() - t0:.3f} s "
+          f"wall after the earlier phases")
+    for name, r in surface.items():
+        print(r["log"], end="")
+        print(f"surface {name}: {r['wall_s']:.3f} s in its worker; "
+              f"launches: {json.dumps(r['launches'])}")
     by_name = {}
-    for (name, preset, w, h, n, structure, bd, _, on_cpu), r in zip(
+    for (name, preset, w, h, n, structure, bd, _, on_cpu, _), r in zip(
             PRESET_JOBS, results):
         by_name[name] = r
         print(f"{name} ({w}x{h}, {n} frames, {bd} bits): {r['wall_s']:.3f} s, "
@@ -2396,25 +2930,39 @@ def presets_phase():
         print(f"{name}: stage ms/frame (host wall clock):",
               json.dumps(r["stages"]))
         print(f"{name}: per coded frame (type, cdef_bits, lr types, gm "
-              f"types):", json.dumps(r["features"]))
+              f"types, TX_MODE_SELECT):", json.dumps(r["features"]))
         print(f"{name}: launches:", json.dumps(r["launches"]))
         print(f"{name}: decoded on the card to the recon, md5 "
               f"{r['decode_md5']}, {r['decode_ms_per_frame']:.3f} ms per "
-              f"coded frame")
+              f"coded frame; block tools: {json.dumps(r['tools'])}")
         assert min(r["psnr"]) > PSNR_FLOOR_DB, (name, r["psnr"])
         need = PRESET_KERNELS[preset] + (PRESET_RA_KERNELS
                                          if structure == "ra" else ())
         missing = [k for k in need if r["launches"][k] == 0]
         assert not missing, f"{name}: kernels not launched: {missing}"
+        if preset <= 4:
+            assert all(f[4] for f in r["features"]), name
         if on_cpu:
             print(f"{name}: card stream identical to the CPU's: "
                   f"{r['cpu_identical']}")
             assert r["cpu_identical"], name
-    for what, key in (("cdef_bits > 0", 1), ("loop restoration", 2)):
-        assert any(any(f[key]) if key == 2 else f[key] > 0
-                   for r in results if r["preset"] <= 6
-                   for f in r["features"]), f"no frame carries {what}"
-    return by_name
+    for top in (6, 4):
+        for what, key in (("cdef_bits > 0", 1), ("loop restoration", 2)):
+            assert any(any(f[key]) if key == 2 else f[key] > 0
+                       for r in results if r["preset"] <= top
+                       for f in r["features"]), \
+                f"no frame at presets <= {top} carries {what}"
+    # the 1080p key frame's loop-restoration search runs (its planes may
+    # keep RESTORE_NONE: the preset-4 streams above must carry some)
+    key4 = by_name["preset 4 key frame 1920x544"]
+    assert key4["features"][0][1] > 0 and key4["stages"]["lr_search"] > 0
+    assert key4["tools"].get("filter_intra"), key4["tools"]
+    ra4 = by_name["preset 4 random access 128x96"]["tools"]
+    assert all(ra4.get(k) for k in P4_RA_TOOLS), ra4
+    for name, r in surface.items():
+        missing = [k for k in SURFACE_KERNELS[name] if not r["launches"][k]]
+        assert not missing, f"{name}: kernels not launched: {missing}"
+    return by_name, surface
 
 
 # --------------------------------------------------------------------------
@@ -2511,6 +3059,7 @@ RA_KERNELS = IPP_KERNELS + ("compound_joint", "block_var16")
 
 
 def main() -> int:
+    script_t0 = time.perf_counter()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
@@ -2531,6 +3080,9 @@ def main() -> int:
         build.load_c_extension(name)
     print(f"build: CUDA kernels {json.dumps(took)} s; all builds "
           f"{time.perf_counter() - t0:.3f} s")
+    # the longest preset jobs run beside the phases below (the pool's
+    # workers end with the script, on a failure too)
+    pool, early = start_workers()
     # registers, spills (bytes per thread) and shared memory (bytes per
     # block) of the kernels redesigned last
     for name in ("me_coarse", "deblock"):
@@ -2545,6 +3097,10 @@ def main() -> int:
     ra_frames = synth_clip(WIDTH, HEIGHT, RA_FRAMES)
     ipp_frames = ra_frames[:N_FRAMES]
     kres = kernels_phase(dev, frames[0])
+    # K1, K3 and K4's frame-level forms at the widths super-resolution
+    # codes a 1080p frame at
+    for denom in SUPERRES_DENOMS:
+        superres_kernel_checks(dev, frames[0], denom)
     # the 10-bit all-intra clip: synth_clip scaled to 10 bits
     frames10 = synth_clip(WIDTH, HEIGHT, half, bd=10) + synth_clip(
         WIDTH, HEIGHT, N_FRAMES - half, tex_sigma=SMOOTH_SIGMA, bd=10)
@@ -2604,7 +3160,8 @@ def main() -> int:
              *tenbit_ra_card, 7),
             (f"{WIDTH}x{HEIGHT} 10-bit all-intra, first temporal unit",
              tb_path, tb_recon, 1)])
-    presets = presets_phase()
+        mctf_launches, mctf_calls, _ = mctf_phase(counters, tmp)
+    presets, surface = presets_phase(pool, early)
     print("10-bit path launches (the 1080p all-intra encode + the 10-bit "
           "decodes):",
           json.dumps({k: tb_launches[k] + tb_dec_launches[k]
@@ -2613,11 +3170,24 @@ def main() -> int:
           "10-bit decodes):", json.dumps({k: tb_calls[k] + tb_dec_calls[k]
                                    for k in counters}))
     # the kernels line counts the launches of every main path: the
-    # random-access encode, the two stripe dryruns and the decodes
+    # random-access encode, the two stripe dryruns, the decodes, the
+    # all-intra MCTF encode, the surface jobs' encodes and the preset-4
+    # and preset-2 jobs' encodes (the per-fb rows count every 8-bit
+    # preset job)
+    new_jobs = [presets[spec[0]] for spec in PRESET_JOBS if spec[1] <= 4]
+    new_launches = {k: sum(r["all_launches"][k] for r in surface.values())
+                    + sum(r["launches"][k] for r in new_jobs)
+                    + mctf_launches[k] for k in counters}
+    new_calls = {k: sum(r["all_calls"][k] for r in surface.values())
+                 + sum(r["calls"][k] for r in new_jobs) + mctf_calls[k]
+                 for k in counters}
+    print("launches on the all-intra MCTF encode, the surface jobs' "
+          "encodes and the preset-4 and preset-2 jobs:",
+          json.dumps(new_launches))
     launches = {k: ra_launches[k] + stripe_launches[k] + dec_launches[k]
-                for k in counters}
+                + new_launches[k] for k in counters}
     calls = {k: ra_calls[k] + stripe_calls[k] + dec_calls[k]
-             for k in counters}
+             + new_calls[k] for k in counters}
     if "--trace" in sys.argv:
         trace_phase(frames, ipp_frames, ra_frames,
                     sys.argv[sys.argv.index("--trace") + 1])
@@ -2670,7 +3240,8 @@ def main() -> int:
               f"launches: {launches[name]} on the main paths = "
               f"{ra_launches[name]} on the {RA_FRAMES}-frame random-access "
               f"encode + {stripe_launches[name]} on the stripe dryruns + "
-              f"{dec_launches[name]} on the decodes; {ipp_launches[name]} on "
+              f"{dec_launches[name]} on the decodes + {new_launches[name]} "
+              f"on the surface and preset-4/2 jobs; {ipp_launches[name]} on "
               f"the {N_FRAMES}-frame low-delay P encode, {ai_launches[name]} "
               f"on the all-intra encode")
     # the 16-bit forms: their launches on the 10-bit encode that runs
@@ -2761,6 +3332,7 @@ def main() -> int:
               f"{r['bound'][0]:.5f} ms ({r['bound'][1]})")
     print(f"stripe_step: {stripe_launches['stripe_step']} steps on the "
           f"stripe dryruns")
+    print(f"chip_smoke.py wall time: {time.perf_counter() - script_t0:.3f} s")
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

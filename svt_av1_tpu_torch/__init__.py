@@ -7,11 +7,14 @@ the device programs run as hand-written CUDA kernels for Hopper
 (kernels/csrc/), each beside a plain PyTorch version that CPU tensors
 take.
 
-Public names (from ``api``): ``Encoder`` and ``encode_ivf`` (preset 8,
-8-bit 4:2:0: all-intra, low-delay P and random access; NotImplementedError
-outside them), ``Decoder`` and ``decode_ivf`` (host tile walk, deblocking
-and CDEF on the device), ``ApiError`` and ``ErrorCode``.  The stripe step
-of a frame's device programs is ``parallel.dryrun.dryrun_stripes``.
+Public names (from ``api``): ``Encoder`` and ``encode_ivf`` (every
+configuration the configuration check accepts: presets -2 to 8, 8 and 10
+bits, 4:2:0, all-intra, low-delay P and random access, super-resolution,
+film grain, two-pass statistics, a caller's decider), ``Decoder`` and
+``decode_ivf`` (host tile walk, deblocking and CDEF on the device),
+``ApiError`` and ``ErrorCode``.  The command-line app is ``python -m
+svt_av1_tpu_torch.app``; the stripe step of a frame's device programs is
+``parallel.dryrun.dryrun_stripes``.
 """
 
 __version__ = "0.1.0"

@@ -1,24 +1,24 @@
 """Public API of the port (counterpart of svt_av1_tpu/api.py).
 
-``Encoder(cfg, device=None)`` accepts frames and emits OBU packets;
-``Decoder(device=None)`` maps OBU payloads to pictures, and ``encode_ivf``
-/ ``decode_ivf`` wrap both around IVF files.  Both run on CUDA unless the
-caller asks for another device.  Orchestration mirrors the reference API
-at frame granularity: picture decision, DPB bookkeeping, packetization.
+``Encoder(cfg, decider=None, two_pass_stats=None, device=None)`` accepts
+frames and emits OBU packets; ``Decoder(device=None)`` maps OBU payloads
+to pictures, and ``encode_ivf`` / ``decode_ivf`` wrap both around IVF
+files.  Both run on CUDA unless the caller asks for another device.
+Orchestration mirrors the reference API at frame granularity: picture
+decision (mini-GOPs, scene cuts from two-pass statistics), DPB
+bookkeeping, packetization.
 
-The encoder covers presets 8 to 5, 8- and 10-bit 4:2:0, in three
-configurations: all-intra, low-delay P (IPP: one key frame, then P frames
-predicted from past pictures) and random access (dyadic mini-GOPs with
-show_existing frames, MCTF on key and base-layer pictures, a TPL
-lookahead per mini-GOP feeding the qindex ladder, and averaged compound
-prediction).  Preset 8 plans every frame on the device; preset 7 plans
-key frames on the device and walks inter frames per block on the host;
-presets 6 and 5 take the host RD walk, per-64x64 CDEF presets (searched
-and applied on the device), loop restoration with its second entropy
-pass and, at 8 bits, a global-motion fit (and, at preset 5, warped and
-OBMC motion).  Every other configuration raises NotImplementedError
-instead of running host code in place of device programs that are not
-ported yet.
+The encoder takes every configuration the configuration check accepts:
+presets -2 to 8 at 8 and 10 bits, 4:2:0, all-intra (with MCTF under the
+random-access structure), low-delay P and random access, super-resolution
+(all-intra), film grain and two-pass rate control.  Preset 8 plans every
+frame on the device; preset 7 plans key frames on the device and walks
+inter frames per block on the host; presets 6 and 5 take the host RD
+walk, presets 4 and below the host partition RD walk (var-tx, extended
+partitions, filter intra, masked compound, inter-intra).  The frame
+filters run on the device (the deblocking and CDEF kernels), MCTF and
+TPL their motion search; loop restoration, super-resolution and the film
+grain fit run on the host, as in the JAX package.
 
 The decoder walks the tiles on the host (the conformant walker of
 ``FrameCodec``) and runs the normative deblocking and CDEF on the device
@@ -41,12 +41,12 @@ from .bitstream.headers import (FrameHeader, GM_IDENTITY_MAT,
                                 temporal_delimiter_obu, wrap_obu,
                                 write_frame_header, write_sequence_header,
                                 write_show_existing_header)
-from .config import ColorFormat, EncoderConfig, PredStructure, \
-    RateControlMode, derive_signals
+from .config import EncoderConfig, PredStructure, RateControlMode, \
+    derive_signals, validate_config
 from .constants import FrameType, ObuType
 from .device import resolve_device
 from .entropy.tables import FrameCdfs
-from .pipeline.frame_codec import FrameCodec
+from .pipeline.frame_codec import FrameCodec, ModeDecider
 
 LAST, LAST2, LAST3, GOLDEN, BWDREF, ALTREF2, ALTREF = range(1, 8)
 # FrameCodec.search_refs' preference order of the named references
@@ -146,9 +146,10 @@ class PictureDecision:
             self.key_interval = 1        # all-intra (auto default)
         elif period >= 0:
             self.key_interval = period + 1
+        self.scene_changes = set()       # displays forced to key (SCD)
 
     def is_key(self, display: int) -> bool:
-        if display == 0:
+        if display == 0 or display in self.scene_changes:
             return True
         return self.key_interval is not None and \
             self.key_interval > 0 and display % self.key_interval == 0
@@ -158,11 +159,14 @@ class PictureDecision:
         order), return (jobs, consumed) or (None, 0) to wait for more."""
         if self.is_key(start):
             return [CodeJob("code", start, 0, is_key=True)], 1
-        # GOP span is bounded by the next key frame
+        # GOP span is bounded by the next key frame (periodic or SCD)
         g = self.gop
         if self.key_interval:
             next_key = ((start // self.key_interval) + 1) * self.key_interval
             g = min(g, next_key - start)
+        for sc in self.scene_changes:
+            if start < sc:
+                g = min(g, sc - start)
         if n_available < g:
             if not eos or n_available <= 0:
                 return None, 0
@@ -235,29 +239,6 @@ def _named_ref_displays(display: int, displays: set, anchor: int):
     return named
 
 
-def check_slice(cfg: EncoderConfig, sig, pd: PictureDecision) -> None:
-    """Raise NotImplementedError outside the ported slice."""
-    why = None
-    if not 5 <= cfg.enc_mode <= 8:
-        why = f"enc_mode {cfg.enc_mode} (presets 5 to 8 are ported)"
-    elif cfg.encoder_bit_depth not in (8, 10):
-        why = f"bit depth {cfg.encoder_bit_depth} (8 and 10 are ported)"
-    elif cfg.encoder_color_format != ColorFormat.YUV420:
-        why = "chroma formats other than 4:2:0"
-    elif sig.tf_level > 0 and pd.gop > 1 and pd.key_interval == 1:
-        why = ("temporal filtering of all-intra key frames (MCTF); use "
-               "pred_structure=LOW_DELAY_P")
-    elif sig.compound_level >= 2:
-        why = "masked compound prediction (compound_level 2)"
-    elif cfg.film_grain_denoise_strength > 0:
-        why = "film grain synthesis"
-    elif cfg.superres_mode:
-        why = "super-resolution"
-    if why is not None:
-        raise NotImplementedError(f"svt_av1_tpu_torch does not port {why} "
-                                  "yet")
-
-
 # --------------------------------------------------------------------------
 # Encoder
 # --------------------------------------------------------------------------
@@ -265,13 +246,16 @@ def check_slice(cfg: EncoderConfig, sig, pd: PictureDecision) -> None:
 class Encoder:
     """Streaming encoder: send_picture() -> ready packets; flush() ends."""
 
-    def __init__(self, cfg: EncoderConfig, device=None):
+    def __init__(self, cfg: EncoderConfig, decider: ModeDecider | None = None,
+                 two_pass_stats: list | None = None, device=None):
+        # a configuration changed after it was made is checked again
+        validate_config(cfg)
         self.cfg = cfg
         self.device = resolve_device(device)
+        self._decider_arg = decider
         sig = derive_signals(cfg)
         self.sig = sig
         self.pd = PictureDecision(cfg)
-        check_slice(cfg, sig, self.pd)
         from .profiling import LOG, StageTimer
         self.prof = StageTimer()    # per-stage latency (EbTime.c analog)
         LOG.debug("config: %dx%d qp=%d preset=%d keyint=%d device=%s",
@@ -295,15 +279,22 @@ class Encoder:
             enable_interintra_compound=sig.interintra_level > 0,
             enable_intra_edge_filter=True,
             enable_order_hint=self.pd.gop > 1,
-            enable_superres=False,
+            enable_superres=cfg.superres_mode > 0 and cfg.superres_denom > 8,
             enable_cdef=sig.cdef_level > 0 and cfg.qp > 0,
             enable_restoration=bool(sig.enable_restoration) and cfg.qp > 0,
-            film_grain_params_present=False,
+            film_grain_params_present=cfg.film_grain_denoise_strength > 0,
         )
         from .pipeline.rate_control import RateControl
         self.rc = RateControl(cfg, float(cfg.frame_rate),
                               all_intra=self.pd.key_interval == 1)
         self.rc.hierarchical_levels = max(self.pd.gop.bit_length() - 1, 1)
+        if two_pass_stats:
+            from .pipeline.first_pass import (complexity_weights,
+                                              detect_scene_changes)
+            self.rc.weights = complexity_weights(two_pass_stats)
+            if self.pd.key_interval != 1:
+                self.pd.scene_changes = set(
+                    detect_scene_changes(two_pass_stats))
         self._buffer = []            # pending source frames (display order)
         self._me_src = {}            # display -> buf-aligned ME luma on
         #                              the device (open-loop plan refs)
@@ -331,6 +322,17 @@ class Encoder:
                     seq_level_idx=self.seq.seq_level_idx,
                     tier=0,
                     frames_coded=self.frame_count)
+
+    def get_recon(self, display: int):
+        """Reconstructed picture for a display index
+        (svt_av1_enc_get_recon); requires cfg.recon_enabled."""
+        if not self.cfg.recon_enabled:
+            raise ApiError(ErrorCode.BAD_PARAMETER, "recon_enabled is off")
+        rec = self.recon_by_display.get(display)
+        if rec is None:
+            raise ApiError(ErrorCode.NO_OUTPUT,
+                           f"display {display} not reconstructed yet")
+        return rec
 
     def send_picture(self, planes) -> list[bytes]:
         self._buffer.append(planes)
@@ -476,21 +478,35 @@ class Encoder:
         self.rc.tpl_group_size = consumed
 
     def _decider(self):
-        """The preset's decider: the host RD walk at presets 5-6, the
+        """The caller's decider, else the preset's: the host partition RD
+        walk at presets 4 and below, the host RD walk at presets 5-6, the
         batched intra plan on the device with the per-block host walk of
         inter frames at preset 7, the device plans of every frame at
         preset 8."""
+        if self._decider_arg is not None:
+            return self._decider_arg
         cfg, sig = self.cfg, self.sig
+        # the intra candidate set follows the derived signals
+        modes = [m for m in range(13)
+                 if (sig.enable_paeth or m != 12)
+                 and (sig.enable_smooth or m not in (9, 10, 11))]
+        uv_modes = [m for m in (0, 1, 2, 9, 12)
+                    if (sig.enable_paeth or m != 12)
+                    and (sig.enable_smooth or m != 9)]
+        if cfg.enc_mode <= 4:
+            from .pipeline.rdo import PartitionRdoDecider
+
+            return PartitionRdoDecider(
+                min_rd_bsize=8 if cfg.enc_mode <= 2 else 16,
+                max_rd_bsize=64,
+                ext_shapes=cfg.enc_mode <= 3,
+                n_full_rd=sig.md_stage_nics[2],
+                modes=tuple(modes), uv_modes=tuple(uv_modes),
+                try_cfl=sig.enable_cfl,
+                try_angle_delta=sig.intra_angle_delta)
         if cfg.enc_mode <= 6:
             from .pipeline.rdo import RdoDecider
 
-            # the intra candidate set follows the derived signals
-            modes = [m for m in range(13)
-                     if (sig.enable_paeth or m != 12)
-                     and (sig.enable_smooth or m not in (9, 10, 11))]
-            uv_modes = [m for m in (0, 1, 2, 9, 12)
-                        if (sig.enable_paeth or m != 12)
-                        and (sig.enable_smooth or m != 9)]
             return RdoDecider(n_full_rd=sig.md_stage_nics[2],
                               modes=tuple(modes), uv_modes=tuple(uv_modes),
                               try_cfl=sig.enable_cfl,
@@ -638,7 +654,10 @@ class Encoder:
             filter_level=(lvl, lvl),
             filter_level_uv=(lvl, lvl),
             cdef_damping=min(3 + (qindex >> 6), 6),
-            tx_mode_select=False,
+            # TX_MODE_SELECT at the RD presets: intra tx_size syntax on
+            # key frames, recursive txfm_split (var-tx) on inter frames
+            tx_mode_select=self.cfg.enc_mode <= 4
+            and not (bool(self.sig.intrabc_level) and job.is_key),
             is_motion_mode_switchable=not job.is_key
             and self.sig.enable_warped_motion,
             allow_warped_motion=not job.is_key
@@ -647,7 +666,8 @@ class Encoder:
             allow_screen_content_tools=bool(self.sig.palette_level
                                             or self.sig.intrabc_level)
             and job.is_key,
-            allow_intrabc=bool(self.sig.intrabc_level) and job.is_key,
+            allow_intrabc=bool(self.sig.intrabc_level) and job.is_key
+            and self.cfg.superres_mode == 0,
             disable_frame_end_update_cdf=self.cfg.frame_end_cdf_update
             == 0,
         )
@@ -758,6 +778,26 @@ class Encoder:
                 if got is not None:
                     ident = (GM_IDENTITY, GM_IDENTITY_MAT)
                     fh.global_motion = (got,) + (ident,) * 6
+        lr_source = None
+        if self.cfg.superres_mode and self.cfg.superres_denom > 8 \
+                and self.pd.key_interval == 1:
+            # fixed-denominator superres (all-intra: the configuration
+            # check refuses inter GOPs); encode at the downscaled width
+            from .ops.superres import downscale_plane, scaled_dim
+
+            fh.upscaled_width = fh.frame_width
+            fh.superres_denom = int(np.clip(self.cfg.superres_denom, 9, 16))
+            fh.frame_width = scaled_dim(fh.upscaled_width, fh.superres_denom)
+            # the LR search compares in the upscaled domain: keep the
+            # original full-width planes
+            lr_source = [np.asarray(p).astype(np.int32) for p in planes]
+            planes = tuple(
+                downscale_plane(np.asarray(p),
+                                (fh.frame_width + (1 if i else 0))
+                                >> (1 if i else 0))
+                for i, p in enumerate(planes))
+        if self.seq.film_grain_params_present:
+            fh.film_grain = self._estimate_film_grain(job, planes)
         aq_map = None
         if (job.is_key and self.sig.enable_adaptive_quantization
                 and fh.base_q_idx > 40):
@@ -773,6 +813,7 @@ class Encoder:
         if not job.is_key:
             codec.ref_dists = {n: self._rel_dist(named[n], job.display)
                                for n in range(1, 8)}
+        codec.lr_source = lr_source
         codec.rdoq_level = self.sig.rdoq_level
         # fast presets search the reduced CDEF strength subset
         codec.cdef_fast = self.sig.cdef_level <= 2
@@ -936,6 +977,19 @@ class Encoder:
                 codec2.apply_lr()
         return codec2, tile_data
 
+    def _estimate_film_grain(self, job: CodeJob, planes):
+        """Flat-block noise extraction, AR model fit and intensity-binned
+        scaling curve on the host (pipeline/noise_model.py; reference
+        noise_model.c svt_aom_noise_model_update)."""
+        from .pipeline.noise_model import fit_film_grain
+
+        return fit_film_grain(
+            np.asarray(planes[0]),
+            seed=(7391 + 173 * job.display) & 0xFFFF,
+            strength=self.cfg.film_grain_denoise_strength,
+            bd=self.cfg.encoder_bit_depth,
+            u=np.asarray(planes[1]), v=np.asarray(planes[2]))
+
     def _rel_dist(self, a: int, b: int) -> int:
         bits = self.seq.order_hint_bits
         if not self.seq.enable_order_hint:
@@ -951,12 +1005,12 @@ class Encoder:
 
 
 def encode_ivf(frames, cfg: EncoderConfig, path: str,
-               device=None) -> list:
+               decider: ModeDecider | None = None, device=None) -> list:
     """Convenience: encode frames to an IVF file; returns recon frames in
     display order."""
     from .io import IvfWriter
 
-    enc = Encoder(cfg, device)
+    enc = Encoder(cfg, decider, device=device)
     pts = 0
     with IvfWriter(path, cfg.source_width, cfg.source_height,
                    cfg.frame_rate) as w:

@@ -106,7 +106,7 @@ def capture_inter_frame(n: int, width: int, device) -> dict:
         cfg = EncoderConfig(source_width=width, source_height=height,
                             qp=QP, enc_mode=8, intra_period_length=-1,
                             hierarchical_levels=0, super_block_size=64)
-        enc = Encoder(cfg, device)
+        enc = Encoder(cfg, device=device)
         for planes in moving_pair(width, height):
             enc.send_picture(planes)
         enc.flush()
@@ -304,7 +304,7 @@ def gop_half(device) -> dict:
         enc = Encoder(EncoderConfig(source_width=w, source_height=h, qp=QP,
                                     enc_mode=8,
                                     intra_period_length=keyint - 1,
-                                    hierarchical_levels=2), device)
+                                    hierarchical_levels=2), device=device)
         pkts = []
         for f in part:
             pkts += enc.send_picture(f)

@@ -227,19 +227,29 @@ class TorchIntraDecider(ModeDecider):
         fut = TorchIntraDecider._executor.submit(
             self._decide, source_plane, buf_w, buf_h, qindex, lam,
             mode_bits, bd, self.device)
-        self._prefetch[display] = (qindex, fut)
+        self._prefetch[display] = (qindex, fut, source_plane)
 
     def _take_prefetched(self, codec):
+        """The prefetched (maps, device luma) of the codec's frame; the
+        luma is None where the frame codes another source than the one
+        buffered (MCTF filtered it, super-resolution narrowed it): the
+        maps stand, as in the JAX encoder, the filter searches upload the
+        coded source."""
         if not self._prefetch:
             return None
         got = self._prefetch.pop(codec.fh.order_hint, None)
         if got is None:
             return None
-        qindex, fut = got
+        qindex, fut, src = got
         if qindex != codec.fh.base_q_idx:
             fut.cancel()
             return None
-        return fut.result()
+        maps, dev_y = fut.result()
+        h, w = src.shape
+        coded = codec.source[0]
+        if coded.shape[1] < w or not np.array_equal(coded[:h, :w], src):
+            dev_y = None
+        return maps, dev_y
 
     def plan_superblock(self, codec, mi_row, mi_col):
         if codec.fh.frame_type != FrameType.KEY_FRAME:
@@ -270,7 +280,9 @@ class TorchIntraDecider(ModeDecider):
             maps, _ = self._decide(dev_y, codec.buf_w, codec.buf_h,
                                    codec.fh.base_q_idx, lam, mode_bits,
                                    codec.seq.bit_depth, self.device)
-        if codec.dev_source is None:
+        if dev_y is None:
+            codec.device_source()
+        elif codec.dev_source is None:
             # the prefetched luma upload joins this frame's source planes
             codec.dev_source = (dev_y,) + tuple(
                 omd.upload_plane(p, p.shape[1], p.shape[0],

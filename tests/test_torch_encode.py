@@ -177,32 +177,39 @@ def test_closed_loop_plan_decodes(tmp_path, monkeypatch):
 
 
 @pytest.mark.parametrize("kw", [
-    # presets 5-8 are ported; preset 4 takes the partition RD walk
+    # preset 4 takes the partition RD walk
     dict(enc_mode=4),
     dict(film_grain_denoise_strength=10),
     # all-intra key frames under the random-access structure: MCTF of key
-    # frames with the one-picture pipeline is not ported
+    # frames with the one-picture pipeline
     dict(pred_structure=PredStructure.RANDOM_ACCESS),
-    # 10 bits are ported wherever 8 bits are: 10-bit random access with
-    # masked compound still raises, as at 8 bits
+    # 10-bit random access with masked compound
     dict(encoder_bit_depth=10, intra_period_length=33,
          pred_structure=PredStructure.RANDOM_ACCESS, compound_level=2),
-    # loop restoration is ported (presets 5-6); preset 2 is not
+    # loop restoration at preset 2
     dict(enc_mode=2, enable_restoration=1),
-    dict(superres_mode=1),
+    dict(superres_mode=1, superres_denom=12),
     dict(intra_period_length=-1, pred_structure=PredStructure.RANDOM_ACCESS,
          compound_level=2),
-    # and 10-bit random access at a preset below the ported ones
+    # and 10-bit random access at preset 4
     dict(encoder_bit_depth=10, intra_period_length=-1,
          pred_structure=PredStructure.RANDOM_ACCESS, enc_mode=4),
 ], ids=["preset6", "film_grain", "random_access", "10bit", "restoration",
         "superres", "masked_compound", "10bit_random_access"])
 def test_unported_configuration_raises(kw):
-    cfg = EncoderConfig(**{**dict(source_width=64, source_height=64,
-                                  pred_structure=PredStructure.LOW_DELAY_P,
-                                  **SLICE), **kw})
-    with pytest.raises(NotImplementedError):
-        api.Encoder(cfg, device="cpu")
+    """The configurations earlier slices of the port refused now raise
+    nothing: the encoder takes them with the JAX encoder's sequence
+    header, decider and picture structure."""
+    kw = {**dict(source_width=64, source_height=64,
+                 pred_structure=PredStructure.LOW_DELAY_P, **SLICE), **kw}
+    enc = api.Encoder(EncoderConfig(**kw), device="cpu")
+    ref_kw = dict(kw, pred_structure=RefPred[kw["pred_structure"].name])
+    ref = ref_api.Encoder(RefConfig(**ref_kw))
+    assert enc.stream_header() == ref.stream_header()
+    assert (enc.pd.gop, enc.pd.key_interval) == (ref.pd.gop,
+                                                 ref.pd.key_interval)
+    assert type(enc._decider()).__name__.replace("Torch", "Batched") \
+        == type(ref._decider()).__name__
 
 
 @pytest.mark.parametrize("kw", [
@@ -224,14 +231,14 @@ def test_tenbit_random_access_is_admitted(kw):
 
 def test_twelve_bit_raises():
     """12 bits: the configuration refuses them, and so does the encoder's
-    slice check for a configuration that got past that."""
+    own check of a configuration changed after it was made."""
     kw = dict(source_width=64, source_height=64,
               pred_structure=PredStructure.LOW_DELAY_P, **SLICE)
     with pytest.raises(ConfigError):
         EncoderConfig(encoder_bit_depth=12, **kw)
     cfg = EncoderConfig(**kw)
     object.__setattr__(cfg, "encoder_bit_depth", 12)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ConfigError):
         api.Encoder(cfg, device="cpu")
 
 

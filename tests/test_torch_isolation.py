@@ -66,6 +66,13 @@ p6 += enc6.flush()
 assert len(p6) == 2
 from svt_av1_tpu_torch.parallel import stripes
 assert stripes.LocalStripes(2).from_above([1, 2]) == [None, 1]
+# the command-line app and the host modules of film grain, two-pass and
+# the metrics
+from svt_av1_tpu_torch import app
+from svt_av1_tpu_torch.pipeline import first_pass, noise_model
+from svt_av1_tpu_torch.utils import metrics
+assert app.main and first_pass.analyze_frame and metrics.frame_psnr
+assert noise_model.fit_film_grain(y[:128, :192], seed=1) is not None
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "svt_av1_tpu"))
 print("BAD", bad)
@@ -87,6 +94,9 @@ def test_the_scan_covers_every_package_of_the_port():
     assert {"parallel", "pipeline", "ops", "kernels"} <= scanned
     assert PORT / "parallel" / "stripes.py" in _sources()
     assert PORT / "pipeline" / "global_motion.py" in _sources()
+    assert {PORT / "app.py", PORT / "pipeline" / "noise_model.py",
+            PORT / "pipeline" / "first_pass.py",
+            PORT / "utils" / "metrics.py"} <= set(_sources())
 
 
 def test_port_encode_loads_no_jax_module():

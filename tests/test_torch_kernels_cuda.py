@@ -2393,3 +2393,22 @@ def test_k4_apply_multi_grid_at_the_by_value_capacity(dev, size, form):
                                        fw, fh, 8)
     for g, w in zip(got, want):
         assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("denom", [9, 16])
+def test_k1_k3_k4_at_superres_widths_match_plain(dev, denom):
+    """K1, K3 and K4's frame-level search (fast and full grids) and apply
+    at the widths super-resolution codes a 1080p frame at: 1707 of 1920
+    in a 1728-wide buffer (denominator 9), 960 (16); luma and chroma, one
+    launch a call, K3 and K4 exactly equal to their plain versions, K1's
+    modes equal and costs within rtol 1e-5 on every block of every
+    shape (chip_smoke.superres_kernel_checks)."""
+    import chip_smoke
+
+    frame = chip_smoke.synth_clip(1920, 1080, 1)[0]
+    planes, fw, aw, ah, bw, bh = chip_smoke.superres_planes(frame, denom)
+    assert (fw, bw) == ((1707, 1728) if denom == 9 else (960, 960))
+    assert planes[1].shape == (bh // 2, bw // 2)
+    out = chip_smoke.superres_kernel_checks(dev, frame, denom)
+    assert set(out) == {"intra_decision", "cdef_direction", "cdef_search",
+                        "cdef_apply"}

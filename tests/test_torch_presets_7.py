@@ -33,16 +33,16 @@ RA = dict(intra_period_length=-1, hierarchical_levels=2)
 
 
 def _configs(w, h, kw):
-    """(port config, JAX config) of the same settings at qp 40;
-    ``low_delay`` picks LOW_DELAY_P."""
+    """(port config, JAX config) of the same settings, at qp 40 unless
+    ``kw`` names another; ``low_delay`` picks LOW_DELAY_P."""
     kw = dict(kw)
     low_delay = kw.pop("low_delay", False)
+    kw.setdefault("qp", 40)
     out = []
     for cls, pred in ((EncoderConfig, PredStructure),
                       (RefConfig, RefPred)):
         extra = dict(pred_structure=pred.LOW_DELAY_P) if low_delay else {}
-        out.append(cls(source_width=w, source_height=h, qp=40, **kw,
-                       **extra))
+        out.append(cls(source_width=w, source_height=h, **kw, **extra))
     return out
 
 

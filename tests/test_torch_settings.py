@@ -1,7 +1,7 @@
-"""Preset-8 settings that the port's check_slice admits beyond the three
-slices' defaults, each coded on the CPU by the port (plain versions of
-the kernels) and by the JAX package's device path (SVT_TPU_DEVICE=1, its
-jitted programs on the CPU backend): the streams must be byte-identical.
+"""Preset-8 settings beyond the three configurations' defaults, each
+coded on the CPU by the port (plain versions of the kernels) and by the
+JAX package's device path (SVT_TPU_DEVICE=1, its jitted programs on the
+CPU backend): the streams must be byte-identical.
 
 Lossless, screen content (palette and IntraBC) and VBR run in the quick
 tier; the other seven (odd sizes, 64x64 superblocks, two tile columns,
