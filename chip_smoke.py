@@ -187,6 +187,31 @@ preset-4 random-access stream the tools its CPU test finds.  The
 kernels line adds the launches of these paths; the script prints its
 wall time before that line.
 
+The configuration surface: the same pool runs SETTINGS_JOBS, preset 8
+at the full width under each setting the JAX encoder reads: 64x64
+superblocks (random access over 9 frames, hierarchical_levels 3, at 8
+and 10 bits), CVBR with vbv_bufsize and a qp range, fixed qindex offsets
+with a key-frame offset, MCTF's reach (altref_nframes, look_ahead_distance
+at tf_level 1), all random access over 9 frames (K1-K10; CVBR runs no
+TPL, so no K10); two tile
+columns by one tile row (log2), 1918x1078 at 10 bits, warped motion and
+OBMC, VBR and every tool toggle off, low-delay P (K1-K8); screen content
+(1920x544), adaptive quantization, lossless (qp 0: K1 and no K2-K4) and
+the loop filters off (K1 and no K2-K4), all-intra.  Each job is also
+coded at the size the CPU tests hold against the JAX package, on the
+card and with the plain versions on the CPU, where the streams must be
+identical; PRESET_JOBS adds preset 3 and preset -2 at 128x96x2
+low-delay P, and preset -2's stream must equal preset 2's.  Every
+settings job must launch its kernels (and not the ones it must not), clear
+the PSNR floor, carry its setting in the stream at both sizes
+(stream_features: the superblock size, the tile counts, base_q_idx per
+frame, the screen-content, IntraBC, segmentation, CDF-update and motion
+mode flags; block_tools: palette, IntraBC, OBMC and warped blocks; the
+MCTF neighbours per filtered picture) and decode on the card to its
+recon (the first DECODE_TUS temporal units at the full width; the
+lossless stream, the JAX encoder's and read by no decoder, is not
+decoded).  The kernels line adds the settings jobs' launches.
+
 ``--trace DIR`` adds a phase before the last two lines: encodes under
 torch.profiler (TRACE_FRAMES all-intra frames, TRACE_FRAMES P frames
 after a warm-up, and the second 16-frame mini-GOP of the random-access
@@ -1516,9 +1541,9 @@ def ra_kernels_phase(dev, clip, window, bd=8, results8=None):
 # --------------------------------------------------------------------------
 
 def stream_frame_params(path):
-    """Per frame of the IVF at ``path``: (frame type, deblocking level,
-    CDEF luma strength, CDEF chroma strength), read back from the frame
-    headers."""
+    """Per coded frame of the IVF at ``path``: (frame type, deblocking
+    level, CDEF luma strength, CDEF chroma strength), read back from the
+    frame headers."""
     from svt_av1_tpu_torch.bitstream.bits import BitReader
     from svt_av1_tpu_torch.bitstream.headers import (iter_obus,
                                                      parse_frame_header,
@@ -1533,6 +1558,8 @@ def stream_frame_params(path):
                 seq = parse_sequence_header(payload)
             elif obu_type in (ObuType.OBU_FRAME, ObuType.OBU_FRAME_HEADER):
                 fh = parse_frame_header(BitReader(payload), seq)
+                if isinstance(fh, int):         # show_existing_frame
+                    continue
                 out.append((int(fh.frame_type), max(fh.filter_level),
                             fh.cdef_y_strengths[0], fh.cdef_uv_strengths[0]))
     return out
@@ -2326,6 +2353,11 @@ PRESET_JOBS = (
     ("preset 2 all-intra 128x96", 2, 128, 96, 2, "ai", 8, "wave", True, {}),
     ("preset 2 low-delay P 128x96", 2, 128, 96, 2, "ld", 8, "wave", True,
      {}),
+    ("preset 3 low-delay P 128x96", 3, 128, 96, 2, "ld", 8, "wave", True,
+     {}),
+    # presets -2 to 1 take preset 2's signals: the same stream
+    ("preset -2 low-delay P 128x96", -2, 128, 96, 2, "ld", 8, "wave", True,
+     {}),
     # the clip and settings of tests/test_torch_presets_4_ra.py
     ("preset 4 random access 128x96", 4, 128, 96, 3, "ra", 8, "wave", True,
      dict(qp=50, hierarchical_levels=1)),
@@ -2335,14 +2367,15 @@ PRESET_JOBS = (
 # the kernels each job must launch: the fused chain (K2-K4) at preset 7,
 # K2 and the per-fb forms of K4 at presets 6 to 2; K1 plans preset 7's
 # key frame; MCTF and TPL run K5, K6 and K10 under random access
+_PER_FB = ("deblock", "cdef_direction", "cdef_search_fb", "cdef_apply_multi")
 PRESET_KERNELS = {
     7: ("intra_decision", "deblock", "cdef_direction", "cdef_search",
         "cdef_apply"),
-    6: ("deblock", "cdef_direction", "cdef_search_fb", "cdef_apply_multi"),
-    5: ("deblock", "cdef_direction", "cdef_search_fb", "cdef_apply_multi"),
-    4: ("deblock", "cdef_direction", "cdef_search_fb", "cdef_apply_multi"),
-    2: ("deblock", "cdef_direction", "cdef_search_fb", "cdef_apply_multi"),
+    6: _PER_FB, 5: _PER_FB, 4: _PER_FB, 3: _PER_FB, 2: _PER_FB, -2: _PER_FB,
 }
+# the temporal units the presets and settings phase decodes at the full
+# width (the Decoder's host walk takes seconds a 1080p frame)
+DECODE_TUS = 2
 # the tools tests/test_torch_presets_4_ra.py finds in the same stream
 P4_RA_TOOLS = ("wedge", "diffwtd", "interintra", "filter_intra")
 PRESET_RA_KERNELS = ("me_coarse", "me_refine", "block_var16")
@@ -2424,11 +2457,29 @@ def wave_clip(w, h, n, seed=13):
     return frames
 
 
+def screen_clip(w, h, n):
+    """Screen-like frames: a few flat colours in text-like strokes and a
+    tile that repeats across the picture, palette and IntraBC content
+    (tests/test_torch_settings.py's _screen_clip)."""
+    rng = np.random.default_rng(2)
+    tile = rng.choice([16, 80, 200, 235], size=(16, 16)).astype(np.uint8)
+    frames = []
+    for i in range(n):
+        y = np.tile(tile, (h // 16 + 1, w // 16 + 1))[:h, :w].copy()
+        y[8 + i:12 + i, 4:w - 4] = 235
+        u = np.full((h // 2, w // 2), 128, np.uint8)
+        v = np.where(y[::2, ::2] > 128, 160, 96).astype(np.uint8)
+        frames.append((y, u, v))
+    return frames
+
+
 def preset_config(preset, w, h, structure, bd, **extra):
     """qp 40 at ``preset`` unless ``extra`` says otherwise: low-delay P (one
     key frame, then P frames), all-intra, or random access with
-    hierarchical_levels 2 (MCTF at tf_level 1, TPL)."""
-    from svt_av1_tpu_torch.config import EncoderConfig, PredStructure
+    hierarchical_levels 2 (MCTF at tf_level 1, TPL); ``extra`` names the
+    rate-control mode by its name."""
+    from svt_av1_tpu_torch.config import (EncoderConfig, PredStructure,
+                                          RateControlMode)
 
     kw = dict(qp=QP, intra_period_length=-1)
     if structure == "ra":
@@ -2438,16 +2489,28 @@ def preset_config(preset, w, h, structure, bd, **extra):
         if structure == "ai":
             kw["intra_period_length"] = 0
     kw.update(extra)
+    if "rate_control_mode" in kw:           # by name: "VBR", "CVBR"
+        kw["rate_control_mode"] = RateControlMode[kw["rate_control_mode"]]
     return EncoderConfig(source_width=w, source_height=h, enc_mode=preset,
                          encoder_bit_depth=bd, **kw)
+
+
+FEATURES = ("type", "cdef_bits", "lr", "gm", "tx_mode_select", "sb",
+            "tile_cols", "tile_rows", "qindex", "screen_content", "intrabc",
+            "aq_segments", "no_cdf_update", "motion_switchable")
 
 
 def stream_features(path):
     """Per coded frame of the IVF at ``path``: (frame type, cdef_bits, the
     three planes' loop-restoration types, the global-motion types of the
-    seven references, TX_MODE_SELECT), read back from the frame headers
-    with the reference slots' order hints and global-motion parameters
-    tracked as a decoder tracks them."""
+    seven references, TX_MODE_SELECT, the superblock size, the tile
+    columns and rows, base_q_idx, allow_screen_content_tools,
+    allow_intrabc, the segments with a qindex delta (adaptive
+    quantization), disable_frame_end_update_cdf,
+    is_motion_mode_switchable), read back from the sequence and frame
+    headers with the reference slots' order hints and global-motion
+    parameters tracked as a decoder tracks them.  FEATURES names the
+    fields in order."""
     from svt_av1_tpu_torch.bitstream.bits import BitReader
     from svt_av1_tpu_torch.bitstream.headers import (GM_IDENTITY_MAT,
                                                      iter_obus,
@@ -2455,6 +2518,12 @@ def stream_features(path):
                                                      parse_sequence_header)
     from svt_av1_tpu_torch.constants import ObuType
     from svt_av1_tpu_torch.io import IvfReader
+
+    def tiles(n_sb, log2):
+        # uniform tile spacing (spec 5.9.15): tiles of ceil(n_sb / 2^log2)
+        # superblocks, the last one shorter
+        per = (n_sb + (1 << log2) - 1) >> log2
+        return -(-n_sb // per)
 
     seq, hints, gms, out = None, [0] * 8, [None] * 8, []
     for pkt, _ in IvfReader(str(path)):
@@ -2467,8 +2536,18 @@ def stream_features(path):
                 gm = tuple(fh.global_motion[i][0]
                            if i < len(fh.global_motion) else 0
                            for i in range(7))
+                # superblocks over the mode-info grid (MiCols, MiRows)
+                sb = seq.sb_size
+                sb_cols = -(-8 * ((fh.frame_width + 7) >> 3) // sb)
+                sb_rows = -(-8 * ((fh.frame_height + 7) >> 3) // sb)
                 out.append((int(fh.frame_type), fh.cdef_bits,
-                            tuple(fh.lr_type), gm, int(fh.tx_mode_select)))
+                            tuple(fh.lr_type), gm, int(fh.tx_mode_select),
+                            sb, tiles(sb_cols, fh.tile_cols_log2),
+                            tiles(sb_rows, fh.tile_rows_log2),
+                            fh.base_q_idx, int(fh.allow_screen_content_tools),
+                            int(fh.allow_intrabc), len(fh.seg_qdeltas),
+                            int(fh.disable_frame_end_update_cdf),
+                            int(fh.is_motion_mode_switchable)))
                 mats = tuple(fh.global_motion[i][1]
                              if i < len(fh.global_motion)
                              else GM_IDENTITY_MAT for i in range(7))
@@ -2480,12 +2559,14 @@ def stream_features(path):
     return out
 
 
-def block_tools(path, device="cpu"):
-    """Decode the IVF at ``path`` with the port's Decoder on ``device`` and
-    count the coding tools its blocks use: filter intra (luma coding
-    blocks), wedge and diffwtd compound, inter-intra, var-tx (inter
-    blocks whose txfm_split tree splits).  Returns (counts, shown frames,
-    decoder)."""
+def block_tools(path, device="cpu", n_tu=None):
+    """Decode the IVF at ``path`` (its first ``n_tu`` temporal units, each
+    ending with a shown frame, all by default) with the port's Decoder on
+    ``device`` and count the coding
+    tools its blocks use: filter intra (luma coding blocks), wedge and
+    diffwtd compound, inter-intra, var-tx (inter blocks whose txfm_split
+    tree splits), palette (luma) and IntraBC blocks, OBMC and warped
+    motion.  Returns (counts, shown frames, decoder)."""
     from svt_av1_tpu_torch.api import Decoder
     from svt_av1_tpu_torch.io import IvfReader
     from svt_av1_tpu_torch.pipeline.frame_codec import FrameCodec
@@ -2493,6 +2574,7 @@ def block_tools(path, device="cpu"):
     counts = collections.Counter()
     fi_blocks = set()
     predict, tx_size = FrameCodec.predict, FrameCodec._code_block_tx_size
+    record_mi, motion = FrameCodec._record_mi, FrameCodec._code_motion_mode
 
     def counted_predict(self, plane, mode, angle, px, py, pw, ph, ts,
                         filter_intra_mode=-1, blk=None):
@@ -2512,10 +2594,24 @@ def block_tools(path, device="cpu"):
             counts["vartx"] += leaves is not None and len(leaves) > 1
         return leaves
 
+    def counted_record_mi(self, mi_row, mi_col, w4, h4, decision, skip):
+        # every coded block, intra and inter frames alike
+        counts["palette"] += bool(getattr(decision, "palette_colors", ()))
+        counts["intrabc"] += bool(getattr(decision, "use_intrabc", False))
+        return record_mi(self, mi_row, mi_col, w4, h4, decision, skip)
+
+    def counted_motion(self, *a):
+        mode = motion(self, *a)
+        counts["obmc"] += int(mode) == 1
+        counts["warped"] += int(mode) == 2
+        return mode
+
     dec = Decoder(device)
     shown = []
     FrameCodec.predict = counted_predict
     FrameCodec._code_block_tx_size = counted_tx_size
+    FrameCodec._record_mi = counted_record_mi
+    FrameCodec._code_motion_mode = counted_motion
     try:
         for pkt, _ in IvfReader(str(path)):
             n_dec = dec.frames_decoded
@@ -2523,9 +2619,13 @@ def block_tools(path, device="cpu"):
             counts["frames"] += dec.frames_decoded - n_dec
             if got is not None:
                 shown.append(got)
+                if len(shown) == n_tu:
+                    break
     finally:
         FrameCodec.predict, FrameCodec._code_block_tx_size = \
             predict, tx_size
+        FrameCodec._record_mi, FrameCodec._code_motion_mode = \
+            record_mi, motion
     counts["filter_intra"] = len(fi_blocks)
     return dict(counts), shown, dec
 
@@ -2540,28 +2640,39 @@ def preset_job(spec):
     sys.path.insert(0, str(Path(__file__).resolve().parent))
     from svt_av1_tpu_torch.api import Encoder
     from svt_av1_tpu_torch.io import IvfWriter
+    from svt_av1_tpu_torch.pipeline import mctf
 
     name, preset, w, h, n, structure, bd, clip, on_cpu, extra = spec
     frames, cfg = preset_frames(spec), preset_config(preset, w, h, structure,
                                                     bd, **extra)
     counters = kernel_counters()
-    out = dict(name=name, preset=preset, frames=n)
+    out = dict(name=name, preset=preset, frames=n, mctf_neighbours=[])
+    filt = mctf.temporal_filter
+
+    def counted_filter(center, neighbor_frames, *a):
+        out["mctf_neighbours"].append(len(neighbor_frames))
+        return filt(center, neighbor_frames, *a)
+
     with tempfile.TemporaryDirectory(
             dir=os.environ.get("TMPDIR") or tempfile.gettempdir()) as tmp:
         path = Path(tmp) / "card.ivf"
         enc = Encoder(cfg)                  # the default device: CUDA
         assert enc.device.type == "cuda"
+        mctf.temporal_filter = counted_filter
         zero_counts(counters)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        with IvfWriter(str(path), w, h, cfg.frame_rate) as wr:
-            pts = 0
-            for planes in list(frames) + [None]:
-                for pkt in (enc.flush() if planes is None
-                            else enc.send_picture(planes)):
-                    wr.write_frame(pkt, pts=pts)
-                    pts += 1
-        torch.cuda.synchronize()
+        try:
+            with IvfWriter(str(path), w, h, cfg.frame_rate) as wr:
+                pts = 0
+                for planes in list(frames) + [None]:
+                    for pkt in (enc.flush() if planes is None
+                                else enc.send_picture(planes)):
+                        wr.write_frame(pkt, pts=pts)
+                        pts += 1
+            torch.cuda.synchronize()
+        finally:
+            mctf.temporal_filter = filt
         out["wall_s"] = time.perf_counter() - t0
         out["launches"], out["calls"] = read_counts(counters)
         recon = [enc.recon_by_display[d] for d in sorted(enc.recon_by_display)]
@@ -2575,13 +2686,27 @@ def preset_job(spec):
         out["bytes"] = path.stat().st_size
         out["md5"] = stream_md5(path)
         out["features"] = stream_features(path)
-        # the port's Decoder on the card, counting the blocks' tools
+        out["params"] = stream_frame_params(path)
+        out["bit_depth"] = stream_bit_depth(path)
+        out["size"] = (recon[0][0].shape[1], recon[0][0].shape[0])
+        if cfg.qp == 0:
+            # the JAX encoder's lossless stream, which the port keeps byte
+            # for byte, is one no decoder reads (ROADMAP.md, section C)
+            out.update(tools={}, decoded=None, decode_md5=None,
+                       decode_ms_per_frame=None)
+            return out
+        # the port's Decoder on the card, counting the blocks' tools; at
+        # the full width the first DECODE_TUS temporal units (its host walk
+        # takes seconds a frame)
+        n_tu = DECODE_TUS if w == WIDTH else None
         t0 = time.perf_counter()
-        out["tools"], shown, dec = block_tools(path, "cuda")
+        out["tools"], shown, dec = block_tools(path, "cuda", n_tu)
         torch.cuda.synchronize()
         out["decode_ms_per_frame"] = (time.perf_counter() - t0) * 1e3 \
             / dec.frames_decoded
-        assert len(shown) == n
+        out["decoded"] = (len(shown), dec.frames_decoded)
+        assert len(shown) == (n if n_tu is None else min(n, n_tu)), \
+            (name, len(shown))
         for d, g in enumerate(shown):
             for p in range(3):
                 assert np.array_equal(g[p], recon[d][p]), (name, d, p)
@@ -2596,6 +2721,10 @@ def preset_frames(spec):
         return hetero_clip(w, h, n)
     if clip == "wave":
         return wave_clip(w, h, n)
+    if clip == "wave0":                     # tests/test_torch_settings.py's
+        return wave_clip(w, h, n, seed=0)
+    if clip == "screen":
+        return screen_clip(w, h, n)
     return synth_clip(w, h, n, bd=bd) if (w, h) == (WIDTH, HEIGHT) \
         else synth_clip(w, h, n, seed=13, bd=bd)
 
@@ -2859,6 +2988,167 @@ def surface_job(name):
     return out
 
 
+# --------------------------------------------------------------------------
+# the encoder's configuration surface on the card: preset 8 at the full
+# width under each setting the JAX encoder reads, and each setting again at
+# the size the CPU tests hold against the JAX package, card = CPU
+# --------------------------------------------------------------------------
+
+_K1_K8 = _K1_K4 + ("me_coarse", "me_refine", "subpel_refine16",
+                   "inter_select")
+_K1_K10 = _K1_K8 + ("compound_joint", "block_var16")
+_K2_K4 = ("deblock", "cdef_direction", "cdef_search", "cdef_apply")
+# every tool toggle of the configuration off (tests/test_torch_config_
+# surface.py's TOOLS_OFF)
+TOOLS_OFF = dict(enable_cfl=0, intra_angle_delta=0,
+                 enable_intra_edge_filter=0, filter_intra_level=0,
+                 palette_level=0, intrabc_mode=0, inter_intra_compound=0,
+                 rdoq_level=0, enable_mfmv=0, frame_end_cdf_update=0,
+                 pic_based_rate_est=0, enable_global_motion=False)
+QINDEX_OFFSETS = (0, 4, 8, 12)
+_SB64 = dict(super_block_size=64)
+_OFFSETS = dict(use_fixed_qindex_offsets=True, qindex_offsets=QINDEX_OFFSETS,
+                key_frame_qindex_offset=-8)
+# tf_level 1 (the full window): at preset 8's tf_level 2 the window is one
+# picture either side whatever altref_nframes says
+_REACH = dict(tf_level=1, altref_nframes=3, look_ahead_distance=4)
+_QP_RANGE = dict(min_qp_allowed=20, max_qp_allowed=55)
+_H3 = dict(hierarchical_levels=3)
+# (name, structure, frames, width, height, bit depth, clip, settings, the
+# kernels it must launch, the kernels it must not launch, its card = CPU
+# job: (width, height, frames, clip, settings) with the structure and bit
+# depth of the first, at the size the CPU tests hold against the JAX
+# package, on their clip where it is 8-bit: tests/test_torch_settings.py
+# ("wave0") or tests/test_torch_config_surface_streams.py ("wave"))
+SETTINGS_JOBS = (
+    ("sb64", "ra", 9, WIDTH, HEIGHT, 8, "moving", dict(_H3, **_SB64),
+     _K1_K10, (), (128, 128, 5, "wave", _SB64)),
+    ("sb64 10-bit", "ra", 9, WIDTH, HEIGHT, 10, "moving", dict(_H3, **_SB64),
+     _K1_K10, (), (128, 128, 5, "moving", _SB64)),
+    # TPL runs under CQP only (api.py _maybe_tpl): no K10
+    ("CVBR", "ra", 9, WIDTH, HEIGHT, 8, "moving",
+     dict(_H3, rate_control_mode="CVBR", target_bit_rate=6_000_000,
+          vbv_bufsize=3_000_000, **_QP_RANGE), _K1_K8 + ("compound_joint",),
+     ("block_var16",),
+     (64, 64, 5, "wave", dict(rate_control_mode="CVBR",
+                              target_bit_rate=200_000, vbv_bufsize=50_000,
+                              **_QP_RANGE))),
+    ("qindex offsets", "ra", 9, WIDTH, HEIGHT, 8, "moving",
+     dict(_H3, **_OFFSETS), _K1_K10, (), (64, 64, 5, "wave", _OFFSETS)),
+    ("MCTF reach", "ra", 9, WIDTH, HEIGHT, 8, "moving", dict(_H3, **_REACH),
+     _K1_K10, (), (64, 64, 9, "wave", _REACH)),
+    ("tiles", "ld", 3, WIDTH, HEIGHT, 8, "moving",
+     dict(tile_columns=2, tile_rows=1), _K1_K8, (),
+     (128, 128, 2, "wave", dict(_SB64, tile_columns=1, tile_rows=1))),
+    ("odd size 10-bit", "ld", 3, 1918, 1078, 10, "moving", {}, _K1_K8, (),
+     (202, 134, 3, "moving", {})),
+    ("warped/OBMC", "ld", 3, WIDTH, HEIGHT, 8, "moving",
+     dict(enable_warped_motion=1, obmc_level=1), _K1_K8, (),
+     (192, 128, 3, "wave0", dict(enable_warped_motion=1, obmc_level=1))),
+    ("VBR", "ld", 4, WIDTH, HEIGHT, 8, "moving",
+     dict(rate_control_mode="VBR", target_bit_rate=6_000_000), _K1_K8, (),
+     (192, 128, 4, "wave0", dict(rate_control_mode="VBR",
+                                 target_bit_rate=400_000))),
+    ("tools off", "ld", 3, WIDTH, HEIGHT, 8, "moving", TOOLS_OFF, _K1_K8, (),
+     (64, 64, 2, "wave", TOOLS_OFF)),
+    ("screen content", "ai", 2, WIDTH, 544, 8, "screen",
+     dict(screen_content_mode=1), ("intra_decision",), (),
+     (64, 64, 2, "screen", dict(screen_content_mode=1))),
+    ("AQ", "ai", 2, WIDTH, HEIGHT, 8, "moving",
+     dict(enable_adaptive_quantization=1), _K1_K4, (),
+     (128, 128, 2, "wave0", dict(enable_adaptive_quantization=1))),
+    ("lossless", "ai", 1, WIDTH, HEIGHT, 8, "moving", dict(qp=0),
+     ("intra_decision",), _K2_K4, (64, 64, 2, "wave0", dict(qp=0))),
+    ("filters off", "ai", 2, WIDTH, HEIGHT, 8, "moving",
+     dict(disable_dlf=True, cdef_level=0), ("intra_decision",), _K2_K4,
+     (64, 64, 2, "wave0", dict(disable_dlf=True, cdef_level=0))),
+)
+
+def settings_specs():
+    """Each SETTINGS_JOBS entry as two PRESET_JOBS entries at preset 8: the
+    full-width job on the card, and the card = CPU job."""
+    out = []
+    for (name, structure, n, w, h, bd, clip, extra, _, _,
+         (sw, sh, sn, sclip, sextra)) in SETTINGS_JOBS:
+        out.append(((name, 8, w, h, n, structure, bd, clip, False, extra),
+                    (name + " card = CPU", 8, sw, sh, sn, structure, bd, sclip,
+                     True, sextra)))
+    return out
+
+
+def feature(r, name):
+    """One field of stream_features per coded frame of a job's stream."""
+    return [f[FEATURES.index(name)] for f in r["features"]]
+
+
+def settings_check(name, r):
+    """The stream of the job ``name`` (full width or card = CPU) carries
+    its setting; returns what was read, for the log."""
+    from svt_av1_tpu_torch.bitstream.headers import QUANTIZER_TO_QINDEX
+
+    q = feature(r, "qindex")
+    key = [t == 0 for t in feature(r, "type")]
+    base = QUANTIZER_TO_QINDEX[QP]
+    if name.startswith("sb64"):
+        assert set(feature(r, "sb")) == {64}, r["features"]
+        got = "64x64 superblocks"
+    elif name == "tiles":
+        tiles = set(zip(feature(r, "tile_cols"), feature(r, "tile_rows")))
+        assert all(c > 1 and n > 1 for c, n in tiles), tiles
+        got = f"tiles (columns, rows) {sorted(tiles)}"
+    elif name == "CVBR" or name == "VBR":
+        assert len(set(q)) > 1, q
+        if name == "CVBR":
+            assert all(QUANTIZER_TO_QINDEX[20] <= v <= QUANTIZER_TO_QINDEX[55]
+                       for v in q), q
+        got = f"base_q_idx per coded frame {q}"
+    elif name == "qindex offsets":
+        assert all(v == base - 8 for v, k in zip(q, key) if k), q
+        rest = {v for v, k in zip(q, key) if not k}
+        assert len(rest) > 1 and rest <= {base + o for o in QINDEX_OFFSETS}
+        got = f"base_q_idx per coded frame {q}"
+    elif name == "MCTF reach":
+        got = r["mctf_neighbours"]
+        assert got and max(got) <= 2, got
+        got = f"MCTF neighbours per filtered picture {got}"
+    elif name == "odd size 10-bit":
+        # sizes off the 8x8 grid: every kernel's padded edge
+        assert r["bit_depth"] == 10 and all(v % 8 for v in r["size"])
+        got = f"{r['size'][0]}x{r['size'][1]}, {r['bit_depth']} bits"
+    elif name == "warped/OBMC":
+        sw = feature(r, "motion_switchable")
+        assert all(s for s, k in zip(sw, key) if not k) and not all(key)
+        got = (f"is_motion_mode_switchable on every inter frame; OBMC "
+               f"{r['tools'].get('obmc', 0)}, warped "
+               f"{r['tools'].get('warped', 0)} blocks decoded")
+    elif name == "tools off":
+        assert all(feature(r, "no_cdf_update")) and not any(
+            any(g) for g in feature(r, "gm"))
+        got = "disable_frame_end_update_cdf on every frame"
+    elif name == "screen content":
+        assert all(feature(r, "screen_content")) and all(
+            feature(r, "intrabc"))
+        tools = r["tools"]
+        assert tools.get("palette", 0) + tools.get("intrabc", 0) > 0, tools
+        got = (f"screen content tools and IntraBC on every frame; "
+               f"{tools.get('palette', 0)} palette, "
+               f"{tools.get('intrabc', 0)} IntraBC blocks decoded")
+    elif name == "AQ":
+        seg = feature(r, "aq_segments")
+        assert all(s > 0 for s in seg), seg
+        got = f"segments with a qindex delta per frame {seg}"
+    elif name == "lossless":
+        assert set(q) == {0}, q
+        got = "base_q_idx 0 on every frame"
+    elif name == "filters off":
+        assert all(lv == 0 and y == 0 and uv == 0
+                   for _, lv, y, uv in r["params"]), r["params"]
+        got = "deblocking level 0 and CDEF strength 0 on every frame"
+    else:
+        raise AssertionError(f"no check for the setting {name!r}")
+    return got
+
+
 def start_workers():
     """The worker pool of the presets and surface phase, at most one
     process a core, started right after the build with the EARLY_JOBS
@@ -2875,29 +3165,64 @@ def start_workers():
     return pool, early
 
 
+def _report_job(spec, r):
+    """Print a preset or settings job's results and check what every job
+    must show: the PSNR floor and, where coded on the CPU too, the CPU's
+    stream."""
+    name, preset, w, h, n, structure, bd, _, on_cpu, _ = spec
+    print(f"{name} ({w}x{h}, {n} frames, {bd} bits): {r['wall_s']:.3f} s, "
+          f"{n / r['wall_s']:.4f} fps, {r['bytes']} bytes, packets md5 "
+          f"{r['md5']}; luma PSNR (dB) "
+          f"{[round(x, 3) for x in r['psnr']]}")
+    print(f"{name}: stage ms/frame (host wall clock):",
+          json.dumps(r["stages"]))
+    print(f"{name}: per coded frame {FEATURES}:", json.dumps(r["features"]))
+    print(f"{name}: launches:", json.dumps(r["launches"]))
+    if r["decoded"] is None:
+        print(f"{name}: not decoded: the JAX encoder's lossless stream "
+              f"(base_q_idx 0), kept byte for byte, which no decoder reads")
+    else:
+        print(f"{name}: decoded on the card to the recon ({r['decoded'][0]} "
+              f"shown, {r['decoded'][1]} coded frames), md5 "
+              f"{r['decode_md5']}, {r['decode_ms_per_frame']:.3f} ms per "
+              f"coded frame; block tools: {json.dumps(r['tools'])}")
+    assert min(r["psnr"]) > PSNR_FLOOR_DB, (name, r["psnr"])
+    if on_cpu:
+        print(f"{name}: card stream identical to the CPU's: "
+              f"{r['cpu_identical']}")
+        assert r["cpu_identical"], name
+
+
 def presets_phase(pool, early):
-    """The rest of PRESET_JOBS and the surface jobs in ``pool`` (each job's
-    counts are its own process's), the longest first, then every result,
-    ``early`` included; the pool is closed.  Every preset job's kernels
-    must have launched, its PSNR clear the floor, its stream decode on
-    the card to its recon and, where coded on the CPU too, equal the
-    CPU's stream.  The preset streams at 6 and below must carry
-    cdef_bits > 0 and loop restoration in at least one frame, those at 4
-    too; the preset-4 key frame TX_MODE_SELECT, cdef_bits > 0 and
-    filter-intra blocks; the preset-4 random-access stream the tools its
-    CPU test finds.  Returns (preset results by job name, surface results
-    by job name)."""
+    """The rest of PRESET_JOBS, the surface jobs and the settings jobs in
+    ``pool`` (each job's counts are its own process's), the longest
+    first, then every result, ``early`` included; the pool is closed.
+    Every preset and settings job's kernels must have launched (and a
+    settings job's listed others not), its PSNR clear the floor, its
+    stream decode on the card to its recon and, where coded on the CPU
+    too, equal the CPU's stream; a settings job's stream must carry its
+    setting (settings_check) at both sizes.  The preset streams at 6 and
+    below must carry cdef_bits > 0 and loop restoration in at least one
+    frame, those at 4 too; the preset-4 key frame TX_MODE_SELECT,
+    cdef_bits > 0 and filter-intra blocks; the preset-4 random-access
+    stream the tools its CPU test finds; preset -2's stream must equal
+    preset 2's.  Returns (preset results by job name, surface results by
+    job name, settings results by job name)."""
     t0 = time.perf_counter()
-    # the two 1080p preset jobs, then the surface jobs, then the rest and
-    # the CPU encodes of the jobs coded on the CPU too
+    settings = settings_specs()
+    # the two 1080p preset jobs, then the surface jobs, then the full-width
+    # settings jobs, then the rest and the CPU encodes of the jobs coded on
+    # the CPU too
     jobs = dict(early)
     for spec in PRESET_JOBS[EARLY_JOBS:EARLY_JOBS + 2]:
         jobs[spec[0]] = pool.apply_async(preset_job, (spec,))
     surface = {name: pool.apply_async(surface_job, (name,))
                for name in SURFACE_JOBS}
-    for spec in PRESET_JOBS[EARLY_JOBS + 2:]:
+    for spec, _ in settings:
         jobs[spec[0]] = pool.apply_async(preset_job, (spec,))
-    for spec in PRESET_JOBS[EARLY_JOBS:]:
+    for spec in PRESET_JOBS[EARLY_JOBS + 2:] + tuple(s for _, s in settings):
+        jobs[spec[0]] = pool.apply_async(preset_job, (spec,))
+    for spec in PRESET_JOBS[EARLY_JOBS:] + tuple(s for _, s in settings):
         if spec[8]:
             jobs[("cpu", spec[0])] = pool.apply_async(cpu_stream_job,
                                                       (spec,))
@@ -2905,47 +3230,30 @@ def presets_phase(pool, early):
     jobs = {k: f.get() for k, f in jobs.items()}
     pool.close()
     pool.join()
-    results = []
-    for spec in PRESET_JOBS:
-        r = jobs[spec[0]]
-        if spec[8]:
-            r["cpu_identical"] = jobs[("cpu", spec[0])] == r["md5"]
-        results.append(r)
-    print(f"presets and surface phase: {len(PRESET_JOBS)} preset jobs "
-          f"({EARLY_JOBS} of them started after the build) and "
-          f"{len(surface)} surface jobs, {time.perf_counter() - t0:.3f} s "
-          f"wall after the earlier phases")
+    for k, r in jobs.items():
+        if not isinstance(k, tuple) and ("cpu", k) in jobs:
+            r["cpu_identical"] = jobs[("cpu", k)] == r["md5"]
+    print(f"presets, surface and settings phase: {len(PRESET_JOBS)} preset "
+          f"jobs ({EARLY_JOBS} of them started after the build), "
+          f"{len(surface)} surface jobs and {2 * len(settings)} settings "
+          f"jobs, {time.perf_counter() - t0:.3f} s wall after the earlier "
+          f"phases")
     for name, r in surface.items():
         print(r["log"], end="")
         print(f"surface {name}: {r['wall_s']:.3f} s in its worker; "
               f"launches: {json.dumps(r['launches'])}")
     by_name = {}
-    for (name, preset, w, h, n, structure, bd, _, on_cpu, _), r in zip(
-            PRESET_JOBS, results):
-        by_name[name] = r
-        print(f"{name} ({w}x{h}, {n} frames, {bd} bits): {r['wall_s']:.3f} s, "
-              f"{n / r['wall_s']:.4f} fps, {r['bytes']} bytes, packets md5 "
-              f"{r['md5']}; luma PSNR (dB) "
-              f"{[round(x, 3) for x in r['psnr']]}")
-        print(f"{name}: stage ms/frame (host wall clock):",
-              json.dumps(r["stages"]))
-        print(f"{name}: per coded frame (type, cdef_bits, lr types, gm "
-              f"types, TX_MODE_SELECT):", json.dumps(r["features"]))
-        print(f"{name}: launches:", json.dumps(r["launches"]))
-        print(f"{name}: decoded on the card to the recon, md5 "
-              f"{r['decode_md5']}, {r['decode_ms_per_frame']:.3f} ms per "
-              f"coded frame; block tools: {json.dumps(r['tools'])}")
-        assert min(r["psnr"]) > PSNR_FLOOR_DB, (name, r["psnr"])
+    for spec in PRESET_JOBS:
+        name, preset, structure = spec[0], spec[1], spec[5]
+        r = by_name[name] = jobs[name]
+        _report_job(spec, r)
         need = PRESET_KERNELS[preset] + (PRESET_RA_KERNELS
                                          if structure == "ra" else ())
         missing = [k for k in need if r["launches"][k] == 0]
         assert not missing, f"{name}: kernels not launched: {missing}"
         if preset <= 4:
             assert all(f[4] for f in r["features"]), name
-        if on_cpu:
-            print(f"{name}: card stream identical to the CPU's: "
-                  f"{r['cpu_identical']}")
-            assert r["cpu_identical"], name
+    results = list(by_name.values())
     for top in (6, 4):
         for what, key in (("cdef_bits > 0", 1), ("loop restoration", 2)):
             assert any(any(f[key]) if key == 2 else f[key] > 0
@@ -2959,10 +3267,27 @@ def presets_phase(pool, early):
     assert key4["tools"].get("filter_intra"), key4["tools"]
     ra4 = by_name["preset 4 random access 128x96"]["tools"]
     assert all(ra4.get(k) for k in P4_RA_TOOLS), ra4
+    mr2 = by_name["preset -2 low-delay P 128x96"]["md5"]
+    print(f"preset -2 low-delay P 128x96: stream identical to preset 2's: "
+          f"{mr2 == by_name['preset 2 low-delay P 128x96']['md5']}")
+    assert mr2 == by_name["preset 2 low-delay P 128x96"]["md5"]
     for name, r in surface.items():
         missing = [k for k in SURFACE_KERNELS[name] if not r["launches"][k]]
         assert not missing, f"{name}: kernels not launched: {missing}"
-    return by_name, surface
+    by_setting = {}
+    for (big, small), job in zip(settings, SETTINGS_JOBS):
+        need, absent = job[8], job[9]
+        for spec in (big, small):
+            r = by_setting[spec[0]] = jobs[spec[0]]
+            _report_job(spec, r)
+            print(f"{spec[0]}: the setting in the stream: "
+                  f"{settings_check(job[0], r)}")
+        r = by_setting[big[0]]
+        missing = [k for k in need if r["launches"][k] == 0]
+        assert not missing, f"{big[0]}: kernels not launched: {missing}"
+        extra = [k for k in absent if r["launches"][k]]
+        assert not extra, f"{big[0]}: kernels launched: {extra}"
+    return by_name, surface, by_setting
 
 
 # --------------------------------------------------------------------------
@@ -3161,7 +3486,7 @@ def main() -> int:
             (f"{WIDTH}x{HEIGHT} 10-bit all-intra, first temporal unit",
              tb_path, tb_recon, 1)])
         mctf_launches, mctf_calls, _ = mctf_phase(counters, tmp)
-    presets, surface = presets_phase(pool, early)
+    presets, surface, settings = presets_phase(pool, early)
     print("10-bit path launches (the 1080p all-intra encode + the 10-bit "
           "decodes):",
           json.dumps({k: tb_launches[k] + tb_dec_launches[k]
@@ -3171,10 +3496,11 @@ def main() -> int:
                                    for k in counters}))
     # the kernels line counts the launches of every main path: the
     # random-access encode, the two stripe dryruns, the decodes, the
-    # all-intra MCTF encode, the surface jobs' encodes and the preset-4
-    # and preset-2 jobs' encodes (the per-fb rows count every 8-bit
-    # preset job)
-    new_jobs = [presets[spec[0]] for spec in PRESET_JOBS if spec[1] <= 4]
+    # all-intra MCTF encode, the surface jobs' encodes, the preset-4 to -2
+    # jobs' encodes and the settings jobs' encodes (the per-fb rows count
+    # every 8-bit preset job)
+    new_jobs = [presets[spec[0]] for spec in PRESET_JOBS if spec[1] <= 4] \
+        + list(settings.values())
     new_launches = {k: sum(r["all_launches"][k] for r in surface.values())
                     + sum(r["launches"][k] for r in new_jobs)
                     + mctf_launches[k] for k in counters}
@@ -3182,8 +3508,11 @@ def main() -> int:
                  + sum(r["calls"][k] for r in new_jobs) + mctf_calls[k]
                  for k in counters}
     print("launches on the all-intra MCTF encode, the surface jobs' "
-          "encodes and the preset-4 and preset-2 jobs:",
+          "encodes, the preset-4 to -2 jobs and the settings jobs:",
           json.dumps(new_launches))
+    print("launches on the settings jobs:", json.dumps(
+        {k: sum(r["launches"][k] for r in settings.values())
+         for k in counters}))
     launches = {k: ra_launches[k] + stripe_launches[k] + dec_launches[k]
                 + new_launches[k] for k in counters}
     calls = {k: ra_calls[k] + stripe_calls[k] + dec_calls[k]
@@ -3241,7 +3570,8 @@ def main() -> int:
               f"{ra_launches[name]} on the {RA_FRAMES}-frame random-access "
               f"encode + {stripe_launches[name]} on the stripe dryruns + "
               f"{dec_launches[name]} on the decodes + {new_launches[name]} "
-              f"on the surface and preset-4/2 jobs; {ipp_launches[name]} on "
+              f"on the surface, preset-4 to -2 and settings jobs; "
+              f"{ipp_launches[name]} on "
               f"the {N_FRAMES}-frame low-delay P encode, {ai_launches[name]} "
               f"on the all-intra encode")
     # the 16-bit forms: their launches on the 10-bit encode that runs
