@@ -271,6 +271,13 @@ RA_FRAMES, RA_WARM = 33, 17
 PEAK_BYTES_S = 3.35e12
 PEAK_FP32_FLOPS_S = 67e12
 PEAK_LANE_INSTR_S = 132 * 128 * 1.98e9   # lane-instructions/s: 4 x 32 per SM
+# what tools/int_pipes.py measures on the H100: each integer opcode it
+# probes (VIMNMX.U16x2, IADD3, VABSDIFF4, PRMT, LOP3, SHF, IDP.2A, IMAD)
+# issues 63-64 lanes an SM and clock, half of 4 x 32; VIMNMX.U16x2 and
+# IADD3 or VABSDIFF4 share that pipe, and VIMNMX.U16x2 beside IDP.2A
+# issues about 49 lanes each.  K6's and K9's rows also print their bound
+# at this rate
+PEAK_INT_PIPE_S = 132 * 64 * 1.98e9
 
 
 def synth_clip(w, h, n, seed=3, tex_sigma=TEXTURE_SIGMA, bd=8):
@@ -458,13 +465,13 @@ def k5_ops(n_sb, r, n_px, packed=True, per_op=4):
 
 
 def k6_ceiling(n_sb, per_8x8=16):
-    """K6 (ms, what): the SAD instructions it issues (per SB, window and
-    offset 64 8x8 blocks of ``per_8x8``: 16 VABSDIFF4 with accumulate in
-    the 8-bit form, one instruction each on sm_90a; 32 words of two
-    VIMNMX.U16x2 and an IADD3, 96, in the 16-bit form) at 4 x 32 lanes per
-    SM and clock."""
-    return (n_sb * 2 * 1089 * 64 * per_8x8 / PEAK_LANE_INSTR_S * 1e3,
-            "SAD instructions")
+    """K6 (ms, what): the SAD instructions it issues on one integer pipe
+    (per SB, window and offset 64 8x8 blocks of ``per_8x8``: 16 VABSDIFF4
+    with accumulate in the 8-bit form; in the 16-bit form 32 words of one
+    VIMNMX.U16x2 each, whose IDP.2A issue on the other pipe) at the 64
+    lanes per SM and clock that tools/int_pipes.py measures."""
+    return (n_sb * 2 * 1089 * 64 * per_8x8 / PEAK_INT_PIPE_S * 1e3,
+            "SAD instructions on one integer pipe")
 
 
 def k7_ops(n_units, packed=True, bd=8):
@@ -1152,7 +1159,8 @@ def inter_kernels_phase(dev, ref_frame, src_frame, bd=8):
         max_abs_err=err,
         bound=bound_ms(nbytes(src, ref, coarse) + out_b,
                        k6_ops(n_sb, per_op)),
-        ceiling=k6_ceiling(n_sb, 16 if bd == 8 else 96),
+        int_bound_ms=k6_ops(n_sb, per_op) / PEAK_INT_PIPE_S * 1e3,
+        ceiling=k6_ceiling(n_sb, 16 if bd == 8 else 32),
         per_call="1 launch, shapes 16x16 and 64x64")
 
     # -- K7 quarter-pel refinement of the 16x16 MVs
@@ -1284,6 +1292,11 @@ def tenbit_inter_report(results):
               f"{r16['device_ms']:.5f} ms ({r8['device_ms']:.5f}), bound "
               f"{r16['bound'][0]:.5f} ms, {r16['bound'][1]} "
               f"({r8['bound'][0]:.5f})")
+    r16, r8 = results["me_refine_16bit"], results["me_refine"]
+    print(f"me_refine_16bit bound at the measured integer rate "
+          f"(PEAK_INT_PIPE_S): {r16['int_bound_ms']:.5f} ms "
+          f"({r8['int_bound_ms']:.5f}); design ceiling "
+          f"{r16['ceiling'][0]:.5f} ms ({r8['ceiling'][0]:.5f})")
     a16, a8 = (results[k]["all_shapes"] for k in ("me_refine_16bit",
                                                    "me_refine"))
     print(f"me_refine_16bit, all 8 ME shapes vs the 8-bit form: events "
@@ -1430,6 +1443,7 @@ def ra_kernels_phase(dev, clip, window, bd=8, results8=None):
         ms=cuda_ms(k9, KERNEL_REPS), plain_ms=cuda_ms(k9_plain, PLAIN_REPS),
         device_ms=device_ms(k9), max_abs_err=err,
         bound=bound_ms(k9_bytes, ops),
+        int_bound_ms=ops / PEAK_INT_PIPE_S * 1e3,
         per_call=f"1 launch, 2 references, {units} units, {src.dtype} "
                  f"({ops / 1e9:.3f} G packed integer operations; the "
                  f"scalar count bounds it at {old[0]:.5f} ms)")
@@ -1507,12 +1521,14 @@ def ra_kernels_phase(dev, clip, window, bd=8, results8=None):
             (lambda: bme.refine_plain(c, n, coarse, (shape,)), PLAIN_REPS))]
         k5_dev = device_ms(lambda: bme.me_coarse(c, n))
         k6_dev = device_ms(lambda: bme.me_refine(c, n, coarse, (shape,)))
+        results[f"me_refine_{what}" + sfx] = dict(ms=times[2],
+                                                  device_ms=k6_dev)
         # the bounds count as the K5 and K6 rows do
         b5 = bound_ms(nbytes(c, n, coarse),
                       k5_ops(n_sb, r, 2 * hh * ww, per_op=per_op))
         b6 = bound_ms(nbytes(c, n, coarse, *got[shape]),
                       k6_ops(n_sb, per_op))
-        c6 = k6_ceiling(n_sb, 16 if bd == 8 else 96)
+        c6 = k6_ceiling(n_sb, 16 if bd == 8 else 32)
         print(f"K5/K6{form} at the {what} geometry {ww}x{hh} ({c.dtype}), "
               f"shape {shape[0]}x{shape[1]} alone: max |kernel - plain| "
               f"{err}; K5 {times[0]:.4f} ms (device {k5_dev:.5f} ms, plain "
@@ -1525,6 +1541,14 @@ def ra_kernels_phase(dev, clip, window, bd=8, results8=None):
         for name in ("compound_joint", "block_var16"):
             for line in build.ptxas_report(name):
                 print(f"ptxas {name}: {line}")
+        r8, r16 = results8["me_refine_TPL"], results["me_refine_TPL_16bit"]
+        print(f"me_refine_16bit at the TPL geometry vs the 8-bit form: "
+              f"events {r16['ms']:.4f} ms ({r8['ms']:.4f}), device "
+              f"{r16['device_ms']:.5f} ms ({r8['device_ms']:.5f})")
+        r8, r16 = results8["compound_joint"], results["compound_joint_16bit"]
+        print(f"compound_joint_16bit bound at the measured integer rate "
+              f"(PEAK_INT_PIPE_S): {r16['int_bound_ms']:.5f} ms "
+              f"({r8['int_bound_ms']:.5f})")
         for k8, k16 in (("compound_joint", "compound_joint_16bit"),
                         ("block_var16", "block_var16_16bit")):
             r8, r16 = results8[k8], results[k16]

@@ -47,18 +47,32 @@
 // The uint16_t form (B4 at bd 10, which the JAX package traces on uint16
 // planes): a row of the unit is 8 words, the window row 22 samples in 11
 // words (48-byte stride), an odd column offset a half-word PRMT of two
-// words.  The SAD of two words is sad16.cuh's __vmaxu2 - __vminu2 added as
-// packed halves: over a row's 8 words each half sums at most 8 x 1023 =
-// 8,184, so no half carries into the other, and the row's partial SAD
-// (the two halves added) is at most 16 x 1023 = 16,368, which the 16-bit
-// partial slots hold; the sums over 16 rows (at most 261,888) are taken in
-// 32 bits.  The rounded-up average of two words is __vavgu2, which
-// sm_90a runs as 4 instructions (tools/kernel_sass.py: LOP3, LOP3, SHF,
-// IADD3), the identity (a | b) - (((a ^ b) & 0xfffefffe) >> 1): per half
-// (a + b + 1) >> 1, since a + b = 2(a & b) + (a ^ b) and a | b = (a & b)
-// + (a ^ b), with no borrow across the halves, since a | b >= (a ^ b) >>
-// 1 in each.  Written out as (a | b) - (((a ^ b) >> 1) & 0x7fff7fff) the
-// same average takes 5.
+// words (10 a window row, shared by the odd offsets).
+// * The window: each row's 64 bytes from the 16-byte floor of its first
+//   column in 16-byte loads spread over the half-warp (4 rows a load
+//   instruction), staged in the partials' shared memory and shifted into
+//   place; a lane's own row in 4-byte loads took 12 load instructions
+//   that each touched 16 rows.
+// * The search scores twice each pixel's |avg - s|, avg = (h + w + 1) >>
+//   1: with u = (h + 1 + w) & ~1 = 2 avg, |u - 2s| = u + 2s - 2 min(u,
+//   2s).  Per word of two pixels: an add (h + 1 is held per lane, at most
+//   1024 + 1023 a half, so no carry), a LOP3, one VIMNMX.U16x2 against
+//   the held 2s, one IDP.2A that adds -2 min to a 32-bit sum which starts
+//   at the row's sum of 2s (sad16.cuh's dp2_halves), and half an IADD3
+//   that adds u to packed halves (at most 8 x 2046 a half; one more
+//   IDP.2A adds them to the sum).  The add and the IDP.2A can issue on
+//   another pipe than the rest (tools/int_pipes.py), where the rounded-up
+//   average __vavgu2 (4 instructions: LOP3, LOP3, SHF, IADD3) and the
+//   packed SAD (3: two VIMNMX.U16x2 and an IADD3) all took the first.
+//   The row's partial SAD, the sum halved, is at most 16 x 1023 =
+//   16,368, which the 16-bit partial slots hold; the sums over 16 rows (at
+//   most 261,888) are taken in 32 bits.
+// * The other SADs (step 1, the plain average) keep sad16.cuh's packed
+//   max - min, over a row's 8 words at most 8 x 1023 = 8,184 a half, and
+//   the average __vavgu2, which sm_90a runs as the identity (a | b) -
+//   (((a ^ b) & 0xfffefffe) >> 1): per half (a + b + 1) >> 1, since a + b
+//   = 2(a & b) + (a ^ b) and a | b = (a & b) + (a ^ b), with no borrow
+//   across the halves, since a | b >= (a ^ b) >> 1 in each.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -279,21 +293,7 @@ __global__ void __launch_bounds__(32 * kWarps) compound_joint_kernel(
   uint32_t* win = win_s[warp][g];
   const T* rp = refs + arm_k * plane;
   const int wx = ox - kPad, wa = wx & ~(X::kPerWord - 1);
-  if (wx >= 0 && wa + (X::kStore + 1) * X::kPerWord <= W) {
-    // inside the plane's columns: kStore + 1 aligned words per row,
-    // shifted
-    for (int i = r; i < kWin; i += 16) {
-      const uint32_t* gp = reinterpret_cast<const uint32_t*>(
-          rp + (size_t)clampi(oy - kPad + i, 0, H - 1) * W + wa);
-      uint32_t v[X::kStore + 1];
-#pragma unroll
-      for (int k = 0; k <= X::kStore; ++k) v[k] = gp[k];
-      const int sh = 8 * (int)sizeof(T) * (wx & (X::kPerWord - 1));
-#pragma unroll
-      for (int k = 0; k < X::kStore; ++k)
-        win[i * kStrideW + k] = __funnelshift_r(v[k], v[k + 1], sh);
-    }
-  } else {
+  auto load_clamped = [&]() {
     T* wb = reinterpret_cast<T*>(win);
     for (int k = r; k < kWin * kWin; k += 16) {
       const int i = k / kWin, j = k - (k / kWin) * kWin;
@@ -301,16 +301,58 @@ __global__ void __launch_bounds__(32 * kWarps) compound_joint_kernel(
           rp[(size_t)clampi(oy - kPad + i, 0, H - 1) * W +
              clampi(wx + j, 0, W - 1)];
     }
+  };
+  if constexpr (sizeof(T) == 1) {
+    if (wx >= 0 && wa + (X::kStore + 1) * X::kPerWord <= W) {
+      // inside the plane's columns: kStore + 1 aligned words per row,
+      // shifted
+      for (int i = r; i < kWin; i += 16) {
+        const uint32_t* gp = reinterpret_cast<const uint32_t*>(
+            rp + (size_t)clampi(oy - kPad + i, 0, H - 1) * W + wa);
+        uint32_t v[X::kStore + 1];
+#pragma unroll
+        for (int k = 0; k <= X::kStore; ++k) v[k] = gp[k];
+        const int sh = 8 * (int)sizeof(T) * (wx & (X::kPerWord - 1));
+#pragma unroll
+        for (int k = 0; k < X::kStore; ++k)
+          win[i * kStrideW + k] = __funnelshift_r(v[k], v[k + 1], sh);
+      }
+    } else {
+      load_clamped();
+    }
+  } else {
+    const int wf = wx & ~7;         // the 16-byte floor of the first column
+    if (wx >= 0 && wf + 32 <= W) {
+      // inside the plane's columns (notes at the top); the search fills
+      // the partials' shared memory only after the window is in place
+      static_assert(2 * kWin * 64 <= sizeof(part_s[0]), "the staging");
+      uint4* stage = reinterpret_cast<uint4*>(part_s[warp]) + g * kWin * 4;
+      for (int q = r; q < kWin * 4; q += 16)
+        stage[q] = *reinterpret_cast<const uint4*>(
+            rp + (size_t)clampi(oy - kPad + (q >> 2), 0, H - 1) * W + wf +
+            (q & 3) * 8);
+      __syncwarp(g ? 0xffff0000u : 0x0000ffffu);
+      const int j0 = (wx - wf) >> 1, sh = 16 * ((wx - wf) & 1);
+      for (int i = r; i < kWin; i += 16) {
+        const uint32_t* sw =
+            reinterpret_cast<const uint32_t*>(stage + i * 4) + j0;
+#pragma unroll
+        for (int k = 0; k < X::kStore; ++k)
+          win[i * kStrideW + k] = __funnelshift_r(sw[k], sw[k + 1], sh);
+      }
+    } else {
+      load_clamped();
+    }
   }
   uint32_t h[kRow];
   load_row(preds + held_k * plane + row_off, h);
   __syncwarp();
   uint16_t* part = part_s[warp];
+  if constexpr (sizeof(T) == 1) {
 #pragma unroll
-  for (int dy = 0; dy < kSide; ++dy) {
-    const uint32_t* wr = win + (r + dy) * kStrideW;
-    uint32_t w[X::kWinWords];
-    if constexpr (sizeof(T) == 1) {
+    for (int dy = 0; dy < kSide; ++dy) {
+      const uint32_t* wr = win + (r + dy) * kStrideW;
+      uint32_t w[X::kWinWords];
       const uint2* w2 = reinterpret_cast<const uint2*>(wr);
       const uint2 a = w2[0], b = w2[1], c = w2[2];
       w[0] = a.x;
@@ -319,7 +361,31 @@ __global__ void __launch_bounds__(32 * kWarps) compound_joint_kernel(
       w[3] = b.y;
       w[4] = c.x;
       w[5] = c.y;
-    } else {
+#pragma unroll
+      for (int dx = 0; dx < kSide; ++dx) {
+        uint32_t acc = 0;
+#pragma unroll
+        for (int i = 0; i < kRow; ++i)
+          acc = X::sad(s[i], X::avg(h[i], X::word(w, dx + X::kPerWord * i)),
+                       acc);
+        part[lane * kPartStride + dy * kSide + dx] = (uint16_t)X::total(acc);
+      }
+    }
+  } else {
+    // twice |avg - s| per pixel by the min identity (notes at the top);
+    // h and s hold h + 1 and 2s during the search
+    int srow2 = 0;
+#pragma unroll
+    for (int i = 0; i < kRow; ++i) {
+      h[i] += 0x00010001u;
+      s[i] <<= 1;
+      srow2 = dp2_halves(s[i], kTimes1, srow2);
+    }
+    // a loop over the window rows (unrolled, it took 7% longer)
+#pragma unroll 1
+    for (int dy = 0; dy < kSide; ++dy) {
+      const uint32_t* wr = win + (r + dy) * kStrideW;
+      uint32_t w[X::kWinWords];
       const uint4* w4 = reinterpret_cast<const uint4*>(wr);
       const uint4 a = w4[0], b = w4[1];
       const uint2 c = reinterpret_cast<const uint2*>(wr)[4];
@@ -334,15 +400,31 @@ __global__ void __launch_bounds__(32 * kWarps) compound_joint_kernel(
       w[8] = c.x;
       w[9] = c.y;
       w[10] = wr[10];
+#pragma unroll
+      for (int dx = 0; dx < kSide; ++dx) {
+        // the row's u as packed halves (at most 8 x 2046 a half), its
+        // -2 min and 2s in a 32-bit sum
+        uint32_t su = 0;
+        int acc = srow2;
+#pragma unroll
+        for (int i = 0; i < kRow; i += 2) {
+          const uint32_t u0 =
+              (h[i] + X::word(w, dx + X::kPerWord * i)) & 0xfffefffeu;
+          const uint32_t u1 =
+              (h[i + 1] + X::word(w, dx + X::kPerWord * (i + 1))) &
+              0xfffefffeu;
+          su += u0 + u1;
+          acc = dp2_halves(__vminu2(u1, s[i + 1]), kTimesMinus2,
+                           dp2_halves(__vminu2(u0, s[i]), kTimesMinus2, acc));
+        }
+        acc = dp2_halves(su, kTimes1, acc);
+        part[lane * kPartStride + dy * kSide + dx] = (uint16_t)(acc >> 1);
+      }
     }
 #pragma unroll
-    for (int dx = 0; dx < kSide; ++dx) {
-      uint32_t acc = 0;
-#pragma unroll
-      for (int i = 0; i < kRow; ++i)
-        acc = X::sad(s[i], X::avg(h[i], X::word(w, dx + X::kPerWord * i)),
-                     acc);
-      part[lane * kPartStride + dy * kSide + dx] = (uint16_t)X::total(acc);
+    for (int i = 0; i < kRow; ++i) {
+      h[i] -= 0x00010001u;
+      s[i] >>= 1;
     }
   }
   __syncwarp();

@@ -50,30 +50,52 @@
 //   minimum; the second window replaces the first only where its raw
 //   SAD is strictly smaller.
 //
-// The 16-bit form (uint16_t: int16 planes of 10-bit samples, [0, 1023]):
-// * Windows are rows of 2-byte samples, 224 bytes from the 8-sample
-//   (16-byte) floor of the first column, loaded by the same 16-byte
-//   cp.async path or clamped reads.
-// * A thread's column unit is 4 samples (two words), not 8, so that its
-//   registers are the 8-bit form's: two source words per source row and
-//   three window words and two funnel shifts (by 0 or 16 bits) per window
-//   row.  The tasks double (16 units per band row), and the two (fine) or
-//   four (coarse) lanes of an 8x8 or 16x16 block are summed by shuffles.
-// * The SADs take two 16-bit absolute differences per word as packed
-//   halves (sad16.cuh): 16 rows of 2 words add at most 16 x 2 x 1023 =
-//   32,736 to a half, so no half carries; the halves are summed before
-//   the shuffles.
+// The 16-bit form (int16 planes of 10-bit samples, [0, 1023]) is a kernel
+// of its own, me_refine16_kernel, shaped by what the card issues
+// (tools/int_pipes.py): VIMNMX.U16x2, IADD3, VABSDIFF4, LOP3, SHF and PRMT
+// all share one pipe of 64 lanes per SM and clock, and IDP.2A and IMAD
+// another, so a VIMNMX.U16x2 and an IDP.2A together issue about 49 lanes
+// each per clock where three VIMNMX/IADD3 take one slot each.
+// * SADs by an identity, |a - b| = a + b - 2 min(a, b): per word of two
+//   pixel pairs one VIMNMX.U16x2 (min) and one IDP.2A that adds -2 times
+//   both halves to a 32-bit sum, where the packed max - min of sad16.cuh
+//   takes three instructions of the first pipe.  The source's sum over
+//   the unit's rows starts every sum; the window's sum over the rows of
+//   offset dy is a difference of two prefix sums of the unit's window
+//   rows (two IDP.2A a window row keep the prefix, one add at the
+//   offset's first row and one at its last), so each sum ends as the
+//   exact SAD.  A
+//   thread's column unit is 4 samples (two words): two source words per
+//   source row, three window words and two funnel shifts (by 0 or 16
+//   bits) per window row; the two (fine) or four (coarse) lanes of an 8x8
+//   or 16x16 block are summed by shuffles.
+// * One window per CTA: the two CTAs of a cluster take an SB's two
+//   windows at once (twice the grid of the 8-bit form, so fewer CTAs wait
+//   for a last wave: 1,080 at 1920x1152, 270 at TPL's 960x576), and the
+//   second writes its winners into the first's shared memory, which
+//   merges them.  A window row is 104 samples (208 bytes) from the
+//   8-sample (16-byte) floor of its first column, loaded by 16-byte
+//   cp.async or clamped reads.
 // * An 8x8 SAD is at most 64 x 1023 = 65,472: the fine table stays
-//   uint16.  A 16x16 SAD reaches 256 x 1023 = 261,888, so the coarse
-//   table holds uint32 entries and takes one window at a time (about
-//   105 KB: two CTAs still share an SM, where both windows at once would
-//   need about 200 KB and one CTA per SM).
+//   uint16 (140 KB, one CTA per SM).  A 16x16 SAD reaches 256 x 1023 =
+//   261,888, so the coarse table holds uint32 entries (70 KB; about 103 KB
+//   in all, two CTAs per SM).
+// * Aggregation: each offset's distance from the window's 64x64 winner is
+//   kept in the window's buffer, free by then.  For the plans' and TPL's
+//   shapes (16x16 and 64x64 from the coarse table) every thread keeps the
+//   17 blocks' first minima over its offsets, then each warp (two REDUX:
+//   the least cost, the least offset that reaches it) and the CTA; other
+//   shapes take one warp per output block.  One warp per block spent a
+//   fifth of the kernel's time in the per-block loops' serial chains.
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include <type_traits>
 
 #include "sad16.cuh"
+
+namespace cg = cooperative_groups;
 
 namespace {
 
@@ -85,10 +107,10 @@ constexpr int kNoff = kNpos * kNpos;    // 1089
 constexpr int kTabStride = 1090;        // entries per table row
 constexpr int kMaxShapes = 8;
 
-// T: the sample type (uint8_t, or uint16_t for 10-bit samples)
+// T: the sample type of the 8-bit form, uint8_t (the 16-bit form's is
+// Cfg16 below)
 template <typename T, bool kFine>
 struct Cfg {
-  static constexpr int kWide = sizeof(T) == 2;
   // a window row from its 16-byte floor: 112 samples
   static constexpr int kRowBytes = 112 * (int)sizeof(T);
   static constexpr int kRowWords = kRowBytes / 4;
@@ -96,21 +118,19 @@ struct Cfg {
   static constexpr int kAlign = 16 / (int)sizeof(T);  // samples per 16 B
   static constexpr int kUnitPx = 8 / (int)sizeof(T);  // a thread's columns
   static constexpr int kUnits = 64 / kUnitPx;         // units per row
-  static constexpr int kUnitsLog2 = kWide ? 4 : 3;
+  static constexpr int kUnitsLog2 = 3;
   static constexpr int kBandTasks = kUnits * kNpos;   // (dx, unit) pairs
   static constexpr int F = kFine ? 1 : 2;            // block rows per band
   static constexpr int kBands = 8 / F;
   static constexpr int kEntries = kFine ? 64 : 16;   // table entries
-  static constexpr int kWins = kFine || kWide ? 1 : 2;  // windows at once
+  static constexpr int kWins = kFine ? 1 : 2;        // windows at once
   static constexpr int kTasks = kWins * kBands * kBandTasks;
   static constexpr int kThreads = kFine ? 704 : 352;
   static constexpr int kMinBlocks = kFine ? 1 : 2;
   static constexpr int kMaxOut = kFine ? 165 : 37;   // blocks of all shapes
   static constexpr size_t kSrcBytes = (size_t)kSB * kSB * sizeof(T);
   static constexpr size_t kWinBytes = (size_t)kWins * kWin * kRowBytes;
-  // the coarse 16x16 SADs of 10-bit samples need 32-bit entries
-  using Tab = typename std::conditional<!kFine && kWide, uint32_t,
-                                        uint16_t>::type;
+  using Tab = uint16_t;
   static constexpr size_t kTabBytes =
       (size_t)kWins * kEntries * kTabStride * sizeof(Tab);
   static constexpr size_t kS64Bytes = (size_t)kWins * kNoff * 4;
@@ -120,6 +140,7 @@ struct Cfg {
   static_assert(kTasks % kThreads == 0, "every lane takes whole tasks");
   static_assert(kThreads % 32 == 0, "whole warps");
   static_assert(kSmemBytes <= 232448, "one CTA's shared memory");
+  static_assert(sizeof(T) == 1, "the 16-bit form is me_refine16_kernel");
 };
 
 struct Spec {
@@ -156,17 +177,6 @@ __device__ __forceinline__ uint32_t sad4(uint32_t a, uint32_t b,
       : "=r"(d)
       : "r"(a), "r"(b), "r"(acc));
   return d;
-}
-
-// the word pair's SAD into acc: four byte pairs into a 32-bit sum (8-bit
-// form), or two 16-bit pairs into packed 16-bit halves (16-bit form)
-template <typename T>
-__device__ __forceinline__ uint32_t sad_word(uint32_t a, uint32_t b,
-                                             uint32_t acc) {
-  if constexpr (sizeof(T) == 1)
-    return sad4(a, b, acc);
-  else
-    return sad16x2(a, b, acc);
 }
 
 __device__ __forceinline__ void cp_async16(void* dst, const void* src) {
@@ -259,8 +269,7 @@ me_refine_kernel(const T* __restrict__ src, const T* __restrict__ ref, int H,
     cp_async_wait_all();
     __syncthreads();
 
-    // SADs: task = (window, band, dx, unit), the unit (bx at 8 bits, the
-    // 4-sample half of bx at 16) fastest
+    // SADs: task = (window, band, dx, unit), the unit bx fastest
     for (int task = tid; task < C::kTasks; task += kT) {
       const int wi = task / (C::kBands * kBandTasks);
       const int rem = task - wi * (C::kBands * kBandTasks);
@@ -294,43 +303,21 @@ me_refine_kernel(const T* __restrict__ src, const T* __restrict__ ref, int H,
         for (int i = 0; i < 8 * F; ++i) {
           const int dy = yy - i;
           if (dy >= 0 && dy < kNpos)
-            acc[dy] = sad_word<T>(hi, s_hi[i],
-                                  sad_word<T>(lo, s_lo[i], acc[dy]));
+            acc[dy] = sad4(hi, s_hi[i], sad4(lo, s_lo[i], acc[dy]));
         }
       }
-      if constexpr (sizeof(T) == 2) {
+      if (kFine) {
+        uint16_t* t = tab + (size_t)(band * 8 + bx) * kTabStride + dx;
 #pragma unroll
-        for (int d = 0; d < kNpos; ++d)
-          acc[d] = halves16(acc[d]);
-      }
-      if constexpr (sizeof(T) == 1) {
-        if (kFine) {
-          uint16_t* t = tab + (size_t)(band * 8 + bx) * kTabStride + dx;
-#pragma unroll
-          for (int d = 0; d < kNpos; ++d) t[d * kNpos] = (uint16_t)acc[d];
-        } else {
-          uint16_t* t = tab + (size_t)(wi * C::kEntries + band * 4 +
-                                       (bx >> 1)) * kTabStride + dx;
-#pragma unroll
-          for (int d = 0; d < kNpos; ++d) {
-            const uint32_t v =
-                acc[d] + __shfl_xor_sync(0xffffffffu, acc[d], 1);
-            if (!(bx & 1)) t[d * kNpos] = (uint16_t)v;
-          }
-        }
+        for (int d = 0; d < kNpos; ++d) t[d * kNpos] = (uint16_t)acc[d];
       } else {
-        // the 8x8 (fine: two units) or 16x16 (coarse: four) block's SAD
-        // on the lane of its first unit
-        constexpr int kLanes = kFine ? 2 : 4;
-        Tab* t = tab + (size_t)(wi * C::kEntries +
-                                (kFine ? band * 8 + (bx >> 1)
-                                       : band * 4 + (bx >> 2))) *
-                           kTabStride + dx;
+        uint16_t* t = tab + (size_t)(wi * C::kEntries + band * 4 +
+                                     (bx >> 1)) * kTabStride + dx;
 #pragma unroll
         for (int d = 0; d < kNpos; ++d) {
-          uint32_t v = acc[d] + __shfl_xor_sync(0xffffffffu, acc[d], 1);
-          if (!kFine) v += __shfl_xor_sync(0xffffffffu, v, 2);
-          if (!(bx & (kLanes - 1))) t[d * kNpos] = (Tab)v;
+          const uint32_t v =
+              acc[d] + __shfl_xor_sync(0xffffffffu, acc[d], 1);
+          if (!(bx & 1)) t[d * kNpos] = (uint16_t)v;
         }
       }
     }
@@ -435,6 +422,338 @@ me_refine_kernel(const T* __restrict__ src, const T* __restrict__ ref, int H,
   }
 }
 
+// ---------------------------------------------------------------------------
+// The 16-bit form: one window of one SB per CTA, the SADs by the identity
+// (design notes at the top)
+// ---------------------------------------------------------------------------
+
+template <bool kFine>
+struct Cfg16 {
+  static constexpr int kRowPx = 104;                 // 7 + 96, rounded up
+  static constexpr int kRowBytes = kRowPx * 2;       // a window row
+  static constexpr int kRowWords = kRowBytes / 4;
+  static constexpr int kChunks = kRowBytes / 16;
+  static constexpr int kUnits = 16;                  // 4-sample units a row
+  static constexpr int kBandTasks = kUnits * kNpos;  // (dx, unit) pairs
+  static constexpr int kRows = kFine ? 8 : 16;       // source rows a band
+  static constexpr int kBands = kSB / kRows;
+  static constexpr int kLanes = kRows / 4;           // units of a block
+  static constexpr int kEntries = kFine ? 64 : 16;   // table entries
+  static constexpr int kTasks = kBands * kBandTasks;
+  static constexpr int kThreads = kFine ? 704 : 352;
+  static constexpr int kMinBlocks = kFine ? 1 : 2;
+  static constexpr int kMaxOut = kFine ? 165 : 37;   // blocks of all shapes
+  using Tab = typename std::conditional<kFine, uint16_t, uint32_t>::type;
+  static constexpr size_t kSrcBytes = (size_t)kSB * kSB * 2;
+  static constexpr size_t kWinBytes = (size_t)kWin * kRowBytes;
+  static constexpr size_t kTabBytes = (size_t)kEntries * kTabStride *
+                                      sizeof(Tab);
+  static constexpr size_t kS64Bytes = (size_t)kNoff * 4;
+  // this window's winners, and in the first CTA the second's
+  static constexpr size_t kResBytes = (size_t)2 * kMaxOut * 3 * 4;
+  static constexpr size_t kSmemBytes =
+      kSrcBytes + kWinBytes + kTabBytes + kS64Bytes + kResBytes;
+  static_assert(kTasks % kThreads == 0, "every lane takes whole tasks");
+  static_assert(kThreads % 32 == 0, "whole warps");
+  static_assert(kSmemBytes <= 232448, "one CTA's shared memory");
+};
+
+template <bool kFine>
+__global__ void __cluster_dims__(2, 1, 1)
+    __launch_bounds__(Cfg16<kFine>::kThreads, Cfg16<kFine>::kMinBlocks)
+    me_refine16_kernel(const uint16_t* __restrict__ src,
+                       const uint16_t* __restrict__ ref, int H, int W,
+                       int row0, const int* __restrict__ coarse, Spec spec,
+                       int* __restrict__ out) {
+  using C = Cfg16<kFine>;
+  using Tab = typename C::Tab;
+  constexpr int kT = C::kThreads, kNWarps = kT / 32;
+  constexpr int kRows = C::kRows, kRowWords = C::kRowWords;
+  extern __shared__ __align__(16) uint8_t smem[];
+  uint32_t* sbw = reinterpret_cast<uint32_t*>(smem);   // 64 rows x 32 words
+  uint8_t* winb = smem + C::kSrcBytes;
+  Tab* tab = reinterpret_cast<Tab*>(winb + C::kWinBytes);
+  int* s64 = reinterpret_cast<int*>(smem + C::kSrcBytes + C::kWinBytes +
+                                    C::kTabBytes);
+  int* res = s64 + kNoff;
+  __shared__ int red_c[kNWarps];
+  __shared__ int red_i[kNWarps];
+  __shared__ int d64[2];
+
+  // the cluster's first CTA searches around the coarse winner, the second
+  // around the zero MV
+  cg::cluster_group cluster = cg::this_cluster();
+  const int wi = (int)cluster.block_rank();
+  const int n = blockIdx.x >> 1;
+  const int n_sbx = W / kSB;
+  // the SB's row in the source, and its global row in the reference
+  const int src_y = (n / n_sbx) * kSB, pos_x = (n % n_sbx) * kSB;
+  const int pos_y = src_y + row0;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+
+  for (int k = tid; k < kSB * 32; k += kT)
+    sbw[k] = *reinterpret_cast<const uint32_t*>(
+        src + (size_t)(src_y + (k >> 5)) * W + pos_x + (k & 31) * 2);
+
+  // the window's origin, clipped so that it starts at most kR outside the
+  // plane, and the 8-sample floor of its first column
+  const int cy = wi == 0 ? coarse[n * 2] : 0;
+  const int cx = wi == 0 ? coarse[n * 2 + 1] : 0;
+  const int oy = clampi(pos_y + cy - kR, -kR, H - kWin + kR);
+  const int ox = clampi(pos_x + cx - kR, -kR, W - kWin + kR);
+  const int oxa = ox & ~7;
+  if (((uintptr_t)ref & 15) == 0 && oy >= 0 && oy + kWin <= H &&
+      oxa >= 0 && oxa + C::kRowPx <= W) {
+    for (int k = tid; k < kWin * C::kChunks; k += kT) {
+      const int i = k / C::kChunks, ch = k - i * C::kChunks;
+      cp_async16(winb + i * C::kRowBytes + ch * 16,
+                 ref + (size_t)(oy + i) * W + oxa + ch * 8);
+    }
+  } else {
+    uint16_t* wt = reinterpret_cast<uint16_t*>(winb);
+    for (int k = tid; k < kWin * C::kRowPx; k += kT) {
+      const int i = k / C::kRowPx, j = k - i * C::kRowPx;
+      wt[k] = ref[(size_t)clampi(oy + i, 0, H - 1) * W +
+                  clampi(oxa + j, 0, W - 1)];
+    }
+  }
+  cp_async_wait_all();
+  __syncthreads();
+
+  // SADs: task = (band, dx, unit), the unit fastest.  sum[dy] runs from
+  // the unit's source sum, adds -2 min per pixel pair and the window's
+  // prefix sums p at the offset's last row (+) and before its first (-)
+  for (int task = tid; task < C::kTasks; task += kT) {
+    const int band = task / C::kBandTasks;
+    const int q = task - band * C::kBandTasks;
+    const int dx = q >> 4, bx = q & 15;
+    uint32_t s_lo[kRows], s_hi[kRows];
+    int sa = 0;
+#pragma unroll
+    for (int i = 0; i < kRows; ++i) {
+      s_lo[i] = sbw[(band * kRows + i) * 32 + bx * 2];
+      s_hi[i] = sbw[(band * kRows + i) * 32 + bx * 2 + 1];
+      sa = dp2_halves(s_lo[i], kTimes1, dp2_halves(s_hi[i], kTimes1, sa));
+    }
+    // the unit's first window sample, its word and the shift within it
+    const int x = (ox & 7) + bx * 4 + dx;
+    const int sh = (x & 1) * 16;
+    const uint32_t* wrow = reinterpret_cast<const uint32_t*>(winb) +
+                           band * kRows * kRowWords + (x >> 1);
+    int sum[kNpos];
+#pragma unroll
+    for (int d = 0; d < kNpos; ++d) sum[d] = sa;
+    int p = 0;
+#pragma unroll
+    for (int yy = 0; yy < kRows + kNpos - 1; ++yy) {
+      const uint32_t w0 = wrow[yy * kRowWords];
+      const uint32_t w1 = wrow[yy * kRowWords + 1];
+      const uint32_t w2 = wrow[yy * kRowWords + 2];
+      const uint32_t lo = __funnelshift_r(w0, w1, sh);
+      const uint32_t hi = __funnelshift_r(w1, w2, sh);
+      // the unit's window sum over rows 0..yy
+      p = dp2_halves(lo, kTimes1, dp2_halves(hi, kTimes1, p));
+      if (yy >= kRows - 1) sum[yy - (kRows - 1)] += p;
+      if (yy + 1 < kNpos) sum[yy + 1] -= p;
+#pragma unroll
+      for (int i = 0; i < kRows; ++i) {
+        const int dy = yy - i;
+        if (dy >= 0 && dy < kNpos)
+          sum[dy] = dp2_halves(
+              __vminu2(hi, s_hi[i]), kTimesMinus2,
+              dp2_halves(__vminu2(lo, s_lo[i]), kTimesMinus2, sum[dy]));
+      }
+    }
+    // the 8x8 (fine: two units) or 16x16 (coarse: four) block's SAD on
+    // the lane of its first unit
+    Tab* t = tab + (size_t)(kFine ? band * 8 + (bx >> 1)
+                                  : band * 4 + (bx >> 2)) * kTabStride + dx;
+#pragma unroll
+    for (int d = 0; d < kNpos; ++d) {
+      int v = sum[d] + __shfl_xor_sync(0xffffffffu, sum[d], 1);
+      if (!kFine) v += __shfl_xor_sync(0xffffffffu, v, 2);
+      if (!(bx & (C::kLanes - 1))) t[d * kNpos] = (Tab)v;
+    }
+  }
+  __syncthreads();
+
+  // the 64x64 SAD of every offset and the window's unbiased winner
+  {
+    int bc = 0x7fffffff, bi = 0x7fffffff;
+    for (int o = tid; o < kNoff; o += kT) {
+      const Tab* t = tab + o;
+      int s = 0;
+#pragma unroll 16
+      for (int e = 0; e < C::kEntries; ++e) s += t[e * kTabStride];
+      s64[o] = s;
+      keep_min(bc, bi, s, o);
+    }
+    warp_min(bc, bi);
+    if (lane == 0) {
+      red_c[warp] = bc;
+      red_i[warp] = bi;
+    }
+    __syncthreads();
+    if (tid == 0) {
+      int c = red_c[0], i = red_i[0];
+      for (int w = 1; w < kNWarps; ++w) keep_min(c, i, red_c[w], red_i[w]);
+      d64[0] = i / kNpos - kR;
+      d64[1] = i % kNpos - kR;
+    }
+    __syncthreads();
+  }
+  // each offset's distance from the 64x64 winner, the bias per unit of
+  // area, in the window's buffer (free once the table is written)
+  int* dist = reinterpret_cast<int*>(winb);
+  for (int o = tid; o < kNoff; o += kT)
+    dist[o] = abs(o / kNpos - kR - d64[0]) + abs(o % kNpos - kR - d64[1]);
+  __syncthreads();
+
+  // the second CTA writes its winners into the first CTA's shared memory
+  int* res_w = (wi == 0 ? res : cluster.map_shared_rank(res, 0)) +
+               wi * C::kMaxOut * 3;
+  // the outputs of the plans' and TPL's shapes (16x16 and 64x64 from the
+  // coarse table): every thread takes offsets and keeps each block's first
+  // minimum, then each warp and the CTA theirs; other shapes: one warp
+  // per output block
+  int j16 = -1, j64 = -1;          // the outputs' first index, or -1
+  bool fused = !kFine;
+  for (int sh = 0, base = 0; sh < spec.n_shapes; ++sh) {
+    const int fy = spec.fy[sh], fx = spec.fx[sh];
+    if (fy == 2 && fx == 2)
+      j16 = base;
+    else if (fy == 8 && fx == 8)
+      j64 = base;
+    else
+      fused = false;
+    base += (8 / fy) * (8 / fx);
+  }
+  if constexpr (!kFine) {
+    if (fused) {
+      __shared__ int blk_c[17][kNWarps];
+      __shared__ int blk_i[17][kNWarps];
+      int bc[17], bi[17];        // the 16 16x16 blocks, then the 64x64
+#pragma unroll
+      for (int e = 0; e < 17; ++e) {
+        bc[e] = 0x7fffffff;
+        bi[e] = 0;
+      }
+      for (int o = tid; o < kNoff; o += kT) {
+        const int d = dist[o];
+#pragma unroll
+        for (int e = 0; e < 17; ++e) {
+          const int c = (e < 16 ? (int)tab[e * kTabStride + o] + 256 * d
+                                : s64[o] + 4096 * d);
+          if (c < bc[e]) {
+            bc[e] = c;
+            bi[e] = o;
+          }
+        }
+      }
+#pragma unroll
+      for (int e = 0; e < 17; ++e) {
+        const int m = __reduce_min_sync(0xffffffffu, bc[e]);
+        const int i = __reduce_min_sync(0xffffffffu,
+                                        bc[e] == m ? bi[e] : 0x7fffffff);
+        if (lane == 0) {
+          blk_c[e][warp] = m;
+          blk_i[e][warp] = i;
+        }
+      }
+      __syncthreads();
+      if (tid < 17 && (tid < 16 ? j16 : j64) >= 0) {
+        int c = blk_c[tid][0], i = blk_i[tid][0];
+        for (int w = 1; w < kNWarps; ++w)
+          keep_min(c, i, blk_c[tid][w], blk_i[tid][w]);
+        const int area = tid < 16 ? 256 : 4096;
+        int* r = res_w + (tid < 16 ? j16 + tid : j64) * 3;
+        r[0] = oy + kR + i / kNpos - kR - pos_y;
+        r[1] = ox + kR + i % kNpos - kR - pos_x;
+        r[2] = c - area * dist[i];
+      }
+    }
+  }
+  if (!fused) {
+    for (int j = warp; j < spec.n_out; j += kNWarps) {
+      int s = 0, base = 0, fy = 0, fx = 0, cnt = 0;
+      for (; s < spec.n_shapes; ++s) {
+        fy = spec.fy[s];
+        fx = spec.fx[s];
+        cnt = (8 / fy) * (8 / fx);
+        if (j < base + cnt) break;
+        base += cnt;
+      }
+      const int jj = j - base, nox = 8 / fx;
+      const int oby = (jj / nox) * fy, obx = (jj % nox) * fx;
+      const int area = 64 * fy * fx;
+      // table entries of the block: 8x8 units (fine) or 16x16 (coarse)
+      const int u = kFine ? 1 : 2, tw = 8 / u;
+      const int ey0 = oby / u, ex0 = obx / u, ny = fy / u, nx = fx / u;
+      const bool whole = fy == 8 && fx == 8;
+      // each lane's first minimum (its offsets grow), then the warp's: the
+      // least cost, and the least offset of the lanes that reach it
+      int bc = 0x7fffffff, bi = 0;
+      for (int o = lane; o < kNoff; o += 32) {
+        int agg = 0;
+        if (whole) {
+          agg = s64[o];
+        } else {
+          for (int yy = 0; yy < ny; ++yy)
+            for (int xx = 0; xx < nx; ++xx)
+              agg += tab[((ey0 + yy) * tw + ex0 + xx) * kTabStride + o];
+        }
+        agg += area * dist[o];
+        if (agg < bc) {
+          bc = agg;
+          bi = o;
+        }
+      }
+      const int m = __reduce_min_sync(0xffffffffu, bc);
+      bi = __reduce_min_sync(0xffffffffu, bc == m ? bi : 0x7fffffff);
+      if (lane == 0) {
+        const int dy = bi / kNpos - kR, dx = bi % kNpos - kR;
+        int* r = res_w + j * 3;
+        r[0] = oy + kR + dy - pos_y;
+        r[1] = ox + kR + dx - pos_x;
+        r[2] = m - area * dist[bi];
+      }
+    }
+  }
+  cluster.sync();
+
+  // the second window replaces the first where its raw SAD is smaller
+  if (wi == 0) {
+    for (int j = tid; j < spec.n_out; j += kT) {
+      const int* r0 = res + j * 3;
+      const int* r1 = res + (C::kMaxOut + j) * 3;
+      int* o4 = out + ((size_t)n * spec.n_out + j) * 4;
+      const bool take = r1[2] < r0[2];
+      o4[0] = take ? r1[0] : r0[0];
+      o4[1] = take ? r1[1] : r0[1];
+      o4[2] = take ? r1[2] : r0[2];
+      o4[3] = take ? 1 : 0;
+    }
+  }
+}
+
+template <bool kFine>
+int launch16(const void* src, const void* ref, int rows, int H, int W,
+             int row0, const void* coarse, const Spec& spec, void* out,
+             void* stream) {
+  using C = Cfg16<kFine>;
+  if (spec.n_out > C::kMaxOut) return (int)cudaErrorInvalidValue;
+  cudaError_t e = cudaFuncSetAttribute(
+      me_refine16_kernel<kFine>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)C::kSmemBytes);
+  if (e != cudaSuccess) return (int)e;
+  const int n = (rows / kSB) * (W / kSB);
+  me_refine16_kernel<kFine><<<2 * n, C::kThreads, C::kSmemBytes,
+                              (cudaStream_t)stream>>>(
+      (const uint16_t*)src, (const uint16_t*)ref, H, W, row0,
+      (const int*)coarse, spec, (int*)out);
+  return (int)cudaGetLastError();
+}
+
 template <typename T, bool kFine>
 int launch(const void* src, const void* ref, int rows, int H, int W,
            int row0, const void* coarse, const Spec& spec, void* out,
@@ -490,10 +809,10 @@ extern "C" int me_refine_launch(const void* src, const void* ref,
     fine |= fy == 1 || fx == 1;
   }
   if (sample_bytes == 2)
-    return fine ? launch<uint16_t, true>(src, ref, rows, H, W, row0, coarse,
-                                         sp, out, stream)
-                : launch<uint16_t, false>(src, ref, rows, H, W, row0, coarse,
-                                          sp, out, stream);
+    return fine ? launch16<true>(src, ref, rows, H, W, row0, coarse, sp, out,
+                                 stream)
+                : launch16<false>(src, ref, rows, H, W, row0, coarse, sp,
+                                  out, stream);
   return fine ? launch<uint8_t, true>(src, ref, rows, H, W, row0, coarse, sp,
                                       out, stream)
               : launch<uint8_t, false>(src, ref, rows, H, W, row0, coarse, sp,

@@ -2155,6 +2155,118 @@ def test_k5_k6_16bit_at_the_tpl_geometry_match_plain(dev, kind):
         assert torch.equal(g, w)
 
 
+# -- the 16-bit forms of K6 and K9 by the identity |a - b| = a + b - 2
+# min(a, b): K6 with one window per CTA (two CTAs of a cluster per SB)
+
+def _identity_pair10(kind, h, w):
+    """(src, ref) int16 planes at the edges of the identity: 1023 against
+    0 and 0 against 1023 (the largest sums, and minima of 0), equal flat
+    planes (every offset ties at SAD 0: the first minimum decides), and
+    columns alternating 0 and 1023 against their shift (minima of 0 and
+    1023 side by side in a word, ties at every second offset)."""
+    if kind in ("1023_vs_0", "0_vs_1023"):
+        a = np.full((h, w), 1023, np.int16)
+        z = np.zeros((h, w), np.int16)
+        return (a, z) if kind == "1023_vs_0" else (z, a)
+    if kind == "flat":
+        f = np.full((h, w), 511, np.int16)
+        return f, f.copy()
+    yy, xx = np.mgrid[0:h, 0:w]
+    src = (((xx + yy // 3) % 2) * 1023).astype(np.int16)
+    return src, np.roll(src, (2, 1), axis=(0, 1))
+
+
+@pytest.mark.parametrize("shapes", [
+    bme.ME_SHAPES, ((16, 16), (64, 64)), ((64, 64), (16, 16)), ((16, 16),),
+    ((32, 32),), ((16, 16), (32, 16), (16, 32), (32, 32), (64, 64))],
+    ids=["all", "path", "path_reversed", "tpl", "mctf", "coarse_all"])
+@pytest.mark.parametrize("kind", ["1023_vs_0", "0_vs_1023", "flat",
+                                  "alternating"])
+def test_k6_16bit_identity_edges_match_plain(dev, kind, shapes):
+    """K6's 16-bit form at the edges of its sums (the source's and the
+    window's sums and -2 min per pixel pair) on 192x256 planes, with K5's
+    winners and with arbitrary coarse MVs (windows clipped at every
+    edge), for the 8x8 table (all shapes), the 16x16 table of 32-bit
+    entries with the 16x16 and 64x64 outputs taken by every thread (the
+    path's shapes in either order, TPL's 16x16 alone) and by one warp per
+    output (the other coarse shapes)."""
+    src, ref = (torch.from_numpy(p).to(dev)
+                for p in _identity_pair10(kind, 192, 256))
+    rng = np.random.default_rng(5)
+    for coarse in (bme.me_coarse(src, ref, 8), torch.from_numpy(
+            rng.integers(-40, 41, (3, 4, 2)).astype(np.int32)).to(dev)):
+        got = _k6_16_equal(src, ref, coarse, shapes)
+        if kind != "alternating":
+            for (w, h) in shapes:
+                want = 0 if kind == "flat" else w * h * 1023
+                assert bool((got[(w, h)][2] == want).all()), (w, h)
+
+
+@pytest.mark.parametrize("kind", ["textured", "extremes"])
+def test_k6_16bit_cluster_geometries_match_plain(dev, kind):
+    """K6's 16-bit form (two CTAs per SB) at TPL's 960x576 (135 SBs) with
+    a reference one sample off its 16-byte boundary, stripes of it at
+    row0 64 and 512, a one-SB-row 64x960 plane and a single SB (one
+    cluster)."""
+    src, ref = _cuda10(dev, kind, 576, 960, 5)
+    off = torch.empty(ref.numel() + 16, dtype=torch.int16, device=dev)[
+        1:1 + ref.numel()].view(ref.shape).copy_(ref)
+    coarse = bme.coarse_sb_search(src, ref)
+    for r in (ref, off):
+        for shapes in (((16, 16),), ((16, 16), (64, 64))):
+            _k6_16_equal(src, r, coarse, shapes)
+    tpl16 = ((16, 16),)
+    whole = bme.refine_plain(src, ref, coarse, tpl16)
+    for row0 in (64, 512):
+        stripe = src[row0:row0 + 64].contiguous()
+        got = _k6_16_equal(stripe, ref, bme.me_coarse(stripe, ref, 8, row0),
+                           tpl16, row0)
+        k = (row0 // 64) * 15
+        for g, w in zip(got[(16, 16)], whole[(16, 16)]):
+            assert torch.equal(g, w[k:k + 15])
+    for h, w in ((64, 960), (64, 64)):
+        s1, r1 = _cuda10(dev, kind, h, w, 6)
+        for shapes in (bme.ME_SHAPES, ((16, 16), (64, 64))):
+            _k6_16_equal(s1, r1, bme.me_coarse(s1, r1, 8), shapes)
+
+
+def _k9_16_custom_preds(dev, kind, H, W, seed):
+    """K9's 16-bit inputs whose predictions (the held arms) and reference
+    windows are chosen: "ends" puts the source, both references and both
+    predictions at 0 or 1023 (h + 1 + w from 1 to 2047, averages at 0,
+    512 and 1023); "odd_sums" takes odd predictions and even references
+    (every h + w odd), "even_sums" odd ones of both (every h + w even),
+    each around a textured source."""
+    rng = np.random.default_rng(seed)
+    if kind == "ends":
+        src = _extreme_plane10(H, W, seed)
+        refs = [_extreme_plane10(H, W, seed + 1 + k) for k in range(2)]
+        preds = [np.where(rng.random((H, W)) < 0.5, 1023, 0).astype(np.int16)
+                 for _ in range(2)]
+    else:
+        src = _plane10(H, W, seed)
+        refs = [np.roll(src, (2 * k + 1, -3 * k), axis=(0, 1))
+                for k in range(2)]
+        refs = [((r.astype(np.int32) & ~1) | (kind == "even_sums"))
+                .clip(0, 1023).astype(np.int16) for r in refs]
+        preds = [(np.roll(src, (k - 1, 2), axis=(0, 1)).astype(np.int32)
+                  | 1).clip(0, 1023).astype(np.int16) for k in range(2)]
+    args = _k9_inputs(dev, src, refs, bd=10)
+    return (args[0], args[1], torch.from_numpy(np.stack(preds)).to(dev)
+            .contiguous()) + args[3:]
+
+
+@pytest.mark.parametrize("size", [(192, 256), (1152, 1920)],
+                         ids=["small", "1080p"])
+@pytest.mark.parametrize("kind", ["ends", "odd_sums", "even_sums"])
+def test_k9_16bit_identity_edges_match_plain(dev, kind, size):
+    """K9's 16-bit search by the identity on sums h + w of either parity
+    and samples at 0 and 1023 in both arms, both arm orders."""
+    args = _k9_16_custom_preds(dev, kind, *size, 3)
+    _k9_16_equal(args, (False, True), (-1, 1))
+    _k9_16_equal(args, (True, False), (2, -1))
+
+
 def test_tenbit_ra_stream_on_the_card_equals_the_plain_stream(dev,
                                                               tmp_path):
     """A 10-bit random-access clip (192x128x5, hierarchical_levels 2: MCTF,

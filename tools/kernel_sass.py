@@ -15,7 +15,8 @@ Needs the CUDA toolkit (nvcc, cuobjdump); no card.  Prints:
    starts with VABSDIFF, IDP (dp4a and dp2a) or PRMT) and the branches
    and shared-memory atomics (BRA, BSSY, BSYNC, WARPSYNC, ATOMS); the
    kernels with a 16-bit form (K1, K4's search, K5-K10) list the entries
-   of both template instantiations (uint8_t and uint16_t);
+   of both template instantiations (uint8_t and uint16_t; K6's 16-bit
+   form is a kernel of its own, me_refine16_kernel);
 3. the SASS of five exact forms of "accumulate the sum of the four
    absolute byte differences of two words" (K6's inner operation):
    ``__vsadu4``, PTX ``vabsdiff4.u32.u32.u32.add`` with the accumulator

@@ -1,8 +1,8 @@
 """K1-K10 kernel times and the encode fps and stream md5s of one checkout,
 on chip_smoke.py's 1080p inputs.
 
-    python3 tools/tree_times.py [--root DIR] [--kernels [--match TEXT]]
-                                [--fps]
+    python3 tools/tree_times.py [--root DIR]
+                                [--kernels [--match TEXT[,TEXT...]]] [--fps]
 
 Imports ``svt_av1_tpu_torch`` from DIR (default: this checkout), so that
 two trees (a parent commit unpacked with ``git archive`` and the change)
@@ -38,23 +38,26 @@ parts run.
   16-bit forms (device.py SAMPLE_DTYPES), K1 and K4's search also on the
   10-bit frame (synth_clip at bd 10, int16 planes), and where its K5
   takes int16 planes, K5 (every reach of the path), K6 (the path's
-  shapes), K7 and K8's low-delay P call on two frames of the moving clip
-  at 10 bits.  K3 and K4's apply also
-  have a device time with the L2 cache flushed before each call
-  (``device_ms_cold``: a 128 MB write between the calls, the kernels'
-  own time alone): their 1080p inputs fit in the 50 MB L2, which the
+  shapes, and TPL's 16x16 alone on int16 planes at 960x576), K7 and K8's
+  low-delay P call on two frames of the moving clip at 10 bits.  K3 and
+  K4's apply also have a device time with the L2 cache flushed before
+  each call (``device_ms_cold``: a 128 MB write between the calls, the
+  kernels' own time alone): their 1080p inputs fit in the 50 MB L2, which the
   timing loop otherwise reuses.  K4's per-fb forms on the same three
   planes at 8 and 10 bits: the search over the full 8x4 grid, the apply
   with 8 presets on a random 17x30 index grid given as a host array.
-  ``--match TEXT`` times only the calls whose name holds TEXT.
+  ``--match TEXT[,TEXT...]`` times only the calls whose name holds one
+  of the TEXTs.
 * ``--fps``: the all-intra encode (three noise-like and three smooth
   frames), the low-delay P encode (6 frames of the moving clip) and the
   random-access encode (bench.py's configuration, 33 frames, fps over
   the last 16 after a 17-frame warm-up), chip_smoke.py's clips and
-  configurations, with the md5 of each stream's packets, the stage
-  times of each 1080p encode (host wall clock, ms per coded frame, the
-  Encoder's StageTimer), and the md5s of chip_smoke.py's four small
-  card streams (agreement_clips).
+  configurations, each also at 10 bits, and the encodes of
+  chip_smoke.py's full-width 10-bit jobs (the 64x64-SB random access,
+  the 1918x1078 low-delay P, the preset-6 key frame), with the md5 of
+  each stream's packets, the stage times of each encode (host wall
+  clock, ms per coded frame, the Encoder's StageTimer), and the md5s of
+  chip_smoke.py's four small card streams (agreement_clips).
 
 Prints one JSON line: the card's name and power limit, the root, and
 what was measured.  Needs a CUDA card.
@@ -145,6 +148,9 @@ def kernel_times(cs, np, torch, match=None):
                     bme.me_coarse, s10, r10, r)
             calls["K6 path 16x16+64x64 10-bit"] = k6(s10, r10,
                                                      ((16, 16), (64, 64)))
+            half10 = [torch.from_numpy(cs._half_res(f[0], bw, bh, 10))
+                      .to(dev) for f in cs.synth_clip(W, H, 2, bd=10)[::-1]]
+            calls["K6 TPL 16x16 10-bit"] = k6(*half10, ((16, 16),))
             me10 = bme.frame_me(s10, r10, bme.COARSE_R,
                                 ((16, 16), (64, 64)))
             mv10 = [bi._nested_to_grid(me10[(16, 16)][i], ny, nx, 4, 4)
@@ -156,7 +162,8 @@ def kernel_times(cs, np, torch, match=None):
     calls.update(filter_calls(cs, np, torch, dev))
     calls.update(k4_fb_calls(cs, np, torch, dev))
     if match:
-        calls = {k: f for k, f in calls.items() if match in k}
+        calls = {k: f for k, f in calls.items()
+                 if any(m in k for m in match.split(","))}
     cold = {k: device_ms_cold(torch, calls[k], name) for k, name in (
         ("K3 1080p luma", "cdef_direction_kernel"),
         ("K4 apply 3 planes", "cdef_apply_kernel")) if k in calls}
@@ -387,6 +394,26 @@ def encode_fps(cs, torch):
                              cs.slice_config(W, H, -1))[1]
     fps["random_access_window"], fps["random_access"] = run(
         "random_access", moving, cs.ra_config(W, H), cs.RA_WARM)
+    # the 10-bit streams chip_smoke.py codes: its three 10-bit cells, and
+    # the 10-bit settings and preset jobs (their encodes alone)
+    ai10 = cs.synth_clip(W, H, half, bd=10) + cs.synth_clip(
+        W, H, cs.N_FRAMES - half, tex_sigma=cs.SMOOTH_SIGMA, bd=10)
+    moving10 = cs.synth_clip(W, H, cs.RA_FRAMES, bd=10)
+    fps["all_intra_10bit"] = run("all_intra_10bit", ai10,
+                                 cs.slice_config(W, H, bd=10))[1]
+    fps["low_delay_p_10bit"] = run("low_delay_p_10bit",
+                                   moving10[:cs.N_FRAMES],
+                                   cs.slice_config(W, H, -1, 10))[1]
+    fps["random_access_10bit_window"], fps["random_access_10bit"] = run(
+        "random_access_10bit", moving10, cs.ra_config(
+            W, H, encoder_bit_depth=10), cs.RA_WARM)
+    jobs = [s for pair in cs.settings_specs() for s in pair] + list(
+        cs.PRESET_JOBS)
+    for spec in jobs:
+        name, preset, w, h, n, structure, bd = spec[:7]
+        if bd == 10 and not spec[8]:        # on the card, not card = CPU
+            fps[name] = run(name, cs.preset_frames(spec), cs.preset_config(
+                preset, w, h, structure, bd, **spec[9]))[1]
     with tempfile.TemporaryDirectory() as tmp:
         for k, (name, frames, cfg) in enumerate(cs.agreement_clips()):
             path = Path(tmp) / f"{k}.ivf"
