@@ -1645,7 +1645,7 @@ def run_encode(counters, frames, cfg, path, on_packet=None):
     assert min(scores) > PSNR_FLOOR_DB, (min(scores), PSNR_FLOOR_DB)
     rep = enc.perf_report()
     per_frame = {k: v.get("ms_per_frame") for k, v in rep.items()
-                 if k != "_wall"}
+                 if not k.startswith("_")}
     print(f"encode: {len(frames)} frames {WIDTH}x{HEIGHT} in {wall:.3f} s, "
           f"{len(frames) / wall:.4f} fps, {path.stat().st_size} bytes, "
           f"packets md5 {stream_md5(path)}")
@@ -1904,7 +1904,8 @@ def ra_phase(counters, frames, out_dir, bd=8):
           f"{stream_md5(path)}")
     rep = enc.perf_report()
     print(f"{what} stage ms/frame (host wall clock):", json.dumps(
-        {k: v.get("ms_per_frame") for k, v in rep.items() if k != "_wall"}))
+        {k: v.get("ms_per_frame") for k, v in rep.items()
+         if not k.startswith("_")}))
     print(f"{what} main path launches:", json.dumps(launches))
     print(f"{what} main path wrapper calls:", json.dumps(calls))
     print(f"{what} near-boundary float64 recomputes: K1 "
@@ -2706,7 +2707,7 @@ def preset_job(spec):
                        for src, rec in zip(frames, recon)]
         out["stages"] = {k: v.get("ms_per_frame")
                          for k, v in enc.perf_report().items()
-                         if k != "_wall"}
+                         if not k.startswith("_")}
         out["bytes"] = path.stat().st_size
         out["md5"] = stream_md5(path)
         out["features"] = stream_features(path)

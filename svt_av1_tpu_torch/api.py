@@ -47,6 +47,7 @@ from .constants import FrameType, ObuType
 from .device import resolve_device
 from .entropy.tables import FrameCdfs
 from .pipeline.frame_codec import FrameCodec, ModeDecider
+from .profiling import LOG, StageTimer, bind, picture
 
 LAST, LAST2, LAST3, GOLDEN, BWDREF, ALTREF2, ALTREF = range(1, 8)
 # FrameCodec.search_refs' preference order of the named references
@@ -256,7 +257,6 @@ class Encoder:
         sig = derive_signals(cfg)
         self.sig = sig
         self.pd = PictureDecision(cfg)
-        from .profiling import LOG, StageTimer
         self.prof = StageTimer()    # per-stage latency (EbTime.c analog)
         LOG.debug("config: %dx%d qp=%d preset=%d keyint=%d device=%s",
                   cfg.source_width, cfg.source_height, cfg.qp,
@@ -335,9 +335,10 @@ class Encoder:
         return rec
 
     def send_picture(self, planes) -> list[bytes]:
-        self._buffer.append(planes)
-        self._sent += 1
-        return self._drain(eos=False)
+        with bind(self.prof):
+            self._buffer.append(planes)
+            self._sent += 1
+            return self._drain(eos=False)
 
     def _pipeline(self) -> bool:
         """Keep one picture in flight: while the host codes a picture, the
@@ -378,7 +379,8 @@ class Encoder:
                      self.cfg.encoder_bit_depth)
 
     def flush(self) -> list[bytes]:
-        return self._drain(eos=True)
+        with bind(self.prof):
+            return self._drain(eos=True)
 
     def encode_frame(self, planes) -> bytes:
         """Zero-latency wrapper (all-intra / low-delay); disables the
@@ -721,6 +723,16 @@ class Encoder:
 
     def _encode_display(self, job: CodeJob, nxt: CodeJob | None = None
                         ) -> bytes:
+        """Code one picture inside its span ``picture``, tagged with its
+        frame type, temporal layer and ``hidden`` where it is not shown."""
+        tag = f"{'KEY' if job.is_key else 'INTER'} L{job.layer}"
+        if not (job.show or job.is_key):
+            tag += " hidden"
+        with picture(self.prof, tag, job.display) as pic:
+            return self._code_picture(job, nxt, pic)
+
+    def _code_picture(self, job: CodeJob, nxt: CodeJob | None,
+                      pic) -> bytes:
         with self.prof("temporal_filter"):
             planes = self._tf_source(
                 job, self._buffer[job.display - self._next_display])
@@ -744,6 +756,7 @@ class Encoder:
 
         ref_displays = () if job.is_key else (named[LAST], named[BWDREF])
         fh = self._frame_header(job, refs_idx, ref_displays)
+        pic.args += f" qindex={fh.base_q_idx}"
         fh.refresh_frame_flags = self._refresh_mask(job)
         init_fc = None
         if not job.is_key and not fh.error_resilient_mode:
@@ -1036,8 +1049,6 @@ class Decoder:
     copies included)."""
 
     def __init__(self, device=None):
-        from .profiling import StageTimer
-
         self.device = resolve_device(device)
         self.seq: SequenceHeader | None = None
         self.md5 = hashlib.md5()

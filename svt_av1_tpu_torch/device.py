@@ -10,6 +10,8 @@ from __future__ import annotations
 
 import torch
 
+from .profiling import current_timer
+
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
 
@@ -30,3 +32,33 @@ def resolve_device(device=None) -> torch.device:
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(f"device {dev} requested but CUDA is unavailable")
     return dev
+
+
+def to_device(t: torch.Tensor, device, dtype=None) -> torch.Tensor:
+    """``t.to(device)``, or ``t.to(device=device, dtype=dtype)`` with a
+    dtype, for a host tensor ``t``.  A copy from the host to another
+    device is timed as the stage ``upload`` of the running encoder call
+    and counted with the bytes that land on the device."""
+    timer = current_timer()
+    if timer is None or t.device.type != "cpu" \
+            or torch.device(device).type == "cpu":
+        return t.to(device) if dtype is None \
+            else t.to(device=device, dtype=dtype)
+    with timer.transfer("upload") as tr:
+        out = t.to(device) if dtype is None \
+            else t.to(device=device, dtype=dtype)
+        tr.nbytes = out.numel() * out.element_size()
+    return out
+
+
+def to_host(t: torch.Tensor) -> torch.Tensor:
+    """``t.cpu()``.  A copy from a device is timed as the stage
+    ``readback`` of the running encoder call, the wait for the work
+    queued before it included, and counted with its bytes."""
+    timer = current_timer()
+    if timer is None or t.device.type == "cpu":
+        return t.cpu()
+    with timer.transfer("readback") as tr:
+        out = t.cpu()
+        tr.nbytes = out.numel() * out.element_size()
+    return out

@@ -19,6 +19,7 @@ from ..entropy import coeffs as cf
 from ..entropy.tables import table
 from ..ops import quant as qz
 from ..kernels.build import load_c_extension
+from ..profiling import span
 from . import block_plan
 
 _cn = load_c_extension("coder_native")
@@ -438,7 +439,8 @@ def try_encode_tiles_native_inter(codec, decider):
     consts = _consts()
     planes = tuple(np.ascontiguousarray(p, np.int32) for p in codec.source) \
         + tuple(codec.recon[:3])
-    got = _inter_plans_tuple(codec)
+    with span("tile_dry_run"):
+        got = _inter_plans_tuple(codec)
     if got is None:
         return None
     plans, all_ts = got
@@ -461,19 +463,21 @@ def try_encode_tiles_native_inter(codec, decider):
     sgrids = tuple(codec.skip_grid[:3])
     refs = tuple((name, pl[0], pl[1], pl[2])
                  for name, pl in codec.refs.items())
-    maps = []
-    for s in _C_SHAPES:
-        im = decider._inter[s]
-        maps.append(np.ascontiguousarray(im.astype(np.uint8)))
-        md = decider._modes.get(s)
-        if md is None:          # inter-only 64-px shapes
-            md = np.zeros(im.shape, np.int8)
-        maps.append(np.ascontiguousarray(md.astype(np.int8)))
-    sf = decider._sf
-    mvs = tuple(np.ascontiguousarray(sf[k], np.int32)
-                for k in ("mv_r", "mv_c", "sel", "fwd_i", "bwd_i",
-                          "mv1_r", "mv1_c")) \
-        + (np.ascontiguousarray(decider._names, np.int32),)
+    with span("tile_dry_run"):
+        maps = []
+        for s in _C_SHAPES:
+            im = decider._inter[s]
+            maps.append(np.ascontiguousarray(im.astype(np.uint8)))
+            md = decider._modes.get(s)
+            if md is None:          # inter-only 64-px shapes
+                md = np.zeros(im.shape, np.int8)
+            maps.append(np.ascontiguousarray(md.astype(np.int8)))
+        maps = tuple(maps)
+        sf = decider._sf
+        mvs = tuple(np.ascontiguousarray(sf[k], np.int32)
+                    for k in ("mv_r", "mv_c", "sel", "fwd_i", "bwd_i",
+                              "mv1_r", "mv1_c")) \
+            + (np.ascontiguousarray(decider._names, np.int32),)
     sig = (np.ascontiguousarray(sig_n), np.ascontiguousarray(sig_i),
            np.ascontiguousarray(tt_uv),
            _interp_taps(getattr(codec.fh, "interpolation_filter", 0)),
@@ -483,7 +487,8 @@ def try_encode_tiles_native_inter(codec, decider):
     for rect in rects:
         codec.tile = rect
         codec._reset_tile_contexts()
-        part_seq = _dry_run_partitions(codec, decider, rect)
+        with span("tile_dry_run"):
+            part_seq = _dry_run_partitions(codec, decider, rect)
         if part_seq is None:
             return None
         fc = codec.fc
@@ -517,10 +522,11 @@ def try_encode_tiles_native_inter(codec, decider):
             codec.fh.base_q_idx, codec.seq.bit_depth)[3]) / SEL_MV_W))
         iints = (codec.fh.frame_width, codec.fh.frame_height,
                  REF_PAD, int(codec.fh.reference_select), pen_q8)
-        blob = _cn.code_inter_tile(
-            ints, planes, ctxs, _cdfs_tuple(fc), consts, scans, plans,
-            part_seq, iints, mia, sgrids, refs, tuple(maps), mvs,
-            icdfs, tuple(nmv), sig, _rdoq_arg(codec))
+        cdfs, nmv, rdoq = _cdfs_tuple(fc), tuple(nmv), _rdoq_arg(codec)
+        with span("tile_native"):
+            blob = _cn.code_inter_tile(
+                ints, planes, ctxs, cdfs, consts, scans, plans, part_seq,
+                iints, mia, sgrids, refs, maps, mvs, icdfs, nmv, sig, rdoq)
         blobs.append(blob)
     return blobs
 
@@ -545,11 +551,13 @@ def try_encode_tiles_native(codec, decider):
     for rect in rects:
         codec.tile = rect
         codec._reset_tile_contexts()
-        seqs = _dry_run(codec, decider, rect)
+        with span("tile_dry_run"):
+            seqs = _dry_run(codec, decider, rect)
+            plans = None if seqs is None \
+                else _plans_tuple(codec, seqs[1])
         if seqs is None:
             return None
         part_seq, mode_seq = seqs
-        plans = _plans_tuple(codec, mode_seq)
         if plans is None:
             return None
         ints = (codec.mi_rows, codec.mi_cols, rect[0], rect[1], rect[2],
@@ -567,8 +575,11 @@ def try_encode_tiles_native(codec, decider):
                 codec.tx_h_grid[0], codec.tx_h_grid[1], codec.tx_h_grid[2],
                 codec.bedge_x[0], codec.bedge_x[1], codec.bedge_x[2],
                 codec.bedge_y[0], codec.bedge_y[1], codec.bedge_y[2])
-        blob = _cn.code_intra_tile(ints, planes, ctxs, _cdfs_tuple(codec.fc),
-                                   consts, _scans_tuple(mode_seq), plans,
-                                   part_seq, mode_seq, _rdoq_arg(codec))
+        cdfs, scans = _cdfs_tuple(codec.fc), _scans_tuple(mode_seq)
+        rdoq = _rdoq_arg(codec)
+        with span("tile_native"):
+            blob = _cn.code_intra_tile(ints, planes, ctxs, cdfs, consts,
+                                       scans, plans, part_seq, mode_seq,
+                                       rdoq)
         blobs.append(blob)
     return blobs

@@ -27,7 +27,7 @@ import functools
 import numpy as np
 import torch
 
-from ..device import SAMPLE_DTYPES
+from ..device import SAMPLE_DTYPES, to_device, to_host
 
 SB = 64
 COARSE_R = 8            # +-8 at /8 => +-64 full-pel
@@ -299,8 +299,8 @@ def to_block_maps(me_out, buf_w: int, buf_h: int):
     for key, val in me_out.items():
         if not isinstance(key, tuple):
             continue
-        mv_r, mv_c, sad = (np.asarray(v.cpu() if isinstance(v, torch.Tensor)
-                                      else v) for v in val)
+        mv_r, mv_c, sad = (np.asarray(to_host(v) if isinstance(
+            v, torch.Tensor) else v) for v in val)
         n, oy, ox = mv_r.shape
         nr, nc = n_sby * oy, n_sbx * ox
 
@@ -460,7 +460,7 @@ def _regular_taps(device: torch.device) -> torch.Tensor:
     from .inter import REGULAR, interp_kernel
 
     taps = np.stack([interp_kernel(REGULAR, q4, 16) for q4 in range(16)])
-    return torch.from_numpy(taps.astype(np.int32)).to(device)
+    return to_device(torch.from_numpy(taps.astype(np.int32)), device)
 
 
 def subpel_refine16(src: torch.Tensor, ref: torch.Tensor,

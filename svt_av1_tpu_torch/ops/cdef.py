@@ -36,7 +36,7 @@ import functools
 import numpy as np
 import torch
 
-from ..device import SAMPLE_DTYPES
+from ..device import SAMPLE_DTYPES, to_device, to_host
 
 CDEF_VERY_LARGE = 16384
 CDEF_SEC_STRENGTHS = 4
@@ -149,10 +149,10 @@ def find_dir_grid(luma_units, coeff_shift: int):
     x = (luma_units.reshape(uh, uw, 64).to(torch.int32) >> coeff_shift) \
         - 128
     # the one-hot bin sums are exact in float32 (|partial| < 2^18)
-    mt = torch.as_tensor(M.reshape(8 * 15, 64).T.astype(np.float32),
-                         device=dev)
+    mt = to_device(torch.as_tensor(
+        M.reshape(8 * 15, 64).T.astype(np.float32)), dev)
     p = (x.to(torch.float32) @ mt).to(torch.int64).reshape(uh, uw, 8, 15)
-    cost = (torch.as_tensor(W, device=dev) * p * p).sum(-1)   # [uh, uw, 8]
+    cost = (to_device(torch.as_tensor(W), dev) * p * p).sum(-1)   # [uh, uw, 8]
     best = torch.argmax(cost, dim=-1)
     alt = (best + 4) & 7
     var = (cost.gather(-1, best[..., None])
@@ -442,8 +442,8 @@ def _unit_strengths(strengths, idx_units, cs: int):
     """Per 8x8 unit (pri, sec) in filter units: the coded strengths
     (pri*4+sec) of a preset list picked by the units' indices (sec 3
     applies as 4)."""
-    s = torch.as_tensor(strengths, dtype=torch.int32,
-                        device=idx_units.device)[idx_units]
+    s = to_device(torch.as_tensor(strengths, dtype=torch.int32),
+                  idx_units.device)[idx_units]
     sec = s % CDEF_SEC_STRENGTHS
     return (s // CDEF_SEC_STRENGTHS) << cs, \
         (sec + (sec == 3).to(torch.int32)) << cs
@@ -464,7 +464,7 @@ def cdef_frame_multi_plain(planes, nonskip, dirs, var, y_list, uv_list,
     cs = max(bd - 8, 0)
     nonskip = nonskip.bool()
     uh, uw = nonskip.shape
-    idx = torch.as_tensor(idx_grid, device=nonskip.device).long()
+    idx = to_device(torch.as_tensor(idx_grid), nonskip.device).long()
     idx_units = _expand(idx, 8)[:uh, :uw]
     pads = _halo_pads(planes, fw, fh, None)
     out = []
@@ -742,7 +742,7 @@ def _apply_launch(entry: str, extra_types: tuple, extra_args: tuple, planes,
 
 def pick_strength(err, pri_set, sec_set) -> int:
     """First minimum of the [pri, sec] error grid, coded pri*4+sec."""
-    i = int(torch.argmin(err.reshape(-1)))
+    i = int(to_host(torch.argmin(err.reshape(-1))))
     return pri_set[i // len(sec_set)] * CDEF_SEC_STRENGTHS \
         + sec_set[i % len(sec_set)]
 
@@ -763,8 +763,8 @@ def search_apply(source, planes, nonskip, fw: int, fh: int, damping: int,
 
 
 def _device_planes(planes, device):
-    return [torch.from_numpy(np.ascontiguousarray(p, np.int32)).to(device)
-            for p in planes]
+    return [to_device(torch.from_numpy(np.ascontiguousarray(p, np.int32)),
+                      device) for p in planes]
 
 
 def cdef_search_apply_device(source, recon, skips, mi_rows, mi_cols,
@@ -780,9 +780,10 @@ def cdef_search_apply_device(source, recon, skips, mi_rows, mi_cols,
         return None
     dev = source[0].device
     out, ystr, uvstr = search_apply(
-        source, _device_planes(recon, dev), torch.from_numpy(ns).to(dev),
-        mi_cols * 4, mi_rows * 4, damping, bit_depth, pri_set, sec_set)
-    return [o.cpu().numpy() for o in out], ystr, uvstr
+        source, _device_planes(recon, dev),
+        to_device(torch.from_numpy(ns), dev), mi_cols * 4, mi_rows * 4,
+        damping, bit_depth, pri_set, sec_set)
+    return [to_host(o).numpy() for o in out], ystr, uvstr
 
 
 # --------------------------------------------------------------------------
@@ -879,7 +880,8 @@ def cdef_apply_multi(planes, nonskip, dirs, var, y_list, uv_list, idx_grid,
     else:
         if idx.min() < 0 or idx.max() >= len(y_list):
             raise ValueError("idx_grid indexes past the preset lists")
-        dev_idx = torch.from_numpy(idx.astype(np.uint8)).to(planes[0].device)
+        dev_idx = to_device(torch.from_numpy(idx.astype(np.uint8)),
+                            planes[0].device)
         grid_ptr, idx_ptr = None, dev_idx.data_ptr()
     out = _apply_launch("cdef_apply_multi_launch",
                         (ctypes.c_ulonglong, ctypes.c_ulonglong, _P, _P, _I,
@@ -985,9 +987,10 @@ def search_apply_multi(source, planes, nonskip, fw: int, fh: int,
     dirs, var = cdef_direction(planes[0], fw, fh, max(bd - 8, 0))
     err_y, err_uv = cdef_search_fb(source, planes, dirs, var, nonskip, fw,
                                    fh, damping, bd)
-    eligible = eligible_fbs(nonskip.cpu().numpy(), fw, fh)
+    eligible = eligible_fbs(to_host(nonskip).numpy(), fw, fh)
     bits, y_list, uv_list, idx_grid = pick_cdef_presets(
-        err_y.cpu().numpy(), err_uv.cpu().numpy(), eligible, lambda_sse)
+        to_host(err_y).numpy(), to_host(err_uv).numpy(), eligible,
+        lambda_sse)
     out = cdef_apply_multi(planes, nonskip, dirs, var, y_list, uv_list,
                            idx_grid, damping, fw, fh, bd)
     return out, bits, y_list, uv_list, idx_grid

@@ -29,6 +29,8 @@ import functools
 import numpy as np
 import torch
 
+from ..device import to_device, to_host
+
 MAX_LOOP_FILTER = 63
 
 
@@ -276,8 +278,8 @@ def loop_filter_plane_full(plane, apply_v, fsize_v, apply_h, fsize_h,
     dev = plane.device
     P = torch.nn.functional.pad(plane.to(torch.int32), (PADF,) * 4)
     apply_v, fsize_v, apply_h, fsize_h = (
-        torch.as_tensor(a, device=dev) for a in (apply_v, fsize_v, apply_h,
-                                                 fsize_h))
+        to_device(torch.as_tensor(a), dev)
+        for a in (apply_v, fsize_v, apply_h, fsize_h))
     if level_v > 0 and x4max > 1:
         bl, lim, hev = thresholds(level_v, sharpness, shift)
         n_e = x4max - 1
@@ -353,7 +355,7 @@ def deblock(plane, apply_v, fsize_v, apply_h, fsize_h, width: int,
                 and a.is_cuda and a.is_contiguous()):
             a = torch.as_tensor(np.asarray(a, np.uint8)) \
                 if not isinstance(a, torch.Tensor) else a
-            a = a.to(device=plane.device, dtype=torch.uint8).contiguous()
+            a = to_device(a, plane.device, torch.uint8).contiguous()
         if a.shape != shape or a.get_device() != plane.get_device():
             raise ValueError(f"edge mask shape {tuple(a.shape)} != {shape} "
                              f"or on another device than the plane")
@@ -408,7 +410,7 @@ def search_apply(planes, src_y, params, vis_dims, cands, sharpness: int,
         fy = deblock(y, *params[0], vw, vh, lv, lv, sharpness, bd)
         sses.append(sse(fy))
         filtered.append(fy)
-    best = int(torch.argmin(torch.stack(sses)))
+    best = int(to_host(torch.argmin(torch.stack(sses))))
     level = 0 if best == 0 else cands[best - 1]
     out = [filtered[best]]
     for p in (1, 2):
@@ -425,7 +427,8 @@ def plane_params(grids, vis_dims, device):
         vw, vh = vis_dims[p]
         tx_w, tx_h, skip, bex, bey = grids[p]
         out.append(tuple(
-            torch.from_numpy(np.ascontiguousarray(a, np.uint8)).to(device)
+            to_device(torch.from_numpy(np.ascontiguousarray(a, np.uint8)),
+                      device)
             for a in edge_params(tx_w, tx_h, skip, bex, bey, vw, vh,
                                  p > 0)))
     return out
@@ -438,9 +441,9 @@ def dlf_search_apply_device(planes, source_y, grids, vis_dims,
     plane (tx_w, tx_h, skip, bex, bey); vis_dims: per plane (vw, vh).
     Returns (filtered int32 numpy planes, level)."""
     dev = source_y.device
-    recon = [torch.from_numpy(np.ascontiguousarray(p, np.int32)).to(dev)
-             for p in planes[:3]]
+    recon = [to_device(torch.from_numpy(np.ascontiguousarray(p, np.int32)),
+                       dev) for p in planes[:3]]
     out, level = search_apply(recon, source_y,
                               plane_params(grids, vis_dims, dev), vis_dims,
                               level_candidates(base_level), sharpness, bd)
-    return [o.cpu().numpy() for o in out], level
+    return [to_host(o).numpy() for o in out], level

@@ -14,6 +14,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..device import to_device, to_host
 from . import cdef as cdef_ops
 from . import dlf as dlf_ops
 
@@ -52,17 +53,16 @@ def dlf_cdef_chain(codec) -> bool:
             (fh.frame_height + (1 if p else 0)) >> (1 if p else 0))
            for p in range(3)]
     srcs = codec.device_source()
-    recon = [torch.from_numpy(np.ascontiguousarray(codec.recon[p],
-                                                   np.int32)).to(dev)
-             for p in range(3)]
+    recon = [to_device(torch.from_numpy(np.ascontiguousarray(
+        codec.recon[p], np.int32)), dev) for p in range(3)]
     dlf_out, level = dlf_ops.search_apply(
         recon, srcs[0], dlf_ops.plane_params(grids, vis, dev), vis, cands,
         fh.sharpness, bd)
     out, ystr, uvstr = cdef_ops.search_apply(
-        srcs, dlf_out, torch.from_numpy(ns).to(dev), fw, fh_px,
+        srcs, dlf_out, to_device(torch.from_numpy(ns), dev), fw, fh_px,
         fh.cdef_damping, bd, pri_set, sec_set)
     for p in range(3):
-        codec.recon[p] = out[p].cpu().numpy()
+        codec.recon[p] = to_host(out[p]).numpy()
     fh.filter_level = (level, level)
     fh.filter_level_uv = (level, level)
     fh.dlf_level_searched = True

@@ -26,7 +26,7 @@ import numpy as np
 import torch
 
 from ..constants import PredictionMode, TxSize, TxType, TX_WIDTH, TX_HEIGHT
-from ..device import SAMPLE_DTYPES, resolve_device
+from ..device import SAMPLE_DTYPES, resolve_device, to_device, to_host
 from . import intra as intra_ops
 from . import quant as qz
 from . import transforms as tf
@@ -337,10 +337,10 @@ def predict_mode(mode: PredictionMode, above: torch.Tensor,
         lv = l[..., :h, None]
         below = l[..., h - 1][..., None, None]
         right = a[..., w - 1][..., None, None]
-        wh = torch.as_tensor(sw[h:h + h].reshape(h, 1).astype(np.int32),
-                             device=dev)
-        ww = torch.as_tensor(sw[w:w + w].reshape(1, w).astype(np.int32),
-                             device=dev)
+        wh = to_device(torch.as_tensor(
+            sw[h:h + h].reshape(h, 1).astype(np.int32)), dev)
+        ww = to_device(torch.as_tensor(
+            sw[w:w + w].reshape(1, w).astype(np.int32)), dev)
         if mode == PredictionMode.SMOOTH_PRED:
             p = av * wh + below * (256 - wh) + lv * ww + right * (256 - ww)
             return ((p + 256) >> 9).to(torch.int32)
@@ -354,11 +354,11 @@ def predict_mode(mode: PredictionMode, above: torch.Tensor,
     wa, wl = _dir_matrices(mode, w, h)
     acc = 0.0
     if wa is not None:
-        acc = above.to(torch.float32) @ torch.as_tensor(
-            wa, device=above.device)
+        acc = above.to(torch.float32) @ to_device(torch.as_tensor(wa),
+                                                  above.device)
     if wl is not None:
-        acc = acc + left.to(torch.float32) @ torch.as_tensor(
-            wl, device=left.device)
+        acc = acc + left.to(torch.float32) @ to_device(torch.as_tensor(wl),
+                                                       left.device)
     pred = torch.floor((acc + 16.0) * (1.0 / 32.0))
     return pred.reshape(*lead, h, w).to(torch.int32)
 
@@ -370,11 +370,12 @@ def shape_costs(src_blocks, above, left, w: int, h: int, qindex: int,
     modeled quantized recon (Parseval) + lam * (coeff-rate proxy + mode
     signaling bits)."""
     dev = src_blocks.device
-    zbin, rnd, step = (torch.as_tensor(m, device=dev)
+    zbin, rnd, step = (to_device(torch.as_tensor(m), dev)
                        for m in _quant_maps(w, h, qindex, pq))
-    mb = torch.as_tensor(np.asarray(mode_bits, np.float32), device=dev)
-    dh = torch.as_tensor(_dct_mat(h), device=dev)
-    dwt = torch.as_tensor(np.ascontiguousarray(_dct_mat(w).T), device=dev)
+    mb = to_device(torch.as_tensor(np.asarray(mode_bits, np.float32)), dev)
+    dh = to_device(torch.as_tensor(_dct_mat(h)), dev)
+    dwt = to_device(torch.as_tensor(np.ascontiguousarray(_dct_mat(w).T)),
+                    dev)
     best_cost = None
     best_mode = None
     for mi, mode in enumerate(ALL_MODES):
@@ -542,7 +543,7 @@ def _k1_consts(device: torch.device):
     """(directional tap tables, smooth weights, split DCT fragments) on
     ``device``."""
     sw = intra_ops._sm_weights().astype(np.int32)
-    return tuple(torch.as_tensor(np.ascontiguousarray(a), device=device)
+    return tuple(to_device(torch.as_tensor(np.ascontiguousarray(a)), device)
                  for a in (_k1_taps()[0], sw, _k1_fragments()))
 
 
@@ -638,8 +639,8 @@ def intra_decision_packed(plane: torch.Tensor, qindex: int, lam: float,
     quant = (ctypes.c_float * (6 * n))(*[
         float(v) for (w, h) in shapes
         for pair in _quant_scalars(w, h, qindex, pq) for v in pair])
-    mb = torch.as_tensor(np.asarray(mode_bits, np.float32),
-                         device=plane.device)
+    mb = to_device(torch.as_tensor(np.asarray(mode_bits, np.float32)),
+                   plane.device)
     n_total = sum((buf_h // h) * (buf_w // w) for (w, h) in shapes)
     out = torch.empty((2, n_total), dtype=torch.int32, device=plane.device)
     err = fn(ptr(plane), None if halo is None else ptr(above_row),
@@ -709,8 +710,8 @@ def upload_plane(source_plane, buf_w: int, buf_h: int, bd: int,
         a[:h0, w0:] = src[:, w0 - 1:w0]
         a[h0:, :] = a[h0 - 1:h0, :]
         src = a
-    return torch.from_numpy(np.ascontiguousarray(src)).to(
-        device=device, dtype=SAMPLE_DTYPES[bd])
+    return to_device(torch.from_numpy(np.ascontiguousarray(src)), device,
+                     SAMPLE_DTYPES[bd])
 
 
 def intra_decision_frame(source_plane, buf_w: int, buf_h: int, qindex: int,
@@ -727,4 +728,4 @@ def intra_decision_frame(source_plane, buf_w: int, buf_h: int, qindex: int,
     plane = upload_plane(source_plane, buf_w, buf_h, bd, dev)
     packed = intra_decision_packed(plane, qindex, lam, mode_bits, bd,
                                    shapes=shapes)
-    return unpack_decisions(packed.cpu().numpy(), shapes, buf_w, buf_h)
+    return unpack_decisions(to_host(packed).numpy(), shapes, buf_w, buf_h)

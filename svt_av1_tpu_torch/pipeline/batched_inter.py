@@ -26,7 +26,7 @@ import functools
 import numpy as np
 import torch
 
-from ..device import SAMPLE_DTYPES
+from ..device import SAMPLE_DTYPES, to_device, to_host
 from ..ops import bme, omd
 from ..ops import quant as qz
 
@@ -88,7 +88,7 @@ def _log2_table_np(n: int) -> np.ndarray:
 
 @functools.cache
 def _log2_table(n: int, device: torch.device) -> torch.Tensor:
-    return torch.from_numpy(_log2_table_np(n)).to(device)
+    return to_device(torch.from_numpy(_log2_table_np(n)), device)
 
 
 def _table_len(H: int, W: int) -> int:
@@ -101,7 +101,8 @@ def _table_len(H: int, W: int) -> int:
 def _dct_stack(device: torch.device) -> torch.Tensor:
     """K8's DCT operands: the split mma.sync fragments of the orthonormal
     DCT matrices of sizes 8, 16, 32 and 64 (``omd._dct_fragments``)."""
-    return torch.from_numpy(omd._dct_fragments(omd.K8_FRAG_SIZES)).to(device)
+    return to_device(torch.from_numpy(omd._dct_fragments(omd.K8_FRAG_SIZES)),
+                     device)
 
 
 # --------------------------------------------------------------------------
@@ -121,11 +122,11 @@ def _mc_cost_maps(resid, buf_w, buf_h, qindex, lam, bd,
     for (w, h) in shapes:
         nr, nc = buf_h // h, buf_w // w
         blocks = resid.reshape(nr, h, nc, w).permute(0, 2, 1, 3)
-        zbin, rnd, step = (torch.as_tensor(m, device=dev)
+        zbin, rnd, step = (to_device(torch.as_tensor(m), dev)
                            for m in omd._quant_maps(w, h, qindex, pq))
-        dh = torch.as_tensor(omd._dct_mat(h), device=dev)
-        dwt = torch.as_tensor(np.ascontiguousarray(omd._dct_mat(w).T),
-                              device=dev)
+        dh = to_device(torch.as_tensor(omd._dct_mat(h)), dev)
+        dwt = to_device(torch.as_tensor(
+            np.ascontiguousarray(omd._dct_mat(w).T)), dev)
         cf = dh @ blocks.to(torch.float32) @ dwt
         band = None
         if w > 32 or h > 32:
@@ -209,8 +210,9 @@ def inter_select_plain(src, preds, mvq_r, mvq_c, sb_r, sb_c, qindex, lam,
         for j in range(1, 4):
             row = row + v[:, :, i, :, j]
         sb_base = row if sb_base is None else sb_base + row
-    sb_pen = torch.tensor([0.0] + [pens[0]] * (K - 1) + [pens[1]] * (nc - K),
-                          dtype=torch.float32, device=dev)
+    sb_pen = to_device(torch.tensor(
+        [0.0] + [pens[0]] * (K - 1) + [pens[1]] * (nc - K),
+        dtype=torch.float32), dev)
     sb_sel = torch.argmin(sb_base + sb_pen[:, None, None], dim=0)
     sb_sel16 = sb_sel.repeat_interleave(4, 0).repeat_interleave(4, 1)
     ks = torch.arange(nc, device=dev)[:, None, None]
@@ -328,15 +330,15 @@ def compound_joint_plain(src, refs, preds, mvq_r, mvq_c, sb_r, sb_c,
     bwd = [k for k in range(K) if bwd_mask[k]]
 
     def first_min(ks):
-        gl = torch.tensor(ks, dtype=torch.int32, device=dev)
+        gl = to_device(torch.tensor(ks, dtype=torch.int32), dev)
         return gl[torch.argmin(base[ks], dim=0)]
 
     fi, bi = first_min(fwd), first_min(bwd)
     pf, pb = _take16(p16, fi), _take16(p16, bi)
     mvf_r, mvf_c = _take16(mvq_r, fi), _take16(mvq_c, fi)
     mvb_r, mvb_c = _take16(mvq_r, bi), _take16(mvq_c, bi)
-    rel = torch.tensor([int(d) for d in rel_dists], dtype=torch.int32,
-                       device=dev)
+    rel = to_device(torch.tensor([int(d) for d in rel_dists],
+                                 dtype=torch.int32), dev)
     df = rel[fi.to(torch.int64)].abs().clamp(min=1)
     db = rel[bi.to(torch.int64)].abs().clamp(min=1)
     cb, cb_r, cb_c, sad_b = _joint_arm(refs, s16, pf, bi,
@@ -372,13 +374,13 @@ COMP_KEYS = ("pred", "sad", "mv_r", "mv_c", "mv1_r", "mv1_c", "fwd_i",
 @functools.cache
 def _k8_consts(qindex: int, bd: int, device: torch.device):
     pq = qz.build_quantizer(bd)[0]
-    shapes = torch.tensor([v for s in omd.INTER_SHAPES for v in s],
-                          dtype=torch.int32).to(device)
+    shapes = to_device(torch.tensor([v for s in omd.INTER_SHAPES for v in s],
+                                    dtype=torch.int32), device)
     # one row per shape: (zbin, round, step) as (dc, ac) pairs
     qpar = np.asarray([[v for pair in omd._quant_scalars(w, h, qindex, pq)
                         for v in pair] for (w, h) in omd.INTER_SHAPES],
                       np.float32)
-    return shapes, torch.from_numpy(qpar).to(device)
+    return shapes, to_device(torch.from_numpy(qpar), device)
 
 
 def _check_unit_inputs(name, src, preds, mvq_r, mvq_c, sb_r, sb_c, bd):
@@ -641,8 +643,8 @@ def inter_maps_dispatch(src, refs, buf_w, buf_h, qindex, lam, mode_bits,
         bwd_mask=tuple(bool(b) for b in bwd_mask),
         allow_compound=allow_compound, coarse_r=coarse_r,
         rel_dists=tuple(int(d) for d in rel_dists))
-    intra = omd.unpack_decisions(intra.cpu().numpy(), omd.ALL_SHAPES,
+    intra = omd.unpack_decisions(to_host(intra).numpy(), omd.ALL_SHAPES,
                                  src_t.shape[1], src_t.shape[0])
-    inter_cost = {s: c.cpu().numpy() for s, c in inter_cost.items()}
-    sf = {k: v.cpu().numpy() for k, v in sf.items()}
-    return intra, inter_cost, sf, mvb.cpu().numpy()
+    inter_cost = {s: to_host(c).numpy() for s, c in inter_cost.items()}
+    sf = {k: to_host(v).numpy() for k, v in sf.items()}
+    return intra, inter_cost, sf, to_host(mvb).numpy()

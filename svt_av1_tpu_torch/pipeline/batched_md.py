@@ -14,10 +14,13 @@ matching the reference's PD0 decoupling (EbEncDecProcess.c:4534).
 """
 from __future__ import annotations
 
+import contextvars
+
 import numpy as np
 
 from ..constants import FrameType, PredictionMode
 from ..ops import omd
+from ..profiling import run_as_worker, span
 from .frame_codec import (ModeDecider, BlockDecision, PARTITION_NONE,
                           PARTITION_HORZ, PARTITION_VERT, PARTITION_SPLIT)
 
@@ -164,16 +167,18 @@ class _PrefetchWorker:
 
     def _loop(self):
         while True:
-            fn, args, fut = self._q.get()
+            ctx, fn, args, fut = self._q.get()
             try:
-                fut._result = fn(*args)
+                fut._result = ctx.run(fn, *args)
             except BaseException as e:   # delivered via fut.result()
                 fut._exc = e
             fut._ev.set()
 
     def submit(self, fn, *args):
+        """Queue ``fn(*args)``; it runs in a copy of the submitter's
+        context (its encoder's timer and picture, profiling.py)."""
         fut = _MiniFuture()
-        self._q.put((fn, args, fut))
+        self._q.put((contextvars.copy_context(), fn, args, fut))
         return fut
 
 
@@ -225,8 +230,8 @@ class TorchIntraDecider(ModeDecider):
         lam = rd_lambda(qindex, bd)
         mode_bits = default_mode_bits(FrameCdfs(qindex))
         fut = TorchIntraDecider._executor.submit(
-            self._decide, source_plane, buf_w, buf_h, qindex, lam,
-            mode_bits, bd, self.device)
+            run_as_worker, "plan", self._decide, source_plane, buf_w, buf_h,
+            qindex, lam, mode_bits, bd, self.device)
         self._prefetch[display] = (qindex, fut, source_plane)
 
     def _take_prefetched(self, codec):
@@ -244,7 +249,8 @@ class TorchIntraDecider(ModeDecider):
         if qindex != codec.fh.base_q_idx:
             fut.cancel()
             return None
-        maps, dev_y = fut.result()
+        with span("plan_wait"):
+            maps, dev_y = fut.result()
         h, w = src.shape
         coded = codec.source[0]
         if coded.shape[1] < w or not np.array_equal(coded[:h, :w], src):
@@ -446,8 +452,9 @@ class TorchDecider(TorchIntraDecider):
         mode_bits = default_mode_bits(FrameCdfs(qindex))
         refs = [me_refs[n] for n in names]
         fut = TorchIntraDecider._executor.submit(
-            inter_maps_dispatch, src_plane, refs, buf_w, buf_h, qindex, lam,
-            mode_bits, bd, self.device, bwd_mask, allow_comp, rel)
+            run_as_worker, "plan", inter_maps_dispatch, src_plane, refs,
+            buf_w, buf_h, qindex, lam, mode_bits, bd, self.device, bwd_mask,
+            allow_comp, rel)
         self._prefetch_inter[display] = (key, fut)
 
     def _take_prefetched_inter(self, codec, key):
@@ -462,7 +469,8 @@ class TorchDecider(TorchIntraDecider):
                       codec.fh.order_hint, key, got[0])
             got[1].cancel()
             return None
-        return got[1].result()
+        with span("plan_wait"):
+            return got[1].result()
 
     def _plan_inter(self, codec):
         from .batched_inter import (INTRA_IN_INTER_BITS,

@@ -2264,6 +2264,7 @@ class FrameCodec:
         chroma plane) through the deblocking kernel."""
         import torch
 
+        from ..device import to_device, to_host
         from ..ops import dlf
 
         fh = self.fh
@@ -2279,11 +2280,11 @@ class FrameCodec:
             masks = dlf.edge_params(
                 self.tx_w_grid[p], self.tx_h_grid[p], self.skip_grid[p],
                 self.bedge_x[p], self.bedge_y[p], vw, vh, p > 0)
-            plane = torch.from_numpy(np.ascontiguousarray(
-                self.recon[p], np.int32)).to(self.device)
+            plane = to_device(torch.from_numpy(np.ascontiguousarray(
+                self.recon[p], np.int32)), self.device)
             out = dlf.deblock(plane, *masks, vw, vh, lv, lh, fh.sharpness,
                               self.seq.bit_depth)
-            self.recon[p] = out.cpu().numpy()
+            self.recon[p] = to_host(out).numpy()
 
     def apply_cdef(self):
         """Normative CDEF at the header's strengths (spec 7.15) on the
@@ -2294,6 +2295,7 @@ class FrameCodec:
         and the encoder's second entropy pass call it."""
         import torch
 
+        from ..device import to_device, to_host
         from ..ops import cdef as cdef_ops
 
         fh = self.fh
@@ -2308,7 +2310,7 @@ class FrameCodec:
             return
         fw, fh_px = self.mi_cols * 4, self.mi_rows * 4
         planes = self._recon_on_device()
-        ns = torch.from_numpy(ns).to(self.device)
+        ns = to_device(torch.from_numpy(ns), self.device)
         bd = self.seq.bit_depth
         dirs, var = cdef_ops.cdef_direction(planes[0], fw, fh_px,
                                             max(bd - 8, 0))
@@ -2321,14 +2323,16 @@ class FrameCodec:
             out = cdef_ops.cdef_apply(planes, ns, dirs, var, y_str, uv_str,
                                       fh.cdef_damping, fw, fh_px, bd)
         for p, o in enumerate(out):
-            self.recon[p] = o.cpu().numpy()
+            self.recon[p] = to_host(o).numpy()
 
     def _recon_on_device(self):
         """The recon planes as int32 tensors on the codec's device."""
         import torch
 
-        return [torch.from_numpy(np.ascontiguousarray(p, np.int32)).to(
-            self.device) for p in self.recon[:self.num_planes]]
+        from ..device import to_device
+
+        return [to_device(torch.from_numpy(np.ascontiguousarray(p, np.int32)),
+                          self.device) for p in self.recon[:self.num_planes]]
 
     def _save_deblocked(self):
         if self.seq.enable_restoration:
@@ -2342,12 +2346,12 @@ class FrameCodec:
         if self.dev_source is None:
             import torch
 
-            from ..device import SAMPLE_DTYPES
+            from ..device import SAMPLE_DTYPES, to_device
 
             dt = SAMPLE_DTYPES[self.seq.bit_depth]
             self.dev_source = tuple(
-                torch.from_numpy(np.ascontiguousarray(p)).to(
-                    device=self.device, dtype=dt)
+                to_device(torch.from_numpy(np.ascontiguousarray(p)),
+                          self.device, dt)
                 for p in self.source)
         return self.dev_source
 
@@ -2387,6 +2391,7 @@ class FrameCodec:
         indices)."""
         import torch
 
+        from ..device import to_device, to_host
         from ..ops import cdef as cdef_ops
 
         fh = self.fh
@@ -2402,7 +2407,8 @@ class FrameCodec:
         planes = self._recon_on_device()
         out, bits, y_list, uv_list, idx_grid = cdef_ops.search_apply_multi(
             self.device_source()[:self.num_planes], planes,
-            torch.from_numpy(nonskip).to(self.device), self.mi_cols * 4,
+            to_device(torch.from_numpy(nonskip), self.device),
+            self.mi_cols * 4,
             self.mi_rows * 4, fh.cdef_damping, self.seq.bit_depth,
             lambda_sse)
         fh.cdef_bits = bits
@@ -2411,7 +2417,7 @@ class FrameCodec:
         self.cdef_idx_grid[:] = idx_grid[:self.cdef_idx_grid.shape[0],
                                          :self.cdef_idx_grid.shape[1]]
         for p, o in enumerate(out):
-            self.recon[p] = o.cpu().numpy()
+            self.recon[p] = to_host(o).numpy()
         return bits > 0
 
     def search_cdef(self):
@@ -2420,6 +2426,7 @@ class FrameCodec:
         frame-header fields."""
         import torch
 
+        from ..device import to_device
         from ..ops import cdef as cdef_ops
 
         fh = self.fh
@@ -2439,7 +2446,7 @@ class FrameCodec:
                                             max(bd - 8, 0))
         err_y, err_uv = cdef_ops.cdef_search(
             self.device_source()[:self.num_planes], planes, dirs, var,
-            torch.from_numpy(nonskip).to(self.device), fw, fh_px,
+            to_device(torch.from_numpy(nonskip), self.device), fw, fh_px,
             fh.cdef_damping, bd)
         fh.cdef_y_strengths = (cdef_ops.pick_strength(
             err_y, cdef_ops.PRI_SET, cdef_ops.SEC_SET),)

@@ -19,7 +19,9 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..device import to_device, to_host
 from ..ops import bme
+from ..profiling import span
 
 
 BLK = 32
@@ -75,8 +77,8 @@ def _me32(center_t, neigh_t):
     n_sby, n_sbx = me["grid"]
 
     def grid(a):
-        return a.reshape(n_sby, n_sbx, 2, 2).permute(0, 2, 1, 3) \
-            .reshape(n_sby * 2, n_sbx * 2).cpu().numpy()
+        return to_host(a.reshape(n_sby, n_sbx, 2, 2).permute(0, 2, 1, 3)
+                       .reshape(n_sby * 2, n_sbx * 2)).numpy()
 
     return grid(mv_r), grid(mv_c)
 
@@ -89,19 +91,20 @@ def _upload(plane, device) -> torch.Tensor:
     twin searches the full samples, and may find other MVs.  ROADMAP.md
     section C lists this narrowing as the reference's, kept for byte
     identity; tests/test_torch_tenbit_random_access.py pins it."""
-    return torch.from_numpy(np.ascontiguousarray(plane, np.uint8)).to(device)
+    return to_device(torch.from_numpy(np.ascontiguousarray(plane, np.uint8)),
+                     device)
 
 
-def _mc_blocks(center_y, center_t, neigh_planes, bd):
-    """Block ME of the neighbor onto the center; returns (pred planes,
+def _mc_blocks(center_y, mv, neigh_planes, bd):
+    """Block motion compensation of the neighbor onto the center at the
+    per-32x32-block MVs ``mv`` (``_me32``'s pair); returns (pred planes,
     per-block SSE map, per-block mv magnitude map) with 32x32 luma
-    blocks (the reference's tf 32x32 unit).  Vectorized: one batched
-    frame-ME call + fancy-indexed gathers (no per-block Python).
-    ``center_t`` is the centre's luma already on the ME device."""
+    blocks (the reference's tf 32x32 unit).  Vectorized: fancy-indexed
+    gathers (no per-block Python)."""
     h, w = center_y.shape
     nb_y, nb_x = h // BLK, w // BLK
     ny = neigh_planes[0].astype(np.int32)
-    mv_r, mv_c = _me32(center_t, _upload(ny, center_t.device))
+    mv_r, mv_c = mv
     by = np.arange(nb_y)[:, None] * BLK
     bx = np.arange(nb_x)[None, :] * BLK
     sy = np.clip(by + mv_r, 0, h - BLK)
@@ -137,26 +140,46 @@ def temporal_filter(center_planes, neighbor_frames, qp: int, bd: int,
     plane list (same dtypes).  neighbor_frames: list of plane tuples.
     The motion search runs on the torch ``device``; the weighting stays
     on the host in float64."""
-    cy = center_planes[0].astype(np.int32)
-    h, w = cy.shape
+    h, w = center_planes[0].shape
     if h % 64 or w % 64:
         # pad to SB multiple (the batched frame ME's unit); crop at end
         ph = -(-h // 64) * 64
         pw = -(-w // 64) * 64
-        center_planes = [np.pad(p, ((0, (ph - h) >> (1 if i else 0)),
-                                    (0, (pw - w) >> (1 if i else 0))),
-                                mode="edge")
-                         for i, p in enumerate(center_planes)]
-        neighbor_frames = [[np.pad(p, ((0, (ph - h) >> (1 if i else 0)),
-                                       (0, (pw - w) >> (1 if i else 0))),
-                                   mode="edge")
-                            for i, p in enumerate(fr)]
-                           for fr in neighbor_frames]
+        with span("mctf_host"):
+            center_planes = [np.pad(p, ((0, (ph - h) >> (1 if i else 0)),
+                                        (0, (pw - w) >> (1 if i else 0))),
+                                    mode="edge")
+                             for i, p in enumerate(center_planes)]
+            neighbor_frames = [[np.pad(p, ((0, (ph - h) >> (1 if i else 0)),
+                                           (0, (pw - w) >> (1 if i else 0))),
+                                       mode="edge")
+                                for i, p in enumerate(fr)]
+                               for fr in neighbor_frames]
         out = temporal_filter(center_planes, neighbor_frames, qp, bd,
                               device)
         return [o[:h >> (1 if i else 0), :w >> (1 if i else 0)]
                 for i, o in enumerate(out)]
 
+    # the device ME of every neighbour onto the centre first (the
+    # centre's luma, uploaded once, serves every search), then the host
+    # work in one span
+    cy = center_planes[0].astype(np.int32)
+    mvs = []
+    if neighbor_frames:
+        center_t = _upload(cy, device)
+        mvs = [_me32(center_t, _upload(fr[0].astype(np.int32), device))
+               for fr in neighbor_frames]
+    with span("mctf_host"):
+        return _filter_host(center_planes, neighbor_frames, mvs, cy, qp,
+                            bd)
+
+
+def _filter_host(center_planes, neighbor_frames, mvs, cy, qp: int,
+                 bd: int) -> list:
+    """``temporal_filter``'s host part: the block motion compensation at
+    the neighbours' MVs ``mvs``, the noise estimate, the float64 weights,
+    the accumulation and the normalisation."""
+    h, w = cy.shape
     noise = [estimate_noise(center_planes[p]) for p in range(3)]
     noise = [max(n, 0.0) for n in noise]
     decay = 3 if (w * h) <= 854 * 480 else 4
@@ -167,8 +190,6 @@ def temporal_filter(center_planes, neighbor_frames, qp: int, bd: int,
     accum = [np.zeros(p.shape, np.float64) for p in center_planes]
     count = [np.zeros(p.shape, np.float64) for p in center_planes]
 
-    # the centre's luma serves every neighbour's search: one upload
-    center_t = _upload(cy, device) if neighbor_frames else None
     frames = [center_planes] + list(neighbor_frames)
     for fi, fr in enumerate(frames):
         if fi == 0:
@@ -177,7 +198,7 @@ def temporal_filter(center_planes, neighbor_frames, qp: int, bd: int,
             sse = np.zeros(nb)
             dist = np.zeros(nb)
         else:
-            preds, sse, dist = _mc_blocks(cy, center_t,
+            preds, sse, dist = _mc_blocks(cy, mvs[fi - 1],
                                           [p.astype(np.int32) for p in fr],
                                           bd)
         diff_y = (preds[0].astype(np.int64) - cy) ** 2

@@ -22,8 +22,9 @@ import ctypes
 import numpy as np
 import torch
 
-from ..device import SAMPLE_DTYPES
+from ..device import SAMPLE_DTYPES, to_device, to_host
 from ..ops import bme
+from ..profiling import span
 
 # qindex steps removed per doubling of the dependency multiplier beta
 # (applied ON TOP of the per-layer ladder, so leaves stay unboosted)
@@ -109,8 +110,8 @@ def _pair_stats(src, ref):
     n_sby, n_sbx = me["grid"]
 
     def grid(a):
-        return a.reshape(n_sby, n_sbx, 4, 4).permute(0, 2, 1, 3) \
-            .reshape(n_sby * 4, n_sbx * 4).cpu().numpy()
+        return to_host(a.reshape(n_sby, n_sbx, 4, 4).permute(0, 2, 1, 3)
+                       .reshape(n_sby * 4, n_sbx * 4)).numpy()
 
     mv_r, mv_c, sad = me[(16, 16)]
     return grid(sad), grid(mv_r), grid(mv_c)
@@ -187,19 +188,38 @@ def tpl_gop_flow(frames_y, displays, buf_w: int, buf_h: int, bd: int,
     # keeps uint16 at 10 bits), as one [n, buf_h, buf_w] tensor whose rows
     # K5/K6 read as views; its variances (they read the sources only) are
     # one K10 launch
-    planes = torch.from_numpy(np.stack([bufal(f) for f in frames_y])) \
-        .to(SAMPLE_DTYPES[bd]).to(device)
+    with span("tpl_host"):
+        window = torch.from_numpy(np.stack([bufal(f) for f in frames_y])) \
+            .to(SAMPLE_DTYPES[bd])
+    planes = to_device(window, device)
     # per-frame intra-cost proxy (variance)
-    intra = list(block_var16(planes).cpu().numpy().astype(np.float64) + 1.0)
+    var = to_host(block_var16(planes)).numpy()
+    stats = {}
+    for i in range(n):
+        if i > 0:
+            stats[i, i - 1] = _pair_stats(planes[i], planes[i - 1])
+        if i < n - 1:
+            stats[i, i + 1] = _pair_stats(planes[i], planes[i + 1])
+    with span("tpl_host"):
+        return _propagate(var, stats, displays, include_first)
+
+
+def _propagate(var, stats, displays, include_first: bool) -> dict:
+    """``tpl_gop_flow``'s host part: the costs, the two propagation
+    sweeps and the r0 of each display, from the window's variances
+    ``var`` [n, nr, nc] and the pair statistics ``stats[i, j]`` (frame i
+    predicted from frame j)."""
+    n = len(var)
+    intra = list(var.astype(np.float64) + 1.0)
     fwd = [None] * n         # i predicted from i-1
     bwd = [None] * n         # i predicted from i+1
     for i in range(n):
         if i > 0:
-            sad, mv_r, mv_c = _pair_stats(planes[i], planes[i - 1])
+            sad, mv_r, mv_c = stats[i, i - 1]
             fwd[i] = ((sad.astype(np.float64) ** 2) / 256.0 + 1.0,
                       mv_r, mv_c)
         if i < n - 1:
-            sad, mv_r, mv_c = _pair_stats(planes[i], planes[i + 1])
+            sad, mv_r, mv_c = stats[i, i + 1]
             bwd[i] = ((sad.astype(np.float64) ** 2) / 256.0 + 1.0,
                       mv_r, mv_c)
 

@@ -385,7 +385,8 @@ def encode_fps(cs, torch):
         t1 = time.perf_counter()
         md5[name] = h.hexdigest()
         stages[name] = {k: v.get("ms_per_frame")
-                        for k, v in enc.perf_report().items() if k != "_wall"}
+                        for k, v in enc.perf_report().items()
+                        if not k.startswith("_")}
         return (len(frames) - warm) / (t1 - t_warm), len(frames) / (t1 - t0)
 
     fps = {}
