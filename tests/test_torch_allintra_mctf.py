@@ -12,11 +12,13 @@ The pictures each encoder held buffered when it filtered a key frame
 must be the same, the streams byte-identical, and both Decoders must
 turn the stream into the port encoder's recon with equal md5s.
 """
+import functools
 import types
 
 import numpy as np
 import pytest
 
+import jax_refs
 from svt_av1_tpu import api as ref_api
 from svt_av1_tpu.config import EncoderConfig as RefConfig
 from svt_av1_tpu_torch import api
@@ -52,6 +54,39 @@ def _encode(enc, frames, style):
     return out + enc.flush()
 
 
+KW = dict(source_width=W, source_height=H, qp=40)
+
+
+def _jax_case(style):
+    """The JAX device path's packets and the displays its encoder held
+    buffered at each MCTF call (tests/jax_refs.py)."""
+    frames = moving_clip(W, H, N, seed=9)
+
+    def produce():
+        with pytest.MonkeyPatch.context() as mp:
+            mp.setenv("SVT_TPU_DEVICE", "1")
+            ref = _recording(ref_api.Encoder)(RefConfig(**KW))
+            ref.seen = []
+            pkts = _encode(ref, frames, style)
+        return dict(jax_refs.pack_packets(pkts),
+                    seen=[(d, b[0] if b else d, len(b)) for d, b in ref.seen])
+
+    return dict(frames=frames, cfg=RefConfig(**KW), style=style,
+                device="1"), produce
+
+
+STYLES = ("send_flush", "encode_frame")
+for _style in STYLES:
+    jax_refs.register(f"allintra_mctf.{_style}",
+                      functools.partial(_jax_case, _style))
+
+
+def _seen(got):
+    """``Recording.seen`` of the entry: (display, the buffered displays)."""
+    return [(d, tuple(range(b, b + n))) for d, b, n in
+            got["seen"].reshape(-1, 3).tolist()]
+
+
 # encode_frame's stream is ``slow`` (about 25 s alone); send/flush's, the
 # one that pins fault C7, stays in the quick tier
 @pytest.fixture(scope="module", params=[
@@ -59,13 +94,11 @@ def _encode(enc, frames, style):
 def streams(request, tmp_path_factory):
     style = request.param
     frames = moving_clip(W, H, N, seed=9)
-    kw = dict(source_width=W, source_height=H, qp=40)
-    with pytest.MonkeyPatch.context() as mp:
-        mp.setenv("SVT_TPU_DEVICE", "1")
-        ref = _recording(ref_api.Encoder)(RefConfig(**kw))
-        ref.seen = []
-        ref_pkts = _encode(ref, frames, style)
-    port = _recording(api.Encoder)(EncoderConfig(**kw), device="cpu")
+    got = jax_refs.reference(f"allintra_mctf.{style}", frames=frames,
+                             cfg=RefConfig(**KW))
+    ref = types.SimpleNamespace(seen=_seen(got))
+    ref_pkts = jax_refs.unpack_packets(got)
+    port = _recording(api.Encoder)(EncoderConfig(**KW), device="cpu")
     port.seen = []
     pkts = _encode(port, frames, style)
     path = tmp_path_factory.mktemp("ai_mctf") / f"{style}.ivf"

@@ -20,10 +20,13 @@ path, are in test_torch_config_surface_streams.py (``slow``).
 """
 import dataclasses
 import enum
+import pathlib
+import tempfile
 
 import numpy as np
 import pytest
 
+import jax_refs
 from svt_av1_tpu import api as ref_api
 from svt_av1_tpu import config as ref_config
 from svt_av1_tpu_torch import api
@@ -377,6 +380,33 @@ def test_stream_features_read_the_settings_back(tmp_path):
                for f in feats)
 
 
+LOSSLESS = dict(intra_period_length=0, qp=0, size=(64, 64))
+
+
+def _lossless_case():
+    """The JAX host path's qp-0 stream and recon (SVT_TPU_DEVICE=0)."""
+    from test_e2e import synthetic_clip
+
+    frames = synthetic_clip(64, 64, 1)
+    ref_cfg = configs(LOSSLESS)[1]
+
+    def produce():
+        with tempfile.TemporaryDirectory() as tmp, \
+                pytest.MonkeyPatch.context() as mp:
+            mp.setenv("SVT_TPU_DEVICE", "0")
+            path = pathlib.Path(tmp) / "jax.ivf"
+            recon = ref_api.encode_ivf(frames, ref_cfg, str(path))
+            out = {f"recon{d}_{p}": r[p] for d, r in enumerate(recon)
+                   for p in range(3)}
+            return dict(out, stream=np.frombuffer(path.read_bytes(),
+                                                  np.uint8))
+
+    return dict(frames=frames, cfg=ref_cfg, device="0"), produce
+
+
+jax_refs.register("config_surface.lossless", _lossless_case)
+
+
 def test_lossless_stream_follows_the_jax_encoder(tmp_path, monkeypatch):
     """qp 0 (base_q_idx 0, coded lossless): the JAX encoder codes the
     blocks with its lossy transforms, signals no transform type and no
@@ -387,12 +417,15 @@ def test_lossless_stream_follows_the_jax_encoder(tmp_path, monkeypatch):
     from test_e2e import synthetic_clip
 
     frames = synthetic_clip(64, 64, 1)
-    port_cfg, ref_cfg = configs(dict(intra_period_length=0, qp=0,
-                                     size=(64, 64)))
+    port_cfg, ref_cfg = configs(LOSSLESS)
     port_path, ref_path = tmp_path / "port.ivf", tmp_path / "jax.ivf"
     recon = api.encode_ivf(frames, port_cfg, str(port_path), device="cpu")
     monkeypatch.setenv("SVT_TPU_DEVICE", "0")
-    ref_recon = ref_api.encode_ivf(frames, ref_cfg, str(ref_path))
+    entry = jax_refs.reference("config_surface.lossless", frames=frames,
+                               cfg=ref_cfg)
+    ref_path.write_bytes(entry["stream"].tobytes())
+    ref_recon = [tuple(entry[f"recon{d}_{p}"] for p in range(3))
+                 for d in range(sum(k.endswith("_0") for k in entry))]
     assert port_path.read_bytes() == ref_path.read_bytes()
     for got, want, src in zip(recon, ref_recon, frames):
         assert all((got[p] == want[p]).all() for p in range(3))

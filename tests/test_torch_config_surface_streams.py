@@ -24,9 +24,11 @@ All ``slow``: each case compiles the JAX device path for its geometry
 (30-90 s).  Run with ``python -m pytest -m slow
 tests/test_torch_config_surface_streams.py``.
 """
+import functools
+
 import pytest
 
-from svt_av1_tpu import api as ref_api
+import jax_refs
 from svt_av1_tpu_torch import api
 from svt_av1_tpu_torch.bitstream.headers import QUANTIZER_TO_QINDEX
 from svt_av1_tpu_torch.pipeline import mctf
@@ -76,15 +78,27 @@ CASES = {
 }
 
 
-def encode_both(tmp_path, w, h, n, kw):
-    """The port's stream on the CPU and the JAX device path's, with the
-    number of neighbours the port's MCTF took for each filtered picture."""
+def _jax_case(name):
+    w, h, n, kw = CASES[name]
+    return jax_refs.encode_case(synthetic_clip(w, h, n, seed=13),
+                                configs(kw, kw.get("enc_mode", 8))[1])
+
+
+for _name in CASES:
+    jax_refs.register(f"config_surface_streams.{_name}",
+                      functools.partial(_jax_case, _name))
+
+
+def encode_both(tmp_path, name):
+    """The port's stream of CASES[name] on the CPU and the JAX device
+    path's, with the number of neighbours the port's MCTF took for each
+    filtered picture."""
+    w, h, n, kw = CASES[name]
     frames = synthetic_clip(w, h, n, seed=13)
     port_cfg, ref_cfg = configs(kw, kw.get("enc_mode", 8))
-    ref_path, path = tmp_path / "jax.ivf", tmp_path / "port.ivf"
-    with pytest.MonkeyPatch.context() as mp:
-        mp.setenv("SVT_TPU_DEVICE", "1")
-        ref_api.encode_ivf(frames, ref_cfg, str(ref_path))
+    path = tmp_path / "port.ivf"
+    jax = jax_refs.reference(f"config_surface_streams.{name}",
+                             frames=frames, cfg=ref_cfg)
     neighbours = []
     with pytest.MonkeyPatch.context() as mp:
         filt = mctf.temporal_filter
@@ -95,9 +109,8 @@ def encode_both(tmp_path, w, h, n, kw):
 
         mp.setattr(mctf, "temporal_filter", counted)
         recon = api.encode_ivf(frames, port_cfg, str(path), device="cpu")
-    return dict(port=path.read_bytes(), jax=ref_path.read_bytes(),
-                recon=recon, path=path, neighbours=neighbours,
-                frames=frames)
+    return dict(port=path.read_bytes(), jax=jax, recon=recon, path=path,
+                neighbours=neighbours, frames=frames)
 
 
 def check_setting(name, got, n):
@@ -142,8 +155,8 @@ def check_setting(name, got, n):
 @pytest.mark.parametrize("name", list(CASES))
 def test_setting_stream_byte_identical_and_decoded(name, tmp_path,
                                                    monkeypatch):
-    w, h, n, kw = CASES[name]
-    got = encode_both(tmp_path, w, h, n, kw)
+    _, _, n, kw = CASES[name]
+    got = encode_both(tmp_path, name)
     assert len(got["port"]) == len(got["jax"]), (len(got["port"]),
                                                   len(got["jax"]))
     assert got["port"] == got["jax"]

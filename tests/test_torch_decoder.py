@@ -17,6 +17,7 @@ import functools
 import numpy as np
 import pytest
 
+import jax_refs
 from svt_av1_tpu import api as ref_api
 from svt_av1_tpu.config import EncoderConfig as RefConfig
 from svt_av1_tpu.config import PredStructure as RefPred
@@ -95,16 +96,34 @@ def test_broken_payloads_raise_the_jax_decoders_code(cut):
     assert int(api.ErrorCode.DECODE_ERROR) == want[1]
 
 
-def _jax_stream(w, h, monkeypatch, **kw):
+def _jax_case(w, h, **kw):
+    """The JAX host path's packets (SVT_TPU_DEVICE=0) of a 2-frame clip."""
+    cfg = RefConfig(source_width=w, source_height=h, qp=40,
+                    intra_period_length=-1,
+                    pred_structure=RefPred.LOW_DELAY_P, **kw)
+    frames = synthetic_clip(w, h, 2, seed=13)
+
+    def produce():
+        with pytest.MonkeyPatch.context() as mp:
+            mp.setenv("SVT_TPU_DEVICE", "0")
+            enc = ref_api.Encoder(cfg)
+            pkts = []
+            for f in frames:
+                pkts += enc.send_picture(f)
+            return jax_refs.pack_packets(pkts + enc.flush())
+
+    return dict(frames=frames, cfg=cfg, device="0"), produce
+
+
+JAX_LR = jax_refs.register("decoder.restoration-64x64", functools.partial(
+    _jax_case, 64, 64, enc_mode=8, enable_restoration=1))
+JAX_P6 = jax_refs.register("decoder.preset6-128x128", functools.partial(
+    _jax_case, 128, 128, enc_mode=6))
+
+
+def _jax_stream(name, monkeypatch):
     monkeypatch.setenv("SVT_TPU_DEVICE", "0")
-    enc = ref_api.Encoder(RefConfig(source_width=w, source_height=h, qp=40,
-                                    intra_period_length=-1,
-                                    pred_structure=RefPred.LOW_DELAY_P,
-                                    **kw))
-    pkts = []
-    for f in synthetic_clip(w, h, 2, seed=13):
-        pkts += enc.send_picture(f)
-    return pkts + enc.flush()
+    return jax_refs.unpack_packets(jax_refs.reference(name))
 
 
 def _frame_headers(pkts):
@@ -125,8 +144,7 @@ def _frame_headers(pkts):
 
 
 def test_jax_stream_with_loop_restoration_decodes_identically(monkeypatch):
-    pkts = _jax_stream(64, 64, monkeypatch, enc_mode=8,
-                       enable_restoration=1)
+    pkts = _jax_stream(JAX_LR, monkeypatch)
     assert any(any(fh.lr_type) for fh in _frame_headers(pkts))
     dec, ref = api.Decoder(device="cpu"), ref_api.Decoder()
     got, want = _decode(dec, pkts), _decode(ref, pkts)
@@ -141,7 +159,7 @@ def test_per_64x64_cdef_presets_raise_unsupported(monkeypatch):
     """A stream with per-64x64 CDEF presets (cdef_bits > 0) no longer
     raises: the port's Decoder applies them (K4's per-fb apply) to the
     JAX Decoder's pictures and md5."""
-    pkts = _jax_stream(128, 128, monkeypatch, enc_mode=6)
+    pkts = _jax_stream(JAX_P6, monkeypatch)
     assert _frame_headers(pkts)[0].cdef_bits > 0
     dec, ref = api.Decoder(device="cpu"), ref_api.Decoder()
     got, want = _decode(dec, pkts), _decode(ref, pkts)

@@ -10,6 +10,7 @@ decision, the next P frame's open-loop ME plan) must not change a byte.
 import numpy as np
 import pytest
 
+import jax_refs
 from svt_av1_tpu import api as ref_api
 from svt_av1_tpu.config import EncoderConfig as RefConfig
 from svt_av1_tpu.config import PredStructure as RefPred
@@ -37,18 +38,17 @@ def _port_encode(tmp_path, w, h, n, name="port.ivf", **kw):
     return path.read_bytes(), recon, path
 
 
+JAX_64 = jax_refs.register("encode.64x64x2", lambda: jax_refs.encode_case(
+    synthetic_clip(64, 64, 2, seed=13),
+    RefConfig(source_width=64, source_height=64,
+              pred_structure=RefPred.LOW_DELAY_P, **SLICE)))
+
+
 @pytest.fixture(scope="module")
-def jax_device_stream(tmp_path_factory):
+def jax_device_stream():
     """The JAX package's device path (SVT_TPU_DEVICE=1: jitted decision
     and fused filter chain, CPU backend) on the 64x64 clip."""
-    frames = synthetic_clip(64, 64, 2, seed=13)
-    cfg = RefConfig(source_width=64, source_height=64,
-                    pred_structure=RefPred.LOW_DELAY_P, **SLICE)
-    path = tmp_path_factory.mktemp("ref") / "ref.ivf"
-    with pytest.MonkeyPatch.context() as mp:
-        mp.setenv("SVT_TPU_DEVICE", "1")
-        ref_api.encode_ivf(frames, cfg, str(path))
-    return path.read_bytes()
+    return jax_refs.reference(JAX_64)
 
 
 @pytest.fixture(scope="module")
@@ -59,18 +59,18 @@ def port_64(tmp_path_factory):
 IPP = dict(intra_period_length=-1)
 
 
+JAX_IPP = jax_refs.register("encode.ipp-192x128x6", lambda: (
+    jax_refs.encode_case(synthetic_clip(192, 128, 6, seed=13),
+                         RefConfig(source_width=192, source_height=128,
+                                   pred_structure=RefPred.LOW_DELAY_P,
+                                   **{**SLICE, **IPP}))))
+
+
 @pytest.fixture(scope="module")
-def jax_ipp_stream(tmp_path_factory):
+def jax_ipp_stream():
     """The JAX package's device path on the 192x128 low-delay P clip (the
     smallest size whose buffer takes the batched inter plan)."""
-    frames = synthetic_clip(192, 128, 6, seed=13)
-    cfg = RefConfig(source_width=192, source_height=128,
-                    pred_structure=RefPred.LOW_DELAY_P, **{**SLICE, **IPP})
-    path = tmp_path_factory.mktemp("ref") / "ref_ipp.ivf"
-    with pytest.MonkeyPatch.context() as mp:
-        mp.setenv("SVT_TPU_DEVICE", "1")
-        ref_api.encode_ivf(frames, cfg, str(path))
-    return path.read_bytes()
+    return jax_refs.reference(JAX_IPP)
 
 
 @pytest.fixture(scope="module")
@@ -86,6 +86,8 @@ def test_stream_byte_identical_to_jax_device_path(jax_device_stream,
     assert data == jax_device_stream
 
 
+# 152-214 s with the JAX side live (a stale store) in the 6-worker run
+@pytest.mark.time_limit(430)
 def test_ipp_stream_byte_identical_to_jax_device_path(jax_ipp_stream,
                                                       port_ipp):
     data, _, _ = port_ipp

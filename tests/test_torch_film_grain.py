@@ -23,10 +23,12 @@ from svt_av1_tpu_torch import api
 from svt_av1_tpu_torch.pipeline import noise_model
 
 from test_e2e import synthetic_clip
-from test_torch_presets_7 import LD, encode_both
+from test_torch_presets_7 import LD, encode_both, register_streams
 
 W, H, N = 192, 128, 3
 KW = dict(LD, film_grain_denoise_strength=8)
+register_streams("film_grain", {
+    "low-delay-p": (lambda: synthetic_clip(W, H, N, seed=13), W, H, KW)})
 
 
 # the stream tests are ``slow``: the compile and encodes take about 100 s
@@ -35,7 +37,8 @@ KW = dict(LD, film_grain_denoise_strength=8)
     pytest.param("low-delay-p", marks=pytest.mark.slow)])
 def stream(request, tmp_path_factory):
     return encode_both(tmp_path_factory.mktemp("grain"),
-                       synthetic_clip(W, H, N, seed=13), W, H, KW)
+                       synthetic_clip(W, H, N, seed=13), W, H, KW,
+                       f"film_grain.{request.param}")
 
 
 def test_stream_byte_identical_to_jax_device_path(stream):

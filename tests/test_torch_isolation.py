@@ -99,6 +99,8 @@ def test_the_scan_covers_every_package_of_the_port():
             PORT / "utils" / "metrics.py"} <= set(_sources())
 
 
+# past its subprocess's own 300-s timeout, which names the hang
+@pytest.mark.time_limit(360)
 def test_port_encode_loads_no_jax_module():
     env = dict(os.environ, PYTHONPATH=str(ROOT))
     r = subprocess.run([sys.executable, "-c", _ENCODE], cwd=ROOT, env=env,

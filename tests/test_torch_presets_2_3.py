@@ -15,9 +15,13 @@ from svt_av1_tpu import api as ref_api
 from svt_av1_tpu_torch import api
 
 from test_e2e import synthetic_clip
-from test_torch_presets_7 import LD, _configs, decode_both, encode_both
+from test_torch_presets_7 import (LD, _configs, decode_both, encode_both,
+                                  register_streams)
 
 W, H = 64, 64
+STREAMS = {f"p{preset}": (lambda: synthetic_clip(W, H, 2, seed=13), W, H,
+                          dict(LD, enc_mode=preset)) for preset in (3, 2)}
+register_streams("presets_2_3", STREAMS)
 
 
 # the streams are ``slow``: the two host RD walks and the JAX compile take
@@ -26,9 +30,10 @@ W, H = 64, 64
     pytest.param(3, marks=pytest.mark.slow),
     pytest.param(2, marks=pytest.mark.slow)])
 def stream(request, tmp_path_factory):
-    got = encode_both(tmp_path_factory.mktemp("p23"),
-                      synthetic_clip(W, H, 2, seed=13), W, H,
-                      dict(LD, enc_mode=request.param))
+    kind = f"p{request.param}"
+    clip, w, h, kw = STREAMS[kind]
+    got = encode_both(tmp_path_factory.mktemp("p23"), clip(), w, h, kw,
+                      f"presets_2_3.{kind}")
     got["preset"] = request.param
     return got
 

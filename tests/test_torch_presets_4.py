@@ -29,7 +29,7 @@ from svt_av1_tpu_torch.pipeline.rdo import PartitionRdoDecider
 from chip_smoke import block_tools, stream_features, wave_clip
 from test_e2e import synthetic_clip
 from test_torch_presets_7 import (LD, RA, _configs, decode_both,
-                                  encode_both, tenbit)
+                                  encode_both, register_streams, tenbit)
 
 W, H = 128, 96
 STREAMS = {
@@ -43,6 +43,8 @@ STREAMS = {
                              dict(LD, enc_mode=4, qp=45,
                                   encoder_bit_depth=10)),
 }
+register_streams("presets_4", {kind: (clip, W, H, kw)
+                               for kind, (clip, kw) in STREAMS.items()})
 # the tools each clip shows (the port's Decoder's counts of the stream)
 TOOLS = {
     "p4-low-delay-p": ("vartx", "interintra"),
@@ -54,7 +56,8 @@ TOOLS = {
 
 def make_stream(kind, tmp_path_factory):
     clip, kw = STREAMS[kind]
-    got = encode_both(tmp_path_factory.mktemp("p4"), clip(), W, H, kw)
+    got = encode_both(tmp_path_factory.mktemp("p4"), clip(), W, H, kw,
+                      f"presets_4.{kind}")
     got["kind"] = kind
     got["features"] = stream_features(got["path"])
     got["tools"], _, _ = block_tools(got["path"])

@@ -31,7 +31,7 @@ from chip_smoke import stream_features
 from test_cdef_multi import _hetero_clip
 from test_e2e import synthetic_clip
 from test_torch_presets_7 import (LD, RA, _configs, decode_both,
-                                  encode_both, tenbit)
+                                  encode_both, register_streams, tenbit)
 
 STREAMS = {
     "p6-all-intra": (192, 128, lambda: _hetero_clip(192, 128, 2),
@@ -49,6 +49,9 @@ STREAMS = {
                                dict(LD, enc_mode=5)),
 }
 
+register_streams("presets_5_6", {kind: (clip, w, h, kw)
+                                 for kind, (w, h, clip, kw)
+                                 in STREAMS.items()})
 
 HERE = ("p6-all-intra", "p6-low-delay-p", "p6-random-access")
 
@@ -57,7 +60,8 @@ def make_stream(kind, tmp_path_factory):
     """The port's and the JAX device path's streams of STREAMS[kind], with
     the port stream's features."""
     w, h, clip, kw = STREAMS[kind]
-    got = encode_both(tmp_path_factory.mktemp("p56"), clip(), w, h, kw)
+    got = encode_both(tmp_path_factory.mktemp("p56"), clip(), w, h, kw,
+                      f"presets_5_6.{kind}")
     got["kind"] = kind
     got["features"] = stream_features(got["path"])
     return got

@@ -12,10 +12,12 @@ Decoder must turn each into the port encoder's recon with equal md5s.
 The helpers here serve test_torch_presets_5_6.py too.
 """
 import collections
+import functools
 
 import numpy as np
 import pytest
 
+import jax_refs
 from svt_av1_tpu import api as ref_api
 from svt_av1_tpu.config import EncoderConfig as RefConfig
 from svt_av1_tpu.config import PredStructure as RefPred
@@ -55,16 +57,27 @@ def tenbit(frames, seed=10):
             for f in frames]
 
 
-def encode_both(tmp_dir, frames, w, h, kw):
+def _stream_case(clip, w, h, kw):
+    """(inputs, produce) of the JAX device path's stream of ``clip()``
+    (tests/jax_refs.py)."""
+    return jax_refs.encode_case(clip(), _configs(w, h, kw)[1])
+
+
+def register_streams(prefix, cases):
+    """Register the JAX stream of each case (kind -> (clip, w, h, kw),
+    ``clip()`` the frames) as the entry ``<prefix>.<kind>``."""
+    for kind, case in cases.items():
+        jax_refs.register(f"{prefix}.{kind}",
+                          functools.partial(_stream_case, *case))
+
+
+def encode_both(tmp_dir, frames, w, h, kw, name):
     """The port's stream (plain versions on the CPU) and the JAX device
-    path's on the same frames: dict(port, jax, recon, path, seen) where
-    seen counts the port encode's key-frame plans and per-block inter
-    decisions."""
+    path's on the same frames (entry ``name`` of tests/jax_refs.py):
+    dict(port, jax, recon, path, seen) where seen counts the port
+    encode's key-frame plans and per-block inter decisions."""
     port_cfg, ref_cfg = _configs(w, h, kw)
-    ref_path = tmp_dir / "jax.ivf"
-    with pytest.MonkeyPatch.context() as mp:
-        mp.setenv("SVT_TPU_DEVICE", "1")
-        ref_api.encode_ivf(frames, ref_cfg, str(ref_path))
+    jax = jax_refs.reference(name, frames=frames, cfg=ref_cfg)
     seen = collections.Counter()
     with pytest.MonkeyPatch.context() as mp:
         plan = batched_md.TorchIntraDecider._plan_frame
@@ -83,8 +96,8 @@ def encode_both(tmp_dir, frames, w, h, kw):
         mp.setattr(port_fc.ModeDecider, "decide_inter", counted_inter)
         path = tmp_dir / "port.ivf"
         recon = api.encode_ivf(frames, port_cfg, str(path), device="cpu")
-    return dict(port=path.read_bytes(), jax=ref_path.read_bytes(),
-                recon=recon, path=path, seen=seen)
+    return dict(port=path.read_bytes(), jax=jax, recon=recon, path=path,
+                seen=seen)
 
 
 def decode_both(path, recon, monkeypatch):
@@ -111,19 +124,25 @@ def decode_both(path, recon, monkeypatch):
     return modes
 
 
-STREAMS = {"low-delay-p": (4, LD), "random-access": (5, RA)}
+STREAMS = {kind: (functools.partial(synthetic_clip, W, H, n, seed=13), W,
+                  H, dict(kw, enc_mode=7))
+           for kind, (n, kw) in (("low-delay-p", (4, LD)),
+                                 ("random-access", (5, RA)))}
+register_streams("presets_7", STREAMS)
 
 
 @pytest.fixture(scope="module", params=list(STREAMS))
 def preset7(request, tmp_path_factory):
-    n, kw = STREAMS[request.param]
-    got = encode_both(tmp_path_factory.mktemp("p7"),
-                      synthetic_clip(W, H, n, seed=13), W, H,
-                      dict(kw, enc_mode=7))
+    clip, w, h, kw = STREAMS[request.param]
+    got = encode_both(tmp_path_factory.mktemp("p7"), clip(), w, h, kw,
+                      f"presets_7.{request.param}")
     got["kind"] = request.param
     return got
 
 
+# sets the fixture up: 157 s with the JAX side live (a stale store) in a
+# 6-worker run
+@pytest.mark.time_limit(320)
 def test_preset7_stream_byte_identical_to_jax_device_path(preset7):
     assert len(preset7["port"]) == len(preset7["jax"])
     assert preset7["port"] == preset7["jax"]

@@ -7,10 +7,13 @@ on the base picture), through svt_av1_tpu_torch with the plain versions
 of the kernels, against the JAX package's device path.
 
 The streams must be byte-identical.  The JAX side compiles and runs its
-programs on the CPU for about three minutes: this file stands alone so
-that --dist loadfile gives it a worker of its own.
+programs on the CPU for about three minutes when its stored stream
+(tests/jax_refs.py) does not match: this file stands alone so that
+--dist loadfile gives it a worker of its own.
 """
-from svt_av1_tpu import api as ref_api
+import pytest
+
+import jax_refs
 from svt_av1_tpu.config import EncoderConfig as RefConfig
 from svt_av1_tpu_torch import api
 from svt_av1_tpu_torch.config import EncoderConfig
@@ -19,16 +22,18 @@ from test_e2e import synthetic_clip
 
 CFG = dict(source_width=192, source_height=128, qp=40, enc_mode=8,
            intra_period_length=33)
+JAX_GOP16 = jax_refs.register("random_access_gop16.192x128x17", lambda: (
+    jax_refs.encode_case(synthetic_clip(192, 128, 17, seed=13),
+                         RefConfig(**CFG))))
 
 
-def test_gop16_stream_byte_identical_to_jax_device_path(tmp_path,
-                                                         monkeypatch):
+# 328-486 s with the JAX side live (a stale store) in 6-worker runs
+@pytest.mark.time_limit(1000)
+def test_gop16_stream_byte_identical_to_jax_device_path(tmp_path):
     frames = synthetic_clip(192, 128, 17, seed=13)
     api.encode_ivf(frames, EncoderConfig(**CFG), str(tmp_path / "port.ivf"),
                    device="cpu")
-    monkeypatch.setenv("SVT_TPU_DEVICE", "1")
-    ref_api.encode_ivf(frames, RefConfig(**CFG), str(tmp_path / "ref.ivf"))
     port = (tmp_path / "port.ivf").read_bytes()
-    ref = (tmp_path / "ref.ivf").read_bytes()
+    ref = jax_refs.reference(JAX_GOP16, frames=frames, cfg=RefConfig(**CFG))
     assert len(port) == len(ref)
     assert port == ref

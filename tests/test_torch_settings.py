@@ -8,10 +8,12 @@ tier; the other seven (odd sizes, 64x64 superblocks, two tile columns,
 adaptive quantization, the warped-motion and OBMC switches, the loop
 filters off) under ``slow``.
 """
+import functools
+
 import numpy as np
 import pytest
 
-from svt_av1_tpu import api as ref_api
+import jax_refs
 from svt_av1_tpu.config import EncoderConfig as RefConfig
 from svt_av1_tpu.config import PredStructure as RefPred
 from svt_av1_tpu.config import RateControlMode as RefRC
@@ -61,27 +63,38 @@ CASES = {
 QUICK = ("lossless", "screen_content", "vbr")
 
 
+def _config(name, cfg_cls, pred, rc):
+    """CASES[name] as ``cfg_cls`` (the port's or the JAX package's)."""
+    c = CASES[name]
+    kw = {**SLICE, **c["kw"]}
+    if c["rc"] is not None:
+        kw["rate_control_mode"] = rc[c["rc"]]
+    return cfg_cls(source_width=c["w"], source_height=c["h"],
+                   pred_structure=pred.LOW_DELAY_P, **kw)
+
+
+def _jax_case(name):
+    c = CASES[name]
+    return jax_refs.encode_case(c["clip"](c["w"], c["h"], c["n"]),
+                                _config(name, RefConfig, RefPred, RefRC))
+
+
+for _name in CASES:
+    jax_refs.register(f"settings.{_name}",
+                      functools.partial(_jax_case, _name))
+
+
 @pytest.mark.parametrize("name", [
     pytest.param(n, marks=() if n in QUICK else pytest.mark.slow)
     for n in CASES])
-def test_setting_byte_identical_to_jax_device_path(name, tmp_path,
-                                                   monkeypatch):
+def test_setting_byte_identical_to_jax_device_path(name, tmp_path):
     c = CASES[name]
-    w, h = c["w"], c["h"]
-    frames = c["clip"](w, h, c["n"])
-    kw = {**SLICE, **c["kw"]}
-    port_kw, ref_kw = dict(kw), dict(kw)
-    if c["rc"] is not None:
-        port_kw["rate_control_mode"] = RateControlMode[c["rc"]]
-        ref_kw["rate_control_mode"] = RefRC[c["rc"]]
-    cfg = EncoderConfig(source_width=w, source_height=h,
-                        pred_structure=PredStructure.LOW_DELAY_P, **port_kw)
-    ref_cfg = RefConfig(source_width=w, source_height=h,
-                        pred_structure=RefPred.LOW_DELAY_P, **ref_kw)
-    port_path, ref_path = tmp_path / "port.ivf", tmp_path / "ref.ivf"
+    frames = c["clip"](c["w"], c["h"], c["n"])
+    cfg = _config(name, EncoderConfig, PredStructure, RateControlMode)
+    port_path = tmp_path / "port.ivf"
     api.encode_ivf(frames, cfg, str(port_path), device="cpu")
-    monkeypatch.setenv("SVT_TPU_DEVICE", "1")
-    ref_api.encode_ivf(frames, ref_cfg, str(ref_path))
-    got, want = port_path.read_bytes(), ref_path.read_bytes()
+    want = jax_refs.reference(f"settings.{name}", frames=frames,
+                              cfg=_config(name, RefConfig, RefPred, RefRC))
+    got = port_path.read_bytes()
     assert len(got) == len(want), (name, len(got), len(want))
     assert got == want, name

@@ -19,7 +19,8 @@ from svt_av1_tpu_torch.bitstream.headers import parse_sequence_header
 from svt_av1_tpu_torch.ops.superres import scaled_dim
 
 from test_e2e import synthetic_clip
-from test_torch_presets_7 import _configs, decode_both, encode_both
+from test_torch_presets_7 import (_configs, decode_both, encode_both,
+                                  register_streams)
 
 W, H, N = 176, 144, 2
 STREAMS = {
@@ -29,6 +30,9 @@ STREAMS = {
                     low_delay=True),
     "denom16-mctf-lr": dict(superres_denom=16, enable_restoration=1),
 }
+register_streams("superres", {
+    kind: (lambda: synthetic_clip(W, H, N, seed=13), W, H,
+           dict(kw, superres_mode=1)) for kind, kw in STREAMS.items()})
 # ``slow``: each stream's compile and encodes take about 60 s alone
 HERE = (pytest.param("denom9", marks=pytest.mark.slow),
         pytest.param("denom12", marks=pytest.mark.slow))
@@ -37,7 +41,8 @@ HERE = (pytest.param("denom9", marks=pytest.mark.slow),
 def make_stream(kind, tmp_path_factory):
     kw = dict(STREAMS[kind], superres_mode=1)
     got = encode_both(tmp_path_factory.mktemp("superres"),
-                      synthetic_clip(W, H, N, seed=13), W, H, kw)
+                      synthetic_clip(W, H, N, seed=13), W, H, kw,
+                      f"superres.{kind}")
     got["kind"], got["kw"] = kind, kw
     return got
 

@@ -10,9 +10,13 @@ key frame at display 3, and its stream is byte-identical to the JAX
 app's (its device path); ``dec --md5`` prints the same md5 in both.
 """
 import fractions
+import pathlib
+import tempfile
 
+import numpy as np
 import pytest
 
+import jax_refs
 from svt_av1_tpu import api as ref_api
 from svt_av1_tpu import app as ref_app
 from svt_av1_tpu.config import EncoderConfig as RefConfig
@@ -85,25 +89,91 @@ def test_get_recon(tmp_path):
         assert enc.get_recon(d) is enc.recon_by_display[d]
 
 
+DECIDER_KW = dict(source_width=W, source_height=H, qp=40,
+                  intra_period_length=0)
+
+
+def _decider_case():
+    """The JAX device path's stream with a caller's ``ModeDecider``."""
+    frames = synthetic_clip(W, H, 2, seed=13)
+
+    def produce():
+        with tempfile.TemporaryDirectory() as tmp, \
+                pytest.MonkeyPatch.context() as mp:
+            mp.setenv("SVT_TPU_DEVICE", "1")
+            path = pathlib.Path(tmp) / "jax.ivf"
+            ref_api.encode_ivf(frames, RefConfig(**DECIDER_KW), str(path),
+                               RefModeDecider())
+            return path.read_bytes()
+
+    return dict(frames=frames, cfg=RefConfig(**DECIDER_KW),
+                decider="ModeDecider", device="1"), produce
+
+
+jax_refs.register("surface.callers_decider", _decider_case)
+
+
 @pytest.mark.slow      # the JAX device path's compile: about 40 s alone
 def test_callers_decider_is_used(tmp_path, monkeypatch):
     """``decider=`` replaces the preset's decider in the port as in the
     JAX encoder: the base per-block decider at preset 8, byte-identical
     streams, both Decoders to the recon."""
     frames = synthetic_clip(W, H, 2, seed=13)
-    kw = dict(source_width=W, source_height=H, qp=40, intra_period_length=0)
+    kw = DECIDER_KW
     mine = ModeDecider()
     path = tmp_path / "port.ivf"
     recon = api.encode_ivf(frames, EncoderConfig(**kw), str(path),
                            decider=mine, device="cpu")
     monkeypatch.setenv("SVT_TPU_DEVICE", "1")
-    ref_path = tmp_path / "jax.ivf"
-    ref_api.encode_ivf(frames, RefConfig(**kw), str(ref_path),
-                       RefModeDecider())
-    assert path.read_bytes() == ref_path.read_bytes()
+    assert path.read_bytes() == jax_refs.reference(
+        "surface.callers_decider", frames=frames, cfg=RefConfig(**kw))
     enc = api.Encoder(EncoderConfig(**kw), mine, device="cpu")
     assert enc._decider_cached() is mine
     decode_both(path, recon, monkeypatch)
+
+
+def _write_cut_y4m(y4m):
+    w = Y4MWriter(str(y4m), VideoInfo(W, H, fractions.Fraction(30)))
+    for f in cut_clip():
+        w.write(f)
+    w.close()
+
+
+TWO_PASS_ARGS = ("-q", "40", "--keyint", "-1")
+
+
+def _two_passes(main, tmp, name, y4m, extra=()):
+    """``main``'s two passes on ``y4m``: (its IVF, its statistics file)."""
+    ivf, stats = tmp / f"{name}.ivf", tmp / f"{name}.stats"
+    common = ["enc", "-i", str(y4m), "-b", str(ivf), *TWO_PASS_ARGS,
+              "--stats", str(stats), *extra]
+    assert main(common + ["--pass", "1"]) == 0
+    assert main(common + ["--pass", "2"]) == 0
+    return ivf, stats
+
+
+def _two_pass_case():
+    """The JAX app's two passes on the cut clip's y4m (its device path)."""
+    with tempfile.TemporaryDirectory() as tmp:
+        y4m = pathlib.Path(tmp) / "cut.y4m"
+        _write_cut_y4m(y4m)
+        data = y4m.read_bytes()
+
+    def produce():
+        with tempfile.TemporaryDirectory() as tmp, \
+                pytest.MonkeyPatch.context() as mp:
+            mp.setenv("SVT_TPU_DEVICE", "1")
+            tmp = pathlib.Path(tmp)
+            (tmp / "cut.y4m").write_bytes(data)
+            ivf, stats = _two_passes(ref_app.main, tmp, "jax",
+                                     tmp / "cut.y4m")
+            return {k: np.frombuffer(p.read_bytes(), np.uint8)
+                    for k, p in (("ivf", ivf), ("stats", stats))}
+
+    return dict(y4m=data, args=TWO_PASS_ARGS, device="1"), produce
+
+
+jax_refs.register("surface.two_pass_app", _two_pass_case)
 
 
 @pytest.fixture(scope="module")
@@ -112,21 +182,17 @@ def two_pass(tmp_path_factory):
     files and printed lines."""
     tmp = tmp_path_factory.mktemp("app")
     y4m = tmp / "cut.y4m"
-    w = Y4MWriter(str(y4m), VideoInfo(W, H, fractions.Fraction(30)))
-    for f in cut_clip():
-        w.write(f)
-    w.close()
+    _write_cut_y4m(y4m)
     out = {}
     with pytest.MonkeyPatch.context() as mp:
         mp.setenv("SVT_TPU_DEVICE", "1")
-        for name, main, extra in (("port", app.main, ["--device", "cpu"]),
-                                  ("jax", ref_app.main, [])):
-            ivf, stats = tmp / f"{name}.ivf", tmp / f"{name}.stats"
-            common = ["enc", "-i", str(y4m), "-b", str(ivf), "-q", "40",
-                      "--keyint", "-1", "--stats", str(stats)] + extra
-            assert main(common + ["--pass", "1"]) == 0
-            assert main(common + ["--pass", "2"]) == 0
-            out[name] = dict(ivf=ivf, stats=stats)
+        ivf, stats = _two_passes(app.main, tmp, "port", y4m,
+                                 ["--device", "cpu"])
+        out["port"] = dict(ivf=ivf, stats=stats)
+    got = jax_refs.reference("surface.two_pass_app", y4m=y4m.read_bytes())
+    out["jax"] = {k: tmp / f"jax.{k}" for k in ("ivf", "stats")}
+    for k, p in out["jax"].items():
+        p.write_bytes(got[k].tobytes())
     return out
 
 

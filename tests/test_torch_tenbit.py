@@ -23,10 +23,13 @@ numpy twins at bd 10, and the whole slice against the JAX device path
 The 10-bit inputs are made from a seed with numpy as tests/test_e2e.py
 ``tenbit_clip`` makes them.
 """
+import functools
+
 import numpy as np
 import pytest
 import torch
 
+import jax_refs
 from svt_av1_tpu import api as ref_api
 from svt_av1_tpu.config import EncoderConfig as RefConfig
 from svt_av1_tpu.config import PredStructure as RefPred
@@ -218,6 +221,20 @@ def test_cdef_search_at_10_bits_matches_numpy_twin(cdef_inputs, n_planes,
 SIZES = {"64x64x2": (64, 64, 2), "128x96x3": (128, 96, 3)}
 
 
+def _ref_cfg(w, h):
+    return RefConfig(source_width=w, source_height=h,
+                     pred_structure=RefPred.LOW_DELAY_P, **ALLINTRA)
+
+
+def _jax_case(size):
+    w, h, n = SIZES[size]
+    return jax_refs.encode_case(tenbit_clip(w, h, n), _ref_cfg(w, h))
+
+
+for _size in SIZES:
+    jax_refs.register(f"tenbit.{_size}", functools.partial(_jax_case, _size))
+
+
 @pytest.fixture(scope="module", params=list(SIZES))
 def streams(request, tmp_path_factory):
     """(port bytes, port recon, port IVF path, JAX device-path bytes) of a
@@ -229,15 +246,13 @@ def streams(request, tmp_path_factory):
                         pred_structure=PredStructure.LOW_DELAY_P, **ALLINTRA)
     port = tmp / "port.ivf"
     recon = api.encode_ivf(frames, cfg, str(port), device="cpu")
-    ref_cfg = RefConfig(source_width=w, source_height=h,
-                        pred_structure=RefPred.LOW_DELAY_P, **ALLINTRA)
-    ref = tmp / "ref.ivf"
-    with pytest.MonkeyPatch.context() as mp:
-        mp.setenv("SVT_TPU_DEVICE", "1")
-        ref_api.encode_ivf(frames, ref_cfg, str(ref))
-    return port.read_bytes(), recon, port, ref.read_bytes()
+    return (port.read_bytes(), recon, port,
+            jax_refs.reference(f"tenbit.{request.param}", frames=frames,
+                               cfg=_ref_cfg(w, h)))
 
 
+# 152 s with the JAX side live (a stale store) in the 6-worker run
+@pytest.mark.time_limit(310)
 def test_stream_byte_identical_to_jax_device_path(streams):
     data, recon, _, want = streams
     assert recon[0][0].dtype == np.uint16

@@ -8,9 +8,12 @@ from the JAX path's, where those of test_e2e.py's ``tenbit_clip`` did not.
 The slice's kernels' plain versions and packings are in
 tests/test_torch_tenbit_inter.py.
 """
+import functools
+
 import numpy as np
 import pytest
 
+import jax_refs
 from svt_av1_tpu import api as ref_api
 from svt_av1_tpu.config import EncoderConfig as RefConfig
 from svt_av1_tpu.config import PredStructure as RefPred
@@ -37,6 +40,21 @@ LOW_DELAY_P = dict(qp=40, enc_mode=8, intra_period_length=-1,
 SIZES = {"128x96x3": (128, 96, 3), "192x128x6": (192, 128, 6)}
 
 
+def _ref_cfg(w, h):
+    return RefConfig(source_width=w, source_height=h,
+                     pred_structure=RefPred.LOW_DELAY_P, **LOW_DELAY_P)
+
+
+def _jax_case(size):
+    w, h, n = SIZES[size]
+    return jax_refs.encode_case(moving_clip10(w, h, n), _ref_cfg(w, h))
+
+
+for _size in SIZES:
+    jax_refs.register(f"tenbit_inter_streams.{_size}",
+                      functools.partial(_jax_case, _size))
+
+
 @pytest.fixture(scope="module", params=list(SIZES))
 def streams(request, tmp_path_factory):
     """(port bytes, port recon, port IVF path, JAX device-path bytes,
@@ -49,15 +67,14 @@ def streams(request, tmp_path_factory):
                         **LOW_DELAY_P)
     port = tmp / "port.ivf"
     recon = api.encode_ivf(frames, cfg, str(port), device="cpu")
-    ref_cfg = RefConfig(source_width=w, source_height=h,
-                        pred_structure=RefPred.LOW_DELAY_P, **LOW_DELAY_P)
-    ref = tmp / "ref.ivf"
-    with pytest.MonkeyPatch.context() as mp:
-        mp.setenv("SVT_TPU_DEVICE", "1")
-        ref_api.encode_ivf(frames, ref_cfg, str(ref))
-    return port.read_bytes(), recon, port, ref.read_bytes(), frames
+    want = jax_refs.reference(f"tenbit_inter_streams.{request.param}",
+                              frames=frames, cfg=_ref_cfg(w, h))
+    return port.read_bytes(), recon, port, want, frames
 
 
+# sets the fixture up: 147-164 s with the JAX side live (a stale store)
+# in a 6-worker run
+@pytest.mark.time_limit(330)
 def test_ipp_stream_byte_identical_to_jax_device_path(streams):
     data, recon, _, want, frames = streams
     assert recon[0][0].dtype == np.uint16

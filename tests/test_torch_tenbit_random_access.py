@@ -29,14 +29,16 @@ which the wrappers take for CPU tensors, and the packings of the kernels'
   path.
 The slice's stream is in tests/test_torch_tenbit_random_access_stream.py.
 """
+import functools
+
 import numpy as np
 import pytest
 import torch
 
+import jax_refs
 from svt_av1_tpu.entropy.tables import FrameCdfs
 from svt_av1_tpu.pipeline import batched_inter as ref_bi
 from svt_av1_tpu.pipeline import mctf as ref_mctf
-from svt_av1_tpu.pipeline import tpl as ref_tpl
 from svt_av1_tpu.pipeline.batched_md import default_mode_bits
 from svt_av1_tpu_torch.ops import omd
 from svt_av1_tpu_torch.pipeline import batched_inter as bi
@@ -45,6 +47,7 @@ from svt_av1_tpu_torch.pipeline import mctf, tpl
 from tenbit_clips import moving_clip10
 from test_torch_tenbit_inter import (_clip10, _funnel, _packed_sad, _t16,
                                      _words)
+from test_torch_tpl import PAIRS, gop_flow_case, pair_stats_case
 
 BD = 10
 QINDEX, LAM = 60, 900.0 * 16          # rd_lambda scales by 4^(bd - 8)
@@ -61,6 +64,25 @@ def _lumas10(w, h, n=5, seed=7):
 # (width, height): 192x128 keeps full resolution (ds 1); a 256-row buffer
 # is large enough for the 2x decimated statistics (ds 2)
 TPL_SIZES = {"ds1": (192, 128), "ds2": (256, 256)}
+TPL_DISPLAYS = [8, 9, 10, 11, 12]
+
+
+def _flow_case(size):
+    w, h = TPL_SIZES[size]
+    return gop_flow_case(_lumas10(w, h), TPL_DISPLAYS, w, h, BD,
+                         offsets=False)
+
+
+def _pair_case():
+    w, h = TPL_SIZES["ds1"]
+    return pair_stats_case(_lumas10(w, h), w, h, BD)
+
+
+for _size in TPL_SIZES:
+    jax_refs.register(f"tenbit_random_access.tpl_flow-{_size}",
+                      functools.partial(_flow_case, _size))
+PAIR_STATS10 = jax_refs.register("tenbit_random_access.tpl_pair_stats-ds1",
+                                 _pair_case)
 
 
 @pytest.mark.parametrize("size", list(TPL_SIZES))
@@ -72,10 +94,11 @@ def test_tpl_flow_at_10_bits_matches_the_jax_device_path(size):
     w, h = TPL_SIZES[size]
     ys = _lumas10(w, h)
     assert max(int(y.max()) for y in ys) > 255
-    displays = [8, 9, 10, 11, 12]
+    displays = TPL_DISPLAYS
+    entry = jax_refs.reference(f"tenbit_random_access.tpl_flow-{size}",
+                               lumas=ys, displays=displays)
     for first in (False, True):
-        want = ref_tpl.tpl_gop_flow(ys, displays, w, h, BD, use_jax=True,
-                                    include_first=first)
+        want = jax_refs.unpack_dict(entry, f"flow{int(first)}")
         got = tpl.tpl_gop_flow(ys, displays, w, h, BD, "cpu",
                                include_first=first)
         assert sorted(got) == sorted(want) == displays[0 if first else 1:]
@@ -90,8 +113,9 @@ def test_tpl_pair_stats_at_10_bits_match_the_jax_device_path():
     rtol 1e-6."""
     w, h = TPL_SIZES["ds1"]
     ys = _lumas10(w, h)
-    for i, j in ((1, 0), (2, 3)):
-        want = ref_tpl._pair_stats(ys[i], ys[j], w, h, BD, True)
+    entry = jax_refs.reference(PAIR_STATS10, lumas=ys)
+    for i, j in PAIRS:
+        want = [entry[f"{i}{j}_{k}"] for k in range(4)]
         src, ref = _t16(ys[i]), _t16(ys[j])
         got = tpl._pair_stats(src, ref)
         for g, r in zip(got, want[:3]):
@@ -374,6 +398,38 @@ def test_compound_costs_within_the_gate_at_10_bits(compound_maps10):
 # MCTF at 10 bits: the JAX device path's uint8 narrowing, pinned
 # --------------------------------------------------------------------------
 
+def _mctf10_case():
+    """The JAX package's 32x32 ME of each neighbour on the device path and
+    on the host path, and its device path's temporal filter, at bd 10."""
+    frames = moving_clip10(192, 128, 3, seed=7)
+    center, nb = frames[1], [frames[0], frames[2]]
+    cy = center[0].astype(np.int32)
+
+    def produce():
+        out = {}
+        for path, device in (("dev", "1"), ("host", "0")):
+            for k, n in enumerate(nb):
+                mvs = jax_refs.on_device(device, ref_mctf._me32, cy,
+                                         n[0].astype(np.int32))
+                out.update({f"{path}{k}_{i}": np.asarray(a)
+                            for i, a in enumerate(mvs)})
+        planes = jax_refs.on_device("1", ref_mctf.temporal_filter, center,
+                                    nb, 40, BD)
+        return dict(out, **{f"plane{p}": a for p, a in enumerate(planes)})
+
+    return dict(center=center, neighbours=nb, qp=40, bd=BD,
+                device="1"), produce
+
+
+MCTF10 = jax_refs.register("tenbit_random_access.mctf10", _mctf10_case)
+
+
+def _mvs(entry, path):
+    """The (mv_r, mv_c) pairs of each neighbour of ``path``."""
+    return [tuple(entry[f"{path}{k}_{i}"] for i in range(2))
+            for k in range(2)]
+
+
 def test_mctf_at_10_bits_follows_the_jax_device_path(monkeypatch):
     """The port's temporal filter at bd 10 equals the JAX device path's
     (svt_av1_tpu/pipeline/mctf.py with SVT_TPU_DEVICE=1: ``_me32`` hands
@@ -385,8 +441,9 @@ def test_mctf_at_10_bits_follows_the_jax_device_path(monkeypatch):
     center, nb = frames[1], [frames[0], frames[2]]
     cy = center[0].astype(np.int32)
     monkeypatch.setenv("SVT_TPU_DEVICE", "1")
-    dev_mvs = [ref_mctf._me32(cy, n[0].astype(np.int32)) for n in nb]
-    want = ref_mctf.temporal_filter(center, nb, 40, BD)
+    entry = jax_refs.reference(MCTF10, center=center, neighbours=nb)
+    dev_mvs = _mvs(entry, "dev")
+    want = [entry[f"plane{p}"] for p in range(3)]
     got = mctf.temporal_filter(center, nb, 40, BD, "cpu")
     for p, (g, r) in enumerate(zip(got, want)):
         assert g.dtype == r.dtype == np.uint16
@@ -398,6 +455,6 @@ def test_mctf_at_10_bits_follows_the_jax_device_path(monkeypatch):
         for g, w in zip(got_mv, want_mv):
             np.testing.assert_array_equal(g, np.asarray(w))
     monkeypatch.setenv("SVT_TPU_DEVICE", "0")
-    host_mvs = [ref_mctf._me32(cy, n[0].astype(np.int32)) for n in nb]
+    host_mvs = _mvs(entry, "host")
     assert any(not np.array_equal(np.asarray(a), np.asarray(b))
                for d, h in zip(dev_mvs, host_mvs) for a, b in zip(d, h))
