@@ -117,13 +117,15 @@ class Channel:
         self.cuda = self.dev.type == "cuda"
         fields, traffic = job["config"]["encoder"], job["traffic"]
         self.fields, self.traffic = fields, traffic
+        # the bit depth as the configuration states it, never a control's
+        self.bit_depth = fields["encoder_bit_depth"]
         if self.cuda:
             torch.cuda.init()
         self.pics = clip.make_title(
             fields["source_width"], fields["source_height"],
             traffic["title_pictures"],
             clip.title_seed(job["seed"], job["channel"]),
-            traffic["content"], self.dev)
+            traffic["content"], self.dev, bit_depth=self.bit_depth)
         self.sync()
         if self.cuda:
             torch.cuda.empty_cache()
@@ -206,7 +208,8 @@ class Channel:
                 faults.append(f"display {d}: no reconstruction ({e})")
         self.enc = enc = None
         t0 = time.monotonic()
-        q = reference.check_recon(recons, self.picture, traffic["block"])
+        bd = self.bit_depth
+        q = reference.check_recon(recons, self.picture, traffic["block"], bd)
         t1 = time.monotonic()
         count = traffic["decode_packets"]
         first = decode_check.sample_start(units, traffic["warmup_pictures"],
@@ -216,7 +219,7 @@ class Channel:
             self.packets, units, first, count, recons.get)
         t2 = time.monotonic()
         measured = [reference.psnr(reference.luma_mse(
-            decoded[d][0], self.picture(d)[0])) for d in sorted(decoded)]
+            decoded[d][0], self.picture(d)[0]), bd) for d in sorted(decoded)]
         m = traffic["measure_pictures"]
         if len(shown) < m:
             faults.append(f"the measured set of {m} pictures was not coded")
@@ -235,9 +238,9 @@ class Channel:
                        if f["block"] > lim["block_mse_worst"]
                        or f["mse"] > lim["frame_mse_worst"]),
             frame_mse_worst=max((f["mse"] for f in q.values()),
-                                default=reference.WORST_MSE),
+                                default=reference.worst_mse(bd)),
             block_mse_worst=max((f["block"] for f in q.values()),
-                                default=reference.WORST_MSE),
+                                default=reference.worst_mse(bd)),
             stream_bytes=shown[m - 1][1] if len(shown) >= m else None,
             psnr_y_db=float(np.mean(measured)) if measured else None,
             forbidden=forbidden_modules(), trace=self.traced)

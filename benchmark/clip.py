@@ -3,9 +3,13 @@ recipe (``chip_smoke.py:283``), written in torch so that set-up makes a
 title on the card in a few large calls.
 
 Moving textured background, gradients, a sharp-edged moving box and mild
-sensor noise, 8-bit 4:2:0.  The parameters come from the traffic file's
-``content``; the random draws come from a ``torch.Generator`` seeded with
-the title's seed on the device that makes them.
+sensor noise, 4:2:0 at the configuration's bit depth.  The parameters
+come from the traffic file's ``content``, in 8-bit units; the random
+draws come from a ``torch.Generator`` seeded with the title's seed on the
+device that makes them.  A title of more than 8 bits is the 8-bit
+title's float planes scaled by 2^(bit_depth - 8) before they are
+truncated, so that its gradients and noise fill the low bits and, shifted
+right, it is the 8-bit title sample for sample.
 """
 from __future__ import annotations
 
@@ -19,10 +23,11 @@ def title_seed(seed: int, channel: int) -> int:
 
 
 def make_title(width: int, height: int, n: int, seed: int, content: dict,
-               device, chunk: int = 8
+               device, chunk: int = 8, bit_depth: int = 8
                ) -> list[tuple[np.ndarray, np.ndarray, np.ndarray]]:
-    """``n`` pictures (y, u, v) as host uint8 arrays, made ``chunk``
-    pictures at a time so that the float planes stay small."""
+    """``n`` pictures (y, u, v) as host arrays of ``bit_depth``-bit
+    samples (uint8 at 8 bits, uint16 above), made ``chunk`` pictures at a
+    time so that the float planes stay small."""
     g = torch.Generator(device=device)
     g.manual_seed(seed)
     f32 = dict(dtype=torch.float32, device=device)
@@ -52,8 +57,18 @@ def make_title(width: int, height: int, n: int, seed: int, content: dict,
         hy, hx = yy[:, : height // 2], xx[..., : width // 2]
         u = 120 + 30 * torch.sin((hy + i) / 23) + 0 * hx
         v = 130 - 30 * torch.cos((hx + 2 * i) / 31) + 0 * hy
-        planes = [p.clamp(0, 255).to(torch.uint8).cpu().numpy()
-                  for p in (y, u, v)]
+        planes = [samples(p, bit_depth) for p in (y, u, v)]
         out += [(planes[0][j], planes[1][j], planes[2][j])
                 for j in range(len(ks))]
     return out
+
+
+def samples(plane, bit_depth: int) -> np.ndarray:
+    """A float plane in 8-bit units as host samples of ``bit_depth``
+    bits: scaled by 2^(bit_depth - 8) (exact in float32), clamped to the
+    range and truncated."""
+    if bit_depth == 8:
+        return plane.clamp(0, 255).to(torch.uint8).cpu().numpy()
+    top = (1 << bit_depth) - 1
+    return (plane * (1 << (bit_depth - 8))).clamp(0, top) \
+        .to(torch.int16).cpu().numpy().view(np.uint16)

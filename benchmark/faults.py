@@ -60,13 +60,15 @@ def altered_tile_data(enc) -> None:
 
 def altered_block(enc) -> None:
     """An answer altered where it is produced: the top-left 64x64 luma
-    block of each reconstruction set to mid-grey."""
+    block of each reconstruction set to mid-grey at the encoder's bit
+    depth (128 at 8 bits, 512 at 10)."""
     keep = enc.get_recon
+    grey = 1 << (enc.cfg.encoder_bit_depth - 1)
 
     def get(d):
         y, u, v = keep(d)
         y = y.copy()
-        y[:64, :64] = 128
+        y[:64, :64] = grey
         return y, u, v
     enc.get_recon = get
 

@@ -528,13 +528,18 @@ def block_mse(rec: np.ndarray, src: np.ndarray, blk: int) -> np.ndarray:
     return s / c
 
 
-WORST_MSE = 255.0 ** 2       # a reconstruction of the wrong shape
+def worst_mse(bit_depth: int) -> float:
+    """The squared peak: the MSE given a reconstruction of the wrong
+    shape, and the reading of a channel that checked none."""
+    return float((1 << bit_depth) - 1) ** 2
 
 
-def psnr(mse: float, peak: float = 255.0) -> float:
-    """Luma PSNR (chip_smoke.py:535's arithmetic, frozen), 100 dB where
-    the pictures are equal."""
-    return 100.0 if mse == 0 else float(10 * np.log10(peak * peak / mse))
+def psnr(mse: float, bit_depth: int = 8) -> float:
+    """Luma PSNR (chip_smoke.py:535's arithmetic, frozen) against the
+    peak of ``bit_depth``-bit samples, 100 dB where the pictures are
+    equal."""
+    return 100.0 if mse == 0 else float(10 * np.log10(
+        worst_mse(bit_depth) / mse))
 
 
 def luma_mse(rec: np.ndarray, src: np.ndarray) -> float:
@@ -542,19 +547,21 @@ def luma_mse(rec: np.ndarray, src: np.ndarray) -> float:
                           - src.astype(np.float64)) ** 2))
 
 
-def check_recon(recons: dict, sources, block: int) -> dict:
+def check_recon(recons: dict, sources, block: int, bit_depth: int) -> dict:
     """Hold each reconstruction {display: (y, u, v)} to its source picture
-    ``sources(display)``: per frame the luma MSE, PSNR and worst block."""
+    ``sources(display)``: per frame the luma MSE, PSNR and worst block, in
+    units of ``bit_depth``-bit samples."""
     frames = {}
     for d, rec in sorted(recons.items()):
         src = sources(d)
         if any(a.shape != b.shape for a, b in zip(rec, src)):
-            frames[d] = dict(mse=WORST_MSE, block=WORST_MSE, psnr=0.0)
+            worst = worst_mse(bit_depth)
+            frames[d] = dict(mse=worst, block=worst, psnr=0.0)
             continue
         bm = block_mse(rec[0], src[0], block)
         mse = luma_mse(rec[0], src[0])
         cb = max(float(block_mse(r, s, block // 2).max())
                  for r, s in zip(rec[1:], src[1:]))
         frames[d] = dict(mse=mse, block=max(float(bm.max()), cb),
-                         psnr=psnr(mse))
+                         psnr=psnr(mse, bit_depth))
     return frames

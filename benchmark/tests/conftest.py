@@ -14,13 +14,32 @@ for p in (str(HERE), str(HERE.parent), str(HERE.parent.parent)):
     if p not in sys.path:
         sys.path.insert(0, p)
 
-from helpers import drive, small_job                        # noqa: E402
+from helpers import drive, small_ld_job, small_ra_job      # noqa: E402
 
 
 @pytest.fixture(scope="session")
 def ld_run():
-    """One sound low-delay channel at 192x128 (about 10 s)."""
-    return drive(small_job("ld1080p-p8.streams4"))
+    """One sound low-delay channel at 192x128, coding a fixed number of
+    pictures (about 10 s)."""
+    return drive(small_ld_job())
+
+
+@pytest.fixture(scope="session")
+def ld10_run():
+    """The same channel with a stated bit depth of 10."""
+    return drive(small_ld_job(bit_depth=10))
+
+
+@pytest.fixture(scope="session")
+def ra_run():
+    """One sound random-access channel at 192x128 (about 80 s)."""
+    return drive(small_ra_job())
+
+
+@pytest.fixture(scope="session")
+def ra10_run():
+    """The same channel with a stated bit depth of 10 (about 70 s)."""
+    return drive(small_ra_job(bit_depth=10))
 
 
 def pytest_sessionfinish(session, exitstatus):

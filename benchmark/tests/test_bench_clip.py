@@ -1,9 +1,12 @@
-"""The titles: made from the seed, the same for the same seed."""
+"""The titles: made from the seed, the same for the same seed, at the
+configuration's bit depth."""
 from __future__ import annotations
 
+import hashlib
 import json
 
 import numpy as np
+import pytest
 
 import clip
 from helpers import ROOT
@@ -12,8 +15,17 @@ CONTENT = json.loads((ROOT / "benchmark" / "traffic" / "titles4.json")
                      .read_text())["content"]
 
 
-def title(seed, n=10, w=192, h=128):
-    return clip.make_title(w, h, n, seed, CONTENT, "cpu", chunk=4)
+# sha256 of the 10 pictures' y, u and v bytes of a 192x128 8-bit title,
+# as the harness made them before it took a bit depth
+TITLE8_SHA256 = {
+    2**31 + 5:
+        "6b54f5a75ace7c9b50de6f4b065247ca02370c4548f101bff3f7f78328c2d9ab",
+    4011: "55bb1008cd803e7920131b92fd56dff23a7dc848654ffe5d6fa812ede8346af3",
+}
+
+
+def title(seed, n=10, w=192, h=128, **kw):
+    return clip.make_title(w, h, n, seed, CONTENT, "cpu", chunk=4, **kw)
 
 
 def test_a_seed_repeats_its_title():
@@ -39,3 +51,27 @@ def test_shapes_types_and_motion():
     d = np.abs(t[4][0].astype(int) - t[3][0].astype(int)).mean()
     assert d > 5
 
+
+
+@pytest.mark.parametrize("seed", sorted(TITLE8_SHA256))
+def test_8bit_titles_are_the_ones_made_before_bit_depths(seed):
+    h = hashlib.sha256()
+    for pic in title(seed):
+        for p in pic:
+            assert p.dtype == np.uint8
+            h.update(p.tobytes())
+    assert h.hexdigest() == TITLE8_SHA256[seed]
+
+
+@pytest.mark.parametrize("seed", sorted(TITLE8_SHA256))
+def test_10bit_titles_fill_the_low_bits_of_the_8bit_title(seed):
+    t8, t10 = title(seed), title(seed, bit_depth=10)
+    low = total = 0
+    for p8, p10 in zip(t8, t10):
+        for a, b in zip(p8, p10):
+            assert b.dtype == np.uint16 and b.shape == a.shape
+            assert int(b.max()) <= 1023
+            assert np.array_equal(b >> 2, a)
+            low += int(np.count_nonzero(b & 3))
+            total += b.size
+    assert low >= total / 5

@@ -106,8 +106,24 @@ def test_check_recon_and_psnr():
     src = {0: tuple(np.full(s, 100, np.uint8) for s in
                     ((64, 64), (32, 32), (32, 32)))}
     rec = {0: (src[0][0] + 2, src[0][1], src[0][2])}
-    q = ref.check_recon(rec, lambda d: src[d], 32)
+    q = ref.check_recon(rec, lambda d: src[d], 32, 8)
     assert q[0]["mse"] == 4 and q[0]["block"] == 4
     assert q[0]["psnr"] == pytest.approx(10 * np.log10(255 ** 2 / 4))
     assert ref.psnr(0.0) == 100.0
     assert ref.qindex_of_qp(40) == 160 and ref.qindex_of_qp(63) == 255
+
+
+@pytest.mark.parametrize("bd, peak", [(8, 255), (10, 1023)])
+def test_psnr_and_the_sentinel_take_the_bit_depths_peak(bd, peak):
+    assert ref.worst_mse(bd) == peak * peak
+    assert ref.psnr(4.0, bd) == pytest.approx(10 * np.log10(peak ** 2 / 4))
+    assert ref.psnr(ref.worst_mse(bd), bd) == 0.0
+    assert ref.psnr(0.0, bd) == 100.0
+    # the same error in 10-bit units (4x the samples, 16x the MSE) reads
+    # the same PSNR
+    assert ref.psnr(16 * 4.0, 10) == pytest.approx(ref.psnr(4.0, 8), abs=0.03)
+    shapes = ((64, 64), (32, 32), (32, 32))
+    src = tuple(np.full(s, 100, np.uint16) for s in shapes)
+    rec = (np.full((64, 32), 100, np.uint16), src[1], src[2])
+    q = ref.check_recon({0: rec}, lambda d: src, 32, bd)
+    assert q[0] == dict(mse=peak * peak, block=peak * peak, psnr=0.0)
